@@ -1,0 +1,134 @@
+"""``Engine`` — the entry point for per-example-gradient runs.
+
+Port of ``src/repro/core/engine.py`` for one device at example
+granularity. Every pass takes a **tap-collector loss**
+
+    loss_fn(params, batch, tap) -> (loss_vec, aux)
+
+(``models.registry.make_loss_fn_v2`` builds one), and ``step`` runs a
+consumer list as one fused plan (``core.plan``):
+
+    eng = Engine(PexSpec())
+    res = eng.step(loss_fn, params, batch,
+                   consumers=[Clip(1.0), Noise(0.5, gen), GNS()])
+
+The step runs on the device the parameters live on. Not in this slice:
+the ``mesh`` path (``dist.pex``), ``granularity="token"`` (raises
+``NotImplementedError``), ``verify`` (the static analysis) and the
+standalone ``Engine.tap``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from repro_torch.core import plan as plan_mod
+from repro_torch.core.passes import PexResult
+from repro_torch.core.plan import StepResult
+from repro_torch.core.taps import ExampleLayout, PexSpec, Tap
+from repro_torch.nn.param import tree_leaves
+
+
+def infer_batch_size(batch) -> int:
+    """Leading-axis extent shared by every batch leaf."""
+    leaves = tree_leaves(batch)
+    if not leaves:
+        raise ValueError("cannot infer batch_size from an empty batch tree")
+    sizes = {leaf.shape[0] for leaf in leaves}
+    if len(sizes) != 1:
+        raise ValueError(f"batch leaves disagree on the leading (example) "
+                         f"axis: {sorted(sizes)}; pass batch_size= explicitly")
+    return sizes.pop()
+
+
+class Engine:
+    """Per-example-gradient engine bound to one instrumentation policy.
+
+    spec:        ``PexSpec`` (default: enabled, method='auto', kernels on).
+                 ``taps.DISABLED`` gives a plain engine.
+    clip_norm:   default clip threshold C for ``clipped_step``.
+    noise_std:   default DP-SGD noise multiplier σ for ``clipped_step``.
+    granularity: 'example' only in this slice.
+    """
+
+    def __init__(self, spec: Optional[PexSpec] = None, *,
+                 clip_norm: Optional[float] = None, noise_std: float = 0.0,
+                 granularity: str = "example"):
+        if granularity not in ("example", "token"):
+            raise ValueError(f"granularity must be 'example' or 'token', "
+                             f"got {granularity!r}")
+        self.spec = spec if spec is not None else PexSpec()
+        self.clip_norm = clip_norm
+        self.noise_std = noise_std
+        self.granularity = granularity
+
+    def _adapt(self, loss_fn: Callable, layout) -> Callable:
+        """Tap-collector loss → the loss the plan layer consumes:
+        ``acc_loss(params, acc, batch) -> (loss_vec, tap, aux)``
+        (acc=None ⇒ inert tap ⇒ the plain model)."""
+        def acc_loss(params, acc, batch):
+            tap = Tap(self.spec, acc=acc, layout=layout)
+            loss_vec, aux = loss_fn(params, batch, tap)
+            return loss_vec, tap, aux
+        return acc_loss
+
+    def step(self, loss_fn: Callable, params, batch,
+             consumers: Sequence = (), *,
+             loss_weights: Optional[torch.Tensor] = None,
+             batch_size: Optional[int] = None) -> StepResult:
+        """Run a consumer list as one fused pass. ``consumers`` is any
+        subset of ``{Norms(), Grads(), Clip(C), Noise(σ, gen), GNS()}``;
+        ``loss_weights`` is an optional (B,) user weight vector folded
+        into the same reweighted backward. With ``consumers=()`` the
+        program is the plain forward."""
+        plan = plan_mod.analyze(consumers,
+                                engine_granularity=self.granularity)
+        b = batch_size if batch_size is not None else infer_batch_size(batch)
+        layout = ExampleLayout(self.spec.n_groups)
+        return plan_mod.execute(plan, self._adapt(loss_fn, layout), params,
+                                batch, b, layout, loss_weights=loss_weights)
+
+    # -- fixed-function sugar (one line each over `step`) ---------------
+    def value_and_norms(self, loss_fn: Callable, params, batch, *,
+                        batch_size: Optional[int] = None) -> PexResult:
+        """Norms-only pass (paper §5 cheap pass): no ``dW``."""
+        r = self.step(loss_fn, params, batch, [plan_mod.Norms()],
+                      batch_size=batch_size)
+        return PexResult(r.loss, r.loss_vec, r.aux, r.sq_norms)
+
+    def value_grads_and_norms(self, loss_fn: Callable, params, batch, *,
+                              batch_size: Optional[int] = None) -> PexResult:
+        """Summed gradients AND all per-example norms in one backward."""
+        r = self.step(loss_fn, params, batch,
+                      [plan_mod.Norms(), plan_mod.Grads()],
+                      batch_size=batch_size)
+        return PexResult(r.loss, r.loss_vec, r.aux, r.sq_norms, r.grads)
+
+    def clipped_step(self, loss_fn: Callable, params, batch, *,
+                     rng: Optional[torch.Generator] = None,
+                     clip_norm: Optional[float] = None,
+                     noise_std: Optional[float] = None,
+                     batch_size: Optional[int] = None) -> PexResult:
+        """Per-example clipping (paper §6 two-pass ghost form), plus
+        DP-SGD noise when ``noise_std > 0`` (needs ``rng``)."""
+        c = clip_norm if clip_norm is not None else self.clip_norm
+        if c is None:
+            raise ValueError("clipped_step needs clip_norm: set it on the "
+                             "Engine or pass clip_norm= per call")
+        sigma = noise_std if noise_std is not None else self.noise_std
+        consumers = [plan_mod.Clip(c, granularity=self.granularity)]
+        if sigma and sigma > 0.0:
+            consumers.append(plan_mod.Noise(sigma, rng))
+        r = self.step(loss_fn, params, batch, consumers,
+                      batch_size=batch_size)
+        return PexResult(r.loss, r.loss_vec, r.aux, r.sq_norms, r.grads)
+
+    def gradient_noise_scale(self, loss_fn: Callable, params, batch, *,
+                             batch_size: Optional[int] = None
+                             ) -> torch.Tensor:
+        """Critical-batch diagnostic B_simple = tr(Σ)/||G||² from one
+        grads+norms pass."""
+        return self.step(loss_fn, params, batch, [plan_mod.GNS()],
+                         batch_size=batch_size).gns
+

@@ -1,0 +1,141 @@
+"""Per-example squared-gradient-norm estimators.
+
+Port of ``src/repro/core/norms.py``. All estimators consume the pair the
+paper identifies — the layer input ``H`` and the pre-activation cotangent
+``Z̄`` — and return the exact per-example squared Frobenius norm of that
+layer's parameter gradient, ``s_j = ||∂L^(j)/∂W||_F²``, as a ``(batch,)``
+float32 vector.
+
+Inputs are unshared ``(B, p)`` (the paper's MLP setting) or sequence-shared
+``(B, S, p)`` (one weight application per position).
+
+Methods: ``factorized`` (paper §4, exact only for (B, p)), ``gram``
+(Σ_{t,t'} (H_jH_jᵀ)_{tt'} (Z̄_jZ̄_jᵀ)_{tt'}), ``direct`` (||H_jᵀZ̄_j||_F²)
+and ``auto``, the cost-model pick between gram and direct.
+
+Dispatch uses the **logical** flop model of the reference (gram
+2·S²·(p_in+p_out) + S², direct 2·S·p_in·p_out + 2·p_in·p_out) for both
+routes. The reference's Pallas-side prices (``ops.gram_cost`` /
+``direct_cost``) priced 128-lane TPU tiles and are not carried over; a
+Hopper-priced model follows once the kernels are measured.
+
+Not in this slice: the segmented estimators (``stat_direct_segmented``,
+``segmented_cost`` and friends), which come with the segmented kernel.
+"""
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.direct_norm import direct_norm_ref
+from repro_torch.kernels.ref import gram_norm_ref
+
+Method = Literal["factorized", "gram", "direct", "auto"]
+
+_ACC_DTYPE = torch.float32
+
+
+def rowsumsq(x: torch.Tensor) -> torch.Tensor:
+    """Σ x² over all but the leading (batch) axis. Returns (B,) f32."""
+    x = x.to(_ACC_DTYPE)
+    return torch.sum(torch.square(x), dim=tuple(range(1, x.ndim)))
+
+
+def stat_factorized(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
+    """Paper §4: s_j = ||z̄_j||² ||h_j||². Exact for (B, p) inputs; an
+    upper bound (not exact) over flattened (S·p) rows of (B, S, p)."""
+    return rowsumsq(zbar) * rowsumsq(h)
+
+
+def stat_gram(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
+    """Gram-pair estimator. h: (B,S,pi), zbar: (B,S,po) → (B,) f32.
+    Materializes the (B,S,S) Grams; the CUDA kernel never does."""
+    if h.ndim == 2:  # unshared: Gram is 1×1 → factorized, exactly the paper
+        return stat_factorized(h, zbar)
+    return gram_norm_ref(h, zbar)
+
+
+def stat_direct(h: torch.Tensor, zbar: torch.Tensor,
+                chunk: int = 1024) -> torch.Tensor:
+    """||H_jᵀ Z̄_j||_F² without materializing (B, p_in, p_out) at once
+    (chunked over p_in)."""
+    if h.ndim == 2:
+        return stat_factorized(h, zbar)
+    return direct_norm_ref(h, zbar, chunk)
+
+
+def gram_flops(s: int, p_in: int, p_out: int) -> float:
+    """Gram-pair cost: two S×S Grams + their product-reduce."""
+    return 2.0 * s * s * (p_in + p_out) + s * s
+
+
+def direct_flops(s: int, p_in: int, p_out: int) -> float:
+    """Direct cost: the HᵀZ̄ contraction + square-reduce."""
+    return 2.0 * s * p_in * p_out + 2.0 * p_in * p_out
+
+
+def pick_method(s: int, p_in: int, p_out: int) -> str:
+    """Cost-model choice between gram and direct (both exact), on the
+    logical flop model."""
+    return "gram" if gram_flops(s, p_in, p_out) <= \
+        direct_flops(s, p_in, p_out) else "direct"
+
+
+def stat_dense(h: torch.Tensor, zbar: torch.Tensor, method: Method = "auto",
+               use_kernels: bool = True) -> torch.Tensor:
+    """Dispatch a dense-layer stat. h (B,[S,]p_in), zbar (B,[S,]p_out).
+
+    With ``use_kernels`` the gram and direct routes go through
+    ``kernels.ops`` (the CUDA kernels for CUDA tensors, their plain
+    versions for CPU tensors); without it they run the plain estimators
+    above on any device."""
+    if h.ndim == 2:
+        return stat_factorized(h, zbar)
+    if method == "auto":
+        method = pick_method(h.shape[1], h.shape[2], zbar.shape[-1])
+    if method == "factorized":
+        return stat_factorized(h, zbar)
+    if method == "gram":
+        return kops.gram_norm(h, zbar) if use_kernels else stat_gram(h, zbar)
+    if method == "direct":
+        return kops.direct_norm(h, zbar) if use_kernels \
+            else stat_direct(h, zbar)
+    raise ValueError(f"unknown method {method!r}")
+
+
+def stat_bias(zbar: torch.Tensor) -> torch.Tensor:
+    """Per-example ||∂L/∂b||²: b's gradient is Σ_t z̄_t."""
+    if zbar.ndim == 2:
+        return rowsumsq(zbar)
+    v = torch.sum(zbar.to(_ACC_DTYPE), dim=tuple(range(1, zbar.ndim - 1)))
+    return torch.sum(torch.square(v), dim=-1)
+
+
+def stat_elementwise(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
+    """Per-example norm for an elementwise parameter z = g ⊙ h:
+    grad_g L^(j) = Σ_t z̄_{jt} ⊙ h_{jt}; exact, O(S·p)."""
+    prod = zbar.to(_ACC_DTYPE) * h.to(_ACC_DTYPE)
+    if prod.ndim > 2:
+        prod = torch.sum(prod, dim=tuple(range(1, prod.ndim - 1)))
+    return torch.sum(torch.square(prod), dim=-1)
+
+
+def stat_embedding(token_ids: torch.Tensor,
+                   zbar: torch.Tensor) -> torch.Tensor:
+    """Per-example norm for an embedding table E, z_t = E[x_t]:
+    s_j = Σ_v ||Σ_{t: x_t=v} z̄_t||², by sort + segment sum, O(S·d + S log S).
+
+    token_ids: (B, S) int, zbar: (B, S, d)."""
+    zbar = zbar.to(_ACC_DTYPE)
+    b, s, d = zbar.shape
+    ids_s, order = torch.sort(token_ids, dim=-1)
+    z_s = torch.gather(zbar, 1, order[..., None].expand(b, s, d))
+    # segment id = rank of each distinct token value within its example
+    new_seg = torch.ones_like(ids_s)
+    new_seg[:, 1:] = (ids_s[:, 1:] != ids_s[:, :-1]).to(ids_s.dtype)
+    seg = torch.cumsum(new_seg, dim=-1) - 1
+    summed = torch.zeros_like(zbar).scatter_add_(
+        1, seg[..., None].expand(b, s, d), z_s)
+    return torch.sum(torch.square(summed), dim=(1, 2))

@@ -1,0 +1,291 @@
+"""Composable consumer plans — one fused pass for everything the norms
+already pay for.
+
+Port of ``src/repro/core/plan.py`` at example granularity. ``analyze``
+folds a consumer list into a ``Plan`` and ``execute`` runs it as:
+
+  * one tapped forward, whose autograd graph every backward shares;
+  * one backward seeded with ones when a consumer needs norms — the
+    norms-only backward (the tap's mode forms no ``dW``);
+  * at most one reweighted backward, seeded with the product of clip
+    coefficients and user loss weights (the tap's mode computes no stat, so
+    it launches no norm kernel). With no weights the norms and gradients
+    fold into a single backward (paper §4/§5).
+
+The reference applies its ``vjp_fn`` twice; the port makes two
+``torch.autograd.grad`` calls over one retained graph: the first over the
+initial accumulator, the second over the parameters.
+
+Not in this slice: ``Importance`` and token granularity (both raise
+``NotImplementedError``; ROADMAP.md Queue 1 lists them), user-segmented
+noise, the mesh path (``dist.pex``), the ``core.provenance`` identity
+markers, and the static-cost helpers (``Plan.static_cost``/``describe``),
+which serve the analysis passes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional, Sequence
+
+import torch
+
+from repro_torch.core.clipping import clip_coefficients
+from repro_torch.core.passes import add_grad_noise, check_noise_args
+from repro_torch.nn.param import tree_flatten, tree_unflatten
+
+_NOT_PORTED = ("is not ported yet: ROADMAP.md Queue 1 item 5 lists it as "
+               "waiting for a later slice of the PyTorch port")
+
+
+# ---------------------------------------------------------------------------
+# consumers — the declarative surface
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Norms:
+    """Demand the per-example (B, G) squared norms in the result."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Grads:
+    """Demand the summed gradient (the reweighted one when the plan
+    carries weights — a plan produces exactly one)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Clip:
+    """Per-example gradient clipping, two-pass ghost form (paper §6):
+    contribute ``min(1, C/‖g_j‖)`` factors to the reweighted backward."""
+    clip_norm: float
+    granularity: str = "example"
+    eps: float = 1e-6
+
+    def __post_init__(self):
+        if self.granularity not in ("example", "token"):
+            raise ValueError(f"Clip granularity must be 'example' or "
+                             f"'token', got {self.granularity!r}")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Noise:
+    """Gaussian DP-SGD noise σ·scale added once to the summed gradient.
+    ``rng`` is a ``torch.Generator`` on the gradients' device; ``scale``
+    defaults to the plan's Clip threshold C."""
+    noise_std: float
+    rng: Any = None
+    scale: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Importance:
+    """Importance-sampled sub-batch. Not ported yet: ``analyze`` raises."""
+    k: int
+    smoothing: float = 0.1
+    rng: Any = None
+    replace: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class GNS:
+    """Gradient-noise-scale telemetry B_simple = tr(Σ)/‖G‖² of the
+    gradient estimator the plan produces."""
+
+
+_KNOWN = (Norms, Grads, Clip, Noise, Importance, GNS)
+
+
+# ---------------------------------------------------------------------------
+# plan analysis
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Plan:
+    """Static description of the fused pass a consumer list compiles to."""
+    clip: Optional[Clip] = None
+    noise: Optional[Noise] = None
+    gns: bool = False
+    needs_norms: bool = False
+    needs_grads: bool = False
+
+    @property
+    def weighted(self) -> bool:
+        """Does any consumer reweight the backward? (User loss_weights
+        add to this at execute time.)"""
+        return self.clip is not None
+
+
+def analyze(consumers: Sequence, *,
+            engine_granularity: str = "example") -> Plan:
+    """Fold a consumer list into a validated Plan."""
+    seen = {}
+    for c in consumers:
+        if not isinstance(c, _KNOWN):
+            raise TypeError(
+                f"unknown consumer {c!r}; expected instances of "
+                f"{', '.join(k.__name__ for k in _KNOWN)}")
+        if type(c) in seen:
+            raise ValueError(f"duplicate consumer {type(c).__name__}; a "
+                             f"plan carries at most one of each kind")
+        seen[type(c)] = c
+
+    clip: Optional[Clip] = seen.get(Clip)
+    noise: Optional[Noise] = seen.get(Noise)
+    gns = GNS in seen
+    if engine_granularity != "example" or (
+            clip is not None and clip.granularity != "example"):
+        raise NotImplementedError(f"token granularity {_NOT_PORTED}")
+    if Importance in seen:
+        raise NotImplementedError(f"the Importance consumer {_NOT_PORTED}")
+    if noise is not None:
+        check_noise_args(noise.noise_std, noise.rng)
+        if noise.scale is None and clip is None:
+            raise ValueError(
+                "Noise without Clip needs an explicit sensitivity: pass "
+                "Noise(σ, rng, scale=...) — σ·scale is the noise stddev")
+
+    needs_grads = (Grads in seen or clip is not None or noise is not None
+                   or gns)
+    needs_norms = Norms in seen or clip is not None or gns
+    return Plan(clip=clip, noise=noise, gns=gns, needs_norms=needs_norms,
+                needs_grads=needs_grads)
+
+
+class StepResult(NamedTuple):
+    """Everything a fused plan produced; fields a plan did not demand are
+    None."""
+    loss: torch.Tensor                  # Σ_j loss_vec
+    loss_vec: torch.Tensor              # (B,) per-example losses
+    aux: Any = None
+    sq_norms: Optional[torch.Tensor] = None   # (B, G)
+    grads: Any = None
+    weights: Optional[torch.Tensor] = None    # per-example seed actually used
+    clip_coef: Optional[torch.Tensor] = None  # (B,)
+    gns: Optional[torch.Tensor] = None
+
+
+# ---------------------------------------------------------------------------
+# the fused single-region core
+# ---------------------------------------------------------------------------
+
+def _grad(out: torch.Tensor, inputs, seed: torch.Tensor, *,
+          retain_graph: bool = False):
+    """Gradients of ``out`` (seeded) w.r.t. ``inputs``; an input the
+    output does not reach gets zeros."""
+    gs = torch.autograd.grad(out, inputs, grad_outputs=seed,
+                             retain_graph=retain_graph, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for x, g in zip(inputs, gs)]
+
+
+def run_fused(plan: Plan, acc_loss: Callable, params, batch,
+              batch_size: int, layout, *, loss_weights=None):
+    """One forward, ≤ 2 backward passes. Returns ``(loss_vec, aux,
+    sq_norms, grads, weights, clip_coef)`` with undemanded entries None.
+
+    ``acc_loss(params, acc, batch) -> (loss_vec, tap, aux)``; acc=None
+    runs the model with an inert tap."""
+    leaves, treedef = tree_flatten(params)
+    if not plan.needs_norms and not plan.needs_grads:
+        with torch.no_grad():
+            lv, _, aux = acc_loss(params, None, batch)
+        return lv, aux, None, None, None, None
+
+    # detached views: the caller's tensors stay as they are
+    leaves = [x.detach().requires_grad_(plan.needs_grads) for x in leaves]
+    params = tree_unflatten(treedef, leaves)
+
+    def unflatten(gs):
+        return tree_unflatten(treedef, gs)
+
+    if not plan.needs_norms:
+        # gradient pass only (possibly user-weighted): no instrumentation
+        lv, _, aux = acc_loss(params, None, batch)
+        seed = torch.ones_like(lv) if loss_weights is None \
+            else loss_weights.to(lv.dtype)
+        grads = unflatten(_grad(lv, leaves, seed))
+        return lv.detach(), aux, None, grads, loss_weights, None
+
+    acc0 = layout.init(batch_size, leaves[0].device).requires_grad_()
+    lv, tap, aux = acc_loss(params, acc0, batch)
+    ones = torch.ones_like(lv)
+
+    grads = None
+    if plan.needs_grads and not plan.weighted and loss_weights is None:
+        # norms and gradients fold into ONE backward (paper §4/§5)
+        tap.set_mode(norms=True, grads=True)
+        *gs, sq = _grad(lv, leaves + [acc0], ones)
+        grads = unflatten(gs)
+    else:
+        # norms-only backward: no dW
+        tap.set_mode(norms=True, grads=False)
+        (sq,) = _grad(lv, [acc0], ones, retain_graph=plan.needs_grads)
+
+    w, cc = _compose_weights(plan, sq, loss_weights)
+    if plan.needs_grads and grads is None:
+        # reweighted backward: no stats, no norm kernels
+        tap.set_mode(norms=False, grads=True)
+        seed = ones if w is None else w.to(lv.dtype)
+        grads = unflatten(_grad(lv, leaves, seed))
+    return lv.detach(), aux, sq, grads, w, cc
+
+
+def _compose_weights(plan: Plan, sq_norms, loss_weights):
+    """Product of clip coefficients × user loss weights. Returns
+    (per-example w | None, clip_coef | None)."""
+    w = loss_weights
+    cc = None
+    if plan.clip is not None:
+        cc = clip_coefficients(sq_norms, plan.clip.clip_norm, plan.clip.eps)
+        w = cc if w is None else w * cc
+    return w, cc
+
+
+# ---------------------------------------------------------------------------
+# the driver: noise, GNS
+# ---------------------------------------------------------------------------
+
+def execute(plan: Plan, acc_loss: Callable, params, batch,
+            batch_size: int, layout, *, loss_weights=None) -> StepResult:
+    """Run a full plan: the fused region, then noise and GNS."""
+    lv, aux, sq, grads, w, cc = run_fused(plan, acc_loss, params, batch,
+                                          batch_size, layout,
+                                          loss_weights=loss_weights)
+    gns = None
+    if plan.gns:
+        gns = gradient_noise_scale(sq, grads, batch_size=batch_size,
+                                   weights=w)
+    if plan.noise is not None and grads is not None:
+        scale = plan.noise.scale if plan.noise.scale is not None \
+            else plan.clip.clip_norm
+        grads = add_grad_noise(grads, plan.noise.noise_std, scale,
+                               plan.noise.rng)
+    return StepResult(torch.sum(lv), lv, aux, sq, grads, w, cc, gns)
+
+
+# ---------------------------------------------------------------------------
+# GNS — a thin consumer over quantities the plan already has
+# ---------------------------------------------------------------------------
+
+def gradient_noise_scale(sq_norms: torch.Tensor, grads,
+                         batch_size: Optional[int] = None,
+                         weights: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Critical-batch diagnostic B_simple = tr(Σ) / ‖G‖² from the
+    per-example squared norms (Gray et al. 2024 / McCandlish et al. 2018).
+    ``grads`` is the *summed* gradient tree; ``weights`` (per-example
+    reweighting active in the plan) scales the norms by w²."""
+    if sq_norms.ndim == 2:
+        sq_norms = torch.sum(sq_norms, dim=-1)
+    if weights is not None:
+        sq_norms = sq_norms * torch.square(weights.to(torch.float32))
+    b = batch_size if batch_size is not None else sq_norms.shape[0]
+    if b < 2:
+        raise ValueError(f"gradient_noise_scale needs batch >= 2 to "
+                         f"separate the two moments (got {b})")
+    s_bar = torch.mean(sq_norms.to(torch.float32))
+    g_sq = sum(torch.sum(torch.square(g.to(torch.float32)))
+               for g in tree_flatten(grads)[0])
+    g_mean_sq = g_sq / (b * b)
+    tr_sigma = (s_bar - g_mean_sq) * b / (b - 1)
+    norm_g_sq = (b * g_mean_sq - s_bar) / (b - 1)
+    return tr_sigma / torch.clamp(norm_g_sq, min=1e-20)

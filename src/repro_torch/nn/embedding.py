@@ -1,0 +1,74 @@
+"""Token embedding + LM head, with vocab padding.
+
+Port of ``src/repro/nn/embedding.py``. Padded vocab rows are zero-init and
+their logits are masked to -inf, so losses, gradients and per-example stats
+are exact.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import taps
+from repro_torch.core.taps import Tap
+from repro_torch.nn import param as pm
+
+NEG_INF = -1.0e30
+
+
+@dataclasses.dataclass(frozen=True)
+class VocabCfg:
+    vocab: int
+    d_model: int
+    vocab_multiple: int = 16
+
+    @property
+    def vocab_p(self) -> int:
+        return pm.pad_to(self.vocab, self.vocab_multiple)
+
+
+def init_embedding(gen: torch.Generator, cfg: VocabCfg, *, dtype, device):
+    table = pm.normal(gen, (cfg.vocab_p, cfg.d_model), dtype, device,
+                      std=0.02)
+    table[cfg.vocab:] = 0
+    return {"table": table}
+
+
+def embed(p, ids, *, tap: Tap, cfg: VocabCfg,
+          group: str = "embed") -> torch.Tensor:
+    return tap.embedding(p["table"], ids, group=group)
+
+
+def init_lm_head(gen: torch.Generator, cfg: VocabCfg, *, dtype, device):
+    return {"w": pm.normal(gen, (cfg.d_model, cfg.vocab_p), dtype, device,
+                           std=0.02)}
+
+
+def lm_head(p, x, *, tap: Tap, cfg: VocabCfg,
+            group: str = "head") -> torch.Tensor:
+    t = tap if tap.spec.tap_head else taps.NULL
+    logits = t.dense(x, p["w"], group=group,
+                     method="direct" if t.live else None)
+    if cfg.vocab_p != cfg.vocab:
+        mask = torch.arange(cfg.vocab_p, device=logits.device) < cfg.vocab
+        logits = torch.where(mask, logits,
+                             torch.full((), NEG_INF, dtype=logits.dtype,
+                                        device=logits.device))
+    return logits
+
+
+def per_example_xent(logits: torch.Tensor, labels: torch.Tensor,
+                     label_mask: Optional[torch.Tensor] = None,
+                     tap: Optional[Tap] = None) -> torch.Tensor:
+    """Σ_t CE per example (paper §2: L^(j) over example j's targets). With
+    a ``tap``, the (B, S) per-token loss map is registered first."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if label_mask is not None:
+        ll = ll * label_mask
+    token_losses = -ll
+    if tap is not None:
+        token_losses = tap.token_loss(token_losses)
+    return torch.sum(token_losses, dim=tuple(range(1, token_losses.ndim)))

@@ -1,0 +1,110 @@
+"""Parameters: initializers, the device rule, and tree helpers.
+
+Port of ``src/repro/nn/param.py``. The reference boxes every leaf with its
+logical sharding axes (``Boxed``) for the TPU mesh; the port has no mesh
+yet, so a parameter tree is a plain nested dict (and list) of tensors and
+the axes are dropped. Initializers draw from an explicit
+``torch.Generator`` on an explicit device, with the reference's
+distributions (fan-in std for matrices unless given).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. Raises when CUDA is asked for (or defaulted to) and absent, so
+    nothing quietly runs on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def pad_to(n: int, multiple: int) -> int:
+    """Round ``n`` up to the next multiple of ``multiple``."""
+    if multiple <= 0:
+        raise ValueError(f"multiple must be positive, got {multiple}")
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"unknown dtype {name!r}; have {sorted(DTYPES)}")
+    return DTYPES[name]
+
+
+def normal(gen: torch.Generator, shape, dtype: torch.dtype, device,
+           std: Optional[float] = None) -> torch.Tensor:
+    if std is None:  # fan-in scaling
+        fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+        std = 1.0 / math.sqrt(max(1, fan_in))
+    x = torch.randn(tuple(shape), generator=gen, device=device,
+                    dtype=torch.float32)
+    return (std * x).to(dtype)
+
+
+def zeros(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
+def ones(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.ones(tuple(shape), dtype=dtype, device=device)
+
+
+# --- trees: nested dicts (keys visited in sorted order) and lists ----------
+
+def tree_flatten(tree):
+    """(leaves, treedef) of a nested dict/list/tuple tree of leaves."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        leaves, defs = [], []
+        for k in keys:
+            lv, d = tree_flatten(tree[k])
+            leaves += lv
+            defs.append(d)
+        return leaves, ("dict", keys, defs)
+    if isinstance(tree, (list, tuple)):
+        leaves, defs = [], []
+        for x in tree:
+            lv, d = tree_flatten(x)
+            leaves += lv
+            defs.append(d)
+        return leaves, (type(tree).__name__, None, defs)
+    return [tree], None
+
+
+def tree_unflatten(treedef, leaves):
+    """Inverse of :func:`tree_flatten`."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return next(it)
+        kind, keys, defs = d
+        if kind == "dict":
+            return {k: build(sub) for k, sub in zip(keys, defs)}
+        items = [build(sub) for sub in defs]
+        return items if kind == "list" else tuple(items)
+
+    return build(treedef)
+
+
+def tree_leaves(tree):
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leafwise over trees of one structure."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+

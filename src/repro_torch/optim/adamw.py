@@ -1,0 +1,68 @@
+"""AdamW with decoupled weight decay, f32 moments, global-norm clipping,
+and schedule support.
+
+Port of ``src/repro/optim/adamw.py``. The reference is functional; the
+port updates the moments and the parameters in place (under
+``torch.no_grad``) so that a step at full width allocates no second copy of
+either, and returns them for the same calling convention.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.nn.param import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    global_clip: Optional[float] = 1.0
+    schedule: Optional[Callable[[int], float]] = None
+
+
+class AdamWState(NamedTuple):
+    step: int
+    mu: object
+    nu: object
+
+
+def init(params) -> AdamWState:
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params))
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in tree_leaves(tree)))
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, state: AdamWState, params, grads):
+    """One AdamW step; ``params`` and the state's moments change in
+    place. Returns ``(params, new_state)``."""
+    step = state.step + 1
+    scale = 1.0
+    if cfg.global_clip is not None:
+        gn = global_norm(grads)
+        scale = torch.clamp(cfg.global_clip / (gn + 1e-9), max=1.0)
+    lr = cfg.lr if cfg.schedule is None else cfg.lr * cfg.schedule(step)
+    b1c = 1.0 - cfg.b1 ** step
+    b2c = 1.0 - cfg.b2 ** step
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state.mu), tree_leaves(state.nu)):
+        g = g.to(torch.float32) * scale
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+        pf = p.to(torch.float32)
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+            + cfg.weight_decay * pf
+        p.copy_(pf - lr * delta)
+    return params, AdamWState(step, state.mu, state.nu)
