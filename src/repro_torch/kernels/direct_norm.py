@@ -52,14 +52,16 @@ def flop_estimate(b: int, s: int, p_in: int, p_out: int) -> float:
 def direct_norm(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel. h (B, S, p_in), zbar (B, S, p_out), both
     float32 or both bfloat16, on one CUDA device, any batch and sequence
-    strides (a copy is made only when the feature axis is not contiguous)
-    → (B,) float32."""
+    strides (a copy is made only when the feature axis is not contiguous),
+    no extent 0 → (B,) float32."""
     h, zbar = _build.pair_inputs(h, zbar, "direct_norm")
+    if h.numel() == 0 or zbar.numel() == 0:
+        raise ValueError("direct_norm: empty input; "
+                         "``kernels.ops.direct_norm`` answers it without a "
+                         "launch")
     b, s, p_in = h.shape
     p_out = zbar.shape[-1]
     out = torch.zeros((b,), dtype=torch.float32, device=h.device)
-    if b == 0 or s == 0 or p_in == 0 or p_out == 0:
-        return out
     lib = _build.load()
     blocks = lib.direct_norm_blocks(p_in, p_out)
     partial = torch.empty((b, blocks), dtype=torch.float32, device=h.device)

@@ -49,14 +49,15 @@ def gram_norm(h: torch.Tensor, zbar: torch.Tensor, *,
               triangular: bool = True) -> torch.Tensor:
     """Launch the CUDA kernel. h (B, S, p_in), zbar (B, S, p_out), both
     float32 or both bfloat16, on one CUDA device, any batch and sequence
-    strides (a copy is made only when the feature axis is not contiguous)
-    → (B,) float32."""
+    strides (a copy is made only when the feature axis is not contiguous),
+    no extent 0 → (B,) float32."""
     h, zbar = _build.pair_inputs(h, zbar, "gram_norm")
+    if h.numel() == 0 or zbar.numel() == 0:
+        raise ValueError("gram_norm: empty input; ``kernels.ops.gram_norm`` "
+                         "answers it without a launch")
     b, s, p_in = h.shape
     p_out = zbar.shape[-1]
     out = torch.zeros((b,), dtype=torch.float32, device=h.device)
-    if b == 0 or s == 0:
-        return out
     lib = _build.load()
     blocks = lib.gram_norm_blocks(s, int(triangular))
     partial = torch.empty((b, blocks), dtype=torch.float32, device=h.device)

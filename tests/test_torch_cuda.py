@@ -7,8 +7,10 @@ dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: f32 1e-4 relative (summation order), bf16 1e-2 relative (bf16
-inputs; f32 accumulation in both, in another order).
+Tolerances: f32 1e-4 relative (summation order), bf16 5e-4 relative (bf16
+inputs, whose products are exact in f32; f32 accumulation in both, in
+another order). The bf16 limit sits well above the largest reading on the
+card and below what one 128-wide tile of G dropped or doubled would read.
 """
 import numpy as np
 import pytest
@@ -43,9 +45,9 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_cuda_kernels_match_plain(cuda_device, shape, dtype):
-    """f32: 1e-4 relative (summation order); bf16: 1e-2 relative."""
+    """f32: 1e-4 relative (summation order); bf16: 5e-4 relative."""
     dt = getattr(torch, dtype)
-    rtol = 1e-4 if dtype == "float32" else 1e-2
+    rtol = 1e-4 if dtype == "float32" else 5e-4
     h, z = (torch.from_numpy(x).to(cuda_device, dt) for x in _pair(shape, 4))
     want = tref.gram_norm_ref(h, z)
     tops.reset_launch_counts()
@@ -78,9 +80,9 @@ def test_cuda_bf16_unaligned_rows(cuda_device):
             _pair((3, 40, 25, 37), 6))
     h, z = h[:, :, 1:], z[:, :, 1:]
     want = tref.gram_norm_ref(h, z)
-    torch.testing.assert_close(tops.gram_norm(h, z), want, rtol=1e-2,
+    torch.testing.assert_close(tops.gram_norm(h, z), want, rtol=5e-4,
                                atol=0.0)
-    torch.testing.assert_close(tops.direct_norm(h, z), want, rtol=1e-2,
+    torch.testing.assert_close(tops.direct_norm(h, z), want, rtol=5e-4,
                                atol=0.0)
 
 
@@ -117,3 +119,19 @@ def test_cuda_engine_step_matches_cpu(cuda_device):
     assert tops.launch_counts() == {
         "gram_norm": cfg.n_layers * picks.count("gram"),
         "direct_norm": cfg.n_layers * picks.count("direct") + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(0, 8, 4, 3), (2, 0, 4, 3), (2, 8, 0, 3),
+                                   (2, 8, 4, 0)])
+def test_cuda_empty_inputs_launch_nothing(cuda_device, shape):
+    """A zero extent has the norm 0; the wrappers answer it without a
+    launch and leave the counters alone."""
+    b, s, pi, po = shape
+    h = torch.zeros(b, s, pi, device=cuda_device)
+    z = torch.zeros(b, s, po, device=cuda_device)
+    tops.reset_launch_counts()
+    for got in (tops.gram_norm(h, z), tops.direct_norm(h, z)):
+        assert got.shape == (b,) and got.device == h.device
+        assert not bool(got.any())
+    assert tops.launch_counts() == {"gram_norm": 0, "direct_norm": 0}

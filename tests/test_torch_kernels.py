@@ -109,3 +109,19 @@ def test_gram_flop_model_halves():
     pairs = [(64, 64), (64, 64), (64, 2), (64, 64), (64, 2), (2, 2)]
     want = sum(2.0 * a * b * (10 + 20 + 1) for a, b in pairs)
     assert tgn.flop_estimate(1, 130, 10, 20) == want
+
+
+@pytest.mark.parametrize("shape, route", [
+    ((8, 512, 2048, 128256), "gram"),   # the LM head: forced to direct
+    ((8, 512, 2048, 512), "gram"),      # wk / wv: the halved grid beats
+                                        # direct, which pick_method's
+                                        # logical model takes
+    ((2, 512, 16, 16), "direct"),
+    ((8, 512, 2048, 8192), "gram"),     # up / gate
+    ((3, 37, 80, 200), "gram")])
+def test_least_work_takes_the_cheaper_route(shape, route):
+    """``ops.flop_estimate`` is the fewer operations of the two kernels,
+    whichever the dispatch runs: the work a bound holds the kernel to."""
+    est = {"gram": tgn.flop_estimate(*shape),
+           "direct": tdn.flop_estimate(*shape)}
+    assert tops.flop_estimate(*shape) == est[route] == min(est.values())

@@ -32,6 +32,7 @@ from repro_torch.configs.common import ShapeSpec
 from repro_torch.core import naive, passes
 from repro_torch.core import norms as tN
 from repro_torch.core import taps as tT
+from repro_torch.kernels import ops as tops
 from repro_torch.models import registry
 from repro_torch.nn.param import tree_flatten
 from repro_torch.optim import adamw
@@ -217,12 +218,30 @@ def test_norms_match_naive_oracle(setup):
     assert float(torch.max(torch.abs(got - oracle) / oracle)) < 1e-4
 
 
-def test_kernel_route_matches_plain_route(setup):
-    on = pex.Engine(pex.PexSpec(use_kernels=True)).step(
-        setup["loss"], setup["params"], setup["batch"], [pex.Norms()])
-    off = pex.Engine(pex.PexSpec(use_kernels=False)).step(
-        setup["loss"], setup["params"], setup["batch"], [pex.Norms()])
-    torch.testing.assert_close(on.sq_norms, off.sq_norms, rtol=1e-5, atol=0)
+def test_kernel_route_matches_plain_route(setup, monkeypatch):
+    """``use_kernels`` sends every gram/direct stat through the
+    ``kernels.ops`` wrappers (one call per dense tap: 7 per layer and the
+    head) and, off, through none; both match the reference's norms."""
+    calls = {"gram_norm": 0, "direct_norm": 0}
+
+    def counted(name):
+        fn = getattr(tops, name)
+
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    for name in calls:
+        monkeypatch.setattr(tops, name, counted(name))
+    want = _jax_step(setup, [jpex.Norms()]).sq_norms
+    for use_kernels, n_calls in ((True, setup["cfg"].n_layers * 7 + 1),
+                                 (False, 0)):
+        calls.update(gram_norm=0, direct_norm=0)
+        got = pex.Engine(pex.PexSpec(use_kernels=use_kernels)).step(
+            setup["loss"], setup["params"], setup["batch"], [pex.Norms()])
+        assert sum(calls.values()) == n_calls, (use_kernels, calls)
+        _close(got.sq_norms, want)
 
 
 def test_each_backward_does_only_its_work(setup, monkeypatch):
