@@ -10,19 +10,30 @@ Phases, each of which fails the script (nonzero exit) if it fails:
 2. build    — compile the CUDA kernels from ``src/repro_torch/csrc``;
 3. kernels  — ``gram_norm`` (triangular and full grid) and ``direct_norm``
               against their plain PyTorch versions in f32 and bf16 at the
-              main path's shapes, a ragged shape and the LM head;
+              main path's shapes, a ragged shape and the LM head; the three
+              flash attention kernels (forward, dQ, dK/dV) against theirs in
+              f32 and bf16 at the main path's shape, a ragged S, MHA, D=32
+              and D=128, a window and a softcap, and the backward run twice
+              for bitwise-equal results;
 4. exact    — llama3.2-1b at full width in f32: ``Engine.step([Norms(),
-              Grads()])`` against a per-example loop of plain backward
-              passes, and its summed gradient against a plain batch
-              backward;
+              Grads()])``, unfused and with ``AttnCfg.flash``, against a
+              per-example loop of plain (unfused) backward passes, and its
+              summed gradient against a plain batch backward;
 5. main     — the main path: llama3.2-1b at full width in bf16, B=8,
               S=512, three DP-SGD steps ``[Norms, Clip, Noise, GNS]`` each
-              followed by an AdamW update, with the kernel launches of each
-              backward pass counted;
-6. table    — each kernel's time, plain time and bound at the main path's
-              shapes, and the gram kernel at the direct kernel's shapes
-              (the LM head's, where the forced direct route is not the
-              cheaper one, and wk/wv's).
+              followed by an AdamW update, with the kernel launches of the
+              forward and of each backward pass counted, and CUDA events
+              around the unfused attention core (forward and backward);
+6. flash    — the same three steps with ``AttnCfg.flash=True`` on the same
+              parameters, batches and noise seed: the attention runs
+              through the flash kernels, whose launches per pass are
+              counted; step 0's loss against phase 5's;
+7. table    — each kernel's time, plain time and bound at the main path's
+              shapes, the gram kernel at the direct kernel's shapes (the LM
+              head's, where the forced direct route is not the cheaper one,
+              and wk/wv's), and the flash kernels beside PyTorch's
+              ``scaled_dot_product_attention`` (timed as a yardstick only;
+              the port never calls it).
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -31,8 +42,9 @@ bytes over the HBM rate or the fewer operations of the two routes
 (``ops.flop_estimate``) over the bf16 tensor-core peak, whichever is
 longer.
 
-TF32 is off for matmuls and cuDNN throughout, so the f32 plain versions
-are full f32. The last line of standard output is
+The flash path's step time, peak memory and attention time are logged
+beside the main path's from the same call. TF32 is off for matmuls and
+cuDNN throughout, so the f32 plain versions are full f32. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table as
 JSON, and the line before that the ``nvidia-smi`` reading.
 """
@@ -60,10 +72,41 @@ TOL = {"torch.float32": 1e-4,    # summation order only
                                  # gram at the head). A 128-wide p_out
                                  # column of G dropped or doubled at the
                                  # head moves the norm by ~1/1002 = 1e-3
+FLASH_TOL = {"torch.float32": 1e-4,   # of each output's max |value|:
+                                      # summation order only
+             "torch.bfloat16": 1e-2}  # O, dQ, dK, dV round to bf16
+                                      # (2^-8 = 3.9e-3 of the value) and
+                                      # the kernels round P and dS to bf16
+                                      # for the tensor cores; both sides
+                                      # accumulate in f32
+LSE_TOL = 1e-4                        # of max |lse|, both types: f32 sums
+                                      # of the same bf16/f32 products
+LOSS_TOL = 5e-3                       # relative, flash vs unfused step-0
+                                      # loss in bf16: the two routes round
+                                      # the attention to bf16 at different
+                                      # points; more than ~1 bf16 ulp of
+                                      # the loss would be another function
 SOURCES = {"gram_norm": ("src/repro_torch/csrc/gram_norm.cu",
                          "src/repro/kernels/gram_norm.py:297"),
            "direct_norm": ("src/repro_torch/csrc/direct_norm.cu",
-                           "src/repro/kernels/direct_norm.py:141")}
+                           "src/repro/kernels/direct_norm.py:141"),
+           "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:182"),
+           "flash_attention_bwd_dq": (
+               "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:337"),
+           "flash_attention_bwd_dkv": (
+               "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:361")}
+NORM_KERNELS = ("gram_norm", "direct_norm")
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+# (B, Hq, Hkv, S, D, softcap, window) of the flash kernel checks: the main
+# path's shape first
+FLASH_CASES = [(B, 32, 8, S, 64, None, None), (2, 8, 2, 200, 64, None, None),
+               (2, 4, 4, 256, 64, None, None), (2, 4, 4, 192, 32, None, None),
+               (2, 8, 2, 256, 128, None, None), (2, 8, 2, S, 64, None, 128),
+               (2, 8, 2, 256, 64, 50.0, None), (1, 4, 2, 333, 64, 30.0, 100)]
 
 
 def log(msg: str) -> None:
@@ -82,6 +125,13 @@ def layer_shapes(cfg):
     return [(d, hq), (d, hkv), (d, hkv), (hq, d), (d, f), (d, f), (f, d)]
 
 
+def with_flash(cfg):
+    """``cfg`` with ``AttnCfg.flash`` set."""
+    import dataclasses
+    return dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn,
+                                                             flash=True))
+
+
 def main_path_launches(cfg, s):
     """{kernel: {(p_in, p_out): launches per step}} from the port's own
     dispatch: each block's dense layers by ``pick_method``, the head
@@ -91,8 +141,71 @@ def main_path_launches(cfg, s):
     for pi, po in layer_shapes(cfg):
         k = pick_method(s, pi, po) + "_norm"
         out[k][(pi, po)] = out[k].get((pi, po), 0) + cfg.n_layers
-    out["direct_norm"][(cfg.d_model, cfg.vocab)] = 1
+    head = (cfg.d_model, cfg.vocab)
+    out["direct_norm"][head] = out["direct_norm"].get(head, 0) + 1
     return out
+
+
+def pass_launches(expected, cfg, flash):
+    """Launches of every counted kernel in the tapped forward, the norms
+    backward and the reweighted backward of one step: the norm kernels in
+    the norms backward only; with ``flash``, one forward launch per layer
+    in the forward and one dQ and one dK/dV launch per layer in each
+    backward."""
+    from repro_torch.kernels import ops
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    norms = {k: sum(v.values()) for k, v in expected.items()}
+    bwd = ({"flash_attention_bwd_dq": cfg.n_layers,
+            "flash_attention_bwd_dkv": cfg.n_layers} if flash else {})
+    return ({**zero, "flash_attention": cfg.n_layers if flash else 0},
+            {**zero, **norms, **bwd}, {**zero, **bwd})
+
+
+class AttentionEvents:
+    """CUDA events around the attention core of every layer: the forward
+    call, and in each backward pass the span from the cotangent's arrival
+    at the core's output to the last cotangent leaving q, k and v (tensor
+    hooks, which run on the autograd stream in the order the grads are
+    formed)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.fwd, self.bwd = [], []
+
+    def _event(self):
+        import torch
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def __call__(self, q, k, v, *a, **kw):
+        e0 = self._event()
+        y = self.fn(q, k, v, *a, **kw)
+        self.fwd.append((e0, self._event()))
+        if y.requires_grad:
+            y.register_hook(lambda g: self.bwd.append(("start",
+                                                       self._event())))
+            for x in (q, k, v):
+                x.register_hook(lambda g: self.bwd.append(("end",
+                                                           self._event())))
+        return y
+
+    def clear(self):
+        self.fwd.clear()
+        self.bwd.clear()
+
+    def ms(self):
+        """(forward ms, backward ms) summed over the calls since clear()."""
+        fwd = sum(a.elapsed_time(b) for a, b in self.fwd)
+        bwd, start, last = 0.0, None, None
+        for kind, e in self.bwd + [("start", None)]:
+            if kind == "start":
+                if start is not None and last is not None:
+                    bwd += start.elapsed_time(last)
+                start, last = e, None
+            else:
+                last = e
+        return fwd, bwd
 
 
 def time_ms(fn, reps):
@@ -187,11 +300,74 @@ def phase_kernels(cfg, errs):
             raise AssertionError(f"gram vs direct disagree: {r}")
 
 
+def flash_inputs(b, hq, hkv, s, d, dt, gen):
+    """q (B, Hq, S, D), k, v (B, Hkv, S, D) and dO as the model passes
+    them: (B, H, S, D) views of (B, S, H, D) tensors."""
+    import torch
+
+    def draw(h):
+        return torch.randn(b, s, h, d, generator=gen,
+                           device="cuda").to(dt).transpose(1, 2)
+    return draw(hq), draw(hkv), draw(hkv), draw(hq)
+
+
+def phase_flash_kernels(errs):
+    """The flash kernels against their plain versions: O and lse, then dQ,
+    dK and dV on the plain forward's O and lse; the backward twice, for
+    bitwise-equal results."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dt in (torch.float32, torch.bfloat16):
+        tol = FLASH_TOL[str(dt)]
+        for case in FLASH_CASES:
+            b, hq, hkv, s, d, cap, win = case
+            q, k, v, do = flash_inputs(b, hq, hkv, s, d, dt, gen)
+            kw = dict(scale=d ** -0.5, softcap=cap, window=win)
+            o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+            o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, **kw)
+            grads = ops.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+            again = ops.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+            want = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
+                                              **kw)
+            torch.cuda.synchronize()
+            line = []
+            for name, got, ref, lim in (
+                    [("O", o, o_ref, tol), ("lse", lse, lse_ref, LSE_TOL)]
+                    + [(n, g, w, tol) for n, g, w in
+                       zip(("dQ", "dK", "dV"), grads, want)]):
+                err = (got.float() - ref.float()).abs().max().item()
+                r = err / ref.float().abs().max().item()
+                line.append(f"{name} {r:.2e}")
+                if not r <= lim:
+                    raise AssertionError(
+                        f"flash {name} disagrees with its plain version at "
+                        f"{case} {dt}: {r} of max |value| > {lim}")
+                if (dt == torch.bfloat16 and case == FLASH_CASES[0]
+                        and name != "lse"):
+                    key = {"O": "flash_attention",
+                           "dQ": "flash_attention_bwd_dq"}.get(
+                               name, "flash_attention_bwd_dkv")
+                    errs[key] = max(errs.get(key, 0.0), err)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f"flash backward not bitwise "
+                                     f"reproducible at {case} {dt}")
+            log(f"[kernels] flash {str(dt)[6:]} (B,Hq,Hkv,S,D,cap,win)="
+                f"{case}: err/max " + ", ".join(line)
+                + f" (tol {tol}, lse {LSE_TOL}); backward bitwise equal "
+                f"on a second run")
+            del q, k, v, do, o, lse, o_ref, lse_ref, grads, again, want
+
+
 def phase_exact(spec, registry, pex):
     """Full width in f32: Engine norms vs per-example plain backward."""
     import torch
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.nn.param import tree_flatten, tree_unflatten
+
+    from repro_torch.kernels import ops
 
     cfg = spec.full(dtype="float32")
     mod = registry.family_module(spec)
@@ -199,13 +375,24 @@ def phase_exact(spec, registry, pex):
     batch = registry.make_train_batch(
         spec, cfg, ShapeSpec("exact", "train", EXACT_S, EXACT_B), rng_seed=0)
     loss_fn = registry.make_loss_fn_v2(spec, cfg)
-    t0 = time.perf_counter()
-    res = pex.Engine(pex.PexSpec()).step(loss_fn, params, batch,
-                                         [pex.Norms(), pex.Grads()])
-    torch.cuda.synchronize()
-    log(f"[exact] Engine.step([Norms, Grads]) f32 B={EXACT_B} S={EXACT_S}: "
-        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call)")
-    norms = res.sq_norms.sum(-1)
+    results = {}
+    for flash in (False, True):
+        c = with_flash(cfg) if flash else cfg
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[flash] = pex.Engine(pex.PexSpec()).step(
+            registry.make_loss_fn_v2(spec, c), params, batch,
+            [pex.Norms(), pex.Grads()])
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        log(f"[exact] Engine.step([Norms, Grads]) f32 B={EXACT_B} "
+            f"S={EXACT_S} flash={flash}: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call); "
+            f"launches {n}")
+        want = cfg.n_layers if flash else 0
+        if any(n[k] != want for k in FLASH_KERNELS):
+            raise AssertionError(f"flash={flash}: flash launches {n}, "
+                                 f"expected {want} of each")
 
     leaves, treedef = tree_flatten(params)
     leaves = [x.detach().requires_grad_() for x in leaves]
@@ -217,35 +404,46 @@ def phase_exact(spec, registry, pex):
         oracle.append(sum(torch.sum(torch.square(g.float())) for g in gs))
         del gs
     oracle = torch.stack(oracle)
-    r = rel_err(norms, oracle)
-    log(f"[exact] per-example sq norms: engine {norms.tolist()}")
     log(f"[exact] per-example sq norms: plain  {oracle.tolist()}")
-    log(f"[exact] norms max rel err {r:.2e} (tol 1e-3: f32, summation "
-        f"order of the kernels vs cuBLAS)")
-    if not r < 1e-3:
-        raise AssertionError(f"full-width norms disagree: {r}")
-
     gs = torch.autograd.grad(loss_fn(p, batch, pex.NULL)[0].sum(), leaves)
-    worst = 0.0
-    for g_eng, g in zip(tree_flatten(res.grads)[0], gs):
-        worst = max(worst, ((g_eng - g).norm() / g.norm()).item())
-    log(f"[exact] summed grads vs plain batch backward: max rel "
-        f"(Frobenius) err over {len(gs)} leaves {worst:.2e} (tol 1e-4: f32)")
-    if not worst < 1e-4:
-        raise AssertionError(f"summed gradients disagree: {worst}")
+    for flash, res in results.items():
+        norms = res.sq_norms.sum(-1)
+        r = rel_err(norms, oracle)
+        log(f"[exact] flash={flash} per-example sq norms: engine "
+            f"{norms.tolist()}")
+        log(f"[exact] flash={flash} norms max rel err {r:.2e} (tol 1e-3: "
+            f"f32, summation order of the kernels vs cuBLAS)")
+        if not r < 1e-3:
+            raise AssertionError(f"full-width norms disagree (flash="
+                                 f"{flash}): {r}")
+        worst = 0.0
+        for g_eng, g in zip(tree_flatten(res.grads)[0], gs):
+            worst = max(worst, ((g_eng - g).norm() / g.norm()).item())
+        log(f"[exact] flash={flash} summed grads vs plain batch backward: "
+            f"max rel (Frobenius) err over {len(gs)} leaves {worst:.2e} "
+            f"(tol 1e-4: f32)")
+        if not worst < 1e-4:
+            raise AssertionError(f"summed gradients disagree (flash="
+                                 f"{flash}): {worst}")
 
 
-def phase_main(spec, registry, pex, expected):
-    """The main path; returns (launches, per-step kernel ms, step ms)."""
+def phase_main(spec, registry, pex, expected, flash=False):
+    """The main path (``flash=False``, phase 5) or the flash path (phase
+    6): three DP-SGD steps. Returns a dict of what the run read."""
     import torch
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.core import plan as plan_mod
     from repro_torch.kernels import direct_norm as dn
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gram_norm as gn
     from repro_torch.kernels import ops
+    from repro_torch.nn import attention as attn_mod
     from repro_torch.optim import adamw
 
+    tag = "flash" if flash else "main"
     cfg = spec.full(dtype="bfloat16")
+    if flash:
+        cfg = with_flash(cfg)
     mod = registry.family_module(spec)
     params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     loss_fn = registry.make_loss_fn_v2(spec, cfg)
@@ -253,26 +451,39 @@ def phase_main(spec, registry, pex, expected):
     opt = adamw.init(params)
     noise_gen = torch.Generator(device="cuda").manual_seed(1)
     eng = pex.Engine(pex.PexSpec())
-    per_step = {k: sum(v.values()) for k, v in expected.items()}
-    log(f"[main] expected launches per step from pick_method at S={S}: "
-        f"{per_step}")
+    want_fwd, want_norms, want_grads = pass_launches(expected, cfg, flash)
+    log(f"[{tag}] expected launches per step (pick_method at S={S}): "
+        f"forward {want_fwd}; norms backward {want_norms}; reweighted "
+        f"backward {want_grads}")
     batches = [registry.make_train_batch(
         spec, cfg, ShapeSpec("main", "train", S, B), rng_seed=i)
         for i in range(STEPS)]
 
-    # observe the real main path: launches per backward pass, and each
-    # kernel's device time from CUDA events around its launch function
+    # observe the real path: launches in the forward and per backward pass,
+    # each kernel's device time from CUDA events around its launch
+    # function, and the attention core's from events around it
+    kernels = NORM_KERNELS + (FLASH_KERNELS if flash else ())
     passes = []
-    events = {k: [] for k in expected}
+    events = {k: [] for k in kernels}
     orig_grad = plan_mod._grad
-    kmods = {"gram_norm": gn, "direct_norm": dn}
-    orig_fns = {k: getattr(m, k) for k, m in kmods.items()}
+    kfns = {"gram_norm": (gn, "gram_norm"),
+            "direct_norm": (dn, "direct_norm"),
+            "flash_attention": (fa, "flash_attention_fwd"),
+            "flash_attention_bwd_dq": (fa, "flash_attention_bwd_dq"),
+            "flash_attention_bwd_dkv": (fa, "flash_attention_bwd_dkv")}
+    kfns = {k: kfns[k] for k in kernels}
+    orig_fns = {k: getattr(m, a) for k, (m, a) in kfns.items()}
+    core_mod, core_name = ((ops, "flash_attention_vjp") if flash
+                           else (attn_mod, "_attend"))
+    orig_core = getattr(core_mod, core_name)
+    attn = AttentionEvents(orig_core)
 
     def counted_grad(out, inputs, seed, **kw):
         before = ops.launch_counts()
         gs = orig_grad(out, inputs, seed, **kw)
         after = ops.launch_counts()
-        passes.append((len(inputs), {k: after[k] - before[k] for k in after}))
+        passes.append((len(inputs), before,
+                       {k: after[k] - before[k] for k in after}))
         return gs
 
     def timed(name):
@@ -289,16 +500,20 @@ def phase_main(spec, registry, pex, expected):
         return wrapper
 
     plan_mod._grad = counted_grad
-    for k, m in kmods.items():
-        setattr(m, k, timed(k))
-    step_ms, kern_ms = [], []
+    for k, (m, a) in kfns.items():
+        setattr(m, a, timed(k))
+    setattr(core_mod, core_name, attn)
+    step_ms, kern_ms, attn_ms, losses = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
     try:
         ops.reset_launch_counts()
         for i, batch in enumerate(batches):
             passes.clear()
+            attn.clear()
             for v in events.values():
                 v.clear()
             torch.cuda.synchronize()
+            at_start = ops.launch_counts()
             t0 = time.perf_counter()
             res = eng.step(loss_fn, params, batch,
                            [pex.Norms(), pex.Clip(1.0),
@@ -308,13 +523,17 @@ def phase_main(spec, registry, pex, expected):
             step_ms.append((time.perf_counter() - t0) * 1e3)
             kern_ms.append({k: sum(a.elapsed_time(b) for a, b in v)
                             for k, v in events.items()})
+            attn_ms.append(attn.ms())
+            losses.append(res.loss.item())
             norms = res.sq_norms.sum(-1)
             cc = res.clip_coef
-            log(f"[main] step {i}: {step_ms[-1]:.1f} ms; loss "
-                f"{res.loss.item():.4f}; sq norms {norms.tolist()}; clip "
+            log(f"[{tag}] step {i}: {step_ms[-1]:.1f} ms; loss "
+                f"{losses[-1]:.4f}; sq norms {norms.tolist()}; clip "
                 f"coef {cc.tolist()}; gns {res.gns.item():.4g}; kernel ms "
                 f"{ {k: round(v, 3) for k, v in kern_ms[-1].items()} }; "
-                f"launches per backward {passes}")
+                f"attention core fwd/bwd ms {attn_ms[-1][0]:.3f}/"
+                f"{attn_ms[-1][1]:.3f}; launches per backward "
+                f"{[p[2] for p in passes]}")
             for name, t in (("loss", res.loss), ("norms", norms),
                             ("gns", res.gns)):
                 if not bool(torch.isfinite(t).all()):
@@ -324,27 +543,37 @@ def phase_main(spec, registry, pex, expected):
             if len(passes) != 2:
                 raise AssertionError(f"step {i}: {len(passes)} backward "
                                      f"passes, expected norms + reweighted")
-            (n_in0, norms_pass), (_, grads_pass) = passes
-            if n_in0 != 1 or norms_pass != per_step:
+            (n_in0, before0, norms_pass), (_, _, grads_pass) = passes
+            fwd_pass = {k: before0[k] - at_start[k] for k in before0}
+            if fwd_pass != want_fwd:
+                raise AssertionError(f"step {i}: the tapped forward "
+                                     f"launched {fwd_pass}, expected "
+                                     f"{want_fwd}")
+            if n_in0 != 1 or norms_pass != want_norms:
                 raise AssertionError(f"step {i}: norms pass launched "
-                                     f"{norms_pass}, expected {per_step}")
-            if any(grads_pass.values()):
+                                     f"{norms_pass}, expected {want_norms}")
+            if grads_pass != want_grads:
                 raise AssertionError(f"step {i}: the reweighted backward "
-                                     f"launched norm kernels {grads_pass}")
+                                     f"launched {grads_pass}, expected "
+                                     f"{want_grads}")
         launches = ops.launch_counts()
     finally:
         plan_mod._grad = orig_grad
-        for k, m in kmods.items():
-            setattr(m, k, orig_fns[k])
+        for k, (m, a) in kfns.items():
+            setattr(m, a, orig_fns[k])
+        setattr(core_mod, core_name, orig_core)
+    per_step = {k: want_fwd[k] + want_norms[k] + want_grads[k]
+                for k in launches}
     for k, n in launches.items():
-        if n != STEPS * per_step[k] or n == 0:
-            raise AssertionError(f"{k}: {n} launches on the main path, "
+        if n != STEPS * per_step[k] or (k in kernels and n == 0):
+            raise AssertionError(f"{k}: {n} launches on the {tag} path, "
                                  f"expected {STEPS * per_step[k]}")
-    log(f"[main] launches over {STEPS} steps: {launches}; "
-        f"reweighted backward launched none")
-    log(f"[main] peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
-        f" GiB")
-    return launches, kern_ms, step_ms
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] launches over {STEPS} steps: {launches}; every pass "
+        f"launched what it should")
+    log(f"[{tag}] peak memory {peak:.2f} GiB (since the phase began)")
+    return {"launches": launches, "kern_ms": kern_ms, "step_ms": step_ms,
+            "attn_ms": attn_ms, "losses": losses, "peak_gib": peak}
 
 
 def phase_table(expected, errs, launches, kern_ms):
@@ -404,6 +633,84 @@ def phase_table(expected, errs, launches, kern_ms):
     return rows
 
 
+def flash_table(errs, launches, kern_ms):
+    """The flash kernels at the main path's shape (bf16): per-launch kernel,
+    plain and library times and the bound, scaled to the flash path's
+    launches per step; JSON rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dt = torch.bfloat16
+    b, hq, hkv, s, d = FLASH_CASES[0][:5]
+    scale = d ** -0.5
+    q, k, v, do = flash_inputs(b, hq, hkv, s, d, dt, gen)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale=scale)
+    delta = fa.row_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    run = {"flash_attention": (
+               lambda: fa.flash_attention_fwd(q, k, v, scale=scale),
+               lambda: fa.flash_attention_fwd_ref(q, k, v, scale=scale)),
+           "flash_attention_bwd_dq": (
+               lambda: fa.flash_attention_bwd_dq(*args, scale=scale),
+               lambda: fa.flash_attention_bwd_dq_ref(*args, scale=scale)),
+           "flash_attention_bwd_dkv": (
+               lambda: fa.flash_attention_bwd_dkv(*args, scale=scale),
+               lambda: fa.flash_attention_bwd_dkv_ref(*args, scale=scale))}
+    kinds = {"flash_attention": "fwd", "flash_attention_bwd_dq": "dq",
+             "flash_attention_bwd_dkv": "dkv"}
+
+    # the yardstick: one PyTorch call for the same attention, forward and
+    # its autograd backward (dQ, dK and dV together); never on the path
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        ql, kl, vl, is_causal=True, scale=scale, enable_gqa=True)
+    out = sdpa()
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        out, (ql, kl, vl), do, retain_graph=True)
+    lib_ms = {"flash_attention": time_ms(sdpa, 20),
+              "bwd": time_ms(sdpa_bwd, 20)}
+    log(f"[table] scaled_dot_product_attention bf16 at the main shape "
+        f"(yardstick, never on the path): forward "
+        f"{lib_ms['flash_attention']:.4f} ms, autograd backward "
+        f"{lib_ms['bwd']:.4f} ms per call")
+
+    rows = []
+    for name, (kern, plain) in run.items():
+        kind = kinds[name]
+        n = launches[name] // STEPS
+        ms = time_ms(kern, 20)
+        plain_ms = time_ms(plain, 5)
+        flops = fa.flop_estimate(kind, b, hq, s, s, d)
+        nbytes = fa.byte_estimate(kind, b, hq, hkv, s, s, d, 2)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[str(dt)] * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        lib = lib_ms.get(name, lib_ms["bwd"])
+        steady = [m[name] for m in kern_ms[1:]] or [kern_ms[0][name]]
+        log(f"[table] {name} bf16 (B,Hq,Hkv,S,D)=({b},{hq},{hkv},{s},{d}) "
+            f"x{n}/step: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"library {lib:.4f} ms, bound {bound:.4f} ms ({by}: "
+            f"{flops:.3g} flops, {nbytes:.3g} B), {bound / ms:.1%} of bound;"
+            f" on the flash path {sum(steady) / len(steady):.3f} ms per "
+            f"step (events)")
+        row = {"name": name, "route": "cuda", "source": SOURCES[name][0],
+               "replaces": SOURCES[name][1], "launches": launches[name],
+               "max_abs_err": errs[name],
+               "ms": sum(steady) / len(steady), "plain_ms": n * plain_ms,
+               "bound_ms": n * bound, "bound_by": by,
+               "library_ms": n * lib,
+               "per": "flash-path step, B=8 S=512 bf16"}
+        if kind != "fwd":
+            row["library_note"] = ("scaled_dot_product_attention's autograd "
+                                   "backward, which forms dQ, dK and dV in "
+                                   "one call")
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -422,13 +729,37 @@ def main() -> int:
     cfg = spec.full()
     errs = {}
     phase_kernels(cfg, errs)
+    phase_flash_kernels(errs)
     phase_exact(spec, registry, pex)
     torch.cuda.empty_cache()
     expected = main_path_launches(cfg, S)
-    launches, kern_ms, step_ms = phase_main(spec, registry, pex, expected)
+    main_run = phase_main(spec, registry, pex, expected)
     torch.cuda.empty_cache()
-    rows = phase_table(expected, errs, launches, kern_ms)
-    log(f"[table] kernels: gram_norm, direct_norm; step ms {step_ms}")
+    flash_run = phase_main(spec, registry, pex, expected, flash=True)
+    torch.cuda.empty_cache()
+    d_loss = abs(flash_run["losses"][0] - main_run["losses"][0]) \
+        / abs(main_run["losses"][0])
+    log(f"[flash] step-0 loss {flash_run['losses'][0]:.6f} vs unfused "
+        f"{main_run['losses'][0]:.6f}: rel diff {d_loss:.2e} (tol "
+        f"{LOSS_TOL}: same params and batch, only the attention route "
+        f"differs)")
+    if not d_loss <= LOSS_TOL:
+        raise AssertionError(f"flash and unfused step-0 losses differ by "
+                             f"{d_loss}")
+    for tag, r in (("main (unfused)", main_run), ("flash", flash_run)):
+        steady = r["step_ms"][1:]
+        fl = [sum(m[k] for k in FLASH_KERNELS if k in m)
+              for m in r["kern_ms"][1:]]
+        log(f"[compare] {tag}: steady step ms {steady}; attention core "
+            f"fwd+bwd ms per steady step "
+            f"{[round(a + b, 3) for a, b in r['attn_ms'][1:]]}; flash "
+            f"kernel ms per steady step {[round(x, 3) for x in fl]}; peak "
+            f"memory {r['peak_gib']:.2f} GiB")
+    rows = phase_table(expected, errs, main_run["launches"],
+                       main_run["kern_ms"])
+    rows += flash_table(errs, flash_run["launches"], flash_run["kern_ms"])
+    log(f"[table] kernels: {', '.join(r['name'] for r in rows)}; main step "
+        f"ms {main_run['step_ms']}; flash step ms {flash_run['step_ms']}")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

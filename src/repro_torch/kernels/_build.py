@@ -14,8 +14,10 @@ failed build raises; nothing falls back to the plain versions.
 
 Pointers and the stream go to the C functions as ``c_void_p`` (a Python int
 from ``tensor.data_ptr()`` / ``torch.cuda.current_stream().cuda_stream``),
-strides as ``c_longlong`` and sizes as ``c_int``. Each launch function
-returns ``cudaGetLastError()``; :func:`check` raises on a nonzero code.
+strides as ``c_longlong`` (the attention kernels take theirs as one host
+array, built by :func:`strides_arg`), scalars as ``c_float`` and sizes as
+``c_int``. Each launch function returns ``cudaGetLastError()``;
+:func:`check` raises on a nonzero code.
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)   # host array of strides
 
 #: argtypes of the C entry points that return an int
 _SIGNATURES = {
@@ -53,6 +57,14 @@ _SIGNATURES = {
     "direct_norm_blocks": (_I, _I),
     "direct_norm_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _P),
+    "flash_attention_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _F, _I, _LP, _P),
+    "flash_attention_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _I, _F, _F, _I, _LP,
+                                      _P),
+    "flash_attention_bwd_dkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                                       _LP, _P),
 }
 
 
@@ -151,9 +163,16 @@ def check(code: int, what: str) -> None:
 def dtype_code(t) -> int:
     key = str(t.dtype)
     if key not in DTYPE_CODES:
-        raise TypeError(f"the CUDA norm kernels take float32 or bfloat16, "
-                        f"got {t.dtype}")
+        raise TypeError(f"the package's CUDA kernels take float32 or "
+                        f"bfloat16, got {t.dtype}")
     return DTYPE_CODES[key]
+
+
+def strides_arg(tensors):
+    """The (batch, head, sequence) element strides of each tensor, in
+    order, as the host ``long long`` array the attention launches take."""
+    vals = [t.stride(d) for t in tensors for d in (0, 1, 2)]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def pair_inputs(h, zbar, what: str):

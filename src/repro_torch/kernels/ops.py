@@ -1,18 +1,20 @@
-"""Public wrappers around the CUDA kernels — what ``core.norms`` calls.
+"""Public wrappers around the CUDA kernels — what ``core.norms`` and
+``nn.attention`` call.
 
-Port of the ``gram_norm`` / ``direct_norm`` wrappers of
-``src/repro/kernels/ops.py``. Each wrapper takes the plain PyTorch version
-for tensors on the CPU (the tests' device) and launches its CUDA kernel for
-tensors on a CUDA device; any other device raises. There is no fallback
-from the CUDA path to the plain version: a kernel that fails to build or
-launch raises.
+Port of the ``gram_norm`` / ``direct_norm`` wrappers and the flash
+attention ops (``flash_attention_vjp``) of ``src/repro/kernels/ops.py``.
+Each wrapper takes the plain PyTorch version for tensors on the CPU (the
+tests' device) and launches its CUDA kernel for tensors on a CUDA device;
+any other device raises. There is no fallback from the CUDA path to the
+plain version: a kernel that fails to build or launch raises.
 
 Each wrapper carries a plain integer launch counter (``gram_norm.launches``,
-``direct_norm.launches``) that it raises by one where it launches its
-kernel, and nowhere else, so a run can show which kernels its main path
-went through. An empty input (a zero batch, sequence or feature extent)
-has the norm 0 and launches nothing, so it is answered here and not
-counted.
+``direct_norm.launches``, ``flash_attention.launches``,
+``flash_attention_bwd.dq_launches`` and ``.dkv_launches``) that it raises by
+one where it launches its kernel, and nowhere else, so a run can show which
+kernels its main path went through. An empty input to a norm wrapper (a
+zero batch, sequence or feature extent) has the norm 0 and launches
+nothing, so it is answered here and not counted.
 
 Not carried over: the TPU wrappers' 128-lane padding (``_launch_tiles``)
 and the ``gram_cost``/``direct_cost`` prices of padded TPU tiles; the
@@ -20,21 +22,24 @@ port's dispatch uses the logical flop model in ``core.norms``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import direct_norm as _dn
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gram_norm as _gn
 from repro_torch.kernels import ref as _ref
 
 
-def _on_cpu(h: torch.Tensor, zbar: torch.Tensor, what: str) -> bool:
-    devices = {h.device.type, zbar.device.type}
+def _on_cpu(what: str, *tensors: torch.Tensor) -> bool:
+    devices = {t.device.type for t in tensors}
     if devices == {"cpu"}:
         return True
     if devices == {"cuda"}:
         return False
-    raise ValueError(f"{what}: h and zbar must both lie on the CPU or on a "
-                     f"CUDA device, got {h.device} and {zbar.device}")
+    raise ValueError(f"{what}: the inputs must all lie on the CPU or on a "
+                     f"CUDA device, got {[str(t.device) for t in tensors]}")
 
 
 def _empty(h: torch.Tensor, zbar: torch.Tensor) -> bool:
@@ -59,7 +64,7 @@ def gram_norm(h: torch.Tensor, zbar: torch.Tensor, *,
 
     ``triangular`` (default) visits only the upper triangle of sequence-
     tile pairs; ``False`` runs the full grid, kept for regression tests."""
-    if _on_cpu(h, zbar, "gram_norm"):
+    if _on_cpu("gram_norm", h, zbar):
         return _ref.gram_norm_ref(h, zbar)
     if _empty(h, zbar):
         return _zeros(h)
@@ -73,7 +78,7 @@ gram_norm.launches = 0
 
 def direct_norm(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
     """(B,S,p_in),(B,S,p_out) → (B,) f32 ||H_jᵀZ̄_j||²_F."""
-    if _on_cpu(h, zbar, "direct_norm"):
+    if _on_cpu("direct_norm", h, zbar):
         return _dn.direct_norm_ref(h, zbar)
     if _empty(h, zbar):
         return _zeros(h)
@@ -85,13 +90,85 @@ def direct_norm(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
 direct_norm.launches = 0
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, softcap: Optional[float] = None,
+                    window: Optional[int] = None, return_lse: bool = False):
+    """Causal GQA attention. q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D) → O like q
+    [+ lse (B,Hq,Sq) f32 when ``return_lse``, for the backward]."""
+    kw = dict(scale=scale, softcap=softcap, window=window)
+    if _on_cpu("flash_attention", q, k, v):
+        o, lse = _fa.flash_attention_fwd_ref(q, k, v, **kw)
+    else:
+        o, lse = _fa.flash_attention_fwd(q, k, v, **kw)
+        flash_attention.launches += 1
+    return (o, lse) if return_lse else o
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
+                        softcap: Optional[float] = None,
+                        window: Optional[int] = None):
+    """(dQ, dK, dV) of :func:`flash_attention` from its O and lse and the
+    cotangent dO: the dQ kernel, then the dK/dV kernel."""
+    kw = dict(scale=scale, softcap=softcap, window=window)
+    if _on_cpu("flash_attention_bwd", q, k, v, o, lse, do):
+        return _fa.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    delta = _fa.row_delta(o, do)
+    dq = _fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    flash_attention_bwd.dq_launches += 1
+    dk, dv = _fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    flash_attention_bwd.dkv_launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.dq_launches = 0
+flash_attention_bwd.dkv_launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the forward saves (q, k, v, O, lse)
+    and the backward runs :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window):
+        o, lse = flash_attention(q, k, v, scale=scale, window=window,
+                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.window = scale, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, o, lse, do, scale=ctx.scale,
+                                    window=ctx.window)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
+
+
+def flash_attention_vjp(q, k, v, scale: float, window: Optional[int] = None):
+    """Differentiable flash attention: kernel forward (online softmax, lse
+    residual) and kernel backward (dQ, dK/dV). The S² score tensor never
+    reaches device memory in either direction."""
+    return _FlashAttention.apply(q, k, v, scale, window)
+
+
 def reset_launch_counts() -> None:
     """Set every wrapper's launch counter to 0."""
     gram_norm.launches = 0
     direct_norm.launches = 0
+    flash_attention.launches = 0
+    flash_attention_bwd.dq_launches = 0
+    flash_attention_bwd.dkv_launches = 0
 
 
 def launch_counts() -> dict:
     """{kernel name: launches since the last reset}."""
     return {"gram_norm": gram_norm.launches,
-            "direct_norm": direct_norm.launches}
+            "direct_norm": direct_norm.launches,
+            "flash_attention": flash_attention.launches,
+            "flash_attention_bwd_dq": flash_attention_bwd.dq_launches,
+            "flash_attention_bwd_dkv": flash_attention_bwd.dkv_launches}

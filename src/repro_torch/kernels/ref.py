@@ -1,8 +1,8 @@
 """Plain PyTorch oracles for the CUDA kernels (the ``ref.py`` contract).
 
-Port of ``src/repro/kernels/ref.py``; this slice carries ``gram_norm_ref``
-only. The other oracles (``rowsumsq_ref``, ``clip_scale_ref``,
-``flash_attention_ref``) come with their kernels.
+Port of ``src/repro/kernels/ref.py``: ``gram_norm_ref`` and
+``flash_attention_ref``. The other oracles (``rowsumsq_ref``,
+``clip_scale_ref``) come with their kernels.
 """
 from __future__ import annotations
 
@@ -22,3 +22,22 @@ def gram_norm_ref(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
     hh = torch.einsum("bsi,bti->bst", h, h)
     zz = torch.einsum("bsi,bti->bst", zbar, zbar)
     return torch.sum(hh * zz, dim=(1, 2))
+
+
+def flash_attention_ref(q, k, v, *, scale, softcap=None, window=None):
+    """Oracle: plain causal GQA attention. q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D)
+    → like q. Scores and softmax in f32."""
+    rep = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(_F32), k.to(_F32)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(q.shape[2], device=q.device)[:, None]
+    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask = mask & ((qpos - kpos) < window)
+    s = torch.where(mask, s, -1.0e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.to(_F32)).to(q.dtype)

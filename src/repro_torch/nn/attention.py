@@ -1,11 +1,13 @@
-"""Grouped-query causal self-attention, the unfused path.
+"""Grouped-query causal self-attention: the unfused path and the flash route.
 
 Port of ``src/repro/nn/attention.py`` for the GQA family at training time:
 RoPE, optional QKV bias, Q-head padding to ``head_multiple`` (padded heads
 get zero in/out projections, so logits, gradients and per-example stats are
-exact). Not in this slice: the decode KV cache, cross-attention, M-RoPE,
-logit softcap, sliding windows and the flash kernel route (the reference's
-``AttnCfg.flash`` defaults to False, so its main path is this unfused one).
+exact). ``AttnCfg.flash`` (default False, as in the reference) sends the
+attention core through the flash kernels (``kernels.ops.flash_attention_vjp``)
+under the reference's own gate; otherwise the unfused ``_attend`` runs. Not
+in this slice: the decode KV cache, cross-attention, M-RoPE, logit softcap
+and sliding windows in the model (the flash kernels themselves take both).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.taps import Tap
+from repro_torch.kernels import ops
 from repro_torch.nn import param as pm
 from repro_torch.nn.linear import init_linear, linear
 from repro_torch.nn.rotary import apply_rope, rope_angles
@@ -31,6 +34,8 @@ class AttnCfg:
     bias: bool = False                 # qwen2-style QKV bias
     rope_theta: float = 10000.0
     head_multiple: int = 16            # pad n_heads up to this multiple
+    flash: bool = False                # flash kernels for the full-seq
+                                       # causal path (see ``attention``)
 
     @property
     def n_heads_p(self) -> int:
@@ -78,7 +83,15 @@ def _attend(q, k, v, cfg: AttnCfg):
 def attention(p, x, *, tap: Tap, cfg: AttnCfg,
               positions: Optional[torch.Tensor] = None,
               group: str = "attn") -> torch.Tensor:
-    """Full-sequence causal attention. positions: (S,) / (B,S) int."""
+    """Full-sequence causal attention. positions: (S,) / (B,S) int.
+
+    With ``cfg.flash`` and S a multiple of 128 the core runs through the
+    flash kernels on (B, H, S, D) views of q, k and v (no copy); otherwise
+    through ``_attend``. The ``S % 128`` test is the reference's dispatch
+    (``attention.py:182-184``, whose other conditions — no cache, not
+    cross, causal, no softcap, no local flag — always hold here), kept so
+    that one configuration takes one route in both packages; the kernels
+    themselves take any S, so it is not a fallback."""
     b, s, _ = x.shape
     q = linear(p["wq"], x, tap=tap, group=group)
     k = linear(p["wk"], x, tap=tap, group=group)
@@ -93,5 +106,10 @@ def attention(p, x, *, tap: Tap, cfg: AttnCfg,
     ang = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, ang)
     k = apply_rope(k, ang)
-    y = _attend(q, k, v, cfg)
+    if cfg.flash and s % 128 == 0:
+        y = ops.flash_attention_vjp(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), cfg.scale, None)
+        y = y.transpose(1, 2).reshape(b, s, -1)
+    else:
+        y = _attend(q, k, v, cfg)
     return linear(p["wo"], y, tap=tap, group=group)

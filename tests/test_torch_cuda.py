@@ -11,11 +11,16 @@ Tolerances: f32 1e-4 relative (summation order), bf16 5e-4 relative (bf16
 inputs, whose products are exact in f32; f32 accumulation in both, in
 another order). The bf16 limit sits well above the largest reading on the
 card and below what one 128-wide tile of G dropped or doubled would read.
+The flash attention kernels are held to 1e-4 (f32) and 1e-2 (bf16: O, dQ,
+dK and dV round to bf16, and the kernels round P and dS to bf16 for the
+tensor cores) of each output's max |value|, the lse to 1e-4 of its max in
+both types.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -24,6 +29,12 @@ from repro_torch.kernels import ref as tref
 SHAPES = [(2, 16, 24, 40), (3, 37, 80, 200), (1, 130, 70, 33),
           (2, 64, 128, 96), (2, 1, 8, 5), (1, 150, 40, 72),
           (2, 512, 2048, 512)]
+
+
+def _counts(**nonzero):
+    """``launch_counts()`` as it should read: the given kernels, the
+    rest 0."""
+    return {**dict.fromkeys(tops.launch_counts(), 0), **nonzero}
 
 
 def _pair(shape, seed):
@@ -54,7 +65,7 @@ def test_cuda_kernels_match_plain(cuda_device, shape, dtype):
     for got in (tops.gram_norm(h, z), tops.gram_norm(h, z, triangular=False),
                 tops.direct_norm(h, z)):
         torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
-    assert tops.launch_counts() == {"gram_norm": 2, "direct_norm": 1}
+    assert tops.launch_counts() == _counts(gram_norm=2, direct_norm=1)
 
 
 @pytest.mark.cuda
@@ -116,9 +127,9 @@ def test_cuda_engine_step_matches_cpu(cuda_device):
                      a.n_kv * a.head_dim, cfg.mlp.d_ff)
     picks = [pick_method(shape.seq, pi, po) for pi, po in
              ((d, hq), (d, hkv), (d, hkv), (hq, d), (d, f), (d, f), (f, d))]
-    assert tops.launch_counts() == {
-        "gram_norm": cfg.n_layers * picks.count("gram"),
-        "direct_norm": cfg.n_layers * picks.count("direct") + 1}
+    assert tops.launch_counts() == _counts(
+        gram_norm=cfg.n_layers * picks.count("gram"),
+        direct_norm=cfg.n_layers * picks.count("direct") + 1)
 
 
 @pytest.mark.cuda
@@ -134,4 +145,137 @@ def test_cuda_empty_inputs_launch_nothing(cuda_device, shape):
     for got in (tops.gram_norm(h, z), tops.direct_norm(h, z)):
         assert got.shape == (b,) and got.device == h.device
         assert not bool(got.any())
-    assert tops.launch_counts() == {"gram_norm": 0, "direct_norm": 0}
+    assert tops.launch_counts() == _counts()
+
+
+# (B, Hq, Hkv, S, D, softcap, window) of chip_smoke's flash kernel checks:
+# llama3.2-1b's main-path shape, ragged S, MHA, D=32, D=128, a window, a
+# softcap, and all three of ragged, window and softcap together
+FLASH_CASES = [(8, 32, 8, 512, 64, None, None), (2, 8, 2, 200, 64, None, None),
+               (2, 4, 4, 256, 64, None, None), (2, 4, 4, 192, 32, None, None),
+               (2, 8, 2, 256, 128, None, None), (2, 8, 2, 512, 64, None, 128),
+               (2, 8, 2, 256, 64, 50.0, None), (1, 4, 2, 333, 64, 30.0, 100)]
+
+
+def _flash_inputs(case, dtype, device, seed=7):
+    """q, k, v, dO as the model passes them: (B, H, S, D) views of
+    (B, S, H, D) tensors."""
+    b, hq, hkv, s, d, _, _ = case
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(np.float32))
+            .to(device, dtype).transpose(1, 2) for h in (hq, hkv, hkv, hq)]
+
+
+def _flash_kw(case):
+    return dict(scale=case[4] ** -0.5, softcap=case[5], window=case[6])
+
+
+def _of_max(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_kernels_match_plain(cuda_device, case, dtype):
+    """O and lse, then dQ, dK, dV on the plain forward's O and lse."""
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    q, k, v, do = _flash_inputs(case, getattr(torch, dtype), cuda_device)
+    kw = _flash_kw(case)
+    tops.reset_launch_counts()
+    o, lse = tops.flash_attention(q, k, v, return_lse=True, **kw)
+    o_ref, lse_ref = tfa.flash_attention_fwd_ref(q, k, v, **kw)
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert _of_max(o, o_ref) <= tol
+    assert _of_max(lse, lse_ref) <= 1e-4
+    got = tops.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert _of_max(g, w) <= tol
+    assert tops.launch_counts() == _counts(flash_attention=1,
+                                           flash_attention_bwd_dq=1,
+                                           flash_attention_bwd_dkv=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_backward_is_bitwise_deterministic(cuda_device, dtype):
+    """No atomics: the same inputs give the same bits."""
+    case = (2, 8, 2, 333, 64, None, None)
+    q, k, v, do = _flash_inputs(case, getattr(torch, dtype), cuda_device)
+    kw = _flash_kw(case)
+    o, lse = tops.flash_attention(q, k, v, return_lse=True, **kw)
+    first = tops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for _ in range(3):
+        again = tops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(o, tops.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 48, 256])
+def test_cuda_flash_unsupported_head_dim_raises(cuda_device, d):
+    q, k, v, do = _flash_inputs((1, 2, 1, 64, d, None, None), torch.float32,
+                                cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tops.flash_attention(q, k, v, scale=0.1)
+    lse = torch.zeros(q.shape[:3], device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tops.flash_attention_bwd(q, k, v, q, lse, do, scale=0.1)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_vjp_matches_plain_autograd(cuda_device):
+    """The autograd Function on the card against autograd through the
+    plain oracle, f32."""
+    case = (2, 4, 2, 256, 64, None, None)
+    q, k, v, do = _flash_inputs(case, torch.float32, cuda_device)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(tops.flash_attention_vjp(*leaves, 0.125), leaves,
+                              do)
+    want = torch.autograd.grad(tref.flash_attention_ref(*leaves, scale=0.125),
+                               leaves, do)
+    for g, w in zip(got, want):
+        assert _of_max(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_flash_engine_step_matches_cpu(cuda_device):
+    """The smoke llama step with ``AttnCfg.flash`` and a head dim the
+    kernels take (32) on the card against the same step on the CPU, f32;
+    one forward and one backward launch per layer (the fused backward)."""
+    import dataclasses
+
+    from repro_torch import pex
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.models import registry
+    from repro_torch.nn.param import tree_flatten, tree_map
+
+    spec = registry.get("llama3.2-1b")
+    cfg = spec.smoke()
+    cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+        cfg.attn, head_dim=32, flash=True))
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = registry.make_train_batch(spec, cfg, ShapeSpec("t", "train", 128,
+                                                           3), 0,
+                                      device="cpu")
+    loss_fn = registry.make_loss_fn_v2(spec, cfg)
+    eng = pex.Engine(pex.PexSpec())
+    want = eng.step(loss_fn, params, batch, [pex.Norms(), pex.Grads()])
+    tops.reset_launch_counts()
+    got = eng.step(loss_fn, tree_map(lambda x: x.to(cuda_device), params),
+                   {k: v.to(cuda_device) for k, v in batch.items()},
+                   [pex.Norms(), pex.Grads()])
+    counts = tops.launch_counts()
+    assert {k: counts[k] for k in ("flash_attention", "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv")} == \
+        dict.fromkeys(("flash_attention", "flash_attention_bwd_dq",
+                       "flash_attention_bwd_dkv"), cfg.n_layers)
+    torch.testing.assert_close(got.sq_norms.cpu(), want.sq_norms, rtol=1e-4,
+                               atol=0.0)
+    for g, w in zip(tree_flatten(got.grads)[0], tree_flatten(want.grads)[0]):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))

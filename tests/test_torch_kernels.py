@@ -70,10 +70,15 @@ def test_cpu_wrappers_launch_nothing():
     counters count CUDA launches only."""
     h, z = _pair((2, 16, 24, 40), 3)
     h, z = torch.from_numpy(h), torch.from_numpy(z)
+    q, k = h[:, None, :, :16], z[:, None, :, :16]      # (B, 1, S, 16)
     tops.reset_launch_counts()
     tops.gram_norm(h, z)
     tops.direct_norm(h, z)
-    assert tops.launch_counts() == {"gram_norm": 0, "direct_norm": 0}
+    o, lse = tops.flash_attention(q, k, k, scale=0.25, return_lse=True)
+    tops.flash_attention_bwd(q, k, k, o, lse, o, scale=0.25)
+    assert tops.launch_counts() == {
+        "gram_norm": 0, "direct_norm": 0, "flash_attention": 0,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 
 @pytest.mark.parametrize("fn", ["gram_norm", "direct_norm"])
