@@ -28,7 +28,24 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               parameters, batches and noise seed: the attention runs
               through the flash kernels, whose launches per pass are
               counted; step 0's loss against phase 5's;
-7. table    — each kernel's time, plain time and bound at the main path's
+7. moe-exact — phi3.5-moe at full width, 2 layers, f32, B=32, S=64 (16
+              dispatch groups; capacity drops may occur):
+              ``Engine.step([Norms(), Grads()])`` against the per-example
+              gradients of the batched loss (B ``autograd.grad`` calls over
+              one plain batched forward, since capacity dispatch couples
+              examples), and its summed gradient against the batch backward;
+8. moe      — the MoE path: phi3.5-moe at its published widths, 2 layers,
+              bf16, B=32, S=256, three DP-SGD steps ``[Norms, Clip, Noise,
+              GNS]`` each followed by AdamW, the launches of each pass
+              counted (3 ``segmented_norm`` launches per layer in the norms
+              backward, none in the reweighted one) and CUDA events around
+              every segmented launch;
+9. segmented — ``segmented_norm`` against its plain version in f32 and bf16
+              at the MoE path's gate/up (4096→6400) and down (6400→4096)
+              shapes with the segment ids of its first step, a ragged T and
+              p_out, all rows dropped, empty segments and one segment, each
+              run twice for bitwise-equal results;
+10. table   — each kernel's time, plain time and bound at its path's
               shapes, the gram kernel at the direct kernel's shapes (the LM
               head's, where the forced direct route is not the cheaper one,
               and wk/wv's), and the flash kernels beside PyTorch's
@@ -43,13 +60,16 @@ bytes over the HBM rate or the fewer operations of the two routes
 longer.
 
 The flash path's step time, peak memory and attention time are logged
-beside the main path's from the same call. TF32 is off for matmuls and
-cuDNN throughout, so the f32 plain versions are full f32. The last line of standard output is
-``{"ok": true, "device": {...}}``; the line before it is the kernel table as
-JSON, and the line before that the ``nvidia-smi`` reading.
+beside the main path's from the same call, and the MoE path's step time,
+peak memory and segmented kernel time per step after them. TF32 is off
+for matmuls and cuDNN throughout, so the f32 plain versions are full f32.
+The last line of standard output is ``{"ok": true, "device": {...}}``; the
+line before it is the kernel table as JSON, and the line before that the
+``nvidia-smi`` reading.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -61,6 +81,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 B, S = 8, 512            # main path batch and sequence length
 EXACT_B, EXACT_S = 4, 256
+MOE_LAYERS = 2           # phi3.5-moe depth cut 32 → 2 (the reference's
+                         # own probe depth); widths as published
+MOE_B, MOE_S = 32, 256   # MoE path: ng=16 groups of bg=2, capacity 88
+MOE_EXACT_B, MOE_EXACT_S = 32, 64
 STEPS = 3
 PEAK_BYTES_PER_S = 3.35e12                      # H100 SXM HBM3
 PEAK_FLOPS = {"torch.bfloat16": 989e12,         # dense tensor-core bf16
@@ -90,6 +114,8 @@ SOURCES = {"gram_norm": ("src/repro_torch/csrc/gram_norm.cu",
                          "src/repro/kernels/gram_norm.py:297"),
            "direct_norm": ("src/repro_torch/csrc/direct_norm.cu",
                            "src/repro/kernels/direct_norm.py:141"),
+           "segmented_norm": ("src/repro_torch/csrc/segmented_norm.cu",
+                              "src/repro/kernels/segmented_norm.py:204"),
            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:182"),
            "flash_attention_bwd_dq": (
@@ -118,16 +144,21 @@ def rel_err(got, want):
 
 
 def layer_shapes(cfg):
-    """(p_in, p_out) of every tapped dense layer of one block."""
+    """(p_in, p_out) of every tapped dense layer of one block that the
+    gram/direct dispatch takes: attention, then the MLP or the MoE router
+    (the MoE experts go to ``segmented_norm``)."""
     a = cfg.attn
-    d, f = cfg.d_model, cfg.mlp.d_ff
+    d = cfg.d_model
     hq, hkv = a.n_heads_p * a.head_dim, a.n_kv * a.head_dim
-    return [(d, hq), (d, hkv), (d, hkv), (hq, d), (d, f), (d, f), (f, d)]
+    attn = [(d, hq), (d, hkv), (d, hkv), (hq, d)]
+    if cfg.moe is not None:
+        return attn + [(d, cfg.moe.n_experts)]
+    f = cfg.mlp.d_ff
+    return attn + [(d, f), (d, f), (f, d)]
 
 
 def with_flash(cfg):
     """``cfg`` with ``AttnCfg.flash`` set."""
-    import dataclasses
     return dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn,
                                                              flash=True))
 
@@ -146,15 +177,19 @@ def main_path_launches(cfg, s):
     return out
 
 
-def pass_launches(expected, cfg, flash):
+def pass_launches(expected, cfg):
     """Launches of every counted kernel in the tapped forward, the norms
     backward and the reweighted backward of one step: the norm kernels in
-    the norms backward only; with ``flash``, one forward launch per layer
+    the norms backward only (with MoE, three segmented launches per layer:
+    gate, up, down); with ``AttnCfg.flash``, one forward launch per layer
     in the forward and one dQ and one dK/dV launch per layer in each
     backward."""
     from repro_torch.kernels import ops
+    flash = cfg.attn.flash
     zero = dict.fromkeys(ops.launch_counts(), 0)
     norms = {k: sum(v.values()) for k, v in expected.items()}
+    if cfg.moe is not None:
+        norms["segmented_norm"] = 3 * cfg.n_layers
     bwd = ({"flash_attention_bwd_dq": cfg.n_layers,
             "flash_attention_bwd_dkv": cfg.n_layers} if flash else {})
     return ({**zero, "flash_attention": cfg.n_layers if flash else 0},
@@ -427,9 +462,11 @@ def phase_exact(spec, registry, pex):
                                  f"{flash}): {worst}")
 
 
-def phase_main(spec, registry, pex, expected, flash=False):
-    """The main path (``flash=False``, phase 5) or the flash path (phase
-    6): three DP-SGD steps. Returns a dict of what the run read."""
+def phase_main(spec, registry, pex, cfg, shape, tag, expected, kernels):
+    """A DP-SGD path: three steps of ``cfg`` at ``shape`` = (B, S): the
+    main path (phase 5), the flash path (phase 6) or the MoE path (phase
+    8). ``kernels`` are the counted kernels the path must launch. Returns
+    a dict of what the run read."""
     import torch
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.core import plan as plan_mod
@@ -437,13 +474,12 @@ def phase_main(spec, registry, pex, expected, flash=False):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gram_norm as gn
     from repro_torch.kernels import ops
+    from repro_torch.kernels import segmented_norm as sn
     from repro_torch.nn import attention as attn_mod
     from repro_torch.optim import adamw
 
-    tag = "flash" if flash else "main"
-    cfg = spec.full(dtype="bfloat16")
-    if flash:
-        cfg = with_flash(cfg)
+    b, s = shape
+    flash = cfg.attn.flash
     mod = registry.family_module(spec)
     params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     loss_fn = registry.make_loss_fn_v2(spec, cfg)
@@ -451,23 +487,25 @@ def phase_main(spec, registry, pex, expected, flash=False):
     opt = adamw.init(params)
     noise_gen = torch.Generator(device="cuda").manual_seed(1)
     eng = pex.Engine(pex.PexSpec())
-    want_fwd, want_norms, want_grads = pass_launches(expected, cfg, flash)
-    log(f"[{tag}] expected launches per step (pick_method at S={S}): "
-        f"forward {want_fwd}; norms backward {want_norms}; reweighted "
-        f"backward {want_grads}")
+    want_fwd, want_norms, want_grads = pass_launches(expected, cfg)
+    log(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, B={b} "
+        f"S={s}; expected launches per step (pick_method at S={s}): forward "
+        f"{want_fwd}; norms backward {want_norms}; reweighted backward "
+        f"{want_grads}")
     batches = [registry.make_train_batch(
-        spec, cfg, ShapeSpec("main", "train", S, B), rng_seed=i)
+        spec, cfg, ShapeSpec(tag, "train", s, b), rng_seed=i)
         for i in range(STEPS)]
 
     # observe the real path: launches in the forward and per backward pass,
     # each kernel's device time from CUDA events around its launch
     # function, and the attention core's from events around it
-    kernels = NORM_KERNELS + (FLASH_KERNELS if flash else ())
     passes = []
     events = {k: [] for k in kernels}
+    seg_calls = []        # per step: (seg_ids, n_seg, T, p_in, p_out, dtype)
     orig_grad = plan_mod._grad
     kfns = {"gram_norm": (gn, "gram_norm"),
             "direct_norm": (dn, "direct_norm"),
+            "segmented_norm": (sn, "segmented_norm"),
             "flash_attention": (fa, "flash_attention_fwd"),
             "flash_attention_bwd_dq": (fa, "flash_attention_bwd_dq"),
             "flash_attention_bwd_dkv": (fa, "flash_attention_bwd_dkv")}
@@ -490,6 +528,10 @@ def phase_main(spec, registry, pex, expected, flash=False):
         fn = orig_fns[name]
 
         def wrapper(*a, **kw):
+            if name == "segmented_norm":
+                h, z, seg_ids, n_seg = a
+                seg_calls[-1].append((seg_ids, n_seg, h.shape[0], h.shape[1],
+                                      z.shape[1], h.dtype))
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -510,6 +552,7 @@ def phase_main(spec, registry, pex, expected, flash=False):
         for i, batch in enumerate(batches):
             passes.clear()
             attn.clear()
+            seg_calls.append([])
             for v in events.values():
                 v.clear()
             torch.cuda.synchronize()
@@ -556,6 +599,7 @@ def phase_main(spec, registry, pex, expected, flash=False):
                 raise AssertionError(f"step {i}: the reweighted backward "
                                      f"launched {grads_pass}, expected "
                                      f"{want_grads}")
+            del res
         launches = ops.launch_counts()
     finally:
         plan_mod._grad = orig_grad
@@ -573,7 +617,212 @@ def phase_main(spec, registry, pex, expected, flash=False):
         f"launched what it should")
     log(f"[{tag}] peak memory {peak:.2f} GiB (since the phase began)")
     return {"launches": launches, "kern_ms": kern_ms, "step_ms": step_ms,
-            "attn_ms": attn_ms, "losses": losses, "peak_gib": peak}
+            "attn_ms": attn_ms, "losses": losses, "peak_gib": peak,
+            "seg_calls": seg_calls}
+
+
+def phase_moe_exact(spec, registry, pex):
+    """phi3.5-moe at full width in f32: Engine norms against per-example
+    gradients of the batched loss. Capacity dispatch couples the examples
+    of a group (which tokens get a slot), so the oracle is example j's
+    gradient of ONE batched forward with every other example present, not
+    a forward of example j alone."""
+    import torch
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segmented_norm as sn
+    from repro_torch.nn.param import tree_flatten, tree_unflatten
+
+    cfg = dataclasses.replace(spec.full(dtype="float32"), n_layers=MOE_LAYERS)
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = registry.make_train_batch(
+        spec, cfg, ShapeSpec("moe-exact", "train", MOE_EXACT_S, MOE_EXACT_B),
+        rng_seed=0)
+    loss_fn = registry.make_loss_fn_v2(spec, cfg)
+    kept = []             # (valid slots, n_seg) of each segmented launch
+    launch = sn.segmented_norm
+
+    def recorded(h, z, seg_ids, n_seg):
+        kept.append((int(((seg_ids >= 0) & (seg_ids < n_seg)).sum()), n_seg))
+        return launch(h, z, seg_ids, n_seg)
+
+    sn.segmented_norm = recorded
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = pex.Engine(pex.PexSpec()).step(loss_fn, params, batch,
+                                             [pex.Norms(), pex.Grads()])
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+    finally:
+        sn.segmented_norm = launch
+    assignments = MOE_EXACT_B * MOE_EXACT_S * cfg.moe.top_k
+    log(f"[moe-exact] Engine.step([Norms, Grads]) f32 {cfg.n_layers} layers "
+        f"B={MOE_EXACT_B} S={MOE_EXACT_S}: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call); launches "
+        f"{n}; slots kept per segmented launch {[k for k, _ in kept]} of "
+        f"{assignments} token-expert assignments "
+        f"({assignments - min(k for k, _ in kept)} dropped at most), "
+        f"{kept[0][1]} composite segments")
+    if n["segmented_norm"] != 3 * cfg.n_layers:
+        raise AssertionError(f"moe-exact: {n['segmented_norm']} segmented "
+                             f"launches, expected {3 * cfg.n_layers}")
+
+    leaves, treedef = tree_flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    p = tree_unflatten(treedef, leaves)
+    lv = loss_fn(p, batch, pex.NULL)[0]
+    oracle = []
+    for j in range(MOE_EXACT_B):
+        gs = torch.autograd.grad(lv[j], leaves, retain_graph=True)
+        oracle.append(sum(torch.sum(torch.square(g)) for g in gs))
+        del gs
+    oracle = torch.stack(oracle)
+    gs = torch.autograd.grad(lv.sum(), leaves)
+    norms = res.sq_norms.sum(-1)
+    r = rel_err(norms, oracle)
+    log(f"[moe-exact] per-example sq norms: oracle {oracle.tolist()}")
+    log(f"[moe-exact] per-example sq norms: engine {norms.tolist()}")
+    log(f"[moe-exact] norms max rel err {r:.2e} (tol 1e-3: f32, summation "
+        f"order of the kernels vs cuBLAS)")
+    if not r < 1e-3:
+        raise AssertionError(f"phi3.5-moe norms disagree with the batched-"
+                             f"graph oracle: {r}")
+    worst = 0.0
+    for g_eng, g in zip(tree_flatten(res.grads)[0], gs):
+        worst = max(worst, ((g_eng - g).norm() / g.norm()).item())
+    log(f"[moe-exact] summed grads vs plain batch backward: max rel "
+        f"(Frobenius) err over {len(gs)} leaves {worst:.2e} (tol 1e-4: f32)")
+    if not worst < 1e-4:
+        raise AssertionError(f"phi3.5-moe summed gradients disagree: {worst}")
+
+
+def seg_inputs(t, p_in, p_out, dt, gen):
+    import torch
+    return (torch.randn(t, p_in, generator=gen, device="cuda").to(dt),
+            torch.randn(t, p_out, generator=gen, device="cuda").to(dt))
+
+
+def phase_seg_kernels(seg_calls, errs):
+    """``segmented_norm`` against its plain version: at the MoE path's
+    gate/up and down shapes with the segment ids of its first step
+    (random inputs), and at the edge cases; each twice, for bitwise-equal
+    results. Returns the two path cases for the table."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segmented_norm import segmented_norm_ref
+
+    first = {(pi, po): (seg, n_seg) for seg, n_seg, _, pi, po, _
+             in reversed(seg_calls[0])}
+    path = [(seg.shape[0], pi, po, seg, n_seg)
+            for (pi, po), (seg, n_seg) in sorted(first.items())]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def ids(t, n, drop):
+        seg = torch.randint(0, n, (t,), generator=gen, device="cuda")
+        off = torch.rand(t, generator=gen, device="cuda") < drop
+        return torch.where(off, n + 3, seg)
+
+    edge = [("ragged T and p_out", 777, 256, 333, ids(777, 20, 0.2), 20),
+            ("all rows dropped", 500, 128, 64,
+             torch.full((500,), 9, device="cuda"), 4),
+            ("empty segments", 600, 200, 136, 2 * ids(600, 15, 0.1), 30),
+            ("one segment", 3000, 512, 384,
+             torch.zeros(3000, dtype=torch.long, device="cuda"), 1)]
+    cases = [(f"path {pi}->{po}", t, pi, po, seg, n)
+             for t, pi, po, seg, n in path] + edge
+    for dt in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dt)]
+        for name, t, pi, po, seg, n in cases:
+            h, z = seg_inputs(t, pi, po, dt, gen)
+            got = ops.segmented_norm(h, z, seg, n)
+            again = ops.segmented_norm(h, z, seg, n)
+            want = segmented_norm_ref(h, z, seg, n)
+            torch.cuda.synchronize()
+            full = want > 0
+            r = rel_err(got[full], want[full]) if bool(full.any()) else 0.0
+            if not (r <= tol and bool((got[~full] == 0).all())):
+                raise AssertionError(
+                    f"segmented_norm disagrees with its plain version at "
+                    f"{name} (T={t}, {pi}->{po}, {n} segments) {dt}: rel err "
+                    f"{r} > {tol}, or an empty segment is not 0")
+            if not torch.equal(got, again):
+                raise AssertionError(f"segmented_norm not bitwise "
+                                     f"reproducible at {name} {dt}")
+            if dt == torch.bfloat16 and name.startswith("path"):
+                errs["segmented_norm"] = max(
+                    errs.get("segmented_norm", 0.0),
+                    (got - want).abs().max().item())
+            log(f"[segmented] {str(dt)[6:]} {name}: T={t} {pi}->{po}, {n} "
+                f"segments ({int(full.sum())} non-empty, "
+                f"{int(((seg >= 0) & (seg < n)).sum())} rows kept): rel "
+                f"{r:.2e} (tol {tol}); empty segments 0; bitwise equal on a "
+                f"second run")
+            del h, z
+    return path
+
+
+def seg_bound_ms(calls):
+    """The least time the card could take for the segmented launches of one
+    step: per launch, the larger of its input bytes (h and z̄ in their
+    dtype, the int64 ids) and its output over the HBM rate, and its
+    operations on the rows it keeps over the bf16 tensor-core peak."""
+    from repro_torch.kernels import segmented_norm as sn
+    total, by = 0.0, {}
+    for seg, n_seg, t, pi, po, dt in calls:
+        n_valid = int(((seg >= 0) & (seg < n_seg)).sum())
+        item = 2 if str(dt) == "torch.bfloat16" else 4
+        nbytes = sn.bytes_estimate(t, pi, po, item) + 8 * t + 4 * n_seg
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = sn.flop_estimate(n_valid, pi, po) / PEAK_FLOPS[str(dt)] * 1e3
+        total += max(t_bytes, t_ops)
+        key = "bytes" if t_bytes >= t_ops else "operations"
+        by[key] = by.get(key, 0.0) + max(t_bytes, t_ops)
+    return total, max(by, key=by.get)
+
+
+def seg_table(path, errs, run):
+    """The segmented kernel's row: its time per MoE step (events), the plain
+    version's and the bound from this run's launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segmented_norm import segmented_norm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dt = torch.bfloat16
+    per_step = {}        # (p_in, p_out) → launches per step
+    for _, _, _, pi, po, _ in run["seg_calls"][0]:
+        per_step[(pi, po)] = per_step.get((pi, po), 0) + 1
+    plain_ms = 0.0
+    for t, pi, po, seg, n in path:
+        h, z = seg_inputs(t, pi, po, dt, gen)
+        ms = time_ms(lambda: ops.segmented_norm(h, z, seg, n), 10)
+        p_ms = time_ms(lambda: segmented_norm_ref(h, z, seg, n), 1)
+        b_ms, by = seg_bound_ms([(seg, n, t, pi, po, dt)])
+        log(f"[table] segmented_norm bf16 T={t} {pi}->{po}, {n} segments "
+            f"x{per_step[(pi, po)]}/step: kernel {ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / ms:.1%} of "
+            f"bound")
+        plain_ms += per_step[(pi, po)] * p_ms
+        del h, z
+    steady = run["seg_calls"][1:] or run["seg_calls"][:1]
+    bounds = [seg_bound_ms(c) for c in steady]
+    kms = [m["segmented_norm"] for m in run["kern_ms"][1:]] \
+        or [run["kern_ms"][0]["segmented_norm"]]
+    ms, bound = sum(kms) / len(kms), sum(b for b, _ in bounds) / len(bounds)
+    log(f"[table] segmented_norm on the MoE path: {ms:.3f} ms per steady "
+        f"step (events), bound {bound:.4f} ms per step from its launches' "
+        f"kept rows, {bound / ms:.1%} of bound")
+    return {"name": "segmented_norm", "route": "cuda",
+            "source": SOURCES["segmented_norm"][0],
+            "replaces": SOURCES["segmented_norm"][1],
+            "launches": run["launches"]["segmented_norm"],
+            "max_abs_err": errs["segmented_norm"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bounds[0][1], "library_ms": None,
+            "per": f"phi3.5-moe step, {MOE_LAYERS} layers, B={MOE_B} "
+                   f"S={MOE_S} bf16"}
 
 
 def phase_table(expected, errs, launches, kern_ms):
@@ -733,9 +982,11 @@ def main() -> int:
     phase_exact(spec, registry, pex)
     torch.cuda.empty_cache()
     expected = main_path_launches(cfg, S)
-    main_run = phase_main(spec, registry, pex, expected)
+    main_run = phase_main(spec, registry, pex, cfg, (B, S), "main",
+                          expected, NORM_KERNELS)
     torch.cuda.empty_cache()
-    flash_run = phase_main(spec, registry, pex, expected, flash=True)
+    flash_run = phase_main(spec, registry, pex, with_flash(cfg), (B, S),
+                           "flash", expected, NORM_KERNELS + FLASH_KERNELS)
     torch.cuda.empty_cache()
     d_loss = abs(flash_run["losses"][0] - main_run["losses"][0]) \
         / abs(main_run["losses"][0])
@@ -755,11 +1006,28 @@ def main() -> int:
             f"{[round(a + b, 3) for a, b in r['attn_ms'][1:]]}; flash "
             f"kernel ms per steady step {[round(x, 3) for x in fl]}; peak "
             f"memory {r['peak_gib']:.2f} GiB")
+    moe_spec = registry.get("phi3.5-moe")
+    phase_moe_exact(moe_spec, registry, pex)
+    torch.cuda.empty_cache()
+    moe_cfg = dataclasses.replace(moe_spec.full(), n_layers=MOE_LAYERS)
+    moe_run = phase_main(moe_spec, registry, pex, moe_cfg, (MOE_B, MOE_S),
+                         "moe", main_path_launches(moe_cfg, MOE_S),
+                         NORM_KERNELS + ("segmented_norm",))
+    torch.cuda.empty_cache()
+    log(f"[compare] moe: steady step ms {moe_run['step_ms'][1:]}; segmented "
+        f"kernel ms per steady step "
+        f"{[round(m['segmented_norm'], 3) for m in moe_run['kern_ms'][1:]]};"
+        f" attention core fwd+bwd ms per steady step "
+        f"{[round(a + b, 3) for a, b in moe_run['attn_ms'][1:]]}; peak "
+        f"memory {moe_run['peak_gib']:.2f} GiB")
+    path = phase_seg_kernels(moe_run["seg_calls"], errs)
     rows = phase_table(expected, errs, main_run["launches"],
                        main_run["kern_ms"])
+    rows.append(seg_table(path, errs, moe_run))
     rows += flash_table(errs, flash_run["launches"], flash_run["kern_ms"])
     log(f"[table] kernels: {', '.join(r['name'] for r in rows)}; main step "
-        f"ms {main_run['step_ms']}; flash step ms {flash_run['step_ms']}")
+        f"ms {main_run['step_ms']}; flash step ms {flash_run['step_ms']}; "
+        f"moe step ms {moe_run['step_ms']}")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

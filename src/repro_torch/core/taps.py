@@ -22,11 +22,15 @@ Layers call ``z = tap.dense(h, w, group="mlp")`` and never see the
 accumulator. A tap with ``spec.enabled=False`` or no accumulator is inert:
 every op is its plain counterpart (``NULL`` is the shared inert tap).
 
-Not in this slice: ``TokenLayout`` (token granularity), ``dense_batched``,
-the MoE expert ops, the provenance table for the static analyzer, and
-``scan`` / ``checkpoint`` (the port runs layers in a Python loop without
-recompute). ``dist.sharding.shard`` constraints are dropped: they are
-identities off a TPU mesh.
+The MoE expert ops (``dense_expert``, ``dense_expert_grouped``) take their
+stat from the segmented estimator over (group, expert, example) composite
+segments, all groups in one launch.
+
+Not in this slice: ``TokenLayout`` (token granularity, and with it the
+expert ops' slot → token table ``tok``), ``dense_batched``, the provenance
+table for the static analyzer, and ``scan`` / ``checkpoint`` (the port
+runs layers in a Python loop without recompute). ``dist.sharding.shard``
+constraints are dropped: they are identities off a TPU mesh.
 """
 from __future__ import annotations
 
@@ -50,7 +54,11 @@ class PexSpec:
                  gram and direct kernels for CUDA tensors (their plain
                  versions for CPU tensors). Off ⇒ the plain estimators of
                  ``core.norms`` on any device. Replaces the reference's
-                 ``use_pallas``.
+                 ``use_pallas``; the expert taps consult it too.
+    seg_method:  'auto' | 'xla' | 'kernel' for the MoE expert taps'
+                 segmented stat. 'auto' (default) takes the segmented
+                 kernel route under ``use_kernels``; the explicit values
+                 pin a route ('xla' is the oracle the tests pin).
     groups:      acc column names; per-group norms (e.g. attn/mlp/embed).
                  ``"all"`` / ``"other"`` act as catch-all columns; an op
                  tapping a group not in ``groups`` (and with no catch-all
@@ -61,6 +69,7 @@ class PexSpec:
     enabled: bool = True
     method: str = "auto"
     use_kernels: bool = True
+    seg_method: str = "auto"
     groups: Tuple[str, ...] = ("all",)
     tap_embeddings: bool = True
     tap_head: bool = True
@@ -142,6 +151,40 @@ class ExampleLayout:
         stat = N.stat_embedding(ids.reshape(ids.shape[0], -1),
                                 zbar.reshape(zbar.shape[0], -1,
                                              zbar.shape[-1]))
+        return self.add_example_stat(acc_bar, stat, group)
+
+    def add_expert(self, acc_bar, x, zbar, seg, group, method, use_kernels):
+        """MoE expert-buffer stat: x (E,C,d), zbar (E,C,f), seg (E,C)
+        example ids (≥ batch ⇒ padding row): the grouped stat with one
+        group of the whole batch."""
+        return self.add_expert_grouped(acc_bar, x[None], zbar[None],
+                                       seg[None], group, acc_bar.shape[0],
+                                       method, use_kernels)
+
+    def add_expert_grouped(self, acc_bar, x, zbar, seg, group, bg, method,
+                           use_kernels):
+        """Grouped (GShard-local) expert stat: x (G,E,C,d), zbar
+        (G,E,C,f), seg (G,E,C) GROUP-LOCAL example ids (≥ bg ⇒ padding
+        row); group g's stats land at acc rows [g·bg, (g+1)·bg).
+
+        Example j's gradient for expert e is its own d×f block of the
+        stacked weight, and an example's rows live only in its group, so
+        each (group, expert, example) triple is one segment; all groups go
+        to the segmented estimator as ONE flattened call (one kernel
+        launch). Padding rows go to the drop bucket: the reference's
+        (bg+1)-th composite per (group, expert), which only collected them
+        to be thrown away, is not formed."""
+        ng, e, c, d = x.shape
+        n_seg = ng * e * bg
+        ge = (torch.arange(ng, device=seg.device)[:, None, None] * e
+              + torch.arange(e, device=seg.device)[None, :, None])
+        composite = torch.where((seg >= 0) & (seg < bg), ge * bg + seg,
+                                n_seg)
+        stat = N.stat_direct_segmented(
+            x.reshape(ng * e * c, d), zbar.reshape(ng * e * c, -1),
+            composite.reshape(-1), n_seg, method=method,
+            use_kernels=use_kernels)
+        stat = stat.reshape(ng, e, bg).sum(dim=1).reshape(ng * bg)
         return self.add_example_stat(acc_bar, stat, group)
 
 
@@ -261,6 +304,33 @@ class _Embed(torch.autograd.Function):
         return dtable, None, dacc, None, None, None
 
 
+class _DenseExpert(torch.autograd.Function):
+    """z = einsum('gecd,edf->gecf', x, w): the grouped MoE expert matmul
+    over the (G, E, C) capacity buffer; seg (G,E,C) holds each row's
+    group-local example id (≥ bg ⇒ padding row)."""
+
+    @staticmethod
+    def forward(ctx, x, w, seg, acc, mode, layout, group, bg, method,
+                use_kernels):
+        ctx.save_for_backward(x, w, seg)
+        ctx.cfg = (mode, layout, group, bg, method, use_kernels)
+        return torch.einsum("gecd,edf->gecf", x, w), acc.clone()
+
+    @staticmethod
+    def backward(ctx, zbar, acc_bar):
+        x, w, seg = ctx.saved_tensors
+        mode, layout, group, bg, method, use_kernels = ctx.cfg
+        dx = dw = dacc = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.einsum("gecf,edf->gecd", zbar, w).to(x.dtype)
+        if mode.grads and ctx.needs_input_grad[1]:
+            dw = torch.einsum("gecd,gecf->edf", x, zbar).to(w.dtype)
+        if mode.norms:
+            dacc = layout.add_expert_grouped(acc_bar, x, zbar, seg, group,
+                                             bg, method, use_kernels)
+        return dx, dw, None, dacc, None, None, None, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # the collector
 # ---------------------------------------------------------------------------
@@ -345,6 +415,28 @@ class Tap:
                                     self.layout,
                                     self.spec.group_index(group))
         return z
+
+    def dense_expert_grouped(self, x, w, seg, bg: int, *,
+                             group: str = "moe") -> torch.Tensor:
+        """Grouped instrumented expert matmul. x (G,E,C,d), w (E,d,f),
+        seg (G,E,C) group-local example ids (≥ bg ⇒ padding row, excluded
+        from the stats)."""
+        if not self.live:
+            return torch.einsum("gecd,edf->gecf", x, w)
+        z, self._acc = _DenseExpert.apply(
+            x, w, seg, self._acc, self.mode, self.layout,
+            self.spec.group_index(group), bg, self.spec.seg_method,
+            self.spec.use_kernels)
+        return z
+
+    def dense_expert(self, x, w, seg, *, group: str = "moe") -> torch.Tensor:
+        """Instrumented per-expert matmul. x (E,C,d), w (E,d,f), seg (E,C)
+        example ids (≥ batch ⇒ padding row): the grouped op with one group
+        of the whole batch."""
+        if not self.live:
+            return torch.einsum("ecd,edf->ecf", x, w)
+        return self.dense_expert_grouped(x[None], w, seg[None],
+                                         self._acc.shape[0], group=group)[0]
 
 
 #: Shared inert tap: every op is its plain counterpart.

@@ -57,6 +57,9 @@ _SIGNATURES = {
     "direct_norm_blocks": (_I, _I),
     "direct_norm_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _P),
+    "segmented_norm_tiles": (_I, _I),
+    "segmented_norm_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _L, _L, _P),
     "flash_attention_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _F, _I, _LP, _P),
     "flash_attention_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I,

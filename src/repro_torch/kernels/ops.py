@@ -1,24 +1,28 @@
 """Public wrappers around the CUDA kernels — what ``core.norms`` and
 ``nn.attention`` call.
 
-Port of the ``gram_norm`` / ``direct_norm`` wrappers and the flash
-attention ops (``flash_attention_vjp``) of ``src/repro/kernels/ops.py``.
+Port of the ``gram_norm`` / ``direct_norm`` / ``segmented_norm`` wrappers
+and the flash attention ops (``flash_attention_vjp``) of
+``src/repro/kernels/ops.py``.
 Each wrapper takes the plain PyTorch version for tensors on the CPU (the
 tests' device) and launches its CUDA kernel for tensors on a CUDA device;
 any other device raises. There is no fallback from the CUDA path to the
 plain version: a kernel that fails to build or launch raises.
 
 Each wrapper carries a plain integer launch counter (``gram_norm.launches``,
-``direct_norm.launches``, ``flash_attention.launches``,
+``direct_norm.launches``, ``segmented_norm.launches``,
+``flash_attention.launches``,
 ``flash_attention_bwd.dq_launches`` and ``.dkv_launches``) that it raises by
 one where it launches its kernel, and nowhere else, so a run can show which
 kernels its main path went through. An empty input to a norm wrapper (a
 zero batch, sequence or feature extent) has the norm 0 and launches
 nothing, so it is answered here and not counted.
 
-Not carried over: the TPU wrappers' 128-lane padding (``_launch_tiles``)
-and the ``gram_cost``/``direct_cost`` prices of padded TPU tiles; the
-port's dispatch uses the logical flop model in ``core.norms``.
+Not carried over: the TPU wrappers' 128-lane padding (``_launch_tiles``,
+``_seg_launch_tiles``), the segmented kernel's run tables (``_run_tables``)
+and the ``gram_cost``/``direct_cost``/``segmented_cost`` prices of padded
+TPU tiles; the port's dispatch uses the logical flop model in
+``core.norms``.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro_torch.kernels import direct_norm as _dn
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gram_norm as _gn
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import segmented_norm as _sn
 
 
 def _on_cpu(what: str, *tensors: torch.Tensor) -> bool:
@@ -88,6 +93,27 @@ def direct_norm(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
 
 
 direct_norm.launches = 0
+
+
+def segmented_norm(h: torch.Tensor, zbar: torch.Tensor,
+                   seg_ids: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """(T,p_in),(T,p_out),(T,) int → (n_seg,) f32 ||Σ_{t:seg=j} h_t z̄_tᵀ||².
+
+    Rows whose id lies outside ``[0, n_seg)`` (capacity padding, dropped
+    tokens) are discarded and an empty segment reads 0. ``n_seg <= 0``
+    gives an empty vector and an empty input zeros, without a launch."""
+    on_cpu = _on_cpu("segmented_norm", h, zbar, seg_ids)
+    if n_seg < 1 or _empty(h, zbar):
+        return torch.zeros((max(n_seg, 0),), dtype=torch.float32,
+                           device=h.device)
+    if on_cpu:
+        return _sn.segmented_norm_ref(h, zbar, seg_ids, n_seg)
+    out = _sn.segmented_norm(h, zbar, seg_ids, n_seg)
+    segmented_norm.launches += 1
+    return out
+
+
+segmented_norm.launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -160,6 +186,7 @@ def reset_launch_counts() -> None:
     """Set every wrapper's launch counter to 0."""
     gram_norm.launches = 0
     direct_norm.launches = 0
+    segmented_norm.launches = 0
     flash_attention.launches = 0
     flash_attention_bwd.dq_launches = 0
     flash_attention_bwd.dkv_launches = 0
@@ -169,6 +196,7 @@ def launch_counts() -> dict:
     """{kernel name: launches since the last reset}."""
     return {"gram_norm": gram_norm.launches,
             "direct_norm": direct_norm.launches,
+            "segmented_norm": segmented_norm.launches,
             "flash_attention": flash_attention.launches,
             "flash_attention_bwd_dq": flash_attention_bwd.dq_launches,
             "flash_attention_bwd_dkv": flash_attention_bwd.dkv_launches}

@@ -1,9 +1,10 @@
 """Arch registry: ``get(arch_id)`` resolves here.
 
-Port of the subset of ``src/repro/models/registry.py`` this slice needs:
-``get``, ``family_module``, ``make_loss_fn_v2`` and ``make_train_batch``.
-Only llama3.2-1b is registered; the other configs and families, serving
-and the input-spec builders of the dry run come in later slices.
+Port of the subset of ``src/repro/models/registry.py`` the port needs so
+far: ``get``, ``family_module``, ``make_loss_fn_v2`` and
+``make_train_batch``. llama3.2-1b and phi3.5-moe are registered; the other
+configs and families, serving and the input-spec builders of the dry run
+come in later slices.
 """
 from __future__ import annotations
 
@@ -12,12 +13,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs import llama3_2_1b
+from repro_torch.configs import llama3_2_1b, phi35_moe
 from repro_torch.configs.common import ArchSpec, ShapeSpec
 from repro_torch.models import transformer
 from repro_torch.nn.param import resolve_device
 
-ARCHS: Dict[str, ArchSpec] = {s.arch_id: s for s in [llama3_2_1b.SPEC]}
+ARCHS: Dict[str, ArchSpec] = {s.arch_id: s for s in [llama3_2_1b.SPEC,
+                                                      phi35_moe.SPEC]}
 
 _FAMILIES = {"transformer": transformer}
 

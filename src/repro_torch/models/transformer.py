@@ -1,6 +1,7 @@
-"""Decoder-only LM, dense GQA stack (the llama family).
+"""Decoder-only LM, GQA stack with a dense or MoE FFN (llama3.2-1b,
+phi3.5-moe).
 
-Port of ``src/repro/models/transformer.py`` for the dense GQA case. The
+Port of ``src/repro/models/transformer.py`` for the GQA family. The
 reference stacks the layers and runs them under ``lax.scan`` with
 ``jax.checkpoint``; the port keeps one parameter dict per layer in
 ``params["blocks"]`` (a list) and runs them in a Python loop without
@@ -8,12 +9,14 @@ recompute — at llama3.2-1b width, B=8 and S=512 the saved activations fit
 an 80 GB card with room to spare. ``interop`` converts between the
 reference's stacked layout and this one.
 
-Not in this slice: MoE, MLA, LoRA, dense prefixes, gemma's norms and
-softcaps, vision inputs, ``init_caches`` and ``forward_tokens`` (serving).
+Each block's FFN is ``mlp`` or, when the config has ``moe``, ``nn.moe``.
+Not in this slice: MLA, LoRA, dense prefixes, gemma's norms and softcaps,
+vision inputs, ``init_caches`` and ``forward_tokens`` (serving).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -23,6 +26,7 @@ from repro_torch.nn.attention import AttnCfg, attention, init_attention
 from repro_torch.nn.embedding import (VocabCfg, embed, init_embedding,
                                       init_lm_head, lm_head, per_example_xent)
 from repro_torch.nn.mlp import MlpCfg, init_mlp, mlp
+from repro_torch.nn.moe import MoeCfg, init_moe, moe
 from repro_torch.nn.norms import init_rmsnorm, rmsnorm
 
 
@@ -33,7 +37,8 @@ class LMConfig:
     d_model: int
     vocab: int
     attn: AttnCfg
-    mlp: MlpCfg
+    mlp: Optional[MlpCfg] = None          # dense FFN
+    moe: Optional[MoeCfg] = None          # MoE FFN (takes precedence)
     rms_eps: float = 1e-6
     dtype: str = "float32"
 
@@ -48,12 +53,16 @@ class LMConfig:
 
 def _init_block(gen, cfg: LMConfig, device):
     kw = dict(dtype=cfg.torch_dtype, device=device)
-    return {
+    p = {
         "ln_attn": init_rmsnorm(cfg.d_model, **kw),
         "attn": init_attention(gen, cfg.attn, **kw),
         "ln_mlp": init_rmsnorm(cfg.d_model, **kw),
-        "mlp": init_mlp(gen, cfg.mlp, **kw),
     }
+    if cfg.moe is None:
+        p["mlp"] = init_mlp(gen, cfg.mlp, **kw)
+    else:
+        p["moe"] = init_moe(gen, cfg.moe, **kw)
+    return p
 
 
 def init(cfg: LMConfig, generator: torch.Generator, device=None):
@@ -75,6 +84,8 @@ def _block(p, x, tap: Tap, cfg: LMConfig):
     h = rmsnorm(p["ln_attn"], x, tap=tap, eps=cfg.rms_eps)
     x = x + attention(p["attn"], h, tap=tap, cfg=cfg.attn)
     h = rmsnorm(p["ln_mlp"], x, tap=tap, eps=cfg.rms_eps)
+    if "moe" in p:
+        return x + moe(p["moe"], h, tap=tap, cfg=cfg.moe)
     return x + mlp(p["mlp"], h, tap=tap, cfg=cfg.mlp)
 
 

@@ -1,0 +1,158 @@
+"""Mixture-of-Experts with capacity-based dispatch (GShard-style).
+
+Port of ``src/repro/nn/moe.py``. Token→expert routing is computed with a
+sort (no (T·K, E) one-hot): a stable argsort by expert id gives each token
+its slot rank inside its expert; rows past the static capacity drop out.
+Dispatch and combine are batched gathers over the group axis. Per-example
+gradient norms stay exact through the shuffle: every capacity slot carries
+its group-local example id, and the expert matmuls go through the expert
+taps (``tap.dense_expert_grouped``), whose stats are segmented-direct over
+(group, expert, example) segments.
+
+Covers phi3.5-moe (16 experts, top-2, renormalized gates) and the routed
+part of deepseek-v2 (with ``n_shared`` shared experts as one MLP). Not
+carried over: the ``shard`` constraints (identities off a TPU mesh), the
+slot → token table ``tok`` that token-granularity taps need (TokenLayout
+waits), and ``load_balance_loss`` (off the loss: it couples examples).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.taps import Tap
+from repro_torch.nn import param as pm
+from repro_torch.nn.linear import init_linear, linear
+from repro_torch.nn.mlp import MlpCfg, _act, init_mlp, mlp
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeCfg:
+    d_model: int
+    d_ff: int                    # per-expert hidden
+    n_experts: int
+    top_k: int
+    n_shared: int = 0            # shared experts (merged into one MLP)
+    capacity_factor: float = 1.25
+    act: str = "silu"
+    renorm_topk: bool = False    # phi/mixtral renormalize selected gates
+    routed_scale: float = 1.0    # deepseek routed_scaling_factor
+    # grouped local dispatch: each group of examples scatters its own
+    # tokens into its own capacity slice. 1 = one group of the whole batch.
+    dispatch_groups: int = 1
+
+    def capacity(self, n_tokens: int) -> int:
+        c = int(self.capacity_factor * n_tokens * self.top_k
+                / self.n_experts) + 1
+        return max(8, ((c + 7) // 8) * 8)
+
+
+def init_moe(gen: torch.Generator, cfg: MoeCfg, *, dtype, device):
+    """Router in f32 (std 0.02); stacked (E, d, f) gate/up and (E, f, d)
+    down expert weights with fan-in std."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {
+        "router": init_linear(gen, d, e, dtype=torch.float32, device=device,
+                              std=0.02),
+        "gate": pm.normal(gen, (e, d, f), dtype, device, std=d ** -0.5),
+        "up": pm.normal(gen, (e, d, f), dtype, device, std=d ** -0.5),
+        "down": pm.normal(gen, (e, f, d), dtype, device, std=f ** -0.5),
+    }
+    if cfg.n_shared:
+        p["shared"] = init_mlp(gen, MlpCfg(d, cfg.n_shared * f, act=cfg.act),
+                               dtype=dtype, device=device)
+    return p
+
+
+def _route(cfg: MoeCfg, logits: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (T, E) → (gates (T,K), expert idx (T,K))."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    if cfg.renorm_topk:
+        gates = gates / (torch.sum(gates, dim=-1, keepdim=True) + 1e-9)
+    return gates * cfg.routed_scale, idx
+
+
+def moe(p, x, *, tap: Tap, cfg: MoeCfg, group: str = "moe",
+        example_ids: Optional[torch.Tensor] = None):
+    """x: (B, S, d). example_ids: (B,) int (defaults to arange(B))."""
+    b, s, d = x.shape
+    t = b * s
+    k = cfg.top_k
+    ng = cfg.dispatch_groups if t % cfg.dispatch_groups == 0 and \
+        b % cfg.dispatch_groups == 0 else 1
+    tg = t // ng
+    cap = cfg.capacity(tg)
+    dev = x.device
+
+    # router tap sees (B, S, ·) so its per-example stats stay exact
+    logits = linear(p["router"], x.to(torch.float32), tap=tap, group=group)
+    gates, eidx = _route(cfg, logits.reshape(t, -1))        # (T,K)
+
+    if example_ids is None:
+        example_ids = torch.arange(b, device=dev)
+    bg = b // ng                                            # examples/group
+    tok_example = torch.repeat_interleave(example_ids, s)   # (T,)
+    rel_example = (tok_example % bg).reshape(ng, tg)        # group-local ids
+
+    # --- slot assignment via per-group sort --------------------------------
+    e_dim = cfg.n_experts
+    flat_e = eidx.reshape(ng, tg * k)
+    flat_tok = torch.arange(tg, device=dev).repeat_interleave(k) \
+        .expand(ng, tg * k)
+    flat_gate = gates.reshape(ng, tg * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(e_dim + 1, device=dev).expand(ng, e_dim + 1)
+        .contiguous())                                       # (G, E+1)
+    pos = torch.arange(tg * k, device=dev) - torch.gather(starts, 1, sorted_e)
+    src_tok = torch.gather(flat_tok, 1, order)               # (G, Tg·K)
+
+    # slot (e, c) ← token: sorted position starts[e]+c, valid if c < count_e
+    c_iota = torch.arange(cap, device=dev)
+    sorted_pos = starts[:, :-1, None] + c_iota               # (G, E, cap)
+    count = (starts[:, 1:] - starts[:, :-1])[..., None]      # (G, E, 1)
+    slot_valid = c_iota < torch.clamp(count, max=cap)
+    sorted_pos = torch.clamp(sorted_pos, max=tg * k - 1) \
+        .reshape(ng, e_dim * cap)
+    tok_for_slot = torch.gather(src_tok, 1, sorted_pos)
+    tok_for_slot = torch.where(slot_valid.reshape(ng, e_dim * cap),
+                               tok_for_slot, tg)             # tg ⇒ pad row
+
+    # --- dispatch: batched gather from zero-padded local tokens -------------
+    gi = torch.arange(ng, device=dev)[:, None]
+    xg_pad = torch.cat([x.reshape(ng, tg, d),
+                        torch.zeros((ng, 1, d), dtype=x.dtype, device=dev)],
+                       dim=1)
+    buf = xg_pad[gi, tok_for_slot].reshape(ng, e_dim, cap, d)
+    rel_pad = torch.cat([rel_example,
+                         torch.full((ng, 1), bg, device=dev,
+                                    dtype=rel_example.dtype)], dim=1)
+    seg = torch.gather(rel_pad, 1, tok_for_slot).reshape(ng, e_dim, cap)
+
+    # --- expert MLP (tapped; stats via group-local segmented-direct) --------
+    g = tap.dense_expert_grouped(buf, p["gate"], seg, bg, group=group)
+    u = tap.dense_expert_grouped(buf, p["up"], seg, bg, group=group)
+    h = (_act(cfg.act)(g) * u).to(x.dtype)
+    y_buf = tap.dense_expert_grouped(h, p["down"], seg, bg, group=group)
+
+    # --- combine: batched gather back (dropped slots → zero pad row) --------
+    slot_sorted = torch.where(pos < cap, sorted_e * cap + pos, e_dim * cap)
+    inv = torch.argsort(order, dim=1)
+    slot_orig = torch.gather(slot_sorted, 1, inv)            # (G, Tg·K)
+    y_flat = torch.cat([y_buf.reshape(ng, e_dim * cap, d),
+                        torch.zeros((ng, 1, d), dtype=y_buf.dtype,
+                                    device=dev)], dim=1)
+    slot_y = y_flat[gi, slot_orig]
+    contrib = slot_y * flat_gate[..., None].to(x.dtype)
+    y = torch.sum(contrib.reshape(t, k, d), dim=1).reshape(b, s, d)
+
+    if cfg.n_shared:
+        y = y + mlp(p["shared"], x, tap=tap,
+                    cfg=MlpCfg(d, cfg.n_shared * cfg.d_ff, act=cfg.act),
+                    group=group)
+    return y

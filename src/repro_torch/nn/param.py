@@ -82,20 +82,22 @@ def tree_flatten(tree):
     return [tree], None
 
 
+def _build(d, it):
+    if d is None:
+        return next(it)
+    kind, keys, defs = d
+    if kind == "dict":
+        return {k: _build(sub, it) for k, sub in zip(keys, defs)}
+    items = [_build(sub, it) for sub in defs]
+    return items if kind == "list" else tuple(items)
+
+
 def tree_unflatten(treedef, leaves):
-    """Inverse of :func:`tree_flatten`."""
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        kind, keys, defs = d
-        if kind == "dict":
-            return {k: build(sub) for k, sub in zip(keys, defs)}
-        items = [build(sub) for sub in defs]
-        return items if kind == "list" else tuple(items)
-
-    return build(treedef)
+    """Inverse of :func:`tree_flatten`. A module-level recursion: a nested
+    function that calls itself is a reference cycle, which would keep the
+    ``leaves`` iterator (and every leaf tensor) alive until the cyclic
+    garbage collector happens to run."""
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree):

@@ -279,3 +279,128 @@ def test_cuda_flash_engine_step_matches_cpu(cuda_device):
     for g, w in zip(tree_flatten(got.grads)[0], tree_flatten(want.grads)[0]):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
                                    atol=1e-4 * float(w.abs().max()))
+
+
+# (T, p_in, p_out, n_seg, drop fraction) of the segmented kernel checks:
+# ragged T and p (not multiples of a 128-wide tile or a 16/32-row chunk),
+# one segment, many small segments (the MoE path's ~32 rows each), and a
+# segment longer than many staged chunks
+SEG_CASES = [(7, 3, 5, 2, 0.2), (130, 12, 40, 9, 0.2), (100, 140, 36, 3, 0.5),
+             (33, 260, 7, 33, 0.2), (129, 64, 129, 1, 0.3),
+             (2200, 192, 200, 64, 0.25), (700, 130, 257, 1, 0.0)]
+
+
+def _seg_case(case, dtype, device, seed=8):
+    t, p_in, p_out, n, drop = case
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, n, size=(t,))
+    seg = np.where(rng.random(t) < drop, n + rng.integers(0, 5, size=(t,)),
+                   seg)
+    return (torch.from_numpy(rng.normal(size=(t, p_in)).astype(np.float32))
+            .to(device, dtype),
+            torch.from_numpy(rng.normal(size=(t, p_out)).astype(np.float32))
+            .to(device, dtype),
+            torch.from_numpy(seg).to(device), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_cuda_segmented_matches_plain(cuda_device, case, dtype):
+    """f32: 1e-4 relative (summation order); bf16: 5e-4 relative (bf16
+    products are exact in f32, accumulated in another order). An empty
+    segment is exactly 0; a second run gives the same bits."""
+    from repro_torch.kernels import segmented_norm as tsn
+    rtol = 1e-4 if dtype == "float32" else 5e-4
+    h, z, seg, n = _seg_case(case, getattr(torch, dtype), cuda_device)
+    want = tsn.segmented_norm_ref(h, z, seg, n)
+    tops.reset_launch_counts()
+    got = tops.segmented_norm(h, z, seg, n)
+    again = tops.segmented_norm(h, z, seg, n)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
+    assert torch.equal(got, again)
+    assert tops.launch_counts() == _counts(segmented_norm=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_segmented_edge_cases(cuda_device, dtype):
+    """All rows dropped, empty segments, one segment, and the zero extents
+    the wrapper answers without a launch."""
+    dt = getattr(torch, dtype)
+    h, z = (torch.ones(48, p, device=cuda_device, dtype=dt) for p in (8, 4))
+    got = tops.segmented_norm(h, z, torch.full((48,), 7, device=cuda_device),
+                              3)
+    assert torch.equal(got, torch.zeros(3, device=cuda_device))
+    seg = torch.full((48,), 2, device=cuda_device)
+    got = tops.segmented_norm(h, z, seg, 5)
+    assert got.tolist() == [0.0, 0.0, 48.0 ** 2 * 32, 0.0, 0.0]
+    got = tops.segmented_norm(h, z, torch.zeros(48, device=cuda_device,
+                                                  dtype=torch.long), 1)
+    assert got.tolist() == [48.0 ** 2 * 32]
+    tops.reset_launch_counts()
+    for t, pi, po, n in ((0, 8, 4, 2), (5, 0, 4, 2), (5, 8, 0, 2),
+                         (5, 8, 4, 0)):
+        got = tops.segmented_norm(
+            torch.zeros(t, pi, device=cuda_device, dtype=dt),
+            torch.zeros(t, po, device=cuda_device, dtype=dt),
+            torch.zeros(t, device=cuda_device, dtype=torch.long), n)
+        assert got.shape == (n,) and not bool(got.any())
+    assert tops.launch_counts() == _counts()
+
+
+@pytest.mark.cuda
+def test_cuda_segmented_strided_and_unaligned_rows(cuda_device):
+    """Rows of a wider tensor (row stride > p) go to the kernel as they
+    are; bf16 rows whose base is not 16-byte aligned take the element
+    staging path."""
+    from repro_torch.kernels import segmented_norm as tsn
+    h, z, seg, n = _seg_case((300, 41, 77, 12, 0.2), torch.float32,
+                             cuda_device)
+    want = tsn.segmented_norm_ref(h, z, seg, n)
+    hw = torch.zeros(300, 50, device=cuda_device)
+    hw[:, 3:44] = h
+    torch.testing.assert_close(tops.segmented_norm(hw[:, 3:44], z, seg, n),
+                               want, rtol=1e-4, atol=0.0)
+    hb, zb = h.to(torch.bfloat16), z.to(torch.bfloat16)
+    want = tsn.segmented_norm_ref(hb[:, 1:], zb[:, 1:], seg, n)
+    torch.testing.assert_close(tops.segmented_norm(hb[:, 1:], zb[:, 1:], seg,
+                                                   n), want, rtol=5e-4,
+                               atol=0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_engine_step_matches_cpu(cuda_device):
+    """The smoke phi3.5-moe step (two dispatch groups, capacity drops) on
+    the card against the same step on the CPU, f32; three segmented
+    launches per layer in the folded backward."""
+    import dataclasses
+
+    from repro_torch import pex
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.models import registry
+    from repro_torch.nn.param import tree_flatten, tree_map
+
+    spec = registry.get("phi3.5-moe")
+    cfg = spec.smoke()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch_groups=2, capacity_factor=0.5))
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = registry.make_train_batch(spec, cfg, ShapeSpec("t", "train", 40,
+                                                           4), 0,
+                                      device="cpu")
+    loss_fn = registry.make_loss_fn_v2(spec, cfg)
+    eng = pex.Engine(pex.PexSpec())
+    want = eng.step(loss_fn, params, batch, [pex.Norms(), pex.Grads()])
+    tops.reset_launch_counts()
+    got = eng.step(loss_fn, tree_map(lambda x: x.to(cuda_device), params),
+                   {k: v.to(cuda_device) for k, v in batch.items()},
+                   [pex.Norms(), pex.Grads()])
+    assert tops.launch_counts()["segmented_norm"] == 3 * cfg.n_layers
+    torch.testing.assert_close(got.sq_norms.cpu(), want.sq_norms, rtol=1e-4,
+                               atol=0.0)
+    for g, w in zip(tree_flatten(got.grads)[0], tree_flatten(want.grads)[0]):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))

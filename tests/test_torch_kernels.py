@@ -76,9 +76,11 @@ def test_cpu_wrappers_launch_nothing():
     tops.direct_norm(h, z)
     o, lse = tops.flash_attention(q, k, k, scale=0.25, return_lse=True)
     tops.flash_attention_bwd(q, k, k, o, lse, o, scale=0.25)
+    tops.segmented_norm(h[0], z[0], torch.arange(16) % 3, 2)
     assert tops.launch_counts() == {
-        "gram_norm": 0, "direct_norm": 0, "flash_attention": 0,
-        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+        "gram_norm": 0, "direct_norm": 0, "segmented_norm": 0,
+        "flash_attention": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0}
 
 
 @pytest.mark.parametrize("fn", ["gram_norm", "direct_norm"])
