@@ -56,8 +56,9 @@ Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
 card could take for the function, whichever route computes it: the input
 bytes over the HBM rate or the fewer operations of the two routes
-(``ops.flop_estimate``) over the bf16 tensor-core peak, whichever is
-longer.
+(``ops.flop_estimate``; per segment for ``segmented_norm``,
+``ops.segmented_flop_estimate``, over the rows this run keeps) over the
+bf16 tensor-core peak, whichever is longer.
 
 The flash path's step time, peak memory and attention time are logged
 beside the main path's from the same call, and the MoE path's step time,
@@ -765,21 +766,27 @@ def phase_seg_kernels(seg_calls, errs):
 
 def seg_bound_ms(calls):
     """The least time the card could take for the segmented launches of one
-    step: per launch, the larger of its input bytes (h and z̄ in their
-    dtype, the int64 ids) and its output over the HBM rate, and its
-    operations on the rows it keeps over the bf16 tensor-core peak."""
+    step: per launch, the larger of the bytes the function must move (the
+    kept rows of h and z̄, the ids, the output) over the HBM rate and the
+    fewest operations it needs on this data (per segment, the gram or the
+    direct form, ``ops.segmented_flop_estimate``) over the peak for its
+    type. Also returns the kernel's own operations (the direct form) over
+    the least, summed over the launches."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels import segmented_norm as sn
-    total, by = 0.0, {}
+    total, by, done, least = 0.0, {}, 0.0, 0.0
     for seg, n_seg, t, pi, po, dt in calls:
-        n_valid = int(((seg >= 0) & (seg < n_seg)).sum())
         item = 2 if str(dt) == "torch.bfloat16" else 4
-        nbytes = sn.bytes_estimate(t, pi, po, item) + 8 * t + 4 * n_seg
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = sn.flop_estimate(n_valid, pi, po) / PEAK_FLOPS[str(dt)] * 1e3
+        t_bytes = sn.bytes_estimate(seg, n_seg, pi, po, item) \
+            / PEAK_BYTES_PER_S * 1e3
+        flops = ops.segmented_flop_estimate(seg, n_seg, pi, po)
+        t_ops = flops / PEAK_FLOPS[str(dt)] * 1e3
         total += max(t_bytes, t_ops)
         key = "bytes" if t_bytes >= t_ops else "operations"
         by[key] = by.get(key, 0.0) + max(t_bytes, t_ops)
-    return total, max(by, key=by.get)
+        done += sn.flop_estimate(seg, n_seg, pi, po)
+        least += flops
+    return total, max(by, key=by.get), done / least
 
 
 def seg_table(path, errs, run):
@@ -799,21 +806,25 @@ def seg_table(path, errs, run):
         h, z = seg_inputs(t, pi, po, dt, gen)
         ms = time_ms(lambda: ops.segmented_norm(h, z, seg, n), 10)
         p_ms = time_ms(lambda: segmented_norm_ref(h, z, seg, n), 1)
-        b_ms, by = seg_bound_ms([(seg, n, t, pi, po, dt)])
+        b_ms, by, extra = seg_bound_ms([(seg, n, t, pi, po, dt)])
         log(f"[table] segmented_norm bf16 T={t} {pi}->{po}, {n} segments "
             f"x{per_step[(pi, po)]}/step: kernel {ms:.3f} ms, plain "
-            f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / ms:.1%} of "
-            f"bound")
+            f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / ms:.2%} of "
+            f"bound; the kernel's direct form does {extra:.1f}x the fewest "
+            f"operations the function needs here")
         plain_ms += per_step[(pi, po)] * p_ms
         del h, z
     steady = run["seg_calls"][1:] or run["seg_calls"][:1]
     bounds = [seg_bound_ms(c) for c in steady]
     kms = [m["segmented_norm"] for m in run["kern_ms"][1:]] \
         or [run["kern_ms"][0]["segmented_norm"]]
-    ms, bound = sum(kms) / len(kms), sum(b for b, _ in bounds) / len(bounds)
+    ms = sum(kms) / len(kms)
+    bound = sum(b for b, _, _ in bounds) / len(bounds)
     log(f"[table] segmented_norm on the MoE path: {ms:.3f} ms per steady "
         f"step (events), bound {bound:.4f} ms per step from its launches' "
-        f"kept rows, {bound / ms:.1%} of bound")
+        f"segments and kept rows ({bounds[0][1]}), {bound / ms:.2%} of "
+        f"bound; the kernel's direct form does "
+        f"{bounds[0][2]:.1f}x the fewest operations")
     return {"name": "segmented_norm", "route": "cuda",
             "source": SOURCES["segmented_norm"][0],
             "replaces": SOURCES["segmented_norm"][1],

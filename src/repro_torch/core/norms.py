@@ -23,16 +23,16 @@ The segmented estimator (``stat_direct_segmented``, the MoE expert taps'
 stat) has two routes: ``method="xla"``, the reference's scan/segment-sum
 formulation kept as the oracle, and ``method="kernel"`` through
 ``kernels.ops.segmented_norm`` (the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors). ``pick_segmented`` takes the kernel route
-whenever ``use_kernels`` is set. The reference's two-sided segmented cost
-model is not carried over: it weighted the XLA side by a TPU VPU factor
-(``XLA_SEGMENTED_VPU_WEIGHT``) and priced the kernel at padded TPU tiles,
-and neither describes the H100. ``segmented_cost`` and ``crossover_t``
-wait for a Hopper-priced model.
+plain version for CPU tensors). The expert taps take the kernel route
+whenever ``use_kernels`` is set, as the dense taps do. The reference's
+two-sided segmented cost model is not carried over: it weighted the XLA
+side by a TPU VPU factor (``XLA_SEGMENTED_VPU_WEIGHT``) and priced the
+kernel at padded TPU tiles, and neither describes the H100.
+``segmented_flops``, ``segmented_cost``, ``pick_segmented`` and
+``crossover_t`` wait for a Hopper-priced model.
 """
 from __future__ import annotations
 
-import math
 from typing import Literal
 
 import torch
@@ -115,30 +115,10 @@ def stat_dense(h: torch.Tensor, zbar: torch.Tensor, method: Method = "auto",
     raise ValueError(f"unknown method {method!r}")
 
 
-def segmented_flops(t: int, p_in: int, p_out: int, n_seg: int,
-                    token_block: int = 1024) -> float:
-    """Cost of the ``xla`` segmented formulation: outer products and the
-    segment-sum scatter over the token blocks, the dense
-    (n_seg, p_in, p_out) carry add per block, and the final
-    square-reduce."""
-    n_tb = max(1, math.ceil(t / token_block))
-    return float(2.0 * t * p_in * p_out
-                 + n_tb * n_seg * p_in * p_out
-                 + 2.0 * n_seg * p_in * p_out)
-
-
-def pick_segmented(use_kernels: bool) -> str:
-    """'kernel' | 'xla': the route of a segmented stat under
-    ``method="auto"``. The kernel route whenever kernels are on; no TPU
-    cost weights decide it."""
-    return "kernel" if use_kernels else "xla"
-
-
 def stat_direct_segmented(h: torch.Tensor, zbar: torch.Tensor,
                           seg_ids: torch.Tensor, n_examples: int,
                           chunk_in: int = 128, token_block: int = 1024,
-                          method: str = "auto",
-                          use_kernels: bool = True) -> torch.Tensor:
+                          method: str = "kernel") -> torch.Tensor:
     """Exact per-segment norms for token-major layers (MoE expert buffers).
 
     h: (T, p_in), zbar: (T, p_out), seg_ids: (T,) segment (example) id
@@ -146,10 +126,10 @@ def stat_direct_segmented(h: torch.Tensor, zbar: torch.Tensor,
     dropped tokens — are discarded. Computes
     s_j = ||Σ_{t: seg=j} h_t z̄_tᵀ||², FLOPs ≈ 2·T·p_in·p_out.
 
-    ``method``: ``"xla"`` is the reference's scan/segment-sum form below
-    (the oracle); ``"kernel"`` goes through ``kernels.ops.segmented_norm``;
-    ``"auto"`` asks :func:`pick_segmented`. ``n_examples < 1`` gives an
-    empty vector and ``T == 0`` zeros."""
+    ``method``: ``"kernel"`` goes through ``kernels.ops.segmented_norm``;
+    ``"xla"`` is the reference's scan/segment-sum form below (the
+    oracle). ``n_examples < 1`` gives an empty vector and ``T == 0``
+    zeros."""
     t, p_in = h.shape
     p_out = zbar.shape[-1]
     if n_examples < 1:
@@ -157,8 +137,6 @@ def stat_direct_segmented(h: torch.Tensor, zbar: torch.Tensor,
                            device=h.device)
     if t == 0:
         return torch.zeros((n_examples,), dtype=_ACC_DTYPE, device=h.device)
-    if method == "auto":
-        method = pick_segmented(use_kernels)
     if method == "kernel":
         return kops.segmented_norm(h, zbar, seg_ids, n_examples)
     if method != "xla":

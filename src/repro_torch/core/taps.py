@@ -54,11 +54,9 @@ class PexSpec:
                  gram and direct kernels for CUDA tensors (their plain
                  versions for CPU tensors). Off ⇒ the plain estimators of
                  ``core.norms`` on any device. Replaces the reference's
-                 ``use_pallas``; the expert taps consult it too.
-    seg_method:  'auto' | 'xla' | 'kernel' for the MoE expert taps'
-                 segmented stat. 'auto' (default) takes the segmented
-                 kernel route under ``use_kernels``; the explicit values
-                 pin a route ('xla' is the oracle the tests pin).
+                 ``use_pallas``. The expert taps take the same choice:
+                 the segmented kernel route under it, the scan/segment-sum
+                 oracle without it.
     groups:      acc column names; per-group norms (e.g. attn/mlp/embed).
                  ``"all"`` / ``"other"`` act as catch-all columns; an op
                  tapping a group not in ``groups`` (and with no catch-all
@@ -69,7 +67,6 @@ class PexSpec:
     enabled: bool = True
     method: str = "auto"
     use_kernels: bool = True
-    seg_method: str = "auto"
     groups: Tuple[str, ...] = ("all",)
     tap_embeddings: bool = True
     tap_head: bool = True
@@ -153,15 +150,15 @@ class ExampleLayout:
                                              zbar.shape[-1]))
         return self.add_example_stat(acc_bar, stat, group)
 
-    def add_expert(self, acc_bar, x, zbar, seg, group, method, use_kernels):
+    def add_expert(self, acc_bar, x, zbar, seg, group, use_kernels):
         """MoE expert-buffer stat: x (E,C,d), zbar (E,C,f), seg (E,C)
         example ids (≥ batch ⇒ padding row): the grouped stat with one
         group of the whole batch."""
         return self.add_expert_grouped(acc_bar, x[None], zbar[None],
                                        seg[None], group, acc_bar.shape[0],
-                                       method, use_kernels)
+                                       use_kernels)
 
-    def add_expert_grouped(self, acc_bar, x, zbar, seg, group, bg, method,
+    def add_expert_grouped(self, acc_bar, x, zbar, seg, group, bg,
                            use_kernels):
         """Grouped (GShard-local) expert stat: x (G,E,C,d), zbar
         (G,E,C,f), seg (G,E,C) GROUP-LOCAL example ids (≥ bg ⇒ padding
@@ -182,8 +179,8 @@ class ExampleLayout:
                                 n_seg)
         stat = N.stat_direct_segmented(
             x.reshape(ng * e * c, d), zbar.reshape(ng * e * c, -1),
-            composite.reshape(-1), n_seg, method=method,
-            use_kernels=use_kernels)
+            composite.reshape(-1), n_seg,
+            method="kernel" if use_kernels else "xla")
         stat = stat.reshape(ng, e, bg).sum(dim=1).reshape(ng * bg)
         return self.add_example_stat(acc_bar, stat, group)
 
@@ -310,16 +307,15 @@ class _DenseExpert(torch.autograd.Function):
     group-local example id (≥ bg ⇒ padding row)."""
 
     @staticmethod
-    def forward(ctx, x, w, seg, acc, mode, layout, group, bg, method,
-                use_kernels):
+    def forward(ctx, x, w, seg, acc, mode, layout, group, bg, use_kernels):
         ctx.save_for_backward(x, w, seg)
-        ctx.cfg = (mode, layout, group, bg, method, use_kernels)
+        ctx.cfg = (mode, layout, group, bg, use_kernels)
         return torch.einsum("gecd,edf->gecf", x, w), acc.clone()
 
     @staticmethod
     def backward(ctx, zbar, acc_bar):
         x, w, seg = ctx.saved_tensors
-        mode, layout, group, bg, method, use_kernels = ctx.cfg
+        mode, layout, group, bg, use_kernels = ctx.cfg
         dx = dw = dacc = None
         if ctx.needs_input_grad[0]:
             dx = torch.einsum("gecf,edf->gecd", zbar, w).to(x.dtype)
@@ -327,8 +323,8 @@ class _DenseExpert(torch.autograd.Function):
             dw = torch.einsum("gecd,gecf->edf", x, zbar).to(w.dtype)
         if mode.norms:
             dacc = layout.add_expert_grouped(acc_bar, x, zbar, seg, group,
-                                             bg, method, use_kernels)
-        return dx, dw, None, dacc, None, None, None, None, None, None
+                                             bg, use_kernels)
+        return dx, dw, None, dacc, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -425,8 +421,7 @@ class Tap:
             return torch.einsum("gecd,edf->gecf", x, w)
         z, self._acc = _DenseExpert.apply(
             x, w, seg, self._acc, self.mode, self.layout,
-            self.spec.group_index(group), bg, self.spec.seg_method,
-            self.spec.use_kernels)
+            self.spec.group_index(group), bg, self.spec.use_kernels)
         return z
 
     def dense_expert(self, x, w, seg, *, group: str = "moe") -> torch.Tensor:

@@ -12,12 +12,20 @@
 // [offsets[j], offsets[j + 1]). Rows of the drop bucket (capacity padding)
 // sort after offsets[n_seg] and are never read. out (n_seg,) f32.
 //
-// What bounds it on the H100: operations. The work is 2 * n_valid * P_in *
-// P_out against (P_in + P_out) input elements per row: at the MoE gate
-// projection (4096 -> 6400) in bf16 that is ~2,500 flops per input byte,
-// far above the card's ~295 flops/byte balance point. What must never reach device
-// memory is the per-segment gradient G_j (n_seg * P_in * P_out f32: 54 GB
-// at the gate shape with 512 segments).
+// What bounds this kernel on the H100: operations. It computes the direct
+// form, 2 * n_valid * P_in * P_out against (P_in + P_out) input elements
+// per row: at the MoE gate projection (4096 -> 6400) in bf16 that is
+// ~2,500 flops per input byte, far above the card's ~295 flops/byte
+// balance point. The function itself needs far less: a segment of n rows
+// also equals sum_{r,r'} <h_r,h_r'> <zbar_r,zbar_r'>, 2 * n^2 * (P_in +
+// P_out + 1) operations, and over the MoE path's segments (~28 kept rows
+// each on average) that gram form is ~57x less arithmetic than the direct
+// form (chip_smoke.py's table phase), which leaves the function bound by
+// the bytes of the kept rows. A gram-form body (two
+// n x n Grams per segment, as gram_norm.cu does per example) is later
+// work. What must never reach device memory is the per-segment gradient
+// G_j (n_seg * P_in * P_out f32: 54 GB at the gate shape with 512
+// segments).
 //
 // Design: the reference's streaming order. One block per (128-wide P_in
 // tile, 128-wide P_out tile) walks the segments in order and sweeps each

@@ -63,6 +63,18 @@ def flop_estimate(b: int, s: int, p_in: int, p_out: int) -> float:
                _dn.flop_estimate(b, s, p_in, p_out))
 
 
+def segmented_flop_estimate(seg_ids: torch.Tensor, n_seg: int, p_in: int,
+                            p_out: int) -> float:
+    """The fewest operations ||Σ_{t:seg=j} h_t z̄_tᵀ||²_F needs on this
+    data: each segment of n kept rows is a (1, n, p) problem of
+    :func:`flop_estimate`, and an empty one costs nothing. The segmented
+    kernel computes the direct form (``segmented_norm.flop_estimate``),
+    which at a few dozen rows per segment is far more than the gram
+    form."""
+    sizes = _sn.segment_sizes(seg_ids, n_seg).tolist()
+    return float(sum(flop_estimate(1, n, p_in, p_out) for n in sizes if n))
+
+
 def gram_norm(h: torch.Tensor, zbar: torch.Tensor, *,
               triangular: bool = True) -> torch.Tensor:
     """(B,S,p_in),(B,S,p_out) → (B,) f32 Σ_{t,t'}<h_t,h_t'><z̄_t,z̄_t'>.

@@ -75,14 +75,31 @@ def segmented_norm_ref(h: torch.Tensor, zbar: torch.Tensor,
     return out
 
 
-def flop_estimate(n_valid: int, p_in: int, p_out: int) -> float:
-    """The HᵀZ̄ contractions over the rows that are not dropped."""
-    return 2.0 * n_valid * p_in * p_out
+def segment_sizes(seg_ids: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """(n_seg,) int64: the rows each segment keeps (dropped rows count in
+    none)."""
+    return torch.bincount(drop_bucket(seg_ids, n_seg),
+                          minlength=n_seg + 1)[:n_seg]
 
 
-def bytes_estimate(t: int, p_in: int, p_out: int, itemsize: int) -> float:
-    """h and z̄ read once."""
-    return float(t) * (p_in + p_out) * itemsize
+def flop_estimate(seg_ids: torch.Tensor, n_seg: int, p_in: int,
+                  p_out: int) -> float:
+    """Operations this kernel does on the data: per non-empty segment of n
+    rows, the direct form H_jᵀZ̄_j (2·n·p_in·p_out) and its square-and-sum
+    (2·p_in·p_out). ``kernels.ops.segmented_flop_estimate`` gives the
+    fewest the function needs."""
+    n = segment_sizes(seg_ids, n_seg).double()
+    return float(torch.sum(torch.where(
+        n > 0, 2.0 * n * p_in * p_out + 2.0 * p_in * p_out, 0.0)))
+
+
+def bytes_estimate(seg_ids: torch.Tensor, n_seg: int, p_in: int, p_out: int,
+                   itemsize: int) -> float:
+    """The kept rows of h and z̄ read once (dropped rows are never read),
+    the T segment ids read once and the n_seg f32 norms written once."""
+    n_valid = int(segment_sizes(seg_ids, n_seg).sum())
+    return float(n_valid * (p_in + p_out) * itemsize
+                 + seg_ids.numel() * seg_ids.element_size() + 4 * n_seg)
 
 
 def segmented_norm(h: torch.Tensor, zbar: torch.Tensor,

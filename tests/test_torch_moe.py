@@ -39,6 +39,8 @@ from repro_torch.core import norms as tN
 from repro_torch.core import passes
 from repro_torch.core import taps as tT
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.direct_norm import flop_estimate as tdn_est
+from repro_torch.kernels.gram_norm import flop_estimate as tgn_est
 from repro_torch.kernels import segmented_norm as tsn
 from repro_torch.models import registry
 from repro_torch.nn import moe as tmoe
@@ -198,18 +200,32 @@ def test_segmented_wrapper_rejects_other_devices():
 
 
 def test_segmented_work_estimates():
-    assert tsn.flop_estimate(10, 4096, 6400) == 2.0 * 10 * 4096 * 6400
-    assert tsn.bytes_estimate(22528, 4096, 6400, 2) == \
-        22528 * (4096 + 6400) * 2
+    """The kernel's own work is the direct form over the kept rows; the
+    bytes count the kept rows of h and z̄, the ids and the output, never
+    a dropped row."""
+    pi, po = 4096, 6400
+    seg = torch.tensor([0] * 27 + [2] * 5000 + [9] * 40 + [-1] * 3)
+    assert tsn.segment_sizes(seg, 3).tolist() == [27, 0, 5000]
+    assert tsn.flop_estimate(seg, 3, pi, po) == \
+        2.0 * (27 + 5000) * pi * po + 2 * 2.0 * pi * po
+    assert tsn.bytes_estimate(seg, 3, pi, po, 2) == \
+        5027 * (pi + po) * 2 + seg.numel() * 8 + 3 * 4
 
 
-def test_segmented_flops_and_pick():
-    for args in ((7, 3, 5, 2), (4096, 4096, 6400, 768), (1, 1, 1, 1)):
-        assert tN.segmented_flops(*args) == jN.segmented_flops(*args)
-        assert tN.segmented_flops(*args, token_block=32) == \
-            jN.segmented_flops(*args, token_block=32)
-    assert tN.pick_segmented(True) == "kernel"
-    assert tN.pick_segmented(False) == "xla"
+def test_segmented_least_work_takes_the_cheaper_form_per_segment():
+    """Each segment is priced at the fewer operations of the gram and the
+    direct form (``ops.flop_estimate`` on a one-example problem): the gram
+    form for a few dozen rows, the direct form for thousands; an empty
+    segment costs nothing."""
+    pi, po = 4096, 6400
+    seg = torch.tensor([0] * 27 + [2] * 5000 + [7] * 11)
+    gram = 2.0 * 27 * 27 * (pi + po + 1)
+    direct = 2.0 * 5000 * pi * po + 2.0 * pi * po
+    assert tgn_est(1, 27, pi, po) == gram < tdn_est(1, 27, pi, po)
+    assert tdn_est(1, 5000, pi, po) == direct < tgn_est(1, 5000, pi, po)
+    assert tops.segmented_flop_estimate(seg, 3, pi, po) == gram + direct
+    assert tops.segmented_flop_estimate(seg[:27], 3, pi, po) * 90 < \
+        tsn.flop_estimate(seg[:27], 3, pi, po)
 
 
 def test_grouped_composite_parity():
@@ -227,10 +243,10 @@ def test_grouped_composite_parity():
         jnp.asarray(acc), jnp.asarray(x), jnp.asarray(z), jnp.asarray(seg),
         None, 1, bg, m, m == "pallas")) for m in ("xla", "pallas")}
     np.testing.assert_allclose(want["pallas"], want["xla"], rtol=RTOL)
-    for m in ("xla", "kernel"):
+    for use_kernels in (False, True):
         got = tT.ExampleLayout(2).add_expert_grouped(
             torch.from_numpy(acc), torch.from_numpy(x), torch.from_numpy(z),
-            torch.from_numpy(seg).long(), 1, bg, m, True)
+            torch.from_numpy(seg).long(), 1, bg, use_kernels)
         _close(got, want["xla"])
 
 
@@ -279,12 +295,13 @@ def _expert_inputs(ng, e, c, d, f, bg, seed):
     return x, w, zbar, seg, acc_bar
 
 
-def _port_expert(x, w, zbar, seg, acc_bar, bg, seg_method, *, grouped=True):
+def _port_expert(x, w, zbar, seg, acc_bar, bg, use_kernels, *,
+                 grouped=True):
     x = torch.from_numpy(x).requires_grad_()
     w = torch.from_numpy(w).requires_grad_()
     acc = torch.zeros(acc_bar.shape, requires_grad=True)
     tap = tT.Tap(tT.PexSpec(groups=("attn", "moe", "all"),
-                            seg_method=seg_method), acc=acc)
+                            use_kernels=use_kernels), acc=acc)
     seg = torch.from_numpy(seg).long()
     z = tap.dense_expert_grouped(x, w, seg, bg) if grouped \
         else tap.dense_expert(x, w, seg)
@@ -293,16 +310,16 @@ def _port_expert(x, w, zbar, seg, acc_bar, bg, seg_method, *, grouped=True):
                                 torch.from_numpy(acc_bar)])
 
 
-@pytest.mark.parametrize("seg_method", ["xla", "kernel"])
+@pytest.mark.parametrize("use_kernels", [False, True], ids=["xla", "kernel"])
 @pytest.mark.parametrize("ng,bg", [(1, 3), (2, 2), (2, 3)])
-def test_dense_expert_grouped_bwd_matches_reference(ng, bg, seg_method):
+def test_dense_expert_grouped_bwd_matches_reference(ng, bg, use_kernels):
     """Group-local ids with padding rows (id ≥ bg) in every group."""
     x, w, zbar, seg, acc_bar = _expert_inputs(ng, 3, 7, 5, 4, bg, ng + bg)
     dx, dw, _, _, dacc = jT._pex_dense_expert_grouped_bwd(
         1, bg, "xla", False, jT.ExampleLayout(3),
         tuple(map(jnp.asarray, (x, w, seg, np.full_like(seg, -1)))),
         (jnp.asarray(zbar), jnp.asarray(acc_bar)))
-    tx, tw, tacc = _port_expert(x, w, zbar, seg, acc_bar, bg, seg_method)
+    tx, tw, tacc = _port_expert(x, w, zbar, seg, acc_bar, bg, use_kernels)
     _close(tx, dx)
     _close(tw, dw)
     _close(tacc, dacc)
@@ -314,7 +331,7 @@ def test_dense_expert_bwd_matches_reference():
     dx, dw, _, _, dacc = jT._pex_dense_expert_bwd(
         1, 4, "xla", False, jT.ExampleLayout(3), res,
         (jnp.asarray(zbar[0]), jnp.asarray(acc_bar)))
-    tx, tw, tacc = _port_expert(x[0], w, zbar[0], seg[0], acc_bar, 4, "auto",
+    tx, tw, tacc = _port_expert(x[0], w, zbar[0], seg[0], acc_bar, 4, True,
                                 grouped=False)
     _close(tx, dx)
     _close(tw, dw)
@@ -322,7 +339,7 @@ def test_dense_expert_bwd_matches_reference():
     layout = tT.ExampleLayout(3)
     _close(layout.add_expert(torch.from_numpy(acc_bar),
                              torch.from_numpy(x[0]), torch.from_numpy(zbar[0]),
-                             torch.from_numpy(seg[0]).long(), 1, "xla", True),
+                             torch.from_numpy(seg[0]).long(), 1, False),
            dacc)
 
 
@@ -441,8 +458,9 @@ def test_step_clip_noise_gns_match(setup, monkeypatch):
 def test_step_routes_and_counts(setup, monkeypatch):
     """Every expert tap's stat goes through ``ops.segmented_norm`` on the
     kernel route (3 per layer, the norms backward only, each one launch
-    over all ng·E·bg composite segments) and through none with
-    ``seg_method="xla"``; both give the same norms."""
+    over all ng·E·bg composite segments) and through none without
+    ``use_kernels`` (the scan/segment-sum oracle); both give the same
+    norms."""
     calls = []
     seg_norm = tops.segmented_norm
 
@@ -454,14 +472,15 @@ def test_step_routes_and_counts(setup, monkeypatch):
     m = setup["cfg"].moe
     n_seg = m.n_experts * B   # ng groups × E experts × B/ng examples
     res = {}
-    for seg_method, want in (("auto", [n_seg] * 3 * setup["cfg"].n_layers),
-                             ("xla", [])):
+    for use_kernels, want in ((True, [n_seg] * 3 * setup["cfg"].n_layers),
+                              (False, [])):
         calls.clear()
-        res[seg_method] = pex.Engine(pex.PexSpec(seg_method=seg_method)).step(
+        res[use_kernels] = pex.Engine(
+            pex.PexSpec(use_kernels=use_kernels)).step(
             setup["loss"], setup["params"], setup["batch"],
             [pex.Norms(), pex.Clip(1.0)])
-        assert calls == want, seg_method
-    _close(res["auto"].sq_norms, res["xla"].sq_norms.numpy())
+        assert calls == want, use_kernels
+    _close(res[True].sq_norms, res[False].sq_norms.numpy())
 
 
 def test_tree_unflatten_frees_its_leaves():
