@@ -45,12 +45,42 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               shapes with the segment ids of its first step, a ragged T and
               p_out, all rows dropped, empty segments and one segment, each
               run twice for bitwise-equal results;
-10. table   — each kernel's time, plain time and bound at its path's
+10. token-exact — llama3.2-1b at full width in f32,
+              ``Engine(granularity="token")``: the (B, S) norm map against
+              per-token stats summed in plain f32 from a recorded plain
+              forward and backward, and ``[Clip(C, granularity="token"),
+              Grads()]`` against the plain backward of Σ c_{j,t}·ℓ_{j,t}
+              with c held fixed;
+11. token   — the main path's model, parameters and batches (bf16, B=8,
+              S=512), three steps of ``[Clip(0.5, granularity="token"),
+              Grads()]`` each followed by AdamW: every per-token Σx² of
+              the norms backward is a ``rowsumsq`` launch (2 per dense
+              tap, 1 per scale tap, 1 for the embedding), the reweighted
+              backward launches none, and no norm kernel runs; CUDA
+              events around every ``rowsumsq`` launch;
+12. moe-token — one phi3.5-moe token-clipping step at phase 8's shapes:
+              the launches as in phase 11, every kept capacity slot's row
+              the row of the token its slot → token table names, and its
+              stat added at that token and nowhere else;
+13. onepass — paper §6's one-pass clipping in f32 against per-example
+              gradients from a loop of single-example backward passes: the
+              MLP form at B=256 (4096→4096→4096) and the sequence form at
+              B=8, S=512 with llama3.2-1b's MLP widths; one ``clip_scale``
+              launch per tapped layer;
+14. rows    — ``rowsumsq`` and ``clip_scale`` against their plain versions
+              in f32 and bf16 at every shape phases 11–13 gave them, a
+              ragged width, a non-contiguous (B, S) view, unaligned rows
+              and a single row, each twice for bitwise-equal results
+              (``clip_scale`` exactly equal, with c holding 0, 1 and values
+              below 1);
+15. table   — each kernel's time, plain time and bound at its path's
               shapes, the gram kernel at the direct kernel's shapes (the LM
               head's, where the forced direct route is not the cheaper one,
-              and wk/wv's), and the flash kernels beside PyTorch's
-              ``scaled_dot_product_attention`` (timed as a yardstick only;
-              the port never calls it).
+              and wk/wv's) and its full grid at its own, the flash kernels
+              beside PyTorch's ``scaled_dot_product_attention``, and
+              ``rowsumsq`` and ``clip_scale`` beside
+              ``torch.linalg.vector_norm`` and ``torch.mul`` (each library
+              call timed as a yardstick only; the port never calls it).
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -61,8 +91,10 @@ bytes over the HBM rate or the fewer operations of the two routes
 bf16 tensor-core peak, whichever is longer.
 
 The flash path's step time, peak memory and attention time are logged
-beside the main path's from the same call, and the MoE path's step time,
-peak memory and segmented kernel time per step after them. TF32 is off
+beside the main path's from the same call, the MoE path's step time,
+peak memory and segmented kernel time per step after them, then the token
+paths' step times, peak memory and ``rowsumsq`` time per step, and the
+whole run's seconds. TF32 is off
 for matmuls and cuDNN throughout, so the f32 plain versions are full f32.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the kernel table as JSON, and the line before that the
@@ -87,6 +119,7 @@ MOE_LAYERS = 2           # phi3.5-moe depth cut 32 → 2 (the reference's
 MOE_B, MOE_S = 32, 256   # MoE path: ng=16 groups of bg=2, capacity 88
 MOE_EXACT_B, MOE_EXACT_S = 32, 64
 STEPS = 3
+T0 = 0.0                 # perf_counter at the start of main()
 PEAK_BYTES_PER_S = 3.35e12                      # H100 SXM HBM3
 PEAK_FLOPS = {"torch.bfloat16": 989e12,         # dense tensor-core bf16
               "torch.float32": 67e12}           # f32 outside tensor cores
@@ -117,6 +150,12 @@ SOURCES = {"gram_norm": ("src/repro_torch/csrc/gram_norm.cu",
                            "src/repro/kernels/direct_norm.py:141"),
            "segmented_norm": ("src/repro_torch/csrc/segmented_norm.cu",
                               "src/repro/kernels/segmented_norm.py:204"),
+           "gram_norm_full": ("src/repro_torch/csrc/gram_norm.cu",
+                              "src/repro/kernels/gram_norm.py:254"),
+           "rowsumsq": ("src/repro_torch/csrc/rowsumsq.cu",
+                        "src/repro/kernels/rowsumsq.py:58"),
+           "clip_scale": ("src/repro_torch/csrc/clip_scale.cu",
+                          "src/repro/kernels/clip_scale.py:56"),
            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:182"),
            "flash_attention_bwd_dq": (
@@ -125,6 +164,13 @@ SOURCES = {"gram_norm": ("src/repro_torch/csrc/gram_norm.cu",
            "flash_attention_bwd_dkv": (
                "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention.py:361")}
+ROW_TOL = 1e-5                        # rowsumsq vs its plain version, both
+                                      # types, relative: f32 sums of the
+                                      # same squares in another order (bf16
+                                      # squares are exact in f32)
+TOKEN_TOL = 1e-4                      # token-exact and onepass, f32 vs
+                                      # plain autograd: summation order
+ONEPASS_B, ONEPASS_D = 256, 4096      # §6 MLP form: B, widths D→D→D
 NORM_KERNELS = ("gram_norm", "direct_norm")
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
@@ -197,6 +243,75 @@ def pass_launches(expected, cfg):
             {**zero, **norms, **bwd}, {**zero, **bwd})
 
 
+def token_pass_launches(cfg):
+    """Launches of every counted kernel in the tapped forward, the norms
+    backward and the reweighted backward of one token-clipping step: in the
+    norms backward one ``rowsumsq`` per operand of every per-token stat —
+    two per dense or expert tap (h and z̄), one per bias tap (z̄), one per
+    scale tap (h ⊙ z̄) and one for the embedding (z̄) — and nothing else;
+    nothing in the other two passes."""
+    from repro_torch.kernels import ops
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    dense = cfg.n_layers * len(layer_shapes(cfg)) + 1       # and the head
+    expert = 3 * cfg.n_layers if cfg.moe is not None else 0  # gate, up, down
+    bias = 3 * cfg.n_layers if cfg.attn.bias else 0         # wq, wk, wv
+    scale = 2 * cfg.n_layers + 1                             # and ln_f
+    n = 2 * (dense + expert) + bias + scale + 1              # and the embed
+    return dict(zero), {**zero, "rowsumsq": n}, dict(zero)
+
+
+class RecordingTap:
+    """A plain forward in which every op a live tap would instrument is its
+    untapped counterpart, recording the op's input and, through a tensor
+    hook, the cotangent of its output, and the per-token loss map: the
+    port's taps, layouts and kernels take no part in it."""
+    live = False
+
+    def __init__(self, spec):
+        self.spec = spec
+        self.ops = []
+        self.token_map = None
+
+    def _rec(self, kind, h, z):
+        rec = {"kind": kind, "h": h.detach()}
+        self.ops.append(rec)
+        z.register_hook(lambda g: rec.__setitem__("zbar", g.detach()))
+        return z
+
+    def dense(self, h, w, *, group="all", method=None):
+        return self._rec("dense", h, h @ w)
+
+    def bias_add(self, x, b, *, group="all"):
+        return self._rec("bias", x, x + b)
+
+    def scale(self, h, g, *, group="all"):
+        return self._rec("scale", h, h * g)
+
+    def embedding(self, table, ids, *, group="embed"):
+        return self._rec("embed", ids, table[ids])
+
+    def token_loss(self, token_losses):
+        self.token_map = token_losses
+        return token_losses
+
+    def token_stats(self):
+        """Each token's squared gradient norm summed over the recorded ops
+        in plain f32: ‖h_t‖²·‖z̄_t‖² for a dense op, ‖h_t ⊙ z̄_t‖² for a
+        scale, ‖z̄_t‖² for a bias or an embedding."""
+        import torch
+
+        def sq(x):
+            return torch.sum(torch.square(x.float()), dim=-1)
+        total = 0.0
+        for r in self.ops:
+            h, z = r["h"], r["zbar"]
+            total = total + {"dense": lambda: sq(h) * sq(z),
+                             "scale": lambda: sq(h.float() * z.float()),
+                             "bias": lambda: sq(z),
+                             "embed": lambda: sq(z)}[r["kind"]]()
+        return total
+
+
 class AttentionEvents:
     """CUDA events around the attention core of every layer: the forward
     call, and in each backward pass the span from the cotangent's arrival
@@ -260,6 +375,30 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+L2_BYTES = 50 * 2**20    # H100 L2 cache
+
+
+def device_ms(fn, inputs, reps):
+    """Mean device time of ``fn(x)`` over ``reps`` runs after one warm-up,
+    ``x`` cycling through ``inputs`` (copies enough to exceed twice the L2
+    cache, so each run reads its input from device memory as the path
+    does). The card is held busy (``torch.cuda._sleep``) while the host
+    queues the runs, so the events time the kernels back to back and not
+    the host's launch overhead, which exceeds a small kernel's own time."""
+    import torch
+    fn(inputs[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)     # ~25 ms at the H100's clocks
+    start.record()
+    for i in range(reps):
+        fn(inputs[i % len(inputs)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def phase_device():
     import torch
     name = torch.cuda.get_device_name(0)
@@ -318,9 +457,8 @@ def phase_kernels(cfg, errs):
                         f"{k} disagrees with its plain version at "
                         f"{(b, s, pi, po)} {dt}: rel err {r} > {tol}")
                 if dt == torch.bfloat16 and (b, s, pi, po) in main + cases[-1:]:
-                    base = k.replace("_full", "")
-                    errs[base] = max(errs.get(base, 0.0),
-                                     (v - want[k]).abs().max().item())
+                    errs[k] = max(errs.get(k, 0.0),
+                                  (v - want[k]).abs().max().item())
             r_tf = rel_err(got["gram_norm"], got["gram_norm_full"])
             line.append(f"tri-vs-full rel {r_tf:.2e}")
             if not r_tf <= tol:
@@ -463,11 +601,16 @@ def phase_exact(spec, registry, pex):
                                  f"{flash}): {worst}")
 
 
-def phase_main(spec, registry, pex, cfg, shape, tag, expected, kernels):
-    """A DP-SGD path: three steps of ``cfg`` at ``shape`` = (B, S): the
-    main path (phase 5), the flash path (phase 6) or the MoE path (phase
-    8). ``kernels`` are the counted kernels the path must launch. Returns
-    a dict of what the run read."""
+def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
+               token=False, steps=STEPS):
+    """A DP-SGD path: ``steps`` steps of ``cfg`` at ``shape`` = (B, S): the
+    main path (phase 5), the flash path (phase 6), the MoE path (phase 8)
+    or, with ``token``, a token-clipping path (phases 11 and 12:
+    ``Engine(granularity="token")``, ``[Clip(0.5, granularity="token"),
+    Grads()]``). ``want`` holds the launches each pass must make
+    (forward, norms backward, reweighted backward); ``kernels`` are the
+    counted kernels the path must launch. Returns a dict of what the run
+    read."""
     import torch
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.core import plan as plan_mod
@@ -475,6 +618,7 @@ def phase_main(spec, registry, pex, cfg, shape, tag, expected, kernels):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gram_norm as gn
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rowsumsq as rs
     from repro_torch.kernels import segmented_norm as sn
     from repro_torch.nn import attention as attn_mod
     from repro_torch.optim import adamw
@@ -487,15 +631,19 @@ def phase_main(spec, registry, pex, cfg, shape, tag, expected, kernels):
     opt_cfg = adamw.AdamWConfig()
     opt = adamw.init(params)
     noise_gen = torch.Generator(device="cuda").manual_seed(1)
-    eng = pex.Engine(pex.PexSpec())
-    want_fwd, want_norms, want_grads = pass_launches(expected, cfg)
+    eng = pex.Engine(pex.PexSpec(),
+                     granularity="token" if token else "example")
+    consumers = ([pex.Clip(0.5, granularity="token"), pex.Grads()] if token
+                 else [pex.Norms(), pex.Clip(1.0), pex.Noise(0.1, noise_gen),
+                       pex.GNS()])
+    want_fwd, want_norms, want_grads = want
     log(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, B={b} "
-        f"S={s}; expected launches per step (pick_method at S={s}): forward "
-        f"{want_fwd}; norms backward {want_norms}; reweighted backward "
-        f"{want_grads}")
+        f"S={s}, {'token' if token else 'example'} granularity; expected "
+        f"launches per step: forward {want_fwd}; norms backward "
+        f"{want_norms}; reweighted backward {want_grads}")
     batches = [registry.make_train_batch(
         spec, cfg, ShapeSpec(tag, "train", s, b), rng_seed=i)
-        for i in range(STEPS)]
+        for i in range(steps)]
 
     # observe the real path: launches in the forward and per backward pass,
     # each kernel's device time from CUDA events around its launch
@@ -503,10 +651,12 @@ def phase_main(spec, registry, pex, cfg, shape, tag, expected, kernels):
     passes = []
     events = {k: [] for k in kernels}
     seg_calls = []        # per step: (seg_ids, n_seg, T, p_in, p_out, dtype)
+    row_calls = []        # per step: (rows shape, dtype) of each rowsumsq
     orig_grad = plan_mod._grad
     kfns = {"gram_norm": (gn, "gram_norm"),
             "direct_norm": (dn, "direct_norm"),
             "segmented_norm": (sn, "segmented_norm"),
+            "rowsumsq": (rs, "rowsumsq"),
             "flash_attention": (fa, "flash_attention_fwd"),
             "flash_attention_bwd_dq": (fa, "flash_attention_bwd_dq"),
             "flash_attention_bwd_dkv": (fa, "flash_attention_bwd_dkv")}
@@ -533,6 +683,8 @@ def phase_main(spec, registry, pex, cfg, shape, tag, expected, kernels):
                 h, z, seg_ids, n_seg = a
                 seg_calls[-1].append((seg_ids, n_seg, h.shape[0], h.shape[1],
                                       z.shape[1], h.dtype))
+            if name == "rowsumsq":
+                row_calls[-1].append((tuple(a[0].shape), a[0].dtype))
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -554,14 +706,13 @@ def phase_main(spec, registry, pex, cfg, shape, tag, expected, kernels):
             passes.clear()
             attn.clear()
             seg_calls.append([])
+            row_calls.append([])
             for v in events.values():
                 v.clear()
             torch.cuda.synchronize()
             at_start = ops.launch_counts()
             t0 = time.perf_counter()
-            res = eng.step(loss_fn, params, batch,
-                           [pex.Norms(), pex.Clip(1.0),
-                            pex.Noise(0.1, noise_gen), pex.GNS()])
+            res = eng.step(loss_fn, params, batch, consumers)
             params, opt = adamw.update(opt_cfg, opt, params, res.grads)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -569,17 +720,31 @@ def phase_main(spec, registry, pex, cfg, shape, tag, expected, kernels):
                             for k, v in events.items()})
             attn_ms.append(attn.ms())
             losses.append(res.loss.item())
-            norms = res.sq_norms.sum(-1)
             cc = res.clip_coef
+            if token:
+                norms = res.sq_norms
+                if tuple(norms.shape) != (b, s):
+                    raise AssertionError(f"step {i}: token map of shape "
+                                         f"{tuple(norms.shape)}")
+                seen = (f"token sq norms mean {norms.mean().item():.4g}, "
+                        f"max {norms.max().item():.4g}; clip coef min "
+                        f"{cc.min().item():.4g}, "
+                        f"{(cc < 1).float().mean().item():.1%} of tokens "
+                        f"clipped")
+                finite = (("loss", res.loss), ("norms", norms))
+            else:
+                norms = res.sq_norms.sum(-1)
+                seen = (f"sq norms {norms.tolist()}; clip coef "
+                        f"{cc.tolist()}; gns {res.gns.item():.4g}")
+                finite = (("loss", res.loss), ("norms", norms),
+                          ("gns", res.gns))
             log(f"[{tag}] step {i}: {step_ms[-1]:.1f} ms; loss "
-                f"{losses[-1]:.4f}; sq norms {norms.tolist()}; clip "
-                f"coef {cc.tolist()}; gns {res.gns.item():.4g}; kernel ms "
+                f"{losses[-1]:.4f}; {seen}; kernel ms "
                 f"{ {k: round(v, 3) for k, v in kern_ms[-1].items()} }; "
                 f"attention core fwd/bwd ms {attn_ms[-1][0]:.3f}/"
                 f"{attn_ms[-1][1]:.3f}; launches per backward "
                 f"{[p[2] for p in passes]}")
-            for name, t in (("loss", res.loss), ("norms", norms),
-                            ("gns", res.gns)):
+            for name, t in finite:
                 if not bool(torch.isfinite(t).all()):
                     raise AssertionError(f"step {i}: {name} not finite")
             if not bool(((cc > 0) & (cc <= 1)).all()):
@@ -610,16 +775,16 @@ def phase_main(spec, registry, pex, cfg, shape, tag, expected, kernels):
     per_step = {k: want_fwd[k] + want_norms[k] + want_grads[k]
                 for k in launches}
     for k, n in launches.items():
-        if n != STEPS * per_step[k] or (k in kernels and n == 0):
+        if n != steps * per_step[k] or (k in kernels and n == 0):
             raise AssertionError(f"{k}: {n} launches on the {tag} path, "
-                                 f"expected {STEPS * per_step[k]}")
+                                 f"expected {steps * per_step[k]}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[{tag}] launches over {STEPS} steps: {launches}; every pass "
+    log(f"[{tag}] launches over {steps} steps: {launches}; every pass "
         f"launched what it should")
     log(f"[{tag}] peak memory {peak:.2f} GiB (since the phase began)")
     return {"launches": launches, "kern_ms": kern_ms, "step_ms": step_ms,
             "attn_ms": attn_ms, "losses": losses, "peak_gib": peak,
-            "seg_calls": seg_calls}
+            "seg_calls": seg_calls, "row_calls": row_calls}
 
 
 def phase_moe_exact(spec, registry, pex):
@@ -849,6 +1014,7 @@ def phase_table(expected, errs, launches, kern_ms):
     kern = {"gram_norm": (ops.gram_norm, gram_norm_ref),
             "direct_norm": (ops.direct_norm, direct_norm_ref)}
     rows = []
+    full_ms = 0.0        # the gram kernel's full grid at the gram shapes
     for name, shapes in expected.items():
         run, plain = kern[name]
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
@@ -875,6 +1041,13 @@ def phase_table(expected, errs, launches, kern_ms):
                 log(f"[table] gram_norm at the same shape (the route the "
                     f"main path does not take here): {gram_ms:.3f} ms, "
                     f"{bound / gram_ms:.1%} of bound")
+            else:
+                f_ms = time_ms(lambda: ops.gram_norm(h, z, triangular=False),
+                               reps)
+                full_ms += n * f_ms
+                log(f"[table] gram_norm full grid (triangular=False, not on "
+                    f"a path) at the same shape: {f_ms:.3f} ms, "
+                    f"{bound / f_ms:.1%} of bound")
             tot["ms"] += n * ms
             tot["plain_ms"] += n * plain_ms
             tot["bound_ms"] += n * bound
@@ -890,6 +1063,14 @@ def phase_table(expected, errs, launches, kern_ms):
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": max(bound_by, key=bound_by.get),
             "library_ms": None, "per": "main-path step, B=8 S=512 bf16"})
+        if name == "gram_norm":
+            rows.append({**rows[-1], "name": "gram_norm_full",
+                         "source": SOURCES["gram_norm_full"][0],
+                         "replaces": SOURCES["gram_norm_full"][1],
+                         "launches": 0, "max_abs_err": errs["gram_norm_full"],
+                         "ms": full_ms,
+                         "per": "main-path step if the gram launches ran the "
+                                "full grid (not on a path; by shape)"})
     return rows
 
 
@@ -971,7 +1152,432 @@ def flash_table(errs, launches, kern_ms):
     return rows
 
 
+def phase_token_exact(spec, registry, pex):
+    """llama3.2-1b at full width in f32, token granularity: the engine's
+    (B, S) map against per-token stats summed in plain f32 from a recorded
+    plain forward and backward (``RecordingTap``), and the token-clipped
+    gradient against the plain backward of Σ c_{j,t}·ℓ_{j,t} with c held
+    fixed."""
+    import torch
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.nn.param import tree_flatten, tree_unflatten
+
+    cfg = spec.full(dtype="float32")
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = registry.make_train_batch(
+        spec, cfg, ShapeSpec("token-exact", "train", EXACT_S, EXACT_B),
+        rng_seed=0)
+    loss_fn = registry.make_loss_fn_v2(spec, cfg)
+    eng = pex.Engine(pex.PexSpec(), granularity="token")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.step(loss_fn, params, batch, [pex.Norms()])
+    torch.cuda.synchronize()
+    n = ops.launch_counts()
+    log(f"[token-exact] Engine(granularity='token').step([Norms]) f32 "
+        f"B={EXACT_B} S={EXACT_S}: {(time.perf_counter() - t0) * 1e3:.1f} ms "
+        f"(first call); launches {n}")
+    if n != token_pass_launches(cfg)[1]:
+        raise AssertionError(f"token-exact: launches {n}, expected "
+                             f"{token_pass_launches(cfg)[1]}")
+
+    leaves, treedef = tree_flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    rec = RecordingTap(pex.PexSpec())
+    lv, _ = loss_fn(tree_unflatten(treedef, leaves), batch, rec)
+    torch.autograd.grad(lv.sum(), leaves, retain_graph=True)
+    want = rec.token_stats()
+    r = rel_err(res.sq_norms, want)
+    log(f"[token-exact] (B, S) map vs per-token stats of a recorded plain "
+        f"backward ({len(rec.ops)} ops): max rel err {r:.2e} (tol "
+        f"{TOKEN_TOL}: f32, summation order); map mean "
+        f"{want.mean().item():.4g}, min {want.min().item():.4g}, max "
+        f"{want.max().item():.4g}")
+    if not r <= TOKEN_TOL:
+        raise AssertionError(f"token map disagrees with the plain per-token "
+                             f"stats: {r}")
+
+    clip = float(torch.sqrt(want).median())
+    res = eng.step(loss_fn, params, batch,
+                   [pex.Clip(clip, granularity="token"), pex.Grads()])
+    c = res.clip_coef
+    gs = torch.autograd.grad(torch.sum(c.detach() * rec.token_map), leaves)
+    worst = 0.0
+    for g_eng, g in zip(tree_flatten(res.grads)[0], gs):
+        worst = max(worst, ((g_eng - g).norm() / g.norm()).item())
+    log(f"[token-exact] Clip({clip:.4g}, token) + Grads: "
+        f"{(c < 1).float().mean().item():.1%} of tokens clipped; grads vs "
+        f"the plain backward of Σ c·ℓ with c fixed: max rel (Frobenius) err "
+        f"over {len(gs)} leaves {worst:.2e} (tol {TOKEN_TOL}: f32)")
+    if not worst <= TOKEN_TOL:
+        raise AssertionError(f"token-clipped gradients disagree: {worst}")
+
+
+def phase_moe_token(spec, registry, pex, cfg):
+    """One phi3.5-moe token-clipping step at the moe phase's shapes, with two
+    checks that every kept capacity slot's stat lands at its token: in the
+    forward, the kept rows of each gate/up expert buffer equal the MoE
+    input's rows at the positions the slot → token table names; in the
+    norms backward, what each expert tap adds to the (B, S) map equals its
+    per-slot ‖x‖²·‖z̄‖², summed in plain f32 and added at those positions,
+    and is exactly 0 at every token that no kept slot names."""
+    import torch
+    from repro_torch.core import taps as taps_mod
+    from repro_torch.models import transformer
+
+    moe_in = []
+    seen = {"rows": 0, "gathers": 0, "scatters": 0, "worst": 0.0}
+    orig_moe = transformer.moe
+    orig_tap = taps_mod.Tap.dense_expert_grouped
+    orig_add = taps_mod.TokenLayout.add_expert_grouped
+
+    def kept(tok, bg, s):
+        tg = bg * s
+        valid = (tok >= 0) & (tok < tg)
+        glob = torch.arange(tok.shape[0], device=tok.device)[:, None, None] \
+            * tg + tok
+        return valid, glob
+
+    def moe_rec(p, x, **kw):
+        moe_in.append(x.detach())
+        return orig_moe(p, x, **kw)
+
+    def tap_rec(self, x, w, seg, bg, tok=None, **kw):
+        xin = moe_in[-1]
+        if x.shape[-1] == xin.shape[-1]:           # gate / up: the buffer
+            valid, glob = kept(tok, bg, xin.shape[1])
+            rows = xin.reshape(-1, xin.shape[-1])[glob[valid]]
+            if not torch.equal(x[valid], rows):
+                raise AssertionError("moe-token: a kept slot's row is not "
+                                     "its token's MoE input row")
+            seen["rows"] += int(valid.sum())
+            seen["gathers"] += 1
+        return orig_tap(self, x, w, seg, bg, tok, **kw)
+
+    def add_rec(self, acc_bar, x, zbar, seg, group, bg, use_kernels, *,
+                tok):
+        out = orig_add(self, acc_bar, x, zbar, seg, group, bg, use_kernels,
+                       tok=tok)
+        b, s = acc_bar.shape
+        valid, glob = kept(tok, bg, s)
+        stat = (torch.sum(torch.square(x.float()), dim=-1)
+                * torch.sum(torch.square(zbar.float()), dim=-1))
+        want = torch.zeros(b * s, device=x.device).index_add_(
+            0, glob[valid], stat[valid]).reshape(b, s)
+        hit = torch.zeros(b * s, dtype=torch.bool, device=x.device)
+        hit[glob[valid]] = True
+        hit = hit.reshape(b, s)
+        delta = out - acc_bar
+        if bool((delta[~hit] != 0).any()):
+            raise AssertionError("moe-token: a stat landed at a token that "
+                                 "no kept slot names")
+        # |out - acc_bar| carries the rounding of the sum: half an ulp of out
+        err = ((delta - want).abs() - 2.0 ** -23 * out.abs())[hit] \
+            / want[hit]
+        seen["worst"] = max(seen["worst"], float(err.max()))
+        seen["scatters"] += 1
+        return out
+
+    transformer.moe = moe_rec
+    taps_mod.Tap.dense_expert_grouped = tap_rec
+    taps_mod.TokenLayout.add_expert_grouped = add_rec
+    try:
+        run = phase_main(spec, registry, pex, cfg, (MOE_B, MOE_S),
+                         "moe-token", token_pass_launches(cfg), ("rowsumsq",),
+                         token=True, steps=1)
+    finally:
+        transformer.moe = orig_moe
+        taps_mod.Tap.dense_expert_grouped = orig_tap
+        taps_mod.TokenLayout.add_expert_grouped = orig_add
+    log(f"[moe-token] {seen['gathers']} gate/up buffers: {seen['rows']} kept "
+        f"slots hold their token's row; {seen['scatters']} expert-tap "
+        f"scatters: each adds its slots' stats at their tokens only, max "
+        f"rel err {seen['worst']:.2e} against plain f32 sums (tol "
+        f"{ROW_TOL})")
+    if seen["scatters"] != 3 * cfg.n_layers or not seen["worst"] <= ROW_TOL:
+        raise AssertionError(f"moe-token: {seen}")
+    return run
+
+
+def phase_onepass():
+    """Paper §6 one-pass clipping on the card in f32 against per-example
+    gradients from a loop of single-example backward passes (one loop for
+    the norms, which set C at their median, one for Σ_j c_j g_j): the MLP
+    form at B=256 (4096→4096→4096) and the sequence form at B=8, S=512 with
+    llama3.2-1b's MLP widths (2048→8192→2048), each run twice (the second
+    run's ``clip_scale`` launches are timed with CUDA events). One
+    ``clip_scale`` launch per tapped layer; the MLP form's norms from two
+    ``rowsumsq`` launches per layer, the sequence form's from the
+    gram/direct route."""
+    import torch
+    from repro_torch.core import clipping
+    from repro_torch.kernels import clip_scale as cs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rowsumsq as rs
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    run = {"scale_calls": [], "row_calls": [], "ms": 0.0, "launches": 0}
+    # scale_calls / row_calls: (shape, dtype) of each launch, both runs
+    orig = {"cs": cs.clip_scale, "rs": rs.rowsumsq}
+    events = []
+
+    def scale_timed(z, c):
+        run["scale_calls"].append((tuple(z.shape), z.dtype))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig["cs"](z, c)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    def rows_rec(x):
+        run["row_calls"].append((tuple(x.shape), x.dtype))
+        return orig["rs"](x)
+
+    forms = (("mlp", (ONEPASS_B,), (ONEPASS_D,) * 3,
+              clipping.onepass_clipped_weight_grads),
+             ("seq", (B, S), (2048, 8192, 2048),
+              clipping.onepass_clipped_weight_grads_seq))
+    cs.clip_scale, rs.rowsumsq = scale_timed, rows_rec
+    try:
+        for name, lead, (d0, d1, d2), fn in forms:
+            params = {"w1": torch.randn(d0, d1, generator=gen, device="cuda")
+                      * d0 ** -0.5,
+                      "w2": torch.randn(d1, d2, generator=gen, device="cuda")
+                      * d1 ** -0.5}
+            batch = {"x": torch.randn(*lead, d0, generator=gen,
+                                      device="cuda"),
+                     "y": torch.randn(*lead, d2, generator=gen,
+                                      device="cuda")}
+            shapes = {"w1": lead + (d1,), "w2": lead + (d2,)}
+
+            def forward(p, tp, bt):
+                h1 = torch.tanh(bt["x"] @ p["w1"] + tp["w1"])
+                z2 = h1 @ p["w2"] + tp["w2"]
+                lv = torch.sum(torch.square(z2 - bt["y"])
+                               .reshape(bt["x"].shape[0], -1), dim=-1)
+                return lv, {"w1": bt["x"], "w2": h1}
+
+            w = {k: v.detach().requires_grad_() for k, v in params.items()}
+            one = {k: torch.zeros((1,) + s_[1:], device="cuda")
+                   for k, s_ in shapes.items()}
+
+            def example_grads(j):
+                ex = {k: v[j:j + 1] for k, v in batch.items()}
+                return torch.autograd.grad(forward(w, one, ex)[0][0],
+                                           [w["w1"], w["w2"]])
+
+            oracle = torch.stack([sum(torch.sum(g * g)
+                                      for g in example_grads(j))
+                                  for j in range(lead[0])])
+            clip = float(torch.sqrt(oracle).median())
+            ms = []
+            for _ in range(2):           # the second run is the timed one
+                ops.reset_launch_counts()
+                events.clear()
+                t0 = time.perf_counter()
+                _, sq, wbar = fn(forward, params, batch, shapes, clip)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                n = ops.launch_counts()
+                run["launches"] += n["clip_scale"]
+            run["ms"] += sum(a.elapsed_time(b) for a, b in events)
+            c = torch.clamp(clip / (torch.sqrt(oracle) + 1e-6), max=1.0)
+            want = {"w1": 0.0, "w2": 0.0}
+            for j in range(lead[0]):
+                g1, g2 = example_grads(j)
+                want["w1"] = want["w1"] + c[j] * g1
+                want["w2"] = want["w2"] + c[j] * g2
+            r = rel_err(sq, oracle)
+            worst = max(((wbar[k] - want[k]).norm() / want[k].norm()).item()
+                        for k in want)
+            log(f"[onepass] {name} form, lead {lead}, widths {d0}->{d1}->"
+                f"{d2}, f32: {ms[0]:.1f} ms first run, {ms[1]:.1f} ms second "
+                f"(host clock); launches per run {n}; clip_scale "
+                f"{sum(a.elapsed_time(b) for a, b in events):.4f} ms in the "
+                f"second run (events); "
+                f"C={clip:.4g}, {(c < 1).float().mean().item():.1%} of "
+                f"examples clipped; norms vs the per-example loop max rel "
+                f"err {r:.2e}, clipped grads max rel (Frobenius) err "
+                f"{worst:.2e} (tol {TOKEN_TOL}: f32)")
+            want_n = {"clip_scale": 2, "rowsumsq": 4 if name == "mlp" else 0}
+            routes = n["gram_norm"] + n["direct_norm"]
+            if (any(n[k] != v for k, v in want_n.items())
+                    or routes != (0 if name == "mlp" else 2)):
+                raise AssertionError(f"onepass {name}: launches {n}")
+            if not (r <= TOKEN_TOL and worst <= TOKEN_TOL):
+                raise AssertionError(f"onepass {name} disagrees with the "
+                                     f"per-example loop: {r}, {worst}")
+            del params, batch, w, wbar, want
+    finally:
+        cs.clip_scale, rs.rowsumsq = orig["cs"], orig["rs"]
+    return run
+
+
+def phase_row_kernels(row_shapes, scale_shapes, errs):
+    """``rowsumsq`` and ``clip_scale`` against their plain versions in f32
+    and bf16 at every distinct shape their kernels took on the token and
+    one-pass paths and at edge cases (a ragged width, a non-contiguous
+    (B, S) view, an unaligned row start, a single row); each case twice,
+    for bitwise-equal results. ``clip_scale``'s c holds 0, 1 and values
+    below 1, and its result must equal the plain version exactly."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import clip_scale_ref, rowsumsq_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def draw(shape, dt):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    edges = [("ragged width", lambda dt: draw((3, 37, 77), dt)),
+             ("(B, S) view", lambda dt: draw((4, 2, 40, 72), dt)[:, 1]),
+             ("unaligned rows", lambda dt: draw((4, 40, 70), dt)[..., 3:]),
+             ("single row", lambda dt: draw((1, 1, 1000), dt))]
+    for dt in (torch.float32, torch.bfloat16):
+        cases = [(f"path {sh}", lambda dt, sh=sh: draw(sh, dt))
+                 for sh in sorted(row_shapes)] + edges
+        for name, make in cases:
+            x = make(dt)
+            got, again = ops.rowsumsq(x, 2), ops.rowsumsq(x, 2)
+            want = rowsumsq_ref(x)
+            torch.cuda.synchronize()
+            r = rel_err(got, want)
+            if not (r <= ROW_TOL and torch.equal(got, again)):
+                raise AssertionError(f"rowsumsq at {name} {dt}: rel err {r} "
+                                     f"> {ROW_TOL} or not bitwise repeatable")
+            if dt == torch.bfloat16 and name.startswith("path"):
+                errs["rowsumsq"] = max(errs.get("rowsumsq", 0.0),
+                                       (got - want).abs().max().item())
+            log(f"[rows] rowsumsq {str(dt)[6:]} {name} {tuple(x.shape)}: rel "
+                f"{r:.2e} (tol {ROW_TOL}); bitwise equal on a second run")
+            del x, got, again, want
+        cases = [(f"path {sh}", lambda dt, sh=sh: draw(sh, dt))
+                 for sh in sorted(scale_shapes)] + edges
+        for name, make in cases:
+            z = make(dt)
+            c = torch.rand(z.shape[0], generator=gen, device="cuda")
+            c[0] = 0.0
+            c[-1] = 1.0
+            got, again = ops.clip_scale(z, c), ops.clip_scale(z, c)
+            want = clip_scale_ref(z, c)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got, again)):
+                raise AssertionError(
+                    f"clip_scale at {name} {dt}: max abs err "
+                    f"{(got.float() - want.float()).abs().max().item()} "
+                    f"(must be 0) or not bitwise repeatable")
+            if name.startswith("path"):
+                errs["clip_scale"] = max(
+                    errs.get("clip_scale", 0.0),
+                    (got.float() - want.float()).abs().max().item())
+            log(f"[rows] clip_scale {str(dt)[6:]} {name} {tuple(z.shape)}: "
+                f"equal to the plain version; bitwise equal on a second run")
+            del z, got, again, want
+
+
+def row_table(errs, token_run, onepass):
+    """The ``rowsumsq`` row (per token-path step) and the ``clip_scale``
+    row (per one-pass run, both forms): at the path's calls (shapes and
+    counts of the last step or run) the kernel's, the plain version's and
+    the library call's time (the library call timed only, never called by
+    the port), each on the device with the host's launch overhead hidden
+    and the inputs read from device memory, not the L2 cache
+    (``device_ms``), and the bound. These kernels take 3–90 µs, less than
+    the host needs to issue one, so the CUDA events around them on the
+    path (``path_events_ms``, logged too) also time the card waiting for
+    the host; ``ms`` is the device time. Both functions do f32 arithmetic on every element:
+    operations are priced at the f32 rate outside the tensor cores."""
+    import torch
+    from repro_torch.kernels import clip_scale as cs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rowsumsq as rs
+    from repro_torch.kernels.ref import clip_scale_ref, rowsumsq_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def bound(nbytes, flops):
+        t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_o = flops / PEAK_FLOPS["torch.float32"] * 1e3
+        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    def count(calls):
+        out = {}
+        for c in calls:
+            out[c] = out.get(c, 0) + 1
+        return sorted(out.items(), key=str)
+
+    rows = []
+    for name, calls, runs, launches, ms, per in (
+            ("rowsumsq", token_run["row_calls"][-1], 1,
+             token_run["launches"]["rowsumsq"],
+             [m["rowsumsq"] for m in token_run["kern_ms"][1:]]
+             or [token_run["kern_ms"][0]["rowsumsq"]],
+             f"token-path step, B={B} S={S} bf16"),
+            ("clip_scale", onepass["scale_calls"], 2, onepass["launches"],
+             [onepass["ms"]], f"one-pass run (MLP form B={ONEPASS_B} and "
+                              f"sequence form B={B} S={S}), f32")):
+        tot = {"kern": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+        by = {}
+        for (shape, dt), n in count(calls):
+            n //= runs
+            nbytes = dt.itemsize
+            for d in shape:
+                nbytes *= d
+            xs = [torch.randn(*shape, generator=gen, device="cuda").to(dt)
+                  for _ in range(min(20, -(-2 * L2_BYTES // nbytes)))]
+            x = xs[0]
+            if name == "rowsumsq":
+                kern = lambda x: ops.rowsumsq(x, 2)  # noqa: E731
+                plain = rowsumsq_ref
+                lib = lambda x: torch.linalg.vector_norm(  # noqa: E731
+                    x, dim=-1, dtype=torch.float32).square()
+                nr, nc = shape[0] * shape[1], shape[2]
+                t, key = bound(rs.bytes_estimate(nr, nc, x.element_size()),
+                               rs.flop_estimate(nr, nc))
+            else:
+                c = torch.rand(shape[0], generator=gen, device="cuda")
+                kern = lambda x: ops.clip_scale(x, c)  # noqa: E731
+                plain = lambda x: clip_scale_ref(x, c)  # noqa: E731
+                lib = lambda x: torch.mul(x, c.view(-1, 1, 1))  # noqa: E731
+                t, key = bound(cs.bytes_estimate(x.numel(), shape[0],
+                                                 x.element_size()),
+                               cs.flop_estimate(x.numel()))
+            k_ms, p_ms, l_ms = (device_ms(kern, xs, 20),
+                                device_ms(plain, xs, 5),
+                                device_ms(lib, xs, 20))
+            log(f"[table] {name} {str(dt)[6:]} {shape} x{n}/{per}: kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms, "
+                f"bound {t:.4f} ms ({key}), {t / k_ms:.1%} of bound")
+            tot["kern"] += n * k_ms
+            tot["plain"] += n * p_ms
+            tot["lib"] += n * l_ms
+            tot["bound"] += n * t
+            by[key] = by.get(key, 0.0) + n * t
+            del x, xs
+        mean_ms = sum(ms) / len(ms)
+        log(f"[table] {name}: {tot['kern']:.3f} ms per {per} (device, by "
+            f"shape), {mean_ms:.3f} ms in events on the path; bound "
+            f"{tot['bound']:.4f} ms, {tot['bound'] / tot['kern']:.1%} of "
+            f"bound; plain {tot['plain']:.3f} ms, library "
+            f"{tot['lib']:.3f} ms")
+        rows.append({"name": name, "route": "cuda",
+                     "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+                     "launches": launches, "max_abs_err": errs[name],
+                     "ms": tot["kern"], "path_events_ms": mean_ms,
+                     "plain_ms": tot["plain"],
+                     "bound_ms": tot["bound"],
+                     "bound_by": max(by, key=by.get),
+                     "library_ms": tot["lib"], "per": per})
+    return rows
+
+
 def main() -> int:
+    global T0
+    T0 = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -994,10 +1600,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     expected = main_path_launches(cfg, S)
     main_run = phase_main(spec, registry, pex, cfg, (B, S), "main",
-                          expected, NORM_KERNELS)
+                          pass_launches(expected, cfg), NORM_KERNELS)
     torch.cuda.empty_cache()
     flash_run = phase_main(spec, registry, pex, with_flash(cfg), (B, S),
-                           "flash", expected, NORM_KERNELS + FLASH_KERNELS)
+                           "flash", pass_launches(expected, with_flash(cfg)),
+                           NORM_KERNELS + FLASH_KERNELS)
     torch.cuda.empty_cache()
     d_loss = abs(flash_run["losses"][0] - main_run["losses"][0]) \
         / abs(main_run["losses"][0])
@@ -1022,7 +1629,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_cfg = dataclasses.replace(moe_spec.full(), n_layers=MOE_LAYERS)
     moe_run = phase_main(moe_spec, registry, pex, moe_cfg, (MOE_B, MOE_S),
-                         "moe", main_path_launches(moe_cfg, MOE_S),
+                         "moe", pass_launches(main_path_launches(
+                             moe_cfg, MOE_S), moe_cfg),
                          NORM_KERNELS + ("segmented_norm",))
     torch.cuda.empty_cache()
     log(f"[compare] moe: steady step ms {moe_run['step_ms'][1:]}; segmented "
@@ -1032,13 +1640,39 @@ def main() -> int:
         f"{[round(a + b, 3) for a, b in moe_run['attn_ms'][1:]]}; peak "
         f"memory {moe_run['peak_gib']:.2f} GiB")
     path = phase_seg_kernels(moe_run["seg_calls"], errs)
+    torch.cuda.empty_cache()
+    phase_token_exact(spec, registry, pex)
+    torch.cuda.empty_cache()
+    token_run = phase_main(spec, registry, pex, cfg, (B, S), "token",
+                           token_pass_launches(cfg), ("rowsumsq",),
+                           token=True)
+    torch.cuda.empty_cache()
+    moe_token_run = phase_moe_token(moe_spec, registry, pex, moe_cfg)
+    torch.cuda.empty_cache()
+    onepass = phase_onepass()
+    torch.cuda.empty_cache()
+    for tag, r in (("token", token_run), ("moe-token", moe_token_run)):
+        log(f"[compare] {tag}: step ms {r['step_ms']}; rowsumsq kernel ms "
+            f"per step {[round(m['rowsumsq'], 3) for m in r['kern_ms']]}; "
+            f"attention core fwd+bwd ms per step "
+            f"{[round(a + b, 3) for a, b in r['attn_ms']]}; peak memory "
+            f"{r['peak_gib']:.2f} GiB")
+    row_shapes = {sh for run in (token_run, moe_token_run)
+                  for calls in run["row_calls"] for sh, _ in calls}
+    row_shapes |= {sh for sh, _ in onepass["row_calls"]}
+    phase_row_kernels(row_shapes, {sh for sh, _ in onepass["scale_calls"]},
+                      errs)
     rows = phase_table(expected, errs, main_run["launches"],
                        main_run["kern_ms"])
     rows.append(seg_table(path, errs, moe_run))
     rows += flash_table(errs, flash_run["launches"], flash_run["kern_ms"])
+    rows += row_table(errs, token_run, onepass)
     log(f"[table] kernels: {', '.join(r['name'] for r in rows)}; main step "
         f"ms {main_run['step_ms']}; flash step ms {flash_run['step_ms']}; "
-        f"moe step ms {moe_run['step_ms']}")
+        f"moe step ms {moe_run['step_ms']}; token step ms "
+        f"{token_run['step_ms']}; moe-token step ms "
+        f"{moe_token_run['step_ms']}; whole run "
+        f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

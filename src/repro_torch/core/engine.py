@@ -1,7 +1,7 @@
 """``Engine`` — the entry point for per-example-gradient runs.
 
-Port of ``src/repro/core/engine.py`` for one device at example
-granularity. Every pass takes a **tap-collector loss**
+Port of ``src/repro/core/engine.py`` for one device. Every pass takes a
+**tap-collector loss**
 
     loss_fn(params, batch, tap) -> (loss_vec, aux)
 
@@ -12,10 +12,14 @@ consumer list as one fused plan (``core.plan``):
     res = eng.step(loss_fn, params, batch,
                    consumers=[Clip(1.0), Noise(0.5, gen), GNS()])
 
+``granularity="token"`` swaps the accumulator layout to the per-token
+(B, S) map (``TokenLayout``) — same taps, same passes, token-level norms;
+with a loss that registers its token map (``tap.token_loss``),
+``Clip(C, granularity="token")`` reweights every token's loss term by its
+own contribution norm in the same fused pass.
+
 The step runs on the device the parameters live on. Not in this slice:
-the ``mesh`` path (``dist.pex``), ``granularity="token"`` (raises
-``NotImplementedError``), ``verify`` (the static analysis) and the
-standalone ``Engine.tap``.
+the ``mesh`` path (``dist.pex``) and ``verify`` (the static analysis).
 """
 from __future__ import annotations
 
@@ -26,8 +30,8 @@ import torch
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.passes import PexResult
 from repro_torch.core.plan import StepResult
-from repro_torch.core.taps import ExampleLayout, PexSpec, Tap
-from repro_torch.nn.param import tree_leaves
+from repro_torch.core.taps import ExampleLayout, PexSpec, Tap, TokenLayout
+from repro_torch.nn.param import resolve_device, tree_leaves
 
 
 def infer_batch_size(batch) -> int:
@@ -42,6 +46,20 @@ def infer_batch_size(batch) -> int:
     return sizes.pop()
 
 
+def infer_seq_len(batch) -> int:
+    """Second-axis extent of the sequence-shaped batch leaves; must be
+    unambiguous (multi-sequence batches need an explicit seq=)."""
+    sizes = {leaf.shape[1] for leaf in tree_leaves(batch) if leaf.ndim >= 2}
+    if len(sizes) == 1:
+        return sizes.pop()
+    if not sizes:
+        raise ValueError("token granularity needs a (B, S, ...) batch leaf "
+                         "to infer the sequence length; pass seq= explicitly")
+    raise ValueError(f"batch leaves carry different sequence lengths "
+                     f"{sorted(sizes)}; pass seq= explicitly to pick the "
+                     f"tapped one")
+
+
 class Engine:
     """Per-example-gradient engine bound to one instrumentation policy.
 
@@ -49,7 +67,8 @@ class Engine:
                  ``taps.DISABLED`` gives a plain engine.
     clip_norm:   default clip threshold C for ``clipped_step``.
     noise_std:   default DP-SGD noise multiplier σ for ``clipped_step``.
-    granularity: 'example' only in this slice.
+    granularity: 'example' → (B, G) accumulator (per-group columns from
+                 ``spec.groups``); 'token' → (B, S) accumulator.
     """
 
     def __init__(self, spec: Optional[PexSpec] = None, *,
@@ -63,55 +82,72 @@ class Engine:
         self.noise_std = noise_std
         self.granularity = granularity
 
-    def _adapt(self, loss_fn: Callable, layout) -> Callable:
+    def _adapt(self, loss_fn: Callable, layout,
+               want_token_map: bool = False) -> Callable:
         """Tap-collector loss → the loss the plan layer consumes:
-        ``acc_loss(params, acc, batch) -> (loss_vec, tap, aux)``
-        (acc=None ⇒ inert tap ⇒ the plain model)."""
+        ``acc_loss(params, acc, batch) -> (loss_vec, token_map | None,
+        tap, aux)`` (acc=None ⇒ inert tap ⇒ the plain model); the token
+        map is the one the loss registered (``tap.token_loss``), returned
+        when ``want_token_map``."""
         def acc_loss(params, acc, batch):
             tap = Tap(self.spec, acc=acc, layout=layout)
             loss_vec, aux = loss_fn(params, batch, tap)
-            return loss_vec, tap, aux
+            tok = tap.token_losses() if want_token_map else None
+            return loss_vec, tok, tap, aux
         return acc_loss
 
     def step(self, loss_fn: Callable, params, batch,
              consumers: Sequence = (), *,
              loss_weights: Optional[torch.Tensor] = None,
-             batch_size: Optional[int] = None) -> StepResult:
+             batch_size: Optional[int] = None,
+             seq: Optional[int] = None) -> StepResult:
         """Run a consumer list as one fused pass. ``consumers`` is any
-        subset of ``{Norms(), Grads(), Clip(C), Noise(σ, gen), GNS()}``;
-        ``loss_weights`` is an optional (B,) user weight vector folded
-        into the same reweighted backward. With ``consumers=()`` the
-        program is the plain forward."""
+        subset of ``{Norms(), Grads(), Clip(C, granularity=...),
+        Noise(σ, gen), GNS()}``; ``loss_weights`` is an optional (B,) user
+        weight vector folded into the same reweighted backward. With
+        ``consumers=()`` the program is the plain forward. ``seq`` is the
+        token map's length at token granularity (default: the batch's
+        sequence axis)."""
         plan = plan_mod.analyze(consumers,
                                 engine_granularity=self.granularity)
         b = batch_size if batch_size is not None else infer_batch_size(batch)
-        layout = ExampleLayout(self.spec.n_groups)
-        return plan_mod.execute(plan, self._adapt(loss_fn, layout), params,
-                                batch, b, layout, loss_weights=loss_weights)
+        if plan.token_norms:
+            layout = TokenLayout(seq if seq is not None
+                                 else infer_seq_len(batch))
+        else:
+            layout = ExampleLayout(self.spec.n_groups)
+        acc_loss = self._adapt(loss_fn, layout,
+                               want_token_map=plan.token_weighted)
+        return plan_mod.execute(plan, acc_loss, params, batch, b, layout,
+                                loss_weights=loss_weights)
 
     # -- fixed-function sugar (one line each over `step`) ---------------
     def value_and_norms(self, loss_fn: Callable, params, batch, *,
-                        batch_size: Optional[int] = None) -> PexResult:
+                        batch_size: Optional[int] = None,
+                        seq: Optional[int] = None) -> PexResult:
         """Norms-only pass (paper §5 cheap pass): no ``dW``."""
         r = self.step(loss_fn, params, batch, [plan_mod.Norms()],
-                      batch_size=batch_size)
+                      batch_size=batch_size, seq=seq)
         return PexResult(r.loss, r.loss_vec, r.aux, r.sq_norms)
 
     def value_grads_and_norms(self, loss_fn: Callable, params, batch, *,
-                              batch_size: Optional[int] = None) -> PexResult:
+                              batch_size: Optional[int] = None,
+                              seq: Optional[int] = None) -> PexResult:
         """Summed gradients AND all per-example norms in one backward."""
         r = self.step(loss_fn, params, batch,
                       [plan_mod.Norms(), plan_mod.Grads()],
-                      batch_size=batch_size)
+                      batch_size=batch_size, seq=seq)
         return PexResult(r.loss, r.loss_vec, r.aux, r.sq_norms, r.grads)
 
     def clipped_step(self, loss_fn: Callable, params, batch, *,
                      rng: Optional[torch.Generator] = None,
                      clip_norm: Optional[float] = None,
                      noise_std: Optional[float] = None,
-                     batch_size: Optional[int] = None) -> PexResult:
+                     batch_size: Optional[int] = None,
+                     seq: Optional[int] = None) -> PexResult:
         """Per-example clipping (paper §6 two-pass ghost form), plus
-        DP-SGD noise when ``noise_std > 0`` (needs ``rng``)."""
+        DP-SGD noise when ``noise_std > 0`` (needs ``rng``). On a
+        token-granularity engine this is per-token clipping."""
         c = clip_norm if clip_norm is not None else self.clip_norm
         if c is None:
             raise ValueError("clipped_step needs clip_norm: set it on the "
@@ -119,9 +155,11 @@ class Engine:
         sigma = noise_std if noise_std is not None else self.noise_std
         consumers = [plan_mod.Clip(c, granularity=self.granularity)]
         if sigma and sigma > 0.0:
+            # on a token engine, analyze() rejects the defaulted scale
+            # (per-token C is not a per-example sensitivity)
             consumers.append(plan_mod.Noise(sigma, rng))
         r = self.step(loss_fn, params, batch, consumers,
-                      batch_size=batch_size)
+                      batch_size=batch_size, seq=seq)
         return PexResult(r.loss, r.loss_vec, r.aux, r.sq_norms, r.grads)
 
     def gradient_noise_scale(self, loss_fn: Callable, params, batch, *,
@@ -132,3 +170,16 @@ class Engine:
         return self.step(loss_fn, params, batch, [plan_mod.GNS()],
                          batch_size=batch_size).gns
 
+    def tap(self, batch_size: int, *, seq: Optional[int] = None,
+            device=None) -> Tap:
+        """Standalone live Tap for hand-rolled transforms (the passes above
+        create their own), its accumulator on ``device`` (default CUDA).
+        Read ``acc0 = tap.carry()`` before the forward: the gradient of the
+        loss w.r.t. ``acc0`` is the (B, G) or (B, S) stat map."""
+        if self.granularity == "token" and seq is None:
+            raise ValueError("a token-granularity tap needs seq= (the "
+                             "length of its (B, S) map)")
+        layout = TokenLayout(seq) if self.granularity == "token" \
+            else ExampleLayout(self.spec.n_groups)
+        acc = layout.init(batch_size, resolve_device(device))
+        return Tap(self.spec, acc=acc.requires_grad_(), layout=layout)

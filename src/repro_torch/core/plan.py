@@ -1,8 +1,8 @@
 """Composable consumer plans — one fused pass for everything the norms
 already pay for.
 
-Port of ``src/repro/core/plan.py`` at example granularity. ``analyze``
-folds a consumer list into a ``Plan`` and ``execute`` runs it as:
+Port of ``src/repro/core/plan.py``. ``analyze`` folds a consumer list into
+a ``Plan`` and ``execute`` runs it as:
 
   * one tapped forward, whose autograd graph every backward shares;
   * one backward seeded with ones when a consumer needs norms — the
@@ -12,15 +12,21 @@ folds a consumer list into a ``Plan`` and ``execute`` runs it as:
     it launches no norm kernel). With no weights the norms and gradients
     fold into a single backward (paper §4/§5).
 
+Per-example weights seed the (B,) loss vector. Per-token weights
+(``Clip(C, granularity="token")``) seed the (B, S) **per-token loss map**
+the loss registers through ``tap.token_loss``, with zeros on the loss
+vector: the gradient is then exactly ``Σ_{j,t} w_{j,t} ∂ℓ_{j,t}/∂θ`` by
+linearity, ``w`` from the ``TokenLayout`` (B, S) norm map.
+
 The reference applies its ``vjp_fn`` twice; the port makes two
 ``torch.autograd.grad`` calls over one retained graph: the first over the
 initial accumulator, the second over the parameters.
 
-Not in this slice: ``Importance`` and token granularity (both raise
-``NotImplementedError``; ROADMAP.md Queue 1 lists them), user-segmented
-noise, the mesh path (``dist.pex``), the ``core.provenance`` identity
-markers, and the static-cost helpers (``Plan.static_cost``/``describe``),
-which serve the analysis passes.
+Not in this slice: ``Importance`` (raises ``NotImplementedError``;
+ROADMAP.md Queue 1 lists it), user-segmented noise, the mesh path
+(``dist.pex``), the ``core.provenance`` identity markers, and the
+static-cost helpers (``Plan.static_cost``/``describe``), which serve the
+analysis passes.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 
-from repro_torch.core.clipping import clip_coefficients
+from repro_torch.core.clipping import (clip_coefficients,
+                                       token_clip_coefficients)
 from repro_torch.core.passes import add_grad_noise, check_noise_args
 from repro_torch.nn.param import tree_flatten, tree_unflatten
 
@@ -43,7 +50,8 @@ _NOT_PORTED = ("is not ported yet: ROADMAP.md Queue 1 item 5 lists it as "
 
 @dataclasses.dataclass(frozen=True)
 class Norms:
-    """Demand the per-example (B, G) squared norms in the result."""
+    """Demand the per-example (B, G) — or per-token (B, S) — squared
+    norms in the result."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +62,10 @@ class Grads:
 
 @dataclasses.dataclass(frozen=True)
 class Clip:
-    """Per-example gradient clipping, two-pass ghost form (paper §6):
-    contribute ``min(1, C/‖g_j‖)`` factors to the reweighted backward."""
+    """Per-example (or per-token) gradient clipping, two-pass ghost form
+    (paper §6): contribute ``min(1, C/‖g_j‖)`` factors to the reweighted
+    backward. ``granularity="token"`` clips every token's loss term by its
+    (B, S) contribution norm — the token-weighted backward."""
     clip_norm: float
     granularity: str = "example"
     eps: float = 1e-6
@@ -100,12 +110,17 @@ _KNOWN = (Norms, Grads, Clip, Noise, Importance, GNS)
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Plan:
-    """Static description of the fused pass a consumer list compiles to."""
+    """Static description of the fused pass a consumer list compiles to.
+    ``token_norms`` selects the (B, S) accumulator for the norms backward;
+    ``token_weighted`` seeds the gradient backward through the registered
+    per-token loss map."""
     clip: Optional[Clip] = None
     noise: Optional[Noise] = None
     gns: bool = False
     needs_norms: bool = False
     needs_grads: bool = False
+    token_norms: bool = False
+    token_weighted: bool = False
 
     @property
     def weighted(self) -> bool:
@@ -131,9 +146,26 @@ def analyze(consumers: Sequence, *,
     clip: Optional[Clip] = seen.get(Clip)
     noise: Optional[Noise] = seen.get(Noise)
     gns = GNS in seen
-    if engine_granularity != "example" or (
-            clip is not None and clip.granularity != "example"):
-        raise NotImplementedError(f"token granularity {_NOT_PORTED}")
+
+    token_norms = engine_granularity == "token" or (
+        clip is not None and clip.granularity == "token")
+    token_weighted = clip is not None and clip.granularity == "token"
+    if clip is not None and clip.granularity == "example" \
+            and engine_granularity == "token":
+        raise ValueError(
+            "Clip(granularity='example') needs per-example norms, but the "
+            "engine runs at token granularity; use Clip(C, "
+            "granularity='token') or an example-granularity engine")
+    if token_norms and gns:
+        raise NotImplementedError(
+            "GNS needs per-example ‖g_j‖²; the (B, S) token map does not "
+            "sum to them (cross-token terms) — run GNS at example "
+            "granularity")
+    if token_norms and Importance in seen:
+        raise NotImplementedError(
+            "Importance samples examples from per-example norms; it does "
+            "not compose with token-granularity norms in one plan — run "
+            "the token pass on the selected sub-batch instead")
     if Importance in seen:
         raise NotImplementedError(f"the Importance consumer {_NOT_PORTED}")
     if noise is not None:
@@ -142,12 +174,21 @@ def analyze(consumers: Sequence, *,
             raise ValueError(
                 "Noise without Clip needs an explicit sensitivity: pass "
                 "Noise(σ, rng, scale=...) — σ·scale is the noise stddev")
+        if noise.scale is None and token_weighted:
+            raise ValueError(
+                "Noise cannot default its sensitivity to a token-"
+                "granularity Clip's C: per-token clipping bounds each of "
+                "the S token terms by C, so an example's total "
+                "contribution is bounded by S·C, not C — pass "
+                "Noise(σ, rng, scale=...) with the sensitivity your "
+                "accounting assumes")
 
     needs_grads = (Grads in seen or clip is not None or noise is not None
                    or gns)
     needs_norms = Norms in seen or clip is not None or gns
     return Plan(clip=clip, noise=noise, gns=gns, needs_norms=needs_norms,
-                needs_grads=needs_grads)
+                needs_grads=needs_grads, token_norms=token_norms,
+                token_weighted=token_weighted)
 
 
 class StepResult(NamedTuple):
@@ -156,10 +197,11 @@ class StepResult(NamedTuple):
     loss: torch.Tensor                  # Σ_j loss_vec
     loss_vec: torch.Tensor              # (B,) per-example losses
     aux: Any = None
-    sq_norms: Optional[torch.Tensor] = None   # (B, G)
+    sq_norms: Optional[torch.Tensor] = None   # (B, G) or (B, S)
     grads: Any = None
     weights: Optional[torch.Tensor] = None    # per-example seed actually used
-    clip_coef: Optional[torch.Tensor] = None  # (B,)
+    token_weights: Optional[torch.Tensor] = None  # (B, S) token seed
+    clip_coef: Optional[torch.Tensor] = None  # (B,) or (B, S)
     gns: Optional[torch.Tensor] = None
 
 
@@ -180,15 +222,16 @@ def _grad(out: torch.Tensor, inputs, seed: torch.Tensor, *,
 def run_fused(plan: Plan, acc_loss: Callable, params, batch,
               batch_size: int, layout, *, loss_weights=None):
     """One forward, ≤ 2 backward passes. Returns ``(loss_vec, aux,
-    sq_norms, grads, weights, clip_coef)`` with undemanded entries None.
+    sq_norms, grads, weights, token_weights, clip_coef)`` with undemanded
+    entries None.
 
-    ``acc_loss(params, acc, batch) -> (loss_vec, tap, aux)``; acc=None
-    runs the model with an inert tap."""
+    ``acc_loss(params, acc, batch) -> (loss_vec, token_map | None, tap,
+    aux)``; acc=None runs the model with an inert tap."""
     leaves, treedef = tree_flatten(params)
     if not plan.needs_norms and not plan.needs_grads:
         with torch.no_grad():
-            lv, _, aux = acc_loss(params, None, batch)
-        return lv, aux, None, None, None, None
+            lv, _, _, aux = acc_loss(params, None, batch)
+        return lv, aux, None, None, None, None, None
 
     # detached views: the caller's tensors stay as they are
     leaves = [x.detach().requires_grad_(plan.needs_grads) for x in leaves]
@@ -199,14 +242,26 @@ def run_fused(plan: Plan, acc_loss: Callable, params, batch,
 
     if not plan.needs_norms:
         # gradient pass only (possibly user-weighted): no instrumentation
-        lv, _, aux = acc_loss(params, None, batch)
+        lv, _, _, aux = acc_loss(params, None, batch)
         seed = torch.ones_like(lv) if loss_weights is None \
             else loss_weights.to(lv.dtype)
         grads = unflatten(_grad(lv, leaves, seed))
-        return lv.detach(), aux, None, grads, loss_weights, None
+        return lv.detach(), aux, None, grads, loss_weights, None, None
 
     acc0 = layout.init(batch_size, leaves[0].device).requires_grad_()
-    lv, tap, aux = acc_loss(params, acc0, batch)
+    lv, tok, tap, aux = acc_loss(params, acc0, batch)
+    if plan.token_weighted:
+        if tok is None:
+            raise ValueError(
+                "per-token reweighting needs the per-token loss map: the "
+                "loss function never called tap.token_loss(...) on its "
+                "(B, S) token losses")
+        if tuple(tok.shape[:2]) != (lv.shape[0], layout.seq):
+            raise ValueError(
+                f"the registered per-token loss map has shape "
+                f"{tuple(tok.shape)}, which does not lead with (B, S)="
+                f"({lv.shape[0]}, {layout.seq}) of the TokenLayout "
+                f"accumulator")
     ones = torch.ones_like(lv)
 
     grads = None
@@ -220,24 +275,35 @@ def run_fused(plan: Plan, acc_loss: Callable, params, batch,
         tap.set_mode(norms=True, grads=False)
         (sq,) = _grad(lv, [acc0], ones, retain_graph=plan.needs_grads)
 
-    w, cc = _compose_weights(plan, sq, loss_weights)
+    w, tw, cc = _compose_weights(plan, sq, loss_weights)
     if plan.needs_grads and grads is None:
         # reweighted backward: no stats, no norm kernels
         tap.set_mode(norms=False, grads=True)
-        seed = ones if w is None else w.to(lv.dtype)
-        grads = unflatten(_grad(lv, leaves, seed))
-    return lv.detach(), aux, sq, grads, w, cc
+        if tw is not None:
+            # token-weighted: the (B, S) map alone is seeded (loss_vec's
+            # seed is zero)
+            tok_seed = tw if w is None else tw * w[:, None]
+            grads = unflatten(_grad(tok, leaves, tok_seed.to(tok.dtype)))
+        else:
+            seed = ones if w is None else w.to(lv.dtype)
+            grads = unflatten(_grad(lv, leaves, seed))
+    return lv.detach(), aux, sq, grads, w, tw, cc
 
 
 def _compose_weights(plan: Plan, sq_norms, loss_weights):
     """Product of clip coefficients × user loss weights. Returns
-    (per-example w | None, clip_coef | None)."""
+    (per-example w | None, token w | None, clip_coef | None)."""
     w = loss_weights
-    cc = None
+    cc = tw = None
     if plan.clip is not None:
-        cc = clip_coefficients(sq_norms, plan.clip.clip_norm, plan.clip.eps)
-        w = cc if w is None else w * cc
-    return w, cc
+        if plan.clip.granularity == "token":
+            cc = tw = token_clip_coefficients(sq_norms, plan.clip.clip_norm,
+                                              plan.clip.eps)
+        else:
+            cc = clip_coefficients(sq_norms, plan.clip.clip_norm,
+                                   plan.clip.eps)
+            w = cc if w is None else w * cc
+    return w, tw, cc
 
 
 # ---------------------------------------------------------------------------
@@ -247,9 +313,9 @@ def _compose_weights(plan: Plan, sq_norms, loss_weights):
 def execute(plan: Plan, acc_loss: Callable, params, batch,
             batch_size: int, layout, *, loss_weights=None) -> StepResult:
     """Run a full plan: the fused region, then noise and GNS."""
-    lv, aux, sq, grads, w, cc = run_fused(plan, acc_loss, params, batch,
-                                          batch_size, layout,
-                                          loss_weights=loss_weights)
+    lv, aux, sq, grads, w, tw, cc = run_fused(plan, acc_loss, params, batch,
+                                              batch_size, layout,
+                                              loss_weights=loss_weights)
     gns = None
     if plan.gns:
         gns = gradient_noise_scale(sq, grads, batch_size=batch_size,
@@ -259,7 +325,7 @@ def execute(plan: Plan, acc_loss: Callable, params, batch,
             else plan.clip.clip_norm
         grads = add_grad_noise(grads, plan.noise.noise_std, scale,
                                plan.noise.rng)
-    return StepResult(torch.sum(lv), lv, aux, sq, grads, w, cc, gns)
+    return StepResult(torch.sum(lv), lv, aux, sq, grads, w, tw, cc, gns)
 
 
 # ---------------------------------------------------------------------------

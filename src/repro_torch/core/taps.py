@@ -22,15 +22,19 @@ Layers call ``z = tap.dense(h, w, group="mlp")`` and never see the
 accumulator. A tap with ``spec.enabled=False`` or no accumulator is inert:
 every op is its plain counterpart (``NULL`` is the shared inert tap).
 
-The MoE expert ops (``dense_expert``, ``dense_expert_grouped``) take their
-stat from the segmented estimator over (group, expert, example) composite
-segments, all groups in one launch.
+Two accumulator layouts: ``ExampleLayout`` (B, n_groups), per-example
+norms; ``TokenLayout`` (B, S), per-token norms, where every stat is a
+row-wise Σx² (``kernels.ops.rowsumsq`` under ``PexSpec.use_kernels``, the
+plain ``_sumsq_tail`` without it). The MoE expert ops (``dense_expert``,
+``dense_expert_grouped``) take their example stat from the segmented
+estimator over (group, expert, example) composite segments, all groups in
+one launch, and their token stat per capacity slot, scattered to the
+slot's token through the dispatch's slot → token table ``tok``.
 
-Not in this slice: ``TokenLayout`` (token granularity, and with it the
-expert ops' slot → token table ``tok``), ``dense_batched``, the provenance
-table for the static analyzer, and ``scan`` / ``checkpoint`` (the port
-runs layers in a Python loop without recompute). ``dist.sharding.shard``
-constraints are dropped: they are identities off a TPU mesh.
+Not in this slice: ``dense_batched`` (with LoRA), the provenance table for
+the static analyzer, and ``scan`` / ``checkpoint`` (the port runs layers in
+a Python loop without recompute). ``dist.sharding.shard`` constraints are
+dropped: they are identities off a TPU mesh.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import norms as N
+from repro_torch.kernels import ops as kops
 
 _ACC_DTYPE = torch.float32
 
@@ -56,7 +61,8 @@ class PexSpec:
                  ``core.norms`` on any device. Replaces the reference's
                  ``use_pallas``. The expert taps take the same choice:
                  the segmented kernel route under it, the scan/segment-sum
-                 oracle without it.
+                 oracle without it; so do the token layout's stats (the
+                 ``rowsumsq`` kernel or the plain ``_sumsq_tail``).
     groups:      acc column names; per-group norms (e.g. attn/mlp/embed).
                  ``"all"`` / ``"other"`` act as catch-all columns; an op
                  tapping a group not in ``groups`` (and with no catch-all
@@ -137,32 +143,38 @@ class ExampleLayout:
         stat = N.stat_dense(h, zbar, method=method, use_kernels=use_kernels)
         return self.add_example_stat(acc_bar, stat, group)
 
-    def add_bias(self, acc_bar, zbar, group):
+    # the bias, scale and embedding stats take ``use_kernels`` for the token
+    # layout's sake (its stats are kernel launches); these are plain
+    # PyTorch on any device
+    def add_bias(self, acc_bar, zbar, group, use_kernels):
         return self.add_example_stat(acc_bar, N.stat_bias(zbar), group)
 
-    def add_scale(self, acc_bar, h, zbar, group):
+    def add_scale(self, acc_bar, h, zbar, group, use_kernels):
         return self.add_example_stat(acc_bar, N.stat_elementwise(h, zbar),
                                      group)
 
-    def add_embedding(self, acc_bar, ids, zbar, group):
+    def add_embedding(self, acc_bar, ids, zbar, group, use_kernels):
         stat = N.stat_embedding(ids.reshape(ids.shape[0], -1),
                                 zbar.reshape(zbar.shape[0], -1,
                                              zbar.shape[-1]))
         return self.add_example_stat(acc_bar, stat, group)
 
-    def add_expert(self, acc_bar, x, zbar, seg, group, use_kernels):
+    def add_expert(self, acc_bar, x, zbar, seg, group, use_kernels,
+                   tok=None):
         """MoE expert-buffer stat: x (E,C,d), zbar (E,C,f), seg (E,C)
         example ids (≥ batch ⇒ padding row): the grouped stat with one
-        group of the whole batch."""
+        group of the whole batch. ``tok`` (the token layout's table) is
+        not read."""
         return self.add_expert_grouped(acc_bar, x[None], zbar[None],
                                        seg[None], group, acc_bar.shape[0],
                                        use_kernels)
 
     def add_expert_grouped(self, acc_bar, x, zbar, seg, group, bg,
-                           use_kernels):
+                           use_kernels, tok=None):
         """Grouped (GShard-local) expert stat: x (G,E,C,d), zbar
         (G,E,C,f), seg (G,E,C) GROUP-LOCAL example ids (≥ bg ⇒ padding
-        row); group g's stats land at acc rows [g·bg, (g+1)·bg).
+        row); group g's stats land at acc rows [g·bg, (g+1)·bg). ``tok``
+        (the token layout's table) is not read.
 
         Example j's gradient for expert e is its own d×f block of the
         stacked weight, and an example's rows live only in its group, so
@@ -183,6 +195,108 @@ class ExampleLayout:
             method="kernel" if use_kernels else "xla")
         stat = stat.reshape(ng, e, bg).sum(dim=1).reshape(ng * bg)
         return self.add_example_stat(acc_bar, stat, group)
+
+
+def _sumsq_tail(x: torch.Tensor, keep: int = 2) -> torch.Tensor:
+    """Σ x² over all axes past the first ``keep`` (f32): the plain form."""
+    return torch.sum(torch.square(x.to(_ACC_DTYPE)),
+                     dim=tuple(range(keep, x.ndim)))
+
+
+def _rowsumsq(x: torch.Tensor, keep: int, use_kernels: bool) -> torch.Tensor:
+    """Σ x² over all axes past the first ``keep``: ``kernels.ops.rowsumsq``
+    (the CUDA kernel for a CUDA tensor) under ``use_kernels``, else the
+    plain :func:`_sumsq_tail`."""
+    return kops.rowsumsq(x, keep) if use_kernels else _sumsq_tail(x, keep)
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenLayout:
+    """(B, S) accumulator: the paper's §4 factorization at token
+    granularity, where it is exact for every dense layer of a sequence
+    model — token t's contribution to ``∂L/∂W`` is the rank-1 outer
+    product ``h_t z̄_tᵀ``, so ``s_{j,t} = ‖h_{j,t}‖²·‖z̄_{j,t}‖²``. Group
+    columns do not apply; every tap folds into the one (B, S) map. Each
+    stat is a row-wise Σx² over (B, S) rows: one ``rowsumsq`` launch per
+    operand under ``use_kernels`` (two per dense or expert tap, one per
+    bias, scale or embedding tap)."""
+    seq: int
+
+    def init(self, batch: int, device) -> torch.Tensor:
+        return torch.zeros((batch, self.seq), dtype=_ACC_DTYPE,
+                           device=device)
+
+    def add_dense(self, acc_bar, h, zbar, group, method, use_kernels):
+        if h.ndim != 3:
+            raise ValueError(
+                f"TokenLayout dense tap needs (B, S, p) activations, got "
+                f"shape {tuple(h.shape)}; per-token factorization is only "
+                f"exact when each token is one row of the matmul")
+        return acc_bar + (_rowsumsq(h, 2, use_kernels)
+                          * _rowsumsq(zbar, 2, use_kernels))
+
+    def add_bias(self, acc_bar, zbar, group, use_kernels):
+        # token t's bias contribution is z̄_t itself
+        self._check_rank(zbar, "bias_add")
+        return acc_bar + _rowsumsq(zbar, 2, use_kernels)
+
+    def add_scale(self, acc_bar, h, zbar, group, use_kernels):
+        # token t's gain contribution is h_t ⊙ z̄_t
+        self._check_rank(zbar, "scale")
+        prod = h.to(_ACC_DTYPE) * zbar.to(_ACC_DTYPE)
+        return acc_bar + _rowsumsq(prod, 2, use_kernels)
+
+    def add_embedding(self, acc_bar, ids, zbar, group, use_kernels):
+        # one-hot row ⇒ ‖h_t‖² = 1 ⇒ the stat is ‖z̄_t‖²
+        self._check_rank(zbar, "embedding")
+        return acc_bar + _rowsumsq(zbar, 2, use_kernels)
+
+    def _check_rank(self, zbar, op: str) -> None:
+        if zbar.ndim < 3:
+            raise ValueError(
+                f"TokenLayout {op} tap needs (B, S, ...) activations, got "
+                f"shape {tuple(zbar.shape)}; a rank-2 stat would silently "
+                f"broadcast into the (B, S) accumulator")
+
+    def _scatter_slot_stats(self, acc_bar, stat, target, valid):
+        """Add per-slot stats into the flat (B·S) token map; invalid slots
+        (capacity padding) are masked AND sent to one slot past the end,
+        which is dropped. ``index_put_`` with ``accumulate`` sorts the
+        targets, so a token's top-k slots add in the same order on every
+        run."""
+        b, s = acc_bar.shape
+        tgt = torch.where(valid, target, b * s).reshape(-1)
+        upd = torch.where(valid, stat, 0.0).reshape(-1).to(acc_bar.dtype)
+        flat = torch.cat([acc_bar.reshape(-1), acc_bar.new_zeros(1)])
+        flat.index_put_((tgt,), upd, accumulate=True)
+        return flat[:b * s].reshape(b, s)
+
+    def add_expert(self, acc_bar, x, zbar, seg, group, use_kernels, *,
+                   tok):
+        """Token-granularity expert stat: x (E,C,d), zbar (E,C,f), tok
+        (E,C) flat token positions (∉ [0, B·S) ⇒ padding slot). Every
+        capacity slot holds ONE token's row, so token t's contribution to
+        the expert weight is the rank-1 outer product x_slot z̄_slotᵀ — the
+        §4 factorization is exact per slot — and a token's top-k slots
+        land in distinct expert matrices, so summing its slot stats into
+        the (B, S) map is exact too. ``seg`` is not read."""
+        b, s = acc_bar.shape
+        stat = _rowsumsq(x, 2, use_kernels) * _rowsumsq(zbar, 2, use_kernels)
+        valid = (tok >= 0) & (tok < b * s)
+        return self._scatter_slot_stats(acc_bar, stat, tok, valid)
+
+    def add_expert_grouped(self, acc_bar, x, zbar, seg, group, bg,
+                           use_kernels, *, tok):
+        """Grouped-dispatch variant: x (G,E,C,d), zbar (G,E,C,f), tok
+        (G,E,C) GROUP-LOCAL flat token ids (∉ [0, bg·S) ⇒ padding slot);
+        group g covers the flat tokens [g·bg·S, (g+1)·bg·S)."""
+        b, s = acc_bar.shape
+        ng = x.shape[0]
+        tg = bg * s
+        stat = _rowsumsq(x, 3, use_kernels) * _rowsumsq(zbar, 3, use_kernels)
+        valid = (tok >= 0) & (tok < tg)
+        glob = torch.arange(ng, device=tok.device)[:, None, None] * tg + tok
+        return self._scatter_slot_stats(acc_bar, stat, glob, valid)
 
 
 @dataclasses.dataclass
@@ -240,81 +354,85 @@ class _Bias(torch.autograd.Function):
     """z = x + b."""
 
     @staticmethod
-    def forward(ctx, x, b, acc, mode, layout, group):
-        ctx.cfg = (mode, layout, group)
+    def forward(ctx, x, b, acc, mode, layout, group, use_kernels):
+        ctx.cfg = (mode, layout, group, use_kernels)
         return x + b, acc.clone()
 
     @staticmethod
     def backward(ctx, zbar, acc_bar):
-        mode, layout, group = ctx.cfg
+        mode, layout, group, use_kernels = ctx.cfg
         db = dacc = None
         if mode.grads and ctx.needs_input_grad[1]:
             db = _lead_sum(zbar)
         if mode.norms:
-            dacc = layout.add_bias(acc_bar, zbar, group)
-        return zbar, db, dacc, None, None, None
+            dacc = layout.add_bias(acc_bar, zbar, group, use_kernels)
+        return zbar, db, dacc, None, None, None, None
 
 
 class _Scale(torch.autograd.Function):
     """z = g ⊙ h (elementwise params: RMSNorm gains)."""
 
     @staticmethod
-    def forward(ctx, h, g, acc, mode, layout, group):
+    def forward(ctx, h, g, acc, mode, layout, group, use_kernels):
         ctx.save_for_backward(h, g)
-        ctx.cfg = (mode, layout, group)
+        ctx.cfg = (mode, layout, group, use_kernels)
         return h * g, acc.clone()
 
     @staticmethod
     def backward(ctx, zbar, acc_bar):
         h, g = ctx.saved_tensors
-        mode, layout, group = ctx.cfg
+        mode, layout, group, use_kernels = ctx.cfg
         dh = dg = dacc = None
         if ctx.needs_input_grad[0]:
             dh = (zbar * g).to(h.dtype)
         if mode.grads and ctx.needs_input_grad[1]:
             dg = _lead_sum(zbar * h).to(g.dtype)
         if mode.norms:
-            dacc = layout.add_scale(acc_bar, h, zbar, group)
-        return dh, dg, dacc, None, None, None
+            dacc = layout.add_scale(acc_bar, h, zbar, group, use_kernels)
+        return dh, dg, dacc, None, None, None, None
 
 
 class _Embed(torch.autograd.Function):
     """z = table[ids]; dtable by ``index_add_``."""
 
     @staticmethod
-    def forward(ctx, table, ids, acc, mode, layout, group):
+    def forward(ctx, table, ids, acc, mode, layout, group, use_kernels):
         ctx.save_for_backward(ids)
-        ctx.cfg = (mode, layout, group, table.shape, table.dtype)
+        ctx.cfg = (mode, layout, group, use_kernels, table.shape,
+                   table.dtype)
         return table[ids], acc.clone()
 
     @staticmethod
     def backward(ctx, zbar, acc_bar):
         (ids,) = ctx.saved_tensors
-        mode, layout, group, shape, dtype = ctx.cfg
+        mode, layout, group, use_kernels, shape, dtype = ctx.cfg
         dtable = dacc = None
         if mode.grads and ctx.needs_input_grad[0]:
             dtable = torch.zeros(shape, dtype=dtype, device=zbar.device)
             dtable.index_add_(0, ids.reshape(-1),
                               zbar.reshape(-1, shape[-1]).to(dtype))
         if mode.norms:
-            dacc = layout.add_embedding(acc_bar, ids, zbar, group)
-        return dtable, None, dacc, None, None, None
+            dacc = layout.add_embedding(acc_bar, ids, zbar, group,
+                                        use_kernels)
+        return dtable, None, dacc, None, None, None, None
 
 
 class _DenseExpert(torch.autograd.Function):
     """z = einsum('gecd,edf->gecf', x, w): the grouped MoE expert matmul
     over the (G, E, C) capacity buffer; seg (G,E,C) holds each row's
-    group-local example id (≥ bg ⇒ padding row)."""
+    group-local example id (≥ bg ⇒ padding row), tok (G,E,C) its
+    group-local flat token id (the token layout's table)."""
 
     @staticmethod
-    def forward(ctx, x, w, seg, acc, mode, layout, group, bg, use_kernels):
-        ctx.save_for_backward(x, w, seg)
+    def forward(ctx, x, w, seg, tok, acc, mode, layout, group, bg,
+                use_kernels):
+        ctx.save_for_backward(x, w, seg, tok)
         ctx.cfg = (mode, layout, group, bg, use_kernels)
         return torch.einsum("gecd,edf->gecf", x, w), acc.clone()
 
     @staticmethod
     def backward(ctx, zbar, acc_bar):
-        x, w, seg = ctx.saved_tensors
+        x, w, seg, tok = ctx.saved_tensors
         mode, layout, group, bg, use_kernels = ctx.cfg
         dx = dw = dacc = None
         if ctx.needs_input_grad[0]:
@@ -323,8 +441,8 @@ class _DenseExpert(torch.autograd.Function):
             dw = torch.einsum("gecd,gecf->edf", x, zbar).to(w.dtype)
         if mode.norms:
             dacc = layout.add_expert_grouped(acc_bar, x, zbar, seg, group,
-                                             bg, use_kernels)
-        return dx, dw, None, dacc, None, None, None, None, None
+                                             bg, use_kernels, tok=tok)
+        return dx, dw, None, None, dacc, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -394,14 +512,16 @@ class Tap:
         if not self.live:
             return x + b
         z, self._acc = _Bias.apply(x, b, self._acc, self.mode, self.layout,
-                                   self.spec.group_index(group))
+                                   self.spec.group_index(group),
+                                   self.spec.use_kernels)
         return z
 
     def scale(self, h, g, *, group: str = "all") -> torch.Tensor:
         if not self.live:
             return h * g
         z, self._acc = _Scale.apply(h, g, self._acc, self.mode, self.layout,
-                                    self.spec.group_index(group))
+                                    self.spec.group_index(group),
+                                    self.spec.use_kernels)
         return z
 
     def embedding(self, table, ids, *, group: str = "embed") -> torch.Tensor:
@@ -409,29 +529,51 @@ class Tap:
             return table[ids]
         z, self._acc = _Embed.apply(table, ids, self._acc, self.mode,
                                     self.layout,
-                                    self.spec.group_index(group))
+                                    self.spec.group_index(group),
+                                    self.spec.use_kernels)
         return z
 
-    def dense_expert_grouped(self, x, w, seg, bg: int, *,
+    def _expert_tok(self, seg, tok):
+        """The slot → token-position table: required at token granularity
+        (the capacity shuffle loses positions without it; ``nn.moe``
+        passes its dispatch sort's table); at example granularity an
+        absent table becomes an inert sentinel."""
+        if tok is not None:
+            return tok
+        if isinstance(self.layout, TokenLayout):
+            raise ValueError(
+                "granularity='token' expert taps need token positions: "
+                "pass tok= (slot → flat token id, as produced by "
+                "nn.moe's dispatch sort); without it the (B, S) map "
+                "cannot be scattered")
+        return torch.full_like(seg, -1)
+
+    def dense_expert_grouped(self, x, w, seg, bg: int, tok=None, *,
                              group: str = "moe") -> torch.Tensor:
         """Grouped instrumented expert matmul. x (G,E,C,d), w (E,d,f),
         seg (G,E,C) group-local example ids (≥ bg ⇒ padding row, excluded
-        from the stats)."""
+        from the stats); tok (G,E,C) group-local flat token ids (≥ bg·S ⇒
+        padding row), required for TokenLayout."""
         if not self.live:
             return torch.einsum("gecd,edf->gecf", x, w)
+        tok = self._expert_tok(seg, tok)
         z, self._acc = _DenseExpert.apply(
-            x, w, seg, self._acc, self.mode, self.layout,
+            x, w, seg, tok, self._acc, self.mode, self.layout,
             self.spec.group_index(group), bg, self.spec.use_kernels)
         return z
 
-    def dense_expert(self, x, w, seg, *, group: str = "moe") -> torch.Tensor:
+    def dense_expert(self, x, w, seg, tok=None, *,
+                     group: str = "moe") -> torch.Tensor:
         """Instrumented per-expert matmul. x (E,C,d), w (E,d,f), seg (E,C)
-        example ids (≥ batch ⇒ padding row): the grouped op with one group
-        of the whole batch."""
+        example ids (≥ batch ⇒ padding row); tok (E,C) flat token
+        positions (≥ B·S ⇒ padding row), required for TokenLayout: the
+        grouped op with one group of the whole batch."""
         if not self.live:
             return torch.einsum("ecd,edf->ecf", x, w)
+        tok = self._expert_tok(seg, tok)
         return self.dense_expert_grouped(x[None], w, seg[None],
-                                         self._acc.shape[0], group=group)[0]
+                                         self._acc.shape[0], tok[None],
+                                         group=group)[0]
 
 
 #: Shared inert tap: every op is its plain counterpart.

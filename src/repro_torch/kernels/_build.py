@@ -60,6 +60,8 @@ _SIGNATURES = {
     "segmented_norm_tiles": (_I, _I),
     "segmented_norm_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _L, _L, _P),
+    "rowsumsq_launch": (_P, _P, _I, _I, _I, _I, _L, _L, _P),
+    "clip_scale_launch": (_P, _P, _P, _I, _I, _I, _I, _L, _L, _P),
     "flash_attention_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _F, _I, _LP, _P),
     "flash_attention_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I,

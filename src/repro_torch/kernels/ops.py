@@ -1,9 +1,9 @@
 """Public wrappers around the CUDA kernels — what ``core.norms`` and
 ``nn.attention`` call.
 
-Port of the ``gram_norm`` / ``direct_norm`` / ``segmented_norm`` wrappers
-and the flash attention ops (``flash_attention_vjp``) of
-``src/repro/kernels/ops.py``.
+Port of the ``gram_norm`` / ``direct_norm`` / ``segmented_norm`` /
+``rowsumsq`` / ``clip_scale`` wrappers and the flash attention ops
+(``flash_attention_vjp``) of ``src/repro/kernels/ops.py``.
 Each wrapper takes the plain PyTorch version for tensors on the CPU (the
 tests' device) and launches its CUDA kernel for tensors on a CUDA device;
 any other device raises. There is no fallback from the CUDA path to the
@@ -11,29 +11,36 @@ plain version: a kernel that fails to build or launch raises.
 
 Each wrapper carries a plain integer launch counter (``gram_norm.launches``,
 ``direct_norm.launches``, ``segmented_norm.launches``,
+``rowsumsq.launches``, ``clip_scale.launches``,
 ``flash_attention.launches``,
 ``flash_attention_bwd.dq_launches`` and ``.dkv_launches``) that it raises by
 one where it launches its kernel, and nowhere else, so a run can show which
 kernels its main path went through. An empty input to a norm wrapper (a
 zero batch, sequence or feature extent) has the norm 0 and launches
-nothing, so it is answered here and not counted.
+nothing, so it is answered here and not counted; so are an empty
+``rowsumsq`` (zeros) and an empty ``clip_scale`` (an empty tensor).
 
 Not carried over: the TPU wrappers' 128-lane padding (``_launch_tiles``,
-``_seg_launch_tiles``), the segmented kernel's run tables (``_run_tables``)
+``_seg_launch_tiles``, and the zero-padding of ``rowsumsq`` and
+``clip_scale`` to whole tiles), the segmented kernel's run tables
+(``_run_tables``)
 and the ``gram_cost``/``direct_cost``/``segmented_cost`` prices of padded
 TPU tiles; the port's dispatch uses the logical flop model in
 ``core.norms``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import clip_scale as _cs
 from repro_torch.kernels import direct_norm as _dn
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gram_norm as _gn
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rowsumsq as _rs
 from repro_torch.kernels import segmented_norm as _sn
 
 
@@ -128,6 +135,51 @@ def segmented_norm(h: torch.Tensor, zbar: torch.Tensor,
 segmented_norm.launches = 0
 
 
+def rowsumsq(x: torch.Tensor, keep: int = 1) -> torch.Tensor:
+    """Σx² in f32 over every axis past the first ``keep``: the reference's
+    (B, ...) → (B,) with ``keep=1``, the token layout's (B, S, ...) →
+    (B, S) with ``keep=2``. The kept axes go to the kernel as (rows of
+    rows) at their strides, so a strided (B, S, p) view is not copied;
+    trailing axes that cannot be viewed as one are."""
+    if not 1 <= keep <= x.ndim:
+        raise ValueError(f"rowsumsq: keep={keep} must lie in [1, "
+                         f"{x.ndim}] for a {x.ndim}-d input")
+    lead = x.shape[:keep]
+    n = math.prod(x.shape[keep:])
+    rows = x.reshape(*lead, n)
+    if _on_cpu("rowsumsq", x):
+        return _ref.rowsumsq_ref(rows)
+    if x.numel() == 0:
+        return torch.zeros(lead, dtype=torch.float32, device=x.device)
+    out = _rs.rowsumsq(rows.reshape(math.prod(lead[:-1]), lead[-1], n))
+    rowsumsq.launches += 1
+    return out.reshape(lead)
+
+
+rowsumsq.launches = 0
+
+
+def clip_scale(z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(B, ...) ⊙ c (B,) → a new tensor of z's shape and dtype: each
+    example's rows times its coefficient, multiplied in f32 and rounded
+    once. The axes between the first and the last go to the kernel as one
+    (a view where z's strides allow it)."""
+    if z.ndim < 2 or c.shape != z.shape[:1]:
+        raise ValueError(f"clip_scale: expected z (B, ..., N) and c (B,), "
+                         f"got {tuple(z.shape)} and {tuple(c.shape)}")
+    if _on_cpu("clip_scale", z, c):
+        return _ref.clip_scale_ref(z, c)
+    if z.numel() == 0:
+        return torch.empty(z.shape, dtype=z.dtype, device=z.device)
+    b, n = z.shape[0], z.shape[-1]
+    out = _cs.clip_scale(z.reshape(b, math.prod(z.shape[1:-1]), n), c)
+    clip_scale.launches += 1
+    return out.reshape(z.shape)
+
+
+clip_scale.launches = 0
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, softcap: Optional[float] = None,
                     window: Optional[int] = None, return_lse: bool = False):
@@ -199,6 +251,8 @@ def reset_launch_counts() -> None:
     gram_norm.launches = 0
     direct_norm.launches = 0
     segmented_norm.launches = 0
+    rowsumsq.launches = 0
+    clip_scale.launches = 0
     flash_attention.launches = 0
     flash_attention_bwd.dq_launches = 0
     flash_attention_bwd.dkv_launches = 0
@@ -209,6 +263,8 @@ def launch_counts() -> dict:
     return {"gram_norm": gram_norm.launches,
             "direct_norm": direct_norm.launches,
             "segmented_norm": segmented_norm.launches,
+            "rowsumsq": rowsumsq.launches,
+            "clip_scale": clip_scale.launches,
             "flash_attention": flash_attention.launches,
             "flash_attention_bwd_dq": flash_attention_bwd.dq_launches,
             "flash_attention_bwd_dkv": flash_attention_bwd.dkv_launches}

@@ -1,8 +1,9 @@
 """Plain PyTorch oracles for the CUDA kernels (the ``ref.py`` contract).
 
-Port of ``src/repro/kernels/ref.py``: ``gram_norm_ref`` and
-``flash_attention_ref``. The other oracles (``rowsumsq_ref``,
-``clip_scale_ref``) come with their kernels.
+Port of ``src/repro/kernels/ref.py``: ``gram_norm_ref``, ``rowsumsq_ref``,
+``clip_scale_ref`` and ``flash_attention_ref``. ``rowsumsq_ref`` and
+``clip_scale_ref`` are also the plain versions of the ``rowsumsq`` and
+``clip_scale`` kernels.
 """
 from __future__ import annotations
 
@@ -22,6 +23,22 @@ def gram_norm_ref(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
     hh = torch.einsum("bsi,bti->bst", h, h)
     zz = torch.einsum("bsi,bti->bst", zbar, zbar)
     return torch.sum(hh * zz, dim=(1, 2))
+
+
+def rowsumsq_ref(x: torch.Tensor) -> torch.Tensor:
+    """(..., N) → (...) Σ x² over the last axis, in f32."""
+    return torch.sum(torch.square(x.to(_F32)), dim=-1)
+
+
+def clip_scale_ref(z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Scale each example's rows: (B, ...) ⊙ c (B,) → z's shape and dtype.
+
+    The product is taken in f32 and rounded once to z's dtype, as the
+    TPU kernel's body does. The reference's ``clip_scale_ref`` casts c to
+    z's dtype before the product instead, so in bf16 it can differ from
+    both kernels by one rounding."""
+    cb = c.to(_F32).reshape((-1,) + (1,) * (z.ndim - 1))
+    return (z.to(_F32) * cb).to(z.dtype)
 
 
 def flash_attention_ref(q, k, v, *, scale, softcap=None, window=None):

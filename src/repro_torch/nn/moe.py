@@ -7,13 +7,14 @@ Dispatch and combine are batched gathers over the group axis. Per-example
 gradient norms stay exact through the shuffle: every capacity slot carries
 its group-local example id, and the expert matmuls go through the expert
 taps (``tap.dense_expert_grouped``), whose stats are segmented-direct over
-(group, expert, example) segments.
+(group, expert, example) segments; every slot also carries its group-local
+flat token id (``tok``, from the same dispatch sort), which the token
+layout's expert taps scatter their per-slot stats through.
 
 Covers phi3.5-moe (16 experts, top-2, renormalized gates) and the routed
 part of deepseek-v2 (with ``n_shared`` shared experts as one MLP). Not
-carried over: the ``shard`` constraints (identities off a TPU mesh), the
-slot → token table ``tok`` that token-granularity taps need (TokenLayout
-waits), and ``load_balance_loss`` (off the loss: it couples examples).
+carried over: the ``shard`` constraints (identities off a TPU mesh) and
+``load_balance_loss`` (off the loss: it couples examples).
 """
 from __future__ import annotations
 
@@ -133,12 +134,16 @@ def moe(p, x, *, tap: Tap, cfg: MoeCfg, group: str = "moe",
                          torch.full((ng, 1), bg, device=dev,
                                     dtype=rel_example.dtype)], dim=1)
     seg = torch.gather(rel_pad, 1, tok_for_slot).reshape(ng, e_dim, cap)
+    # the dispatch sort already knows each slot's source token: carry it so
+    # TokenLayout taps can scatter slot stats back to (B, S) positions
+    # (tg ⇒ padding slot; group g covers flat tokens [g·tg, (g+1)·tg))
+    tok = tok_for_slot.reshape(ng, e_dim, cap)
 
     # --- expert MLP (tapped; stats via group-local segmented-direct) --------
-    g = tap.dense_expert_grouped(buf, p["gate"], seg, bg, group=group)
-    u = tap.dense_expert_grouped(buf, p["up"], seg, bg, group=group)
+    g = tap.dense_expert_grouped(buf, p["gate"], seg, bg, tok, group=group)
+    u = tap.dense_expert_grouped(buf, p["up"], seg, bg, tok, group=group)
     h = (_act(cfg.act)(g) * u).to(x.dtype)
-    y_buf = tap.dense_expert_grouped(h, p["down"], seg, bg, group=group)
+    y_buf = tap.dense_expert_grouped(h, p["down"], seg, bg, tok, group=group)
 
     # --- combine: batched gather back (dropped slots → zero pad row) --------
     slot_sorted = torch.where(pos < cap, sorted_e * cap + pos, e_dim * cap)

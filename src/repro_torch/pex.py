@@ -10,19 +10,21 @@ Port of ``src/repro/pex.py`` for this slice:
 
 with models written against the tap collector (``tap.dense``,
 ``tap.scale``, ``tap.embedding``, ...). ``pex.NULL`` is the inert tap for
-oracle paths. Not yet here: ``TokenLayout``, ``scan``/``checkpoint`` and
-``token_clip_coefficients``.
+oracle paths. Not yet here: ``scan``/``checkpoint``.
 """
-from repro_torch.core.clipping import clip_coefficients
-from repro_torch.core.engine import Engine, infer_batch_size
+from repro_torch.core.clipping import (clip_coefficients,
+                                       token_clip_coefficients)
+from repro_torch.core.engine import Engine, infer_batch_size, infer_seq_len
 from repro_torch.core.passes import PexResult
 from repro_torch.core.plan import (GNS, Clip, Grads, Importance, Noise, Norms,
                                    StepResult, gradient_noise_scale)
-from repro_torch.core.taps import DISABLED, NULL, ExampleLayout, PexSpec, Tap
+from repro_torch.core.taps import (DISABLED, NULL, ExampleLayout, PexSpec, Tap,
+                                   TokenLayout)
 
 __all__ = [
-    "Engine", "PexResult", "PexSpec", "Tap", "ExampleLayout", "DISABLED",
-    "NULL", "clip_coefficients", "infer_batch_size",
+    "Engine", "PexResult", "PexSpec", "Tap", "ExampleLayout", "TokenLayout",
+    "DISABLED", "NULL", "clip_coefficients", "token_clip_coefficients",
+    "infer_batch_size", "infer_seq_len",
     "Norms", "Grads", "Clip", "Noise", "Importance", "GNS", "StepResult",
     "gradient_noise_scale",
 ]

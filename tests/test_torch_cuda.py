@@ -404,3 +404,178 @@ def test_cuda_moe_engine_step_matches_cpu(cuda_device):
     for g, w in zip(tree_flatten(got.grads)[0], tree_flatten(want.grads)[0]):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
                                    atol=1e-4 * float(w.abs().max()))
+
+
+# (B, S, N) rows of the rowsumsq / clip_scale checks: a ragged width (not a
+# multiple of 8), one row, narrow rows (warp per row), one width on each
+# side of the block-per-row switch (16,384), and a head-wide row
+ROW_SHAPES = [(3, 37, 77), (1, 1, 1000), (2, 64, 512), (2, 8, 16383),
+              (2, 4, 16384), (1, 3, 128256)]
+
+
+def _rows(shape, dtype, device, seed=9):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return torch.from_numpy(x).to(device, getattr(torch, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_cuda_rowsumsq_matches_plain(cuda_device, shape, dtype):
+    """1e-5 relative in both types (bf16 products are exact in f32; the sums
+    differ in order only), and the same bits on a second launch."""
+    x = _rows(shape, dtype, cuda_device)
+    tops.reset_launch_counts()
+    got = tops.rowsumsq(x, 2)
+    again = tops.rowsumsq(x, 2)
+    torch.testing.assert_close(got, tref.rowsumsq_ref(x), rtol=1e-5,
+                               atol=0.0)
+    assert torch.equal(got, again)
+    assert tops.launch_counts() == _counts(rowsumsq=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rowsumsq_strided_and_unaligned(cuda_device, dtype):
+    """A (B, S) view with batch and sequence strides is read where it lies;
+    rows that start off a 16-byte boundary take the scalar head."""
+    x = _rows((4, 2, 40, 70), dtype, cuda_device)
+    for view in (x[:, 1], x[:, 0, ::3], x[:, 0, :, 3:], x[:, 1, :, 1:66]):
+        torch.testing.assert_close(tops.rowsumsq(view, 2),
+                                   tref.rowsumsq_ref(view), rtol=1e-5,
+                                   atol=0.0)
+    torch.testing.assert_close(tops.rowsumsq(x), tref.rowsumsq_ref(
+        x.reshape(4, -1)), rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ROW_SHAPES[:5] + [(5, 9, 2048)])
+def test_cuda_clip_scale_equals_plain(cuda_device, shape, dtype):
+    """Exactly the plain version (one f32 product, one rounding), with c
+    holding 0, 1 and values below 1; strided and unaligned z too."""
+    z = _rows(shape, dtype, cuda_device)
+    c = torch.tensor([0.0, 1.0, 0.3, 0.05, 0.999], device=cuda_device)
+    c = c[:shape[0]]
+    tops.reset_launch_counts()
+    got = tops.clip_scale(z, c)
+    assert torch.equal(got, tref.clip_scale_ref(z, c))
+    assert torch.equal(got, tops.clip_scale(z, c))
+    assert tops.launch_counts() == _counts(clip_scale=2)
+    for view in (z[:, ::2], z[..., 1:], z[:, :, :-3]):
+        assert torch.equal(tops.clip_scale(view, c),
+                           tref.clip_scale_ref(view, c))
+
+
+@pytest.mark.cuda
+def test_cuda_row_wrappers_empty_inputs_launch_nothing(cuda_device):
+    tops.reset_launch_counts()
+    assert tops.rowsumsq(torch.zeros(2, 0, 5, device=cuda_device),
+                         2).shape == (2, 0)
+    assert not bool(tops.rowsumsq(torch.zeros(2, 3, 0, device=cuda_device),
+                                  2).any())
+    empty = tops.clip_scale(torch.zeros(2, 0, 5, device=cuda_device),
+                            torch.ones(2, device=cuda_device))
+    assert empty.shape == (2, 0, 5)
+    assert tops.launch_counts() == _counts()
+
+
+@pytest.mark.cuda
+def test_cuda_token_step_matches_cpu(cuda_device):
+    """The smoke llama token-clip step on the card (rowsumsq kernel)
+    against the same step on the CPU (plain version), f32; the launches
+    are 2 per dense tap, 1 per scale tap and 1 for the embedding, all in
+    the norms backward, and no norm kernel."""
+    from repro_torch import pex
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.models import registry
+    from repro_torch.nn.param import tree_flatten, tree_map
+
+    spec = registry.get("llama3.2-1b")
+    cfg = spec.smoke()
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = registry.make_train_batch(spec, cfg, ShapeSpec("t", "train", 96,
+                                                           3), 0,
+                                      device="cpu")
+    loss_fn = registry.make_loss_fn_v2(spec, cfg)
+    eng = pex.Engine(pex.PexSpec(), granularity="token")
+    consumers = [pex.Clip(1.0, granularity="token"), pex.Grads()]
+    want = eng.step(loss_fn, params, batch, consumers)
+    tops.reset_launch_counts()
+    got = eng.step(loss_fn, tree_map(lambda x: x.to(cuda_device), params),
+                   {k: v.to(cuda_device) for k, v in batch.items()},
+                   consumers)
+    n = cfg.n_layers
+    assert tops.launch_counts() == _counts(
+        rowsumsq=2 * (7 * n + 1) + (2 * n + 1) + 1)
+    torch.testing.assert_close(got.sq_norms.cpu(), want.sq_norms, rtol=1e-4,
+                               atol=0.0)
+    torch.testing.assert_close(got.clip_coef.cpu(), want.clip_coef,
+                               rtol=1e-4, atol=0.0)
+    for g, w in zip(tree_flatten(got.grads)[0], tree_flatten(want.grads)[0]):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [False, True])
+def test_cuda_onepass_matches_cpu(cuda_device, seq):
+    """Paper §6 one-pass on the card against the CPU, f32: one clip_scale
+    launch per tapped layer; the MLP form's norms from two rowsumsq
+    launches per layer, the sequence form's from the gram/direct route."""
+    from repro_torch.core import clipping
+
+    rng = np.random.default_rng(10)
+    b, s, d = 6, 40, 24
+    lead = (b, s) if seq else (b,)
+    params = {k: torch.from_numpy(rng.normal(size=(d, d)).astype(np.float32)
+                                  * 0.3) for k in ("w1", "w2")}
+    batch = {k: torch.from_numpy(rng.normal(size=lead + (d,))
+                                 .astype(np.float32)) for k in ("x", "y")}
+    shapes = {"w1": lead + (d,), "w2": lead + (d,)}
+
+    def forward(p, tp, bt):
+        h1 = torch.tanh(bt["x"] @ p["w1"] + tp["w1"])
+        z2 = h1 @ p["w2"] + tp["w2"]
+        lv = torch.sum(torch.square(z2 - bt["y"]).reshape(b, -1), -1)
+        return lv, {"w1": bt["x"], "w2": h1}
+
+    fn = clipping.onepass_clipped_weight_grads_seq if seq \
+        else clipping.onepass_clipped_weight_grads
+    _, want_sq, want_w = fn(forward, params, batch, shapes, 0.5)
+    tops.reset_launch_counts()
+    _, sq, wbar = fn(forward, {k: v.to(cuda_device) for k, v in
+                               params.items()},
+                     {k: v.to(cuda_device) for k, v in batch.items()},
+                     shapes, 0.5)
+    n = tops.launch_counts()
+    assert n["clip_scale"] == 2
+    assert n["rowsumsq"] == (0 if seq else 4)
+    torch.testing.assert_close(sq.cpu(), want_sq, rtol=1e-4, atol=0.0)
+    for k in params:
+        torch.testing.assert_close(wbar[k].cpu(), want_w[k], rtol=1e-4,
+                                   atol=1e-4 * float(want_w[k].abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_token_slot_scatter_is_bitwise_repeatable(cuda_device):
+    """A token's top-k expert slots add into one (B, S) entry; on CUDA the
+    scatter gives the same bits on every run."""
+    from repro_torch.core.taps import TokenLayout
+
+    rng = np.random.default_rng(11)
+    ng, e, c, bg, s = 2, 8, 300, 4, 128
+    x, z = (torch.from_numpy(rng.normal(size=(ng, e, c, d))
+                             .astype(np.float32)).to(cuda_device)
+            for d in (64, 48))
+    tok = torch.from_numpy(rng.integers(-1, bg * s + 1, size=(ng, e, c))
+                           ).to(cuda_device)
+    seg = torch.zeros_like(tok)
+    acc = torch.zeros(ng * bg, s, device=cuda_device)
+    layout = TokenLayout(s)
+    first = layout.add_expert_grouped(acc, x, z, seg, 0, bg, True, tok=tok)
+    for _ in range(5):
+        assert torch.equal(
+            layout.add_expert_grouped(acc, x, z, seg, 0, bg, True, tok=tok),
+            first)

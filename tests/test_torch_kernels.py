@@ -1,10 +1,11 @@
-"""The port's norm kernels against the JAX reference's.
+"""The port's kernels against the JAX reference's.
 
 On the CPU the port's wrappers (``repro_torch.kernels.ops``) run their
 plain PyTorch versions; the reference's Pallas kernels run in interpret
 mode, as ``tests/test_kernels.py`` runs them. Inputs are made with numpy
 from a seed and handed to both. Tolerance: f32, 1e-5 relative (summation
-order). The CUDA kernels themselves are tested on a card by
+order); ``clip_scale`` exactly (one product and one rounding per element
+on both sides). The CUDA kernels themselves are tested on a card by
 ``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
@@ -13,10 +14,12 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels import direct_norm as tdn
 from repro_torch.kernels import gram_norm as tgn
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 RTOL = 1e-5
 
@@ -77,8 +80,11 @@ def test_cpu_wrappers_launch_nothing():
     o, lse = tops.flash_attention(q, k, k, scale=0.25, return_lse=True)
     tops.flash_attention_bwd(q, k, k, o, lse, o, scale=0.25)
     tops.segmented_norm(h[0], z[0], torch.arange(16) % 3, 2)
+    tops.rowsumsq(h, 2)
+    tops.clip_scale(h, torch.ones(2))
     assert tops.launch_counts() == {
         "gram_norm": 0, "direct_norm": 0, "segmented_norm": 0,
+        "rowsumsq": 0, "clip_scale": 0,
         "flash_attention": 0, "flash_attention_bwd_dq": 0,
         "flash_attention_bwd_dkv": 0}
 
@@ -96,6 +102,26 @@ def test_wrappers_reject_other_devices(fn):
     with pytest.raises(ValueError):
         getattr({"gram_norm": tgn, "direct_norm": tdn}[fn], fn)(
             torch.zeros(2, 8, 4), torch.zeros(2, 8, 3))
+
+
+def test_row_wrappers_reject_other_devices():
+    """``rowsumsq`` and ``clip_scale`` take CPU or CUDA tensors only, and
+    their CUDA launchers refuse CPU tensors."""
+    from repro_torch.kernels import clip_scale as tcs
+    from repro_torch.kernels import rowsumsq as trs
+    z = torch.empty(2, 8, 4, device="meta")
+    with pytest.raises(ValueError):
+        tops.rowsumsq(z)
+    with pytest.raises(ValueError):
+        tops.clip_scale(z, torch.ones(2))
+    with pytest.raises(ValueError):
+        trs.rowsumsq(torch.zeros(2, 8, 4))
+    with pytest.raises(ValueError):
+        tcs.clip_scale(torch.zeros(2, 8, 4), torch.ones(2))
+    with pytest.raises(ValueError):
+        tops.clip_scale(torch.zeros(2, 8, 4), torch.ones(3))
+    with pytest.raises(ValueError):
+        tops.rowsumsq(torch.zeros(2, 8), keep=3)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -132,3 +158,90 @@ def test_least_work_takes_the_cheaper_route(shape, route):
     est = {"gram": tgn.flop_estimate(*shape),
            "direct": tdn.flop_estimate(*shape)}
     assert tops.flop_estimate(*shape) == est[route] == min(est.values())
+
+
+def _dt_pair(x, dtype):
+    """The same numpy values as a JAX and a torch array of ``dtype``
+    (bfloat16 rounds to nearest even on both sides)."""
+    return (jnp.asarray(x, getattr(jnp, dtype)),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+# (B, N): tiny, ragged N (not a multiple of 8 or of a 128-lane tile), one
+# row, and one N spanning two of the reference's 2048-wide tiles
+ROWS = [(8, 16), (3, 37), (1, 130), (16, 2500), (2, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ROWS)
+def test_rowsumsq_matches_reference(shape, dtype):
+    """The plain version against the reference's Pallas kernel, f32 and
+    bf16 inputs, 1e-5 relative (the bf16 products are exact in f32)."""
+    x = np.random.default_rng(5).normal(size=shape).astype(np.float32)
+    jx, tx = _dt_pair(x, dtype)
+    want = np.asarray(jops.rowsumsq(jx))
+    got = tops.rowsumsq(tx)
+    assert got.dtype == torch.float32 and got.shape == (shape[0],)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+    np.testing.assert_allclose(tref.rowsumsq_ref(tx).numpy(),
+                               np.asarray(jref.rowsumsq_ref(jx)), rtol=RTOL)
+
+
+@pytest.mark.parametrize("keep", [1, 2, 3])
+def test_rowsumsq_keeps_leading_axes(keep):
+    """``keep`` leading axes stay (the token layout's (B, S) form is
+    keep=2); the rest are summed, as the reference's wrapper flattens
+    them for keep=1; a strided (B, S, p) view gives the same sums."""
+    x = np.random.default_rng(6).normal(size=(3, 4, 5, 6)).astype(np.float32)
+    want = np.sum(x.astype(np.float64) ** 2, axis=tuple(range(keep, 4)))
+    got = tops.rowsumsq(torch.from_numpy(x), keep)
+    assert got.shape == x.shape[:keep]
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+    if keep == 1:
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(jops.rowsumsq(jnp.asarray(x))), rtol=RTOL)
+    view = torch.from_numpy(x)[:, :, 1]                  # (3, 4, 6) strided
+    np.testing.assert_allclose(tops.rowsumsq(view, 2).numpy(),
+                               np.sum(x[:, :, 1] ** 2, -1), rtol=RTOL)
+    assert tops.rowsumsq(torch.zeros(0, 4, 5), 2).shape == (0, 4)
+
+
+CLIP_SHAPES = [(2, 5, 7), (3, 16, 256), (1, 1, 130), (4, 33, 40)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CLIP_SHAPES)
+def test_clip_scale_matches_reference_kernel(shape, dtype):
+    """The plain version equals the reference's Pallas kernel exactly:
+    both multiply in f32 and round once. c holds 0, 1 and values below
+    1."""
+    rng = np.random.default_rng(7)
+    z = rng.normal(size=shape).astype(np.float32)
+    c = np.concatenate([[0.0, 1.0], rng.uniform(0.01, 1.0, 8)])[:shape[0]]
+    c = c.astype(np.float32)
+    jz, tz = _dt_pair(z, dtype)
+    want = jops.clip_scale(jz, jnp.asarray(c))
+    got = tops.clip_scale(tz, torch.from_numpy(c))
+    assert got.dtype == tz.dtype and got.shape == tz.shape
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def test_clip_scale_ref_rounds_once_unlike_the_reference_oracle():
+    """The reference's ``clip_scale_ref`` casts c to z's dtype before the
+    product: in f32 it equals the port's plain version, in bf16 it may
+    differ from it (and from both kernels) by one bf16 rounding, never
+    more (ROADMAP Queue 3, a reference behaviour)."""
+    rng = np.random.default_rng(8)
+    z = rng.normal(size=(6, 9, 64)).astype(np.float32)
+    c = rng.uniform(0.01, 1.0, 6).astype(np.float32)
+    for dtype in ("float32", "bfloat16"):
+        jz, tz = _dt_pair(z, dtype)
+        want = np.asarray(jref.clip_scale_ref(jz, jnp.asarray(c))
+                          .astype(jnp.float32))
+        got = tref.clip_scale_ref(tz, torch.from_numpy(c)).float().numpy()
+        if dtype == "float32":
+            np.testing.assert_array_equal(got, want)
+        else:
+            ulp = 2.0 ** (np.floor(np.log2(np.abs(want) + 1e-30)) - 7)
+            assert np.all(np.abs(got - want) <= ulp)
