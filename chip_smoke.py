@@ -12,9 +12,11 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               against their plain PyTorch versions in f32 and bf16 at the
               main path's shapes, a ragged shape and the LM head; the three
               flash attention kernels (forward, dQ, dK/dV) against theirs in
-              f32 and bf16 at the main path's shape, a ragged S, MHA, D=32
-              and D=128, a window and a softcap, and the backward run twice
-              for bitwise-equal results;
+              f32 and bf16 at every ``FLASH_CASES`` case (the main path's
+              shape, ragged S, S = 65 and 320, MHA, rep 8, D=32 and D=128,
+              windows of 48 to 128, softcaps, and q/k/v sliced from a fused
+              projection and from rows of an odd pitch), and the backward
+              run twice for bitwise-equal results;
 4. exact    — llama3.2-1b at full width in f32: ``Engine.step([Norms(),
               Grads()])``, unfused and with ``AttnCfg.flash``, against a
               per-example loop of plain (unfused) backward passes, and its
@@ -77,7 +79,9 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               shapes, the gram kernel at the direct kernel's shapes (the LM
               head's, where the forced direct route is not the cheaper one,
               and wk/wv's) and its full grid at its own, the flash kernels
-              beside PyTorch's ``scaled_dot_product_attention``, and
+              beside PyTorch's ``scaled_dot_product_attention`` (both on
+              the device, in turns, with each kernel's registers, spills,
+              shared memory and blocks per SM), and
               ``rowsumsq`` and ``clip_scale`` beside
               ``torch.linalg.vector_norm`` and ``torch.mul`` (each library
               call timed as a yardstick only; the port never calls it).
@@ -174,12 +178,27 @@ ONEPASS_B, ONEPASS_D = 256, 4096      # §6 MLP form: B, widths D→D→D
 NORM_KERNELS = ("gram_norm", "direct_norm")
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
-# (B, Hq, Hkv, S, D, softcap, window) of the flash kernel checks: the main
-# path's shape first
-FLASH_CASES = [(B, 32, 8, S, 64, None, None), (2, 8, 2, 200, 64, None, None),
-               (2, 4, 4, 256, 64, None, None), (2, 4, 4, 192, 32, None, None),
-               (2, 8, 2, 256, 128, None, None), (2, 8, 2, S, 64, None, 128),
-               (2, 8, 2, 256, 64, 50.0, None), (1, 4, 2, 333, 64, 30.0, 100)]
+# (B, Hq, Hkv, S, D, softcap, window, layout) of the flash kernel checks:
+# the main path's shape first. Layout None is the model's: (B, H, S, D)
+# views of (B, S, H, D) projections. "fused" slices q, k and v out of one
+# (B, S, Hq + 2 Hkv, D) tensor (strides in 16-byte multiples: the bf16
+# kernels' TMA route); "odd" slices each out of a (B, S, H, D + 1) tensor
+# (strides no 16-byte multiple: the synchronous route)
+FLASH_CASES = [(B, 32, 8, S, 64, None, None, None),
+               (2, 8, 2, 200, 64, None, None, None),
+               (2, 4, 4, 256, 64, None, None, None),
+               (2, 4, 4, 192, 32, None, None, None),
+               (2, 8, 2, 256, 128, None, None, None),
+               (2, 8, 2, S, 64, None, 128, None),
+               (2, 8, 2, 256, 64, 50.0, None, None),
+               (1, 4, 2, 333, 64, 30.0, 100, None),
+               (2, 8, 2, 320, 64, None, None, None),     # S = 5 x 64
+               (2, 4, 2, 65, 64, None, None, None),      # one row past
+               (2, 8, 2, 256, 64, None, 48, None),       # window < a tile
+               (2, 32, 4, 256, 64, None, None, None),    # rep = 8
+               (2, 8, 2, 200, 64, None, None, "fused"),
+               (2, 8, 2, 200, 64, None, None, "odd"),
+               (1, 8, 2, 320, 128, 20.0, 48, "odd")]
 
 
 def log(msg: str) -> None:
@@ -474,15 +493,24 @@ def phase_kernels(cfg, errs):
             raise AssertionError(f"gram vs direct disagree: {r}")
 
 
-def flash_inputs(b, hq, hkv, s, d, dt, gen):
-    """q (B, Hq, S, D), k, v (B, Hkv, S, D) and dO as the model passes
-    them: (B, H, S, D) views of (B, S, H, D) tensors."""
+def flash_inputs(b, hq, hkv, s, d, dt, gen, layout=None):
+    """q (B, Hq, S, D), k, v (B, Hkv, S, D) and dO as (B, H, S, D) views:
+    of (B, S, H, D) tensors as the model passes them, or laid out as
+    ``layout`` says (``FLASH_CASES``)."""
     import torch
 
-    def draw(h):
-        return torch.randn(b, s, h, d, generator=gen,
-                           device="cuda").to(dt).transpose(1, 2)
-    return draw(hq), draw(hkv), draw(hkv), draw(hq)
+    def draw(h, width=d):
+        return torch.randn(b, s, h, width, generator=gen,
+                           device="cuda").to(dt)
+    if layout == "fused":
+        qkv = draw(hq + 2 * hkv)
+        q, k, v = qkv.split((hq, hkv, hkv), dim=2)
+        do = draw(hq)
+    elif layout == "odd":
+        q, k, v, do = (draw(h, d + 1)[..., :d] for h in (hq, hkv, hkv, hq))
+    else:
+        q, k, v, do = (draw(h) for h in (hq, hkv, hkv, hq))
+    return tuple(x.transpose(1, 2) for x in (q, k, v, do))
 
 
 def phase_flash_kernels(errs):
@@ -497,8 +525,13 @@ def phase_flash_kernels(errs):
     for dt in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[str(dt)]
         for case in FLASH_CASES:
-            b, hq, hkv, s, d, cap, win = case
-            q, k, v, do = flash_inputs(b, hq, hkv, s, d, dt, gen)
+            b, hq, hkv, s, d, cap, win, layout = case
+            q, k, v, do = flash_inputs(b, hq, hkv, s, d, dt, gen, layout)
+            route = fa.copy_route(q, k, v, do)
+            if layout is not None and route != {"fused": "tma",
+                                                "odd": "synchronous"}[layout]:
+                raise AssertionError(f"{layout} inputs took the {route} "
+                                     f"route")
             kw = dict(scale=d ** -0.5, softcap=cap, window=win)
             o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
             o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, **kw)
@@ -528,8 +561,9 @@ def phase_flash_kernels(errs):
             if not all(torch.equal(a, b) for a, b in zip(grads, again)):
                 raise AssertionError(f"flash backward not bitwise "
                                      f"reproducible at {case} {dt}")
-            log(f"[kernels] flash {str(dt)[6:]} (B,Hq,Hkv,S,D,cap,win)="
-                f"{case}: err/max " + ", ".join(line)
+            how = f", {route} route" if dt == torch.bfloat16 else ""
+            log(f"[kernels] flash {str(dt)[6:]} (B,Hq,Hkv,S,D,cap,win,"
+                f"layout)={case}{how}: err/max " + ", ".join(line)
                 + f" (tol {tol}, lse {LSE_TOL}); backward bitwise equal "
                 f"on a second run")
             del q, k, v, do, o, lse, o_ref, lse_ref, grads, again, want
@@ -1074,81 +1108,126 @@ def phase_table(expected, errs, launches, kern_ms):
     return rows
 
 
+def ptxas_usage(log, entry):
+    """(registers, spill store bytes) that ``nvcc -Xptxas -v`` printed for
+    the first kernel whose mangled name holds ``entry``."""
+    import re
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            regs = spill = None
+            for nxt in lines[i + 1:i + 6]:
+                m = re.search(r"Used (\d+) registers", nxt)
+                regs = int(m.group(1)) if m and regs is None else regs
+                m = re.search(r"(\d+) bytes spill stores", nxt)
+                spill = int(m.group(1)) if m and spill is None else spill
+            return regs, spill
+    return None, None
+
+
 def flash_table(errs, launches, kern_ms):
-    """The flash kernels at the main path's shape (bf16): per-launch kernel,
-    plain and library times and the bound, scaled to the flash path's
-    launches per step; JSON rows."""
+    """The flash kernels at the main path's shape (bf16), each beside
+    PyTorch's ``scaled_dot_product_attention`` (forward, or its autograd
+    backward, which forms dQ, dK and dV in one call), both on the device
+    with the host's launch overhead hidden and inputs read from device
+    memory (``device_ms``), in turns kernel, library, library, kernel;
+    the plain version and the bound per launch; scaled to the flash
+    path's launches per step. ``path_events_ms`` keeps the CUDA events
+    around the launches on the path. Each row carries its kernel's
+    registers and spills from the build's ``-Xptxas -v`` output and its
+    shared memory and resident blocks per SM from the runtime."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     dt = torch.bfloat16
     b, hq, hkv, s, d = FLASH_CASES[0][:5]
     scale = d ** -0.5
-    q, k, v, do = flash_inputs(b, hq, hkv, s, d, dt, gen)
-    o, lse = fa.flash_attention_fwd(q, k, v, scale=scale)
-    delta = fa.row_delta(o, do)
-    args = (q, k, v, do, lse, delta)
+    sets = []       # input copies, together above twice the L2 cache
+    while sum(sum(t.numel() * t.element_size() for t in x[:6])
+              for x in sets) < 2 * L2_BYTES:
+        q, k, v, do = flash_inputs(b, hq, hkv, s, d, dt, gen)
+        o, lse = fa.flash_attention_fwd(q, k, v, scale=scale)
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True, scale=scale, enable_gqa=True)
+        sets.append((q, k, v, do, lse, fa.row_delta(o, do), ql, kl, vl, out))
     run = {"flash_attention": (
-               lambda: fa.flash_attention_fwd(q, k, v, scale=scale),
-               lambda: fa.flash_attention_fwd_ref(q, k, v, scale=scale)),
+               lambda x: fa.flash_attention_fwd(*x[:3], scale=scale),
+               lambda x: fa.flash_attention_fwd_ref(*x[:3], scale=scale)),
            "flash_attention_bwd_dq": (
-               lambda: fa.flash_attention_bwd_dq(*args, scale=scale),
-               lambda: fa.flash_attention_bwd_dq_ref(*args, scale=scale)),
+               lambda x: fa.flash_attention_bwd_dq(*x[:6], scale=scale),
+               lambda x: fa.flash_attention_bwd_dq_ref(*x[:6], scale=scale)),
            "flash_attention_bwd_dkv": (
-               lambda: fa.flash_attention_bwd_dkv(*args, scale=scale),
-               lambda: fa.flash_attention_bwd_dkv_ref(*args, scale=scale))}
+               lambda x: fa.flash_attention_bwd_dkv(*x[:6], scale=scale),
+               lambda x: fa.flash_attention_bwd_dkv_ref(*x[:6],
+                                                        scale=scale))}
     kinds = {"flash_attention": "fwd", "flash_attention_bwd_dq": "dq",
              "flash_attention_bwd_dkv": "dkv"}
+    # the yardstick: one PyTorch call for the same attention; never on the
+    # path
+    lib = {"fwd": lambda x: F.scaled_dot_product_attention(
+               x[6], x[7], x[8], is_causal=True, scale=scale,
+               enable_gqa=True),
+           "bwd": lambda x: torch.autograd.grad(
+               x[9], (x[6], x[7], x[8]), x[3], retain_graph=True)}
+    log(f"[table] flash timing: {len(sets)} input sets "
+        f"(B,Hq,Hkv,S,D)=({b},{hq},{hkv},{s},{d}) bf16, device time per "
+        f"call, turns kernel, library, library, kernel")
 
-    # the yardstick: one PyTorch call for the same attention, forward and
-    # its autograd backward (dQ, dK and dV together); never on the path
-    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        ql, kl, vl, is_causal=True, scale=scale, enable_gqa=True)
-    out = sdpa()
-    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
-        out, (ql, kl, vl), do, retain_graph=True)
-    lib_ms = {"flash_attention": time_ms(sdpa, 20),
-              "bwd": time_ms(sdpa_bwd, 20)}
-    log(f"[table] scaled_dot_product_attention bf16 at the main shape "
-        f"(yardstick, never on the path): forward "
-        f"{lib_ms['flash_attention']:.4f} ms, autograd backward "
-        f"{lib_ms['bwd']:.4f} ms per call")
-
-    rows = []
+    build_log = _build.build_log()
+    rows, per_launch = [], {}
     for name, (kern, plain) in run.items():
         kind = kinds[name]
         n = launches[name] // STEPS
-        ms = time_ms(kern, 20)
-        plain_ms = time_ms(plain, 5)
+        yard = lib["fwd" if kind == "fwd" else "bwd"]
+        turns = [device_ms(kern, sets, 20), device_ms(yard, sets, 20),
+                 device_ms(yard, sets, 20), device_ms(kern, sets, 20)]
+        ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        per_launch[kind] = (ms, lib_ms)
+        plain_ms = device_ms(plain, sets, 3)
         flops = fa.flop_estimate(kind, b, hq, s, s, d)
         nbytes = fa.byte_estimate(kind, b, hq, hkv, s, s, d, 2)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[str(dt)] * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        lib = lib_ms.get(name, lib_ms["bwd"])
         steady = [m[name] for m in kern_ms[1:]] or [kern_ms[0][name]]
-        log(f"[table] {name} bf16 (B,Hq,Hkv,S,D)=({b},{hq},{hkv},{s},{d}) "
-            f"x{n}/step: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"library {lib:.4f} ms, bound {bound:.4f} ms ({by}: "
-            f"{flops:.3g} flops, {nbytes:.3g} B), {bound / ms:.1%} of bound;"
-            f" on the flash path {sum(steady) / len(steady):.3f} ms per "
-            f"step (events)")
+        info = fa.kernel_info(kind, d)
+        entry = {"fwd": f"fwd_mmaILi{d}ELb0E", "dq": f"dq_mmaILi{d}EE",
+                 "dkv": f"dkv_mmaILi{d}ELb0E"}[kind]
+        regs, spill = ptxas_usage(build_log, entry)
+        log(f"[table] {name} bf16 x{n}/step: kernel {ms:.4f} ms (turns "
+            f"{turns[0]:.4f}, {turns[3]:.4f}), library {lib_ms:.4f} ms "
+            f"(turns {turns[1]:.4f}, {turns[2]:.4f}), plain {plain_ms:.3f} "
+            f"ms, bound {bound:.4f} ms ({by}: {flops:.3g} flops, "
+            f"{nbytes:.3g} B), {bound / ms:.1%} of bound; ptxas {regs} "
+            f"registers, {spill} B spilled; {info['smem_bytes']} B shared "
+            f"memory, {info['threads']} threads, {info['blocks_per_sm']} "
+            f"blocks per SM (runtime: {info['registers']} registers, "
+            f"{info['spill_bytes']} B local); on the flash path "
+            f"{sum(steady) / len(steady):.3f} ms per step (events)")
         row = {"name": name, "route": "cuda", "source": SOURCES[name][0],
                "replaces": SOURCES[name][1], "launches": launches[name],
-               "max_abs_err": errs[name],
-               "ms": sum(steady) / len(steady), "plain_ms": n * plain_ms,
-               "bound_ms": n * bound, "bound_by": by,
-               "library_ms": n * lib,
+               "max_abs_err": errs[name], "ms": n * ms,
+               "path_events_ms": sum(steady) / len(steady),
+               "plain_ms": n * plain_ms, "bound_ms": n * bound,
+               "bound_by": by, "bound_share": bound / ms,
+               "library_ms": n * lib_ms, "registers": regs,
+               "spill_bytes": spill, "smem_bytes": info["smem_bytes"],
+               "blocks_per_sm": info["blocks_per_sm"],
                "per": "flash-path step, B=8 S=512 bf16"}
         if kind != "fwd":
             row["library_note"] = ("scaled_dot_product_attention's autograd "
                                    "backward, which forms dQ, dK and dV in "
                                    "one call")
         rows.append(row)
+    bwd = per_launch["dq"][0] + per_launch["dkv"][0]
+    log(f"[table] per launch: forward {per_launch['fwd'][0]:.4f} ms vs SDPA "
+        f"forward {per_launch['fwd'][1]:.4f} ms; dQ + dK/dV {bwd:.4f} ms vs "
+        f"SDPA autograd backward {per_launch['dkv'][1]:.4f} ms")
     return rows
 
 

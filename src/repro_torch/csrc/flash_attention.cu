@@ -29,30 +29,76 @@
 // 59.8 MB against 8.6e9 and 1.29e10 causal flops: 12.7 and 17.8 us), dK/dV
 // by operations (1.72e10 flops, 17.4 us). Everything the kernels move is
 // read once per tile pair from L2, and the quadratic score matrix stays in
-// registers.
+// registers. No kernel reaches either bound at this shape. A forward
+// launch is 1,024 blocks of 2 to 8 tile steps, and clock counts taken
+// inside the kernel on the card put the largest share of a block's life in
+// waiting for its first Q and K/V tiles, the next in the softmax. A dK/dV
+// launch is 256 blocks of 36 steps, each step a chain of two product
+// groups with the element-wise P^T and dS^T between them and a block
+// barrier; the chain's latency, not a pipe's rate, sets its time.
 //
-// Design. The grid has no order on the card, so each block owns one output
-// tile and loops over the other sequence axis inside itself: forward and dQ
-// one block per (batch, q head, 64-row q tile), walking the key tiles only
-// up to the causal diagonal and from the window's first tile on; dK/dV one
-// block per (batch, kv head, 64-key tile), walking the rep q heads of its
-// group and the q tiles from the diagonal on. Each block writes its output
-// tile once: no atomics, no second pass, so the gradients are bitwise the
-// same on every run.
+// Design. The grid has no order on the card, so each block owns its output
+// tiles and loops over the other sequence axis inside itself; each output
+// tile has one writer: no atomics, no second pass, so the gradients are
+// bitwise the same on every run.
 //
-// bf16 runs on the tensor cores: 4 warps, each owning 16 rows of the tile;
-// mma.sync m16n8k16 with f32 accumulation, operands brought in from shared
-// memory by ldmatrix (.trans for the operands stored [k][n]). The score
-// fragment of S = Q K^T is the A fragment of P V once packed to bf16, so P
-// never leaves registers (the FlashAttention-2 layout). m, l and the O, dQ,
-// dK and dV accumulators live in f32 registers for the whole loop. f32 runs
-// on the FMA pipes: 4 threads per row, each owning D/4 of the features, with
-// the dot products summed over the 4 by warp shuffles in a fixed order.
+// bf16 forward (fwd_mma): one block of two warpgroups per (q head,
+//   example, 128-row q tile), the longest q tiles first (blockIdx.z counts
+//   down). Q arrives once, and the 64-key K and V tiles through a ring of
+//   three stages in shared memory, each filled by TMA (one thread issues
+//   the copy; completion on an mbarrier), so tile j + 1 lands while tile j
+//   is computed; one barrier per tile. Both warpgroups read each staged K/V
+//   tile. S = Q K^T is wgmma m64n64k16 with Q and K in shared memory; P V
+//   is wgmma m64nDk16 with P in registers (the accumulator layout of S is
+//   the register-operand layout of P V once packed to bf16, so P never
+//   leaves registers) and V read MN-major from shared memory. Tile j's P V
+//   products are waited for only with tile j + 1's Q K^T, so they run
+//   while the warpgroup waits for tile j + 1 and at the barrier (hence the
+//   third stage: the copy into a stage waits for the products two tiles
+//   back, not one). The softmax
+//   runs in base 2: scale * log2(e) is folded into one multiply and
+//   ex2.approx replaces exp; lse leaves in natural log. The mask is decided
+//   once per warp and tile: a warpgroup skips a tile it cannot see, and only
+//   tiles that cross the diagonal, the window's edge or the end of the keys
+//   test each element. The softcap is a template parameter, so tanh is
+//   compiled in only where one is set. O leaves through shared memory in
+//   16-byte rows.
+// bf16 dK/dV (dkv_mma): one block of two warpgroups per (pair of 64-key
+//   tiles, kv head, example). Under the causal mask key tile kt meets
+//   n - kt q tiles, so a block takes tile x and then tile n - 1 - x: every
+//   block walks n + 1 q tiles per q head (the middle tile alone for odd n),
+//   and a launch at S=512 is one wave of equal blocks. Both key tiles' K and
+//   V arrive once by TMA; the rep q heads' Q and dO tiles run through a
+//   three-stage TMA ring across the whole (key tile, q head, q tile) walk,
+//   and the lse and Delta rows beside them by 4-byte cp.async. Each
+//   warpgroup takes 32 of a q tile's 64 queries against all 64 keys:
+//   S^T = K Q^T and dP^T = V dO^T in one group of wgmma m64n32k16 (operands
+//   in shared memory), then dV += P^T dO and dK += dS^T Q in another (P^T
+//   and dS^T from registers), which the next step's first group waits for,
+//   as in the forward. At the end of each key tile the two warpgroups' dK
+//   and dV are summed in a fixed order through the tile's own K and V
+//   buffers, which then carry the bf16 rows out.
+// Tiles lie in shared memory as TMA writes them and wgmma reads them
+//   (Tile<D, ROWS>): 64-column sub-tiles swizzled within 128-byte rows for
+//   D >= 64, 8-column chunks unswizzled for D = 32. Rows whose base or
+//   strides are not multiples of 16 bytes (no tensor map describes them)
+//   are staged by loads and stores into the same tiles instead.
+// dQ (dq_mma) keeps its first form: 4 warps x 16 rows of a 64-row tile,
+//   mma.sync m16n8k16 from ldmatrix'd padded rows, staged synchronously.
+// f32 runs on the FMA pipes: 4 threads per row, each owning D/4 of the
+//   features, with the dot products summed over the 4 by warp shuffles in a
+//   fixed order.
 //
-// Not yet: wgmma, TMA, a cp.async ring of stages (the tiles are staged
-// synchronously), and a persistent schedule; these are the work of a later
-// version, as is writing the outputs through shared memory for wider stores.
+// Not yet: a producer warp (warp specialisation) so that no consumer warp
+// issues copies or waits at a block barrier, the overlap of one tile's
+// softmax with the next tile's Q K^T, and the same redesign for dQ.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <set>
+#include <utility>
 
 #include "common.cuh"
 
@@ -61,13 +107,17 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1.0e30f;  // the reference's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, h, s;
 };
 
-// Everything a launch needs, passed by value.
+// Everything a launch needs, passed by value (the tensor maps in the
+// kernel's parameter space, where TMA reads them).
 struct Params {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;  // with `tma`: see encode_rows()
   const void* q;
   const void* k;
   const void* v;
@@ -82,7 +132,14 @@ struct Params {
   int window;            // 0: no window
   Strides q_st, k_st, v_st, do_st, out0_st, out1_st;
   bool vec;              // 16-byte loads for every bf16 input row
+  bool vec_out;          // 16-byte stores for every bf16 output row
+  bool tma;              // bf16 forward and dK/dV: tiles by TMA (else staged)
 };
+
+// Whether key j is visible from query i: the reference's mask.
+__device__ __forceinline__ bool visible(const Params& p, int i, int j) {
+  return j <= i && i < p.Sq && j < p.Sk && (p.window <= 0 || i - j < p.window);
+}
 
 // The reference's score transform and mask (_scores / _bwd_scores): the
 // scaled, softcapped score of query i against key j, kNegInf where masked;
@@ -96,8 +153,29 @@ __device__ __forceinline__ float score(const Params& p, float raw, int i,
     x = p.cap * t;
     chain = 1.f - t * t;
   }
-  valid = j <= i && i < p.Sq && j < p.Sk && (p.window <= 0 || i - j < p.window);
+  valid = visible(p, i, j);
   return valid ? x : kNegInf;
+}
+
+// score() before the mask, in base 2: log2(e) * cap(scale * raw), with
+// scale * log2(e) folded into c2 when there is no softcap.
+template <bool kCap>
+__device__ __forceinline__ float score2(const Params& p, float raw, float c2,
+                                        float& chain) {
+  if constexpr (kCap) {
+    const float t = tanhf(raw * p.scale / p.cap);
+    chain = 1.f - t * t;
+    return p.cap * kLog2e * t;
+  } else {
+    chain = 1.f;
+    return raw * c2;
+  }
+}
+
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Key tiles [lo, hi) holding a key that some query of [q0, q0 + bq) sees.
@@ -130,11 +208,11 @@ __device__ __forceinline__ const T* row_ptr(const void* base, Strides st,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores, 4 warps x 16 rows of a 64-row tile
+// bf16 dQ: mma.sync, 4 warps x 16 rows of a 64-row tile
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 64;          // rows of a q tile and of a key tile
-constexpr int kMmaThreads = 128;   // 4 warps
+constexpr int kMmaThreads = 128;   // 4 warps (dQ)
 
 // Copy rows [s0, s0 + 64) of one (b, h) slice into shared memory as
 // [64][D + 8] (rows padded by 16 bytes: ldmatrix reads are free of bank
@@ -181,7 +259,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // c (16 x 64) += A[row0 .. row0 + 16) . B^T for two [64][D] tiles: the
-// warp's rows of A against all 64 rows of B (Q K^T, dO V^T, K Q^T, V dO^T).
+// warp's rows of A against all 64 rows of B (Q K^T, dO V^T).
 template <int D>
 __device__ __forceinline__ void mma_abt(float c[8][4], const bf16* a_s,
                                         const bf16* b_s, int row0, int lane) {
@@ -202,7 +280,7 @@ __device__ __forceinline__ void mma_abt(float c[8][4], const bf16* a_s,
 
 // c (16 x D) += X . B, X (16 x 64) the accumulator fragments of mma_abt,
 // rounded to bf16 (the C fragment of m16n8 is the A fragment of m16k16),
-// and B a [64][D] tile (P V, dS K, P^T dO, dS^T Q).
+// and B a [64][D] tile (dS K).
 template <int D>
 __device__ __forceinline__ void mma_xb(float c[D / 8][4], const float x[8][4],
                                        const bf16* b_s, int lane) {
@@ -252,61 +330,519 @@ __device__ __forceinline__ void zero(float c[][4]) {
     for (int e = 0; e < 4; ++e) c[i][e] = 0.f;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) fwd_mma(Params p) {
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kTile * kLd;
-  bf16* vs = ks + kTile * kLd;
+// ---------------------------------------------------------------------------
+// bf16 forward and dK/dV: two warpgroups on wgmma, tiles brought by TMA
+// ---------------------------------------------------------------------------
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.rep;
+constexpr int kRows = 128;          // rows of a forward q tile: 2 x 64
+constexpr int kFwdStages = 3;       // the forward's ring of K and V
+constexpr int kDkvStages = 3;       // the dK/dV ring of Q, dO, lse, Delta
+constexpr int kWideThreads = 256;   // the forward and dK/dV kernels
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma's shared-memory operand descriptor: the start address and the
+// leading (LBO) and stride (SBO) byte offsets, each in 16-byte units, and
+// the swizzle (bits 62-63: 1 for 128 bytes).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo, uint64_t swz) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (swz << 62);
+}
+
+// How a tile of ROWS rows x D bf16 lies in shared memory: where TMA puts
+// it and where wgmma reads it, as a K-major operand (rows are the product's
+// M or N, columns its depth) or an MN-major one (rows are the depth).
+//  D >= 64: 64-column sub-tiles, each [ROWS][64] with its 16-byte chunks
+//    swizzled within 128-byte rows (TMA's SWIZZLE_128B, wgmma's 128-byte
+//    layout; sub-tiles start on 1024-byte boundaries). K-major: SBO 1024 B
+//    between 8-row groups, 32 B further per k16 step, the next sub-tile
+//    after 4; MN-major: SBO 1024 B, LBO one sub-tile between 64-column
+//    halves, 2048 B further per k16 step.
+//  D = 32: chunk-major, each 8-column chunk a [ROWS][8] block, unswizzled.
+//    K-major: LBO one chunk between the halves of a k16 step, SBO 128 B
+//    between 8-row groups; MN-major: LBO 128 B between 8-row groups, SBO one
+//    chunk between 8-column chunks, 256 B further per k16 step.
+template <int D, int ROWS>
+struct Tile {
+  static constexpr bool kSwizzled = D >= 64;
+
+  __device__ static int byte(int r, int c) {
+    if constexpr (kSwizzled)
+      return (c >> 6) * ROWS * 128 + r * 128 +
+             ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+    else
+      return (c >> 3) * ROWS * 16 + r * 16 + (c & 7) * 2;
+  }
+  // elements from a tile's start to its row r (r a multiple of 8)
+  __device__ static int row(int r) { return r * (kSwizzled ? 64 : 8); }
+  // operands at k16 step kc of the rows starting at p (= tile + row(r))
+  __device__ static uint64_t desc_k(const bf16* p, int kc) {
+    if constexpr (kSwizzled)
+      return smem_desc(p + (kc >> 2) * ROWS * 64 + (kc & 3) * 16, 16, 1024,
+                       1);
+    else
+      return smem_desc(p + kc * 16 * ROWS, 16 * ROWS, 128, 0);
+  }
+  __device__ static uint64_t desc_mn(const bf16* p, int kc) {
+    if constexpr (kSwizzled)
+      return smem_desc(p + kc * 1024, 128 * ROWS, 1024, 1);
+    else
+      return smem_desc(p + kc * 128, 128, 16 * ROWS, 0);
+  }
+};
+
+// 4 bytes from global to shared memory, held in no register; !valid
+// writes zeros and reads nothing (src must still be a valid address).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Order this thread's stores to shared memory before the async proxy's
+// reads (wgmma); a barrier follows.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Arrive on bar (one arrival completes a phase) once `bytes` have landed.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the completion of bar's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: rows [s0, s0 + ROWS) of head h of example b into a tile at dst
+// (rows past the end land as 0), completing on bar: through a 4-d map
+// (D, S, H, B) in 64-column boxes for the swizzled layout, a 5-d map
+// (8 columns, S, D / 8 chunks, H, B) in one box for the chunk-major one.
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* tm,
+                                         uint64_t* bar, int s0, int h,
+                                         int b) {
+  const uint64_t map = reinterpret_cast<uint64_t>(tm);
+  if constexpr (Tile<D, ROWS>::kSwizzled) {
+#pragma unroll
+    for (int u = 0; u < D / 64; ++u)
+      asm volatile(
+          "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+          "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+              smem_u32(dst + u * ROWS * 64)),
+          "l"(map), "r"(64 * u), "r"(s0), "r"(h), "r"(b), "r"(smem_u32(bar))
+          : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(
+            smem_u32(dst)),
+        "l"(map), "r"(0), "r"(s0), "r"(0), "r"(h), "r"(b), "r"(smem_u32(bar))
+        : "memory");
+  }
+}
+
+// The route for rows that TMA cannot take (a base or stride that is no
+// multiple of 16 bytes): rows [s0, s0 + ROWS) of one (b, h) slice into a
+// tile by loads and stores, rows at or past S as 0, spread over all
+// kWideThreads threads; fence_async_smem() and a barrier follow.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_rows(bf16* dst, const void* base,
+                                           Strides st, int b, int h, int s0,
+                                           int S) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kWideThreads) {
+    const int r = c / kChunks, j = c % kChunks;
+    bf16* d = dst + Tile<D, ROWS>::byte(r, j * 8) / 2;
+    if (s0 + r < S)
+      repro::stage8_bf16(row_ptr<bf16>(base, st, b, h, s0 + r), j * 8, D,
+                         false, d);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The warp's 16 x D accumulator fragments times mul[half] (rows 0-7, 8-15),
+// rounded to bf16, into rows row0 .. row0 + 15 of a tile.
+template <int D, int ROWS>
+__device__ __forceinline__ void frags_to_tile(bf16* tile,
+                                              const float c[D / 8][4],
+                                              const float mul[2], int row0,
+                                              int lane) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(tile);
+  const int t = lane & 3, r = row0 + (lane >> 2);
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(
+          base + Tile<D, ROWS>::byte(r + 8 * half, nd * 8 + 2 * t)) =
+          pack_bf16(c[nd][2 * half] * mul[half],
+                    c[nd][2 * half + 1] * mul[half]);
+}
+
+// One warp writes rows row0 .. row0 + 15 of a tile to rows
+// [r0, r0 + 16) of one (b, h) slice, 16 bytes a lane where the rows are
+// 16-byte aligned (`vec`); rows at or past S are skipped.
+template <int D, int ROWS>
+__device__ __forceinline__ void store_tile16(const bf16* tile, int row0,
+                                             void* base, Strides st, int b,
+                                             int h, int r0, int S, bool vec,
+                                             int lane) {
+  constexpr int kChunks = D / 8;
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(tile);
+#pragma unroll
+  for (int i = 0; i < 16 * kChunks / 32; ++i) {
+    const int c = lane + 32 * i;
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    if (r0 + r >= S) continue;
+    bf16* dst = static_cast<bf16*>(base) + b * st.b + h * st.h +
+                (r0 + r) * st.s + col;
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(src + Tile<D, ROWS>::byte(row0 + r, col));
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[j] = e[j];
+    }
+  }
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep every read and write of the N accumulators d on its side of this
+// point: the asynchronous products write them between fence and wait.
+template <int N>
+__device__ __forceinline__ void pin(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for N registers that an issued product still reads.
+template <int N>
+__device__ __forceinline__ void pin_u(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x N: the warpgroup's rows; each warp's 16 in mma.sync fragment
+// order) = or += A B^T for one k16 step, A and B K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int acc);
+
+// d (64 x N) += A B for one k16 step, A the warp's 16 x 16 rows in
+// registers (the mma.sync A fragment), B MN-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_t(float* d, const uint32_t a[4],
+                                           uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<32>(float* d,
+                                               const uint32_t a[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<64>(float* d,
+                                               const uint32_t a[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<128>(float* d,
+                                               const uint32_t a[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The register operand of issue_xb: X (the warp's 16 x 16 KC) in bf16.
+template <int KC>
+__device__ __forceinline__ void pack_rows(uint32_t a[KC][4],
+                                          const float (*x)[4]) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    a[kc][0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
+    a[kc][1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
+    a[kc][2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
+    a[kc][3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
+  }
+}
+
+// Issue c (the warpgroup's 64 x N) = A B^T over depth D: A 64 rows from a,
+// B N rows from b, each a row of a tile of RA (RB) rows read K-major.
+template <int D, int N, int RA, int RB>
+__device__ __forceinline__ void issue_abt(float* c, const bf16* a,
+                                          const bf16* b) {
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+    wgmma_ss<N>(c, Tile<D, RA>::desc_k(a, kc), Tile<D, RB>::desc_k(b, kc),
+                kc > 0);
+}
+
+// Issue c (the warpgroup's 64 x D) += X B: X (64 x 16 KC; the warp's rows
+// packed by pack_rows) and B 16 KC rows (the depth) from b, a row of a
+// tile of RB rows read MN-major.
+template <int D, int KC, int RB>
+__device__ __forceinline__ void issue_xb(float* c, const uint32_t a[KC][4],
+                                         const bf16* b) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+    wgmma_rs_t<D>(c, a[kc], Tile<D, RB>::desc_mn(b, kc));
+}
+
+// The dynamic shared memory from its first 1024-byte boundary (swizzled
+// tiles start on one; smem_bytes() adds the slack).
+__device__ __forceinline__ unsigned char* smem_base() {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+}
+
+template <int D, bool kCap>
+__global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
+    fwd_mma(const __grid_constant__ Params p) {
+  constexpr int kTileElems = kTile * D;
+  bf16* qs = reinterpret_cast<bf16*>(smem_base());  // [kRows][D]: Q, then O
+  bf16* ring = qs + kRows * D;  // kFwdStages stages x {K, V} [kTile][D]
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      ring + 2 * kFwdStages * kTileElems);
+
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / p.rep;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // longest rows first
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane & 3;
-  const int row = q0 + warp * 16 + (lane >> 2);  // and row + 8
+  const int w0 = q0 + (warp >> 2) * 64;  // the warpgroup's rows: w0 .. + 63
+  const int r0 = q0 + warp * 16;         // the warp's: r0 .. r0 + 15
+  const int row = r0 + (lane >> 2);      // this thread's: row and row + 8
 
-  stage_tile<D>(qs, p.q, p.q_st, b, h, q0, p.Sq, p.vec);
+  int lo, hi;
+  key_tiles(p, q0, kRows, kTile, lo, hi);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kFwdStages; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Q and the first K/V tile; then tile kt + 1 while tile kt is computed
+  if (!p.tma) {
+    stage_rows<D, kRows>(qs, p.q, p.q_st, b, h, q0, p.Sq);
+    stage_rows<D, kTile>(ring, p.k, p.k_st, b, hk, lo * kTile, p.Sk);
+    stage_rows<D, kTile>(ring + kTileElems, p.v, p.v_st, b, hk, lo * kTile,
+                         p.Sk);
+  } else if (threadIdx.x == 0) {
+    mbar_expect(&full[0], (kRows + 2 * kTile) * D * 2);
+    tma_rows<D, kRows>(qs, &p.tm_q, &full[0], q0, h, b);
+    tma_rows<D, kTile>(ring, &p.tm_k, &full[0], lo * kTile, hk, b);
+    tma_rows<D, kTile>(ring + kTileElems, &p.tm_v, &full[0], lo * kTile, hk,
+                       b);
+  }
 
+  const float c2 = p.scale * kLog2e;
   float o[D / 8][4];
   zero<D / 8>(o);
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  int lo, hi;
-  key_tiles(p, q0, kTile, kTile, lo, hi);
+  // The P V products of tile kt are left to land while tile kt + 1 is
+  // waited for; its Q K^T products wait for them too. With three stages the
+  // copies for tile kt + 1 go to the stage of tile kt - 2.
+  uint32_t pa[4][4];  // P in bf16, read by those products
   for (int kt = lo; kt < hi; ++kt) {
+    const int j = kt - lo, stage = j % kFwdStages;
+    const int next_stage = (j + 1) % kFwdStages;
+    const bf16* ks = ring + stage * 2 * kTileElems;
+    const bf16* vs = ks + kTileElems;
+    if (p.tma)
+      mbar_wait(&full[stage], (j / kFwdStages) & 1);
+    else
+      fence_async_smem();
+    __syncthreads();  // tile kt is in; every warp is done with tile kt - 2
+    if (kt + 1 < hi) {
+      bf16* next = ring + next_stage * 2 * kTileElems;
+      const int k1 = (kt + 1) * kTile;
+      if (!p.tma) {
+        stage_rows<D, kTile>(next, p.k, p.k_st, b, hk, k1, p.Sk);
+        stage_rows<D, kTile>(next + kTileElems, p.v, p.v_st, b, hk, k1, p.Sk);
+      } else if (threadIdx.x == 0) {
+        mbar_expect(&full[next_stage], 2 * kTileElems * 2);
+        tma_rows<D, kTile>(next, &p.tm_k, &full[next_stage], k1, hk, b);
+        tma_rows<D, kTile>(next + kTileElems, &p.tm_v, &full[next_stage], k1,
+                           hk, b);
+      }
+    }
+    // Keys k0 .. k0 + 63: a warpgroup that sees none of them skips the
+    // tile; a warp tests each element only on an edge (the diagonal, the
+    // window's first key, the end of the keys).
     const int k0 = kt * kTile;
-    __syncthreads();
-    stage_tile<D>(ks, p.k, p.k_st, b, hk, k0, p.Sk, p.vec);
-    stage_tile<D>(vs, p.v, p.v_st, b, hk, k0, p.Sk, p.vec);
-    __syncthreads();
+    if (w0 >= p.Sq || k0 > w0 + 63 ||
+        (p.window > 0 && w0 - (k0 + kTile - 1) >= p.window)) {
+      wgmma_wait();  // tile kt - 1's products read the stage kt + 2 fills
+      pin<D / 2>(&o[0][0]);
+      continue;
+    }
+    const bool edge = k0 + kTile - 1 > r0 || k0 + kTile > p.Sk ||
+                      (p.window > 0 && r0 + 15 - k0 >= p.window);
 
     float s[8][4];
     zero<8>(s);
-    mma_abt<D>(s, qs, ks, warp * 16, lane);
-    float mx[2] = {m[0], m[1]};
+    pin<32>(&s[0][0]);
+    wgmma_fence();
+    issue_abt<D, 64, kRows, kTile>(&s[0][0],
+                                   qs + Tile<D, kRows>::row(w0 - q0), ks);
+    wgmma_commit();
+    wgmma_wait();  // and tile kt - 1's P V products
+    pin<32>(&s[0][0]);
+    pin<D / 2>(&o[0][0]);
+    pin_u<16>(&pa[0][0]);
 #pragma unroll
     for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        bool valid;
         float chain;
-        s[nj][e] = score(p, s[nj][e], row + (e >> 1) * 8,
-                         k0 + nj * 8 + 2 * t + (e & 1), valid, chain);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nj][e]);
+        s[nj][e] = score2<kCap>(p, s[nj][e], c2, chain);
       }
+    if (edge) {
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(p, row + (e >> 1) * 8, k0 + nj * 8 + 2 * t + (e & 1)))
+            s[nj][e] = kNegInf;
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nj][e]);
     float corr[2], sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = expf(m[i] - mx[i]);
+      corr[i] = exp2_fast(m[i] - mx[i]);
       m[i] = mx[i];
     }
 #pragma unroll
     for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[nj][e] = expf(s[nj][e] - m[e >> 1]);
+        s[nj][e] = exp2_fast(s[nj][e] - m[e >> 1]);
         sum[e >> 1] += s[nj][e];
       }
 #pragma unroll
@@ -315,7 +851,18 @@ __global__ void __launch_bounds__(kMmaThreads) fwd_mma(Params p) {
     for (int nd = 0; nd < D / 8; ++nd)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[nd][e] *= corr[e >> 1];
-    mma_xb<D>(o, s, vs, lane);
+    pack_rows<4>(pa, s);
+    pin_u<16>(&pa[0][0]);
+    pin<D / 2>(&o[0][0]);
+    wgmma_fence();
+    issue_xb<D, 4, kTile>(&o[0][0], pa, vs);
+    wgmma_commit();
+  }
+  wgmma_wait();
+  pin<D / 2>(&o[0][0]);
+  if (hi <= lo) {  // no key tile: let Q land before O overwrites it
+    if (p.tma) mbar_wait(&full[0], 0);
+    __syncthreads();
   }
 
   // l so far is this thread's share of its rows; the quad holds the rest
@@ -327,12 +874,17 @@ __global__ void __launch_bounds__(kMmaThreads) fwd_mma(Params p) {
     l[i] = fmaxf(l[i], 1e-30f);
     inv[i] = 1.f / l[i];
   }
-  store_frags<D>(p.out0, p.out0_st, b, h, row, p.Sq, o, inv, lane);
+  // O leaves through the warp's own 16 rows of Q, which only its own
+  // warpgroup's finished products have read
+  frags_to_tile<D, kRows>(qs, o, inv, warp * 16, lane);
+  __syncwarp();
+  store_tile16<D, kRows>(qs, warp * 16, p.out0, p.out0_st, b, h, r0, p.Sq,
+                         p.vec_out, lane);
   if (t == 0) {
     float* lse = p.lse_out + (static_cast<long long>(b) * p.Hq + h) * p.Sq;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      if (row + i * 8 < p.Sq) lse[row + i * 8] = m[i] + logf(l[i]);
+      if (row + i * 8 < p.Sq) lse[row + i * 8] = m[i] * kLn2 + logf(l[i]);
   }
 }
 
@@ -396,71 +948,246 @@ __global__ void __launch_bounds__(kMmaThreads) dq_mma(Params p) {
   store_frags<D>(p.out0, p.out0_st, b, h, row, p.Sq, acc, mul, lane);
 }
 
+// Write one finished key tile of dkv_mma, once this warpgroup's products
+// have landed: the two query halves' dK and dV summed in a fixed order
+// (warp g + 4 into warp g's registers) through the tile's own K and V
+// buffers (kv_s: K then V, 64 x D f32 together, which no product reads any
+// more), dK scaled, both rounded to bf16 and written as 16-byte rows
+// through those buffers; then the accumulators start again from 0.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) dkv_mma(Params p) {
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kTile * kLd;
-  bf16* qs = vs + kTile * kLd;
-  bf16* dos = qs + kTile * kLd;
-  float* lse_s = reinterpret_cast<float*>(dos + kTile * kLd);
-  float* dl_s = lse_s + kTile;
+__device__ __forceinline__ void dkv_finish(const Params& p, float dk[D / 8][4],
+                                           float dv[D / 8][4], bf16* kv_s,
+                                           int b, int hk, int key0, int g,
+                                           int half, int lane) {
+  constexpr int kSlot = 4 * 32;  // float4s per index
+  float4* part = reinterpret_cast<float4*>(kv_s);
+  const int me = g * 32 + lane;
+  wgmma_wait();
+  pin<D / 2>(&dk[0][0]);
+  pin<D / 2>(&dv[0][0]);
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    float(*x)[4] = pass ? dv : dk;
+    __syncthreads();  // every product that read the tile is done
+    if (half == 1) {
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        part[nd * kSlot + me] = make_float4(x[nd][0], x[nd][1], x[nd][2],
+                                            x[nd][3]);
+    }
+    __syncthreads();
+    if (half == 0) {
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const float4 y = part[nd * kSlot + me];
+        x[nd][0] += y.x; x[nd][1] += y.y; x[nd][2] += y.z; x[nd][3] += y.w;
+      }
+    }
+  }
+  __syncthreads();  // the sums are read; the buffers take the bf16 rows
+  if (half == 0) {
+    bf16* stage_k = kv_s;
+    bf16* stage_v = kv_s + kTile * D;
+    const float mul_k[2] = {p.scale, p.scale}, one[2] = {1.f, 1.f};
+    frags_to_tile<D, kTile>(stage_k, dk, mul_k, g * 16, lane);
+    frags_to_tile<D, kTile>(stage_v, dv, one, g * 16, lane);
+    __syncwarp();
+    store_tile16<D, kTile>(stage_k, g * 16, p.out0, p.out0_st, b, hk,
+                           key0 + g * 16, p.Sk, p.vec_out, lane);
+    store_tile16<D, kTile>(stage_v, g * 16, p.out1, p.out1_st, b, hk,
+                           key0 + g * 16, p.Sk, p.vec_out, lane);
+  }
+  zero<D / 8>(dk);
+  zero<D / 8>(dv);
+}
 
-  const int k0 = blockIdx.x * kTile;  // the first key tiles see the most rows
+template <int D, bool kCap>
+__global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
+    dkv_mma(const __grid_constant__ Params p) {
+  constexpr int kTileElems = kTile * D, kStages = kDkvStages;
+  bf16* kv = reinterpret_cast<bf16*>(smem_base());  // per key tile: K, V
+  bf16* ring = kv + 4 * kTileElems;  // kStages x {Q, dO} [kTile][D]
+  float* rows = reinterpret_cast<float*>(ring + 2 * kStages * kTileElems);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + 2 * kStages * kTile);
+
   const int hk = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane & 3;
-  const int key = k0 + warp * 16 + (lane >> 2);  // and key + 8
+  // warpgroup `half` takes queries 32 half .. + 31 of each q tile against
+  // all 64 keys, its warp g keys 16 g .. + 15
+  const int g = warp & 3, half = warp >> 2;
 
-  stage_tile<D>(ks, p.k, p.k_st, b, hk, k0, p.Sk, p.vec);
-  stage_tile<D>(vs, p.v, p.v_st, b, hk, k0, p.Sk, p.vec);
+  // Key tile x, then n - 1 - x (the middle tile of an odd n alone): under
+  // the causal mask each block meets n + 1 q tiles per q head.
+  const int n_k = (p.Sk + kTile - 1) / kTile;
+  const int tile0 = blockIdx.x, tile1 = n_k - 1 - static_cast<int>(blockIdx.x);
+  const int n_tiles = tile1 > tile0 ? 2 : 1;
+  int lo0, lo1, hi0, hi1;
+  query_tiles(p, tile0 * kTile, kTile, kTile, lo0, hi0);
+  query_tiles(p, tile1 * kTile, kTile, kTile, lo1, hi1);
+  const int nq0 = max(hi0 - lo0, 0), nq1 = max(hi1 - lo1, 0);
+  const int steps0 = p.rep * nq0;
+  const int total = steps0 + (n_tiles == 2 ? p.rep * nq1 : 0);
 
+  // step s of the walk: its key tile (slot 0 or 1), q head and first query
+  auto step = [&](int s, int& slot, int& h, int& q0) {
+    slot = s < steps0 ? 0 : 1;
+    const int i = slot ? s - steps0 : s, nq = slot ? nq1 : nq0;
+    h = hk * p.rep + i / nq;
+    q0 = ((slot ? lo1 : lo0) + i % nq) * kTile;
+  };
+  // start bringing step s's Q, dO, lse and Delta into stage s % kStages
+  auto stage_step = [&](int s) {
+    int slot, h, q0;
+    step(s, slot, h, q0);
+    const int stg = s % kStages;
+    bf16* dst = ring + stg * 2 * kTileElems;
+    if (!p.tma) {
+      stage_rows<D, kTile>(dst, p.q, p.q_st, b, h, q0, p.Sq);
+      stage_rows<D, kTile>(dst + kTileElems, p.dout, p.do_st, b, h, q0, p.Sq);
+    } else if (threadIdx.x == 0) {
+      mbar_expect(&full[stg], 2 * kTileElems * 2);
+      tma_rows<D, kTile>(dst, &p.tm_q, &full[stg], q0, h, b);
+      tma_rows<D, kTile>(dst + kTileElems, &p.tm_do, &full[stg], q0, h, b);
+    }
+    if (threadIdx.x < 2 * kTile) {  // lse to rows[0, 64), Delta to [64, 128)
+      const int i = threadIdx.x % kTile;
+      const float* src = (threadIdx.x < kTile ? p.lse : p.delta) +
+                         (static_cast<long long>(b) * p.Hq + h) * p.Sq;
+      const bool in = q0 + i < p.Sq;
+      cp_async4(rows + stg * 2 * kTile + threadIdx.x,
+                src + (in ? q0 + i : 0), in);
+    }
+    cp_async_commit();
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (!p.tma) {
+    for (int i = 0; i < n_tiles; ++i) {
+      const int k0 = (i ? tile1 : tile0) * kTile;
+      stage_rows<D, kTile>(kv + 2 * i * kTileElems, p.k, p.k_st, b, hk, k0,
+                           p.Sk);
+      stage_rows<D, kTile>(kv + (2 * i + 1) * kTileElems, p.v, p.v_st, b, hk,
+                           k0, p.Sk);
+    }
+  } else if (threadIdx.x == 0) {
+    mbar_expect(&full[kStages], n_tiles * 2 * kTileElems * 2);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int k0 = (i ? tile1 : tile0) * kTile;
+      tma_rows<D, kTile>(kv + 2 * i * kTileElems, &p.tm_k, &full[kStages], k0,
+                         hk, b);
+      tma_rows<D, kTile>(kv + (2 * i + 1) * kTileElems, &p.tm_v,
+                         &full[kStages], k0, hk, b);
+    }
+  }
+  if (total > 0) stage_step(0);
+  if (p.tma) mbar_wait(&full[kStages], 0);
+
+  const float c2 = p.scale * kLog2e;
   float dk[D / 8][4], dv[D / 8][4];
   zero<D / 8>(dk);
   zero<D / 8>(dv);
-  int lo, hi;
-  query_tiles(p, k0, kTile, kTile, lo, hi);
-  for (int r = 0; r < p.rep; ++r) {
-    const int h = hk * p.rep + r;
-    const long long bh = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
-    for (int qt = lo; qt < hi; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();
-      stage_tile<D>(qs, p.q, p.q_st, b, h, q0, p.Sq, p.vec);
-      stage_tile<D>(dos, p.dout, p.do_st, b, h, q0, p.Sq, p.vec);
-      for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-        lse_s[i] = q0 + i < p.Sq ? p.lse[bh + q0 + i] : 0.f;
-        dl_s[i] = q0 + i < p.Sq ? p.delta[bh + q0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      // rows are this warp's keys, columns the tile's 64 queries
-      float st[8][4], dpt[8][4];
-      zero<8>(st);
-      zero<8>(dpt);
-      mma_abt<D>(st, ks, qs, warp * 16, lane);
-      mma_abt<D>(dpt, vs, dos, warp * 16, lane);
-#pragma unroll
-      for (int nj = 0; nj < 8; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          bool valid;
-          float chain;
-          const int c = nj * 8 + 2 * t + (e & 1);
-          const float x = score(p, st[nj][e], q0 + c, key + (e >> 1) * 8,
-                                valid, chain);
-          const float pr = valid ? expf(x - lse_s[c]) : 0.f;
-          st[nj][e] = pr;                                            // P^T
-          dpt[nj][e] = valid ? pr * (dpt[nj][e] - dl_s[c]) * chain : 0.f;  // dS^T
-        }
-      mma_xb<D>(dv, st, dos, lane);
-      mma_xb<D>(dk, dpt, qs, lane);
+  // The dV and dK products of step s are left to land while step s + 1
+  // waits for its tiles; its S^T and dP^T products wait for them too. With
+  // three stages the copies for step s + 2 go to the stage step s - 1 used.
+  uint32_t pa[2][4], sa[2][4];  // P^T and dS^T in bf16, read by those products
+  int done = 0;  // key tiles written
+  for (int s = 0; s < total; ++s) {
+    const int stg = s % kStages;
+    cp_async_wait_all();
+    if (p.tma)
+      mbar_wait(&full[stg], (s / kStages) & 1);
+    else
+      fence_async_smem();
+    __syncthreads();  // step s is in; every warp is done with step s - 1
+    if (s + 1 < total) stage_step(s + 1);
+    int slot, h, q0;
+    step(s, slot, h, q0);
+    if (slot > done) {  // the first step of the second key tile
+      dkv_finish<D>(p, dk, dv, kv, b, hk, tile0 * kTile, g, half, lane);
+      done = 1;
     }
+    const bf16* ks = kv + 2 * slot * kTileElems;
+    const bf16* vs = ks + kTileElems;
+    const bf16* qs = ring + stg * 2 * kTileElems;
+    const bf16* dos = qs + kTileElems;
+    const float* lse_s = rows + stg * 2 * kTile;
+    const float* dl_s = lse_s + kTile;
+
+    // Queries qb .. qb + 31 against keys key0 .. key0 + 63: a warpgroup
+    // that sees none skips the step; a warp (keys kb .. kb + 15) tests each
+    // element only on an edge.
+    const int key0 = (slot ? tile1 : tile0) * kTile, kb = key0 + 16 * g;
+    const int qb = q0 + 32 * half;
+    if (qb >= p.Sq || qb + 31 < key0 ||
+        (p.window > 0 && qb - (key0 + kTile - 1) >= p.window)) {
+      wgmma_wait();  // step s - 1's products read the stage s + 1 fills
+      pin<D / 2>(&dv[0][0]);
+      pin<D / 2>(&dk[0][0]);
+      continue;
+    }
+    const bool edge = qb < kb + 15 || qb + 31 >= p.Sq ||
+                      (p.window > 0 && qb + 31 - kb >= p.window);
+
+    // rows are the warpgroup's 64 keys, columns its 32 queries: S^T and
+    // dP^T in one group of products, then P^T dO and dS^T Q in another
+    float st[4][4], dpt[4][4];
+    zero<4>(st);
+    zero<4>(dpt);
+    pin<16>(&st[0][0]);
+    pin<16>(&dpt[0][0]);
+    wgmma_fence();
+    const int qrow = Tile<D, kTile>::row(32 * half);  // the warpgroup's queries
+    issue_abt<D, 32, kTile, kTile>(&st[0][0], ks, qs + qrow);
+    issue_abt<D, 32, kTile, kTile>(&dpt[0][0], vs, dos + qrow);
+    wgmma_commit();
+    wgmma_wait();  // and step s - 1's dV and dK products
+    pin<16>(&st[0][0]);
+    pin<16>(&dpt[0][0]);
+    pin<D / 2>(&dv[0][0]);
+    pin<D / 2>(&dk[0][0]);
+    pin_u<8>(&pa[0][0]);
+    pin_u<8>(&sa[0][0]);
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 32 * half + nj * 8 + 2 * t + (e & 1);
+        float chain;
+        const float x = score2<kCap>(p, st[nj][e], c2, chain);
+        const float pr = exp2_fast(x - lse_s[c] * kLog2e);
+        st[nj][e] = pr;                                          // P^T
+        dpt[nj][e] = pr * (dpt[nj][e] - dl_s[c]) * chain;        // dS^T
+      }
+    if (edge) {
+      const int key = kb + (lane >> 2);
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(p, q0 + 32 * half + nj * 8 + 2 * t + (e & 1),
+                       key + (e >> 1) * 8))
+            st[nj][e] = dpt[nj][e] = 0.f;
+    }
+    pack_rows<2>(pa, st);
+    pack_rows<2>(sa, dpt);
+    pin_u<8>(&pa[0][0]);
+    pin_u<8>(&sa[0][0]);
+    pin<D / 2>(&dv[0][0]);
+    pin<D / 2>(&dk[0][0]);
+    wgmma_fence();
+    issue_xb<D, 2, kTile>(&dv[0][0], pa, dos + qrow);
+    issue_xb<D, 2, kTile>(&dk[0][0], sa, qs + qrow);
+    wgmma_commit();
   }
-  const float mul_k[2] = {p.scale, p.scale}, one[2] = {1.f, 1.f};
-  store_frags<D>(p.out0, p.out0_st, b, hk, key, p.Sk, dk, mul_k, lane);
-  store_frags<D>(p.out1, p.out1_st, b, hk, key, p.Sk, dv, one, lane);
+  for (; done < n_tiles; ++done)
+    dkv_finish<D>(p, dk, dv, kv + 2 * done * kTileElems, b, hk,
+                  (done ? tile1 : tile0) * kTile, g, half, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -679,51 +1406,174 @@ __global__ void __launch_bounds__(kF32Threads) dkv_f32(Params p) {
 
 enum class Kind { kFwd, kDq, kDkv };
 
-// Dynamic shared memory of each body (above 48 KB only after the attribute
-// is raised, which launch() does for every launch).
+// Dynamic shared memory of each body.
 template <int D>
 size_t smem_bytes(Kind kind, bool bf16_inputs) {
   if (bf16_inputs) {
     const size_t tile = static_cast<size_t>(kTile) * (D + 8) * sizeof(bf16);
-    if (kind == Kind::kFwd) return 3 * tile;
     if (kind == Kind::kDq) return 4 * tile;
-    return 4 * tile + 2 * kTile * sizeof(float);
+    // 1024 bytes of slack to align the tiles (smem_base) and 3 mbarriers
+    const size_t cm = static_cast<size_t>(kTile) * D * sizeof(bf16);
+    const size_t extra = 1024 + 3 * sizeof(uint64_t);
+    if (kind == Kind::kFwd)  // Q (128 rows); kFwdStages stages of K and V
+      return (2 + 2 * kFwdStages) * cm + extra;
+    // K and V of two key tiles, and kDkvStages stages of Q, dO, lse and
+    // Delta
+    return (4 + 2 * kDkvStages) * cm + 2 * kDkvStages * kTile * sizeof(float) +
+           extra + sizeof(uint64_t);
   }
   const size_t tile = static_cast<size_t>(kF32Tile) * D * sizeof(float);
   if (kind == Kind::kDkv) return 2 * tile + 2 * kF32Tile * sizeof(float);
   return 2 * tile;
 }
 
+// Raise a kernel's dynamic shared memory limit once per device, not before
+// every launch: the attribute is a host call that costs more than it need.
+cudaError_t allow_smem(const void* fn, size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> raised;
+  std::lock_guard<std::mutex> lock(mu);
+  if (raised.count({fn, dev})) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess) raised.insert({fn, dev});
+  return err;
+}
+
 template <typename Kernel>
 int launch_one(Kernel kernel, dim3 grid, int threads, size_t smem,
                const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 kernel of `kind`, its block size and grid.
+template <int D, bool kCap>
+void bf16_kernel(Kind kind, int B, int Hkv, const Params& p,
+                 void (*&fn)(Params), int& threads, dim3& grid) {
+  if (kind == Kind::kFwd) {
+    fn = fwd_mma<D, kCap>;
+    threads = kWideThreads;
+    grid = dim3(p.Hq, B, (p.Sq + kRows - 1) / kRows);
+  } else if (kind == Kind::kDq) {
+    fn = dq_mma<D>;
+    threads = kMmaThreads;
+    grid = dim3((p.Sq + kTile - 1) / kTile, p.Hq, B);
+  } else {
+    fn = dkv_mma<D, kCap>;
+    threads = kWideThreads;
+    grid = dim3(((p.Sk + kTile - 1) / kTile + 1) / 2, Hkv, B);
+  }
 }
 
 template <int D>
 int launch(Kind kind, bool bf16_inputs, int B, int Hkv, const Params& p,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(kind, bf16_inputs);
+  if (bf16_inputs) {
+    void (*fn)(Params) = nullptr;
+    int threads = 0;
+    dim3 grid;
+    if (p.cap > 0.f)
+      bf16_kernel<D, true>(kind, B, Hkv, p, fn, threads, grid);
+    else
+      bf16_kernel<D, false>(kind, B, Hkv, p, fn, threads, grid);
+    return launch_one(fn, grid, threads, smem, p, stream);
+  }
   const int n_q = (p.Sq + kTile - 1) / kTile;
   const int n_k = (p.Sk + kTile - 1) / kTile;
   const dim3 q_grid(n_q, p.Hq, B), k_grid(n_k, Hkv, B);
-  if (bf16_inputs) {
-    if (kind == Kind::kFwd)
-      return launch_one(fwd_mma<D>, q_grid, kMmaThreads, smem, p, stream);
-    if (kind == Kind::kDq)
-      return launch_one(dq_mma<D>, q_grid, kMmaThreads, smem, p, stream);
-    return launch_one(dkv_mma<D>, k_grid, kMmaThreads, smem, p, stream);
-  }
   if (kind == Kind::kFwd)
     return launch_one(fwd_f32<D>, q_grid, kF32Threads, smem, p, stream);
   if (kind == Kind::kDq)
     return launch_one(dq_f32<D>, q_grid, kF32Threads, smem, p, stream);
   return launch_one(dkv_f32<D>, k_grid, kF32Threads, smem, p, stream);
+}
+
+// Registers, local (spill) bytes a thread, dynamic shared memory, threads
+// and resident blocks per SM of a bf16 kernel without a softcap, as the
+// runtime sees them.
+template <int D>
+int bf16_info(Kind kind, int* out) {
+  Params p = {};
+  p.Hq = p.Sq = p.Sk = 1;
+  void (*fn)(Params) = nullptr;
+  int threads = 0;
+  dim3 grid;
+  bf16_kernel<D, false>(kind, 1, 1, p, fn, threads, grid);
+  const size_t smem = smem_bytes<D>(kind, true);
+  const void* f = reinterpret_cast<const void*>(fn);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, f);
+  if (err == cudaSuccess) err = allow_smem(f, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, threads,
+                                                        smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = threads;
+  out[4] = blocks;
+  return 0;
+}
+
+// The TMA map of one (B, H, S, D) bf16 input with D contiguous, in the
+// boxes tma_rows() asks for: for D >= 64 a 4-d map (D, S, H, B) with
+// boxes of 64 columns x `rows` rows, 128-byte swizzled; for D = 32 a 5-d
+// map (8 columns, S rows, D / 8 chunks, H, B) with boxes of (8, rows,
+// D / 8, 1, 1). Rows past S land as zeros. The driver's encoder is reached
+// through the runtime, so the library needs no link to libcuda.
+cudaError_t encode_rows(CUtensorMap* tm, const void* base, Strides st, int B,
+                        int H, int S, int D, int rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t s_b = static_cast<cuuint64_t>(st.s) * 2;
+  const cuuint64_t h_b = static_cast<cuuint64_t>(st.h) * 2;
+  const cuuint64_t b_b = static_cast<cuuint64_t>(st.b) * 2;
+  const cuuint64_t n_s = static_cast<cuuint64_t>(S);
+  const cuuint64_t n_h = static_cast<cuuint64_t>(H);
+  const cuuint64_t n_b = static_cast<cuuint64_t>(B);
+  const cuuint32_t r = static_cast<cuuint32_t>(rows);
+  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
+  CUresult res;
+  if (D >= 64) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), n_s, n_h, n_b};
+    const cuuint64_t strides[3] = {s_b, h_b, b_b};
+    const cuuint32_t box[4] = {64, r, 1, 1};
+    res = encode(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                 const_cast<void*>(base), dims, strides, box, one,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dims[5] = {8, n_s, static_cast<cuuint64_t>(D / 8), n_h,
+                                n_b};
+    const cuuint64_t strides[4] = {s_b, 16, h_b, b_b};
+    const cuuint32_t box[5] = {8, r, static_cast<cuuint32_t>(D / 8), 1, 1};
+    res = encode(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+                 const_cast<void*>(base), dims, strides, box, one,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* ptr, Strides st) {
@@ -747,6 +1597,22 @@ int dispatch(Kind kind, int dtype, int B, int Hkv, int D, Params& p,
   p.vec = aligned16(p.q, p.q_st) && aligned16(p.k, p.k_st) &&
           aligned16(p.v, p.v_st) &&
           (kind == Kind::kFwd || aligned16(p.dout, p.do_st));
+  p.vec_out = aligned16(p.out0, p.out0_st) &&
+              (kind != Kind::kDkv || aligned16(p.out1, p.out1_st));
+  // TMA takes what 16-byte copies take: bases and strides in 16 bytes
+  p.tma = bf && p.vec && kind != Kind::kDq;
+  if (p.tma) {
+    const int q_rows = kind == Kind::kFwd ? kRows : kTile;
+    cudaError_t err =
+        encode_rows(&p.tm_q, p.q, p.q_st, B, p.Hq, p.Sq, D, q_rows);
+    if (err == cudaSuccess)
+      err = encode_rows(&p.tm_k, p.k, p.k_st, B, Hkv, p.Sk, D, kTile);
+    if (err == cudaSuccess)
+      err = encode_rows(&p.tm_v, p.v, p.v_st, B, Hkv, p.Sk, D, kTile);
+    if (err == cudaSuccess && kind == Kind::kDkv)
+      err = encode_rows(&p.tm_do, p.dout, p.do_st, B, p.Hq, p.Sq, D, kTile);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   switch (D) {
     case 32: return launch<32>(kind, bf, B, Hkv, p, stream);
     case 64: return launch<64>(kind, bf, B, Hkv, p, stream);
@@ -829,4 +1695,18 @@ extern "C" int flash_attention_bwd_dkv_launch(
   p.out1_st = strides_at(strides, 5);
   return dispatch(Kind::kDkv, dtype, B, Hkv, D, p,
                   static_cast<cudaStream_t>(stream));
+}
+
+// Registers, spill bytes a thread, dynamic shared memory bytes, threads and
+// resident blocks per SM (out[0..4]) of the bf16 kernel `kind` (0 forward,
+// 1 dQ, 2 dK/dV) at head dim D, without a softcap.
+extern "C" int flash_attention_kernel_info(int kind, int D, int* out) {
+  if (kind < 0 || kind > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const Kind k = static_cast<Kind>(kind);
+  switch (D) {
+    case 32: return bf16_info<32>(k, out);
+    case 64: return bf16_info<64>(k, out);
+    case 128: return bf16_info<128>(k, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

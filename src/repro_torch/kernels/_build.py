@@ -48,6 +48,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_longlong)   # host array of strides
+_IP = ctypes.POINTER(ctypes.c_int)        # host array of ints (out)
 
 #: argtypes of the C entry points that return an int
 _SIGNATURES = {
@@ -70,6 +71,7 @@ _SIGNATURES = {
     "flash_attention_bwd_dkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _I, _F, _F, _I,
                                        _LP, _P),
+    "flash_attention_kernel_info": (_I, _I, _IP),
 }
 
 

@@ -7,6 +7,19 @@ and the per-row log-sum-exp, the dQ kernel and the dK/dV kernel recompute
 the probabilities from that lse. The (Sq, Sk) score matrix never reaches
 device memory in either direction.
 
+In bf16 the forward gives each block two warpgroups and 128 query rows,
+brings Q once and the 64-key K/V tiles through a three-stage ring by TMA
+(``mbarrier`` completion), and forms Q Kᵀ and P V with ``wgmma``; the
+softmax runs in base 2 and the mask is tested only on tiles that cross the
+diagonal, the window's edge or the end of the keys; O leaves in 16-byte
+rows. The dK/dV kernel gives each block a pair of 64-key tiles, ``x`` and
+``n - 1 - x`` (:func:`dkv_key_tiles`), so that every block walks the same
+number of q tiles under the causal mask, brings the rep q heads' Q and dO
+through the same kind of ring, and splits the queries between its two
+warpgroups, whose dK and dV it sums in a fixed order. Rows that TMA cannot
+describe are staged by loads and stores instead (:func:`copy_route`). dQ
+and the f32 kernels keep their first form (``mma.sync``, FMA pipes).
+
 Layout is the reference's: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), with
 Hq a multiple of Hkv (query head h reads kv head h // rep). The kernels take
 any batch, head and sequence strides with D contiguous, so the model passes
@@ -24,6 +37,7 @@ the tensors' device. Δ = rowsum(dO ⊙ O) stays a torch expression
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -33,6 +47,8 @@ from repro_torch.kernels import _build
 _F32 = torch.float32
 NEG_INF = -1.0e30      # the reference's finite mask value
 HEAD_DIMS = (32, 64, 128)
+KEY_TILE = 64          # keys of a staged tile; rows of a dQ / dK/dV q tile
+FWD_ROWS = 128         # query rows of a forward block (8 warps x 16)
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +188,65 @@ def byte_estimate(kind: str, b: int, hq: int, hkv: int, sq: int, sk: int,
     if kind == "dq":
         return float(ins + q_bytes)
     return float(ins + 2 * kv_bytes)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels' schedule and copy route (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+def query_tiles(k0: int, sq: int, sk: int,
+                window: Optional[int] = None) -> range:
+    """The 64-row q tiles holding a query that sees some key of the 64-key
+    tile starting at ``k0`` (the kernel's ``query_tiles``)."""
+    q_end = sq
+    if window is not None:
+        q_end = min(q_end, min(k0 + KEY_TILE, sk) - 1 + window)
+    return range(k0 // KEY_TILE, -(-q_end // KEY_TILE))
+
+
+def dkv_key_tiles(sk: int) -> list:
+    """The 64-key tiles each dK/dV block owns, per (batch, kv head), in the
+    order it walks them: block x takes tile x and then tile n − 1 − x, n =
+    ceil(sk / 64); the middle tile of an odd n is a block's alone. Under
+    the causal mask tile t meets n − t q tiles, so every pair meets n + 1.
+    """
+    n = -(-sk // KEY_TILE)
+    return [(x,) if x == n - 1 - x else (x, n - 1 - x)
+            for x in range((n + 1) // 2)]
+
+
+def dkv_block_steps(sq: int, sk: int, rep: int,
+                    window: Optional[int] = None) -> list:
+    """(q head, q tile) steps each dK/dV block walks: rep × the q tiles of
+    each of its key tiles."""
+    return [rep * sum(len(query_tiles(t * KEY_TILE, sq, sk, window))
+                      for t in tiles) for tiles in dkv_key_tiles(sk)]
+
+
+def copy_route(*tensors) -> str:
+    """How the bf16 forward and dK/dV kernels bring these inputs into
+    shared memory: ``"tma"`` when every tensor's base and (batch, head,
+    sequence) strides are multiples of 16 bytes (the kernel's
+    ``aligned16``), so a 5-d tensor map can describe the rows; else
+    ``"synchronous"`` (element loads and stores into the same tiles)."""
+    def aligned(t):
+        return (t.data_ptr() % 16 == 0
+                and all(t.stride(d) * t.element_size() % 16 == 0
+                        for d in (0, 1, 2)))
+    return "tma" if all(aligned(t) for t in tensors) else "synchronous"
+
+
+def kernel_info(kind: str, d: int) -> dict:
+    """Registers, spill bytes per thread, dynamic shared memory, threads
+    and resident blocks per SM of the bf16 kernel ``kind`` ("fwd", "dq" or
+    "dkv") at head dim ``d`` without a softcap, as the CUDA runtime reports
+    them (the same registers and spills as ``nvcc -Xptxas -v``)."""
+    out = (ctypes.c_int * 5)()
+    code = _build.load().flash_attention_kernel_info(
+        ("fwd", "dq", "dkv").index(kind), d, out)
+    _build.check(code, "flash_attention_kernel_info")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "threads",
+                     "blocks_per_sm"), out))
 
 
 # ---------------------------------------------------------------------------

@@ -148,22 +148,48 @@ def test_cuda_empty_inputs_launch_nothing(cuda_device, shape):
     assert tops.launch_counts() == _counts()
 
 
-# (B, Hq, Hkv, S, D, softcap, window) of chip_smoke's flash kernel checks:
-# llama3.2-1b's main-path shape, ragged S, MHA, D=32, D=128, a window, a
-# softcap, and all three of ragged, window and softcap together
-FLASH_CASES = [(8, 32, 8, 512, 64, None, None), (2, 8, 2, 200, 64, None, None),
-               (2, 4, 4, 256, 64, None, None), (2, 4, 4, 192, 32, None, None),
-               (2, 8, 2, 256, 128, None, None), (2, 8, 2, 512, 64, None, 128),
-               (2, 8, 2, 256, 64, 50.0, None), (1, 4, 2, 333, 64, 30.0, 100)]
+# (B, Hq, Hkv, S, D, softcap, window, layout) of chip_smoke's flash kernel
+# checks: llama3.2-1b's main-path shape, ragged S, MHA, D=32, D=128, a
+# window, a softcap, all three of ragged, window and softcap together, S a
+# multiple of 64 but not of 128, one row past a tile, a window smaller than
+# a q tile, rep = 8, and two strided layouts: q, k and v sliced out of one
+# fused projection (16-byte strides: the TMA route) and out of
+# (B, S, H, D + 1) tensors (the synchronous route)
+FLASH_CASES = [(8, 32, 8, 512, 64, None, None, None),
+               (2, 8, 2, 200, 64, None, None, None),
+               (2, 4, 4, 256, 64, None, None, None),
+               (2, 4, 4, 192, 32, None, None, None),
+               (2, 8, 2, 256, 128, None, None, None),
+               (2, 8, 2, 512, 64, None, 128, None),
+               (2, 8, 2, 256, 64, 50.0, None, None),
+               (1, 4, 2, 333, 64, 30.0, 100, None),
+               (2, 8, 2, 320, 64, None, None, None),
+               (2, 4, 2, 65, 64, None, None, None),
+               (2, 8, 2, 256, 64, None, 48, None),
+               (2, 32, 4, 256, 64, None, None, None),
+               (2, 8, 2, 200, 64, None, None, "fused"),
+               (2, 8, 2, 200, 64, None, None, "odd"),
+               (1, 8, 2, 320, 128, 20.0, 48, "odd")]
 
 
 def _flash_inputs(case, dtype, device, seed=7):
-    """q, k, v, dO as the model passes them: (B, H, S, D) views of
-    (B, S, H, D) tensors."""
-    b, hq, hkv, s, d, _, _ = case
+    """q, k, v, dO as (B, H, S, D) views: of (B, S, H, D) tensors as the
+    model passes them, or laid out as the case's layout says."""
+    b, hq, hkv, s, d = case[:5]
+    layout = case[7] if len(case) > 7 else None
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(np.float32))
-            .to(device, dtype).transpose(1, 2) for h in (hq, hkv, hkv, hq)]
+
+    def draw(h, width=d):
+        return torch.from_numpy(rng.normal(size=(b, s, h, width))
+                                .astype(np.float32)).to(device, dtype)
+    if layout == "fused":
+        q, k, v = draw(hq + 2 * hkv).split((hq, hkv, hkv), dim=2)
+        do = draw(hq)
+    elif layout == "odd":
+        q, k, v, do = (draw(h, d + 1)[..., :d] for h in (hq, hkv, hkv, hq))
+    else:
+        q, k, v, do = (draw(h) for h in (hq, hkv, hkv, hq))
+    return [x.transpose(1, 2) for x in (q, k, v, do)]
 
 
 def _flash_kw(case):
@@ -182,6 +208,9 @@ def test_cuda_flash_kernels_match_plain(cuda_device, case, dtype):
     """O and lse, then dQ, dK, dV on the plain forward's O and lse."""
     tol = 1e-4 if dtype == "float32" else 1e-2
     q, k, v, do = _flash_inputs(case, getattr(torch, dtype), cuda_device)
+    if case[7] is not None:
+        assert tfa.copy_route(q, k, v, do) == {
+            "fused": "tma", "odd": "synchronous"}[case[7]]
     kw = _flash_kw(case)
     tops.reset_launch_counts()
     o, lse = tops.flash_attention(q, k, v, return_lse=True, **kw)

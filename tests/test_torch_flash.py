@@ -202,6 +202,74 @@ def test_launchers_take_only_cuda_tensors():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 kernels' schedule and copy route, mirrored on the host
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sk", [1, 63, 64, 65, 200, 320, 333, 448, 512,
+                                4097])
+def test_dkv_pairs_cover_every_key_tile_once(sk):
+    """Each (batch, kv head)'s 64-key tiles, ragged last tile included, go
+    to exactly one dK/dV block: one writer per output tile."""
+    n = -(-sk // tfa.KEY_TILE)
+    blocks = tfa.dkv_key_tiles(sk)
+    assert len(blocks) == (n + 1) // 2
+    owned = [t for tiles in blocks for t in tiles]
+    assert sorted(owned) == list(range(n))
+    assert all(len(tiles) == 2 for tiles in blocks[:n // 2])
+
+
+@pytest.mark.parametrize("s,rep", [(512, 4), (320, 8), (448, 1), (65, 2),
+                                   (333, 4)])
+def test_dkv_pairs_balance_the_causal_walk(s, rep):
+    """Under the causal mask every pair meets n + 1 q tiles per q head (the
+    middle tile of an odd n, alone, meets (n + 1) / 2): the blocks of a
+    launch walk the same number of steps."""
+    n = -(-s // tfa.KEY_TILE)
+    steps = tfa.dkv_block_steps(s, s, rep)
+    for tiles, got in zip(tfa.dkv_key_tiles(s), steps):
+        assert got == rep * (n + 1 if len(tiles) == 2 else (n + 1) // 2)
+    assert sum(steps) == rep * n * (n + 1) // 2
+
+
+@pytest.mark.parametrize("sq,sk,window", [(512, 512, None), (333, 333, 100),
+                                          (256, 256, 48), (65, 65, None),
+                                          (64, 100, None), (100, 64, 7)])
+def test_query_tiles_hold_every_visible_query(sq, sk, window):
+    """The q tiles the kernel walks for a key tile are those holding a
+    query that sees one of its keys, at ragged S and with a window."""
+    qpos = np.arange(sq)[:, None]
+    kpos = np.arange(sk)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    t = tfa.KEY_TILE
+    for k0 in range(0, sk, t):
+        seen = np.flatnonzero(mask[:, k0:k0 + t].any(axis=1)) // t
+        want = set(seen.tolist())
+        got = set(tfa.query_tiles(k0, sq, sk, window))
+        assert want <= got
+        # no tile walked in vain, but those a window's end rounds into
+        assert len(got - want) <= (0 if window is None else 1)
+
+
+def test_copy_route_follows_the_strides():
+    """16-byte strides and bases (the model's (B, S, H, D) views, q, k and
+    v sliced from a fused projection) take TMA; rows of an odd pitch or an
+    offset base are staged synchronously."""
+    bf = torch.bfloat16
+    x = torch.zeros(2, 16, 6, 64, dtype=bf)
+    q, k, v = x.split((4, 1, 1), dim=2)
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    assert tfa.copy_route(*views) == "tma"
+    odd = torch.zeros(2, 16, 4, 65, dtype=bf)[..., :64].transpose(1, 2)
+    assert tfa.copy_route(views[0], odd) == "synchronous"
+    shifted = torch.zeros(2 * 16 * 4 * 64 + 1, dtype=bf)[1:].view(
+        2, 4, 16, 64)
+    assert tfa.copy_route(shifted) == "synchronous"
+    assert tfa.copy_route(torch.zeros(2, 4, 16, 64, dtype=bf)) == "tma"
+
+
+# ---------------------------------------------------------------------------
 # the slice: llama3.2-1b smoke, flash=True, B=2, S=128
 # ---------------------------------------------------------------------------
 
