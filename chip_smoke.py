@@ -15,8 +15,9 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               f32 and bf16 at every ``FLASH_CASES`` case (the main path's
               shape, ragged S, S = 65 and 320, MHA, rep 8, D=32 and D=128,
               windows of 48 to 128, softcaps, and q/k/v sliced from a fused
-              projection and from rows of an odd pitch), and the backward
-              run twice for bitwise-equal results;
+              projection and from rows of an odd pitch, with the copy route
+              each bf16 launch was given), and the backward run twice for
+              bitwise-equal results;
 4. exact    — llama3.2-1b at full width in f32: ``Engine.step([Norms(),
               Grads()])``, unfused and with ``AttnCfg.flash``, against a
               per-example loop of plain (unfused) backward passes, and its
@@ -80,8 +81,8 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               head's, where the forced direct route is not the cheaper one,
               and wk/wv's) and its full grid at its own, the flash kernels
               beside PyTorch's ``scaled_dot_product_attention`` (both on
-              the device, in turns, with each kernel's registers, spills,
-              shared memory and blocks per SM), and
+              the device, in turns, with each kernel's registers, local
+              memory, shared memory and blocks per SM), and
               ``rowsumsq`` and ``clip_scale`` beside
               ``torch.linalg.vector_norm`` and ``torch.mul`` (each library
               call timed as a yardstick only; the port never calls it).
@@ -183,7 +184,8 @@ FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
 # views of (B, S, H, D) projections. "fused" slices q, k and v out of one
 # (B, S, Hq + 2 Hkv, D) tensor (strides in 16-byte multiples: the bf16
 # kernels' TMA route); "odd" slices each out of a (B, S, H, D + 1) tensor
-# (strides no 16-byte multiple: the synchronous route)
+# (strides no 16-byte multiple: the synchronous route, at D = 64, 128 and
+# 32, whose tiles are laid out apart)
 FLASH_CASES = [(B, 32, 8, S, 64, None, None, None),
                (2, 8, 2, 200, 64, None, None, None),
                (2, 4, 4, 256, 64, None, None, None),
@@ -198,7 +200,8 @@ FLASH_CASES = [(B, 32, 8, S, 64, None, None, None),
                (2, 32, 4, 256, 64, None, None, None),    # rep = 8
                (2, 8, 2, 200, 64, None, None, "fused"),
                (2, 8, 2, 200, 64, None, None, "odd"),
-               (1, 8, 2, 320, 128, 20.0, 48, "odd")]
+               (1, 8, 2, 320, 128, 20.0, 48, "odd"),
+               (2, 4, 2, 200, 32, None, None, "odd")]
 
 
 def log(msg: str) -> None:
@@ -439,7 +442,9 @@ def phase_build():
     _build.load()
     log(f"[build] {_build.lib_path()} in {time.perf_counter() - t0:.1f} s")
     for line in _build.build_log().splitlines():
-        if "Used" in line or "Compiling entry" in line:
+        if ("Used" in line or "Compiling entry" in line
+                or ("spill stores" in line
+                    and " 0 bytes spill stores" not in line)):
             log(f"[build] {line.strip()}")
 
 
@@ -527,15 +532,20 @@ def phase_flash_kernels(errs):
         for case in FLASH_CASES:
             b, hq, hkv, s, d, cap, win, layout = case
             q, k, v, do = flash_inputs(b, hq, hkv, s, d, dt, gen, layout)
-            route = fa.copy_route(q, k, v, do)
-            if layout is not None and route != {"fused": "tma",
-                                                "odd": "synchronous"}[layout]:
-                raise AssertionError(f"{layout} inputs took the {route} "
-                                     f"route")
             kw = dict(scale=d ** -0.5, softcap=cap, window=win)
+            fa.route_launches.clear()
             o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
             o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, **kw)
             grads = ops.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+            # the route the bf16 launches were given: the model's views and
+            # the fused projection by TMA, rows of an odd pitch staged
+            route = "synchronous" if layout == "odd" else "tma"
+            want_routes = ({("fwd", route): 1, ("dkv", route): 1}
+                           if dt == torch.bfloat16 else {})
+            if dict(fa.route_launches) != want_routes:
+                raise AssertionError(f"flash routes {dict(fa.route_launches)}"
+                                     f" at {case} {dt}, expected "
+                                     f"{want_routes}")
             again = ops.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)
             want = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
                                               **kw)
@@ -1108,39 +1118,22 @@ def phase_table(expected, errs, launches, kern_ms):
     return rows
 
 
-def ptxas_usage(log, entry):
-    """(registers, spill store bytes) that ``nvcc -Xptxas -v`` printed for
-    the first kernel whose mangled name holds ``entry``."""
-    import re
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and entry in line:
-            regs = spill = None
-            for nxt in lines[i + 1:i + 6]:
-                m = re.search(r"Used (\d+) registers", nxt)
-                regs = int(m.group(1)) if m and regs is None else regs
-                m = re.search(r"(\d+) bytes spill stores", nxt)
-                spill = int(m.group(1)) if m and spill is None else spill
-            return regs, spill
-    return None, None
-
-
-def flash_table(errs, launches, kern_ms):
-    """The flash kernels at the main path's shape (bf16), each beside
-    PyTorch's ``scaled_dot_product_attention`` (forward, or its autograd
-    backward, which forms dQ, dK and dV in one call), both on the device
-    with the host's launch overhead hidden and inputs read from device
-    memory (``device_ms``), in turns kernel, library, library, kernel;
-    the plain version and the bound per launch; scaled to the flash
-    path's launches per step. ``path_events_ms`` keeps the CUDA events
-    around the launches on the path. Each row carries its kernel's
-    registers and spills from the build's ``-Xptxas -v`` output and its
-    shared memory and resident blocks per SM from the runtime."""
+def flash_times():
+    """Device time of one call (ms) of each bf16 flash kernel at the main
+    path's shape and of its yardstick, PyTorch's
+    ``scaled_dot_product_attention``: its forward beside ``fwd``, its
+    autograd backward (dQ, dK and dV in one call) beside ``dq`` and
+    ``dkv``. Each pair is timed with ``device_ms`` (card held busy, input
+    copies cycled past the L2) in turns kernel, library, library, kernel.
+    Returns ``{kind: {"kernel": [t1, t4], "library": [t2, t3]}}`` and the
+    input sets. It uses only the launchers' public signatures, so a copy of
+    this file placed in an older checkout times that checkout's kernels:
+    ``python3 -c "import chip_smoke; chip_smoke.flash_times()"``."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4)
     dt = torch.bfloat16
     b, hq, hkv, s, d = FLASH_CASES[0][:5]
@@ -1154,18 +1147,9 @@ def flash_table(errs, launches, kern_ms):
         out = F.scaled_dot_product_attention(
             ql, kl, vl, is_causal=True, scale=scale, enable_gqa=True)
         sets.append((q, k, v, do, lse, fa.row_delta(o, do), ql, kl, vl, out))
-    run = {"flash_attention": (
-               lambda x: fa.flash_attention_fwd(*x[:3], scale=scale),
-               lambda x: fa.flash_attention_fwd_ref(*x[:3], scale=scale)),
-           "flash_attention_bwd_dq": (
-               lambda x: fa.flash_attention_bwd_dq(*x[:6], scale=scale),
-               lambda x: fa.flash_attention_bwd_dq_ref(*x[:6], scale=scale)),
-           "flash_attention_bwd_dkv": (
-               lambda x: fa.flash_attention_bwd_dkv(*x[:6], scale=scale),
-               lambda x: fa.flash_attention_bwd_dkv_ref(*x[:6],
-                                                        scale=scale))}
-    kinds = {"flash_attention": "fwd", "flash_attention_bwd_dq": "dq",
-             "flash_attention_bwd_dkv": "dkv"}
+    kern = {"fwd": lambda x: fa.flash_attention_fwd(*x[:3], scale=scale),
+            "dq": lambda x: fa.flash_attention_bwd_dq(*x[:6], scale=scale),
+            "dkv": lambda x: fa.flash_attention_bwd_dkv(*x[:6], scale=scale)}
     # the yardstick: one PyTorch call for the same attention; never on the
     # path
     lib = {"fwd": lambda x: F.scaled_dot_product_attention(
@@ -1173,50 +1157,71 @@ def flash_table(errs, launches, kern_ms):
                enable_gqa=True),
            "bwd": lambda x: torch.autograd.grad(
                x[9], (x[6], x[7], x[8]), x[3], retain_graph=True)}
-    log(f"[table] flash timing: {len(sets)} input sets "
-        f"(B,Hq,Hkv,S,D)=({b},{hq},{hkv},{s},{d}) bf16, device time per "
-        f"call, turns kernel, library, library, kernel")
-
-    build_log = _build.build_log()
-    rows, per_launch = [], {}
-    for name, (kern, plain) in run.items():
-        kind = kinds[name]
-        n = launches[name] // STEPS
+    times = {}
+    for kind, fn in kern.items():
         yard = lib["fwd" if kind == "fwd" else "bwd"]
-        turns = [device_ms(kern, sets, 20), device_ms(yard, sets, 20),
-                 device_ms(yard, sets, 20), device_ms(kern, sets, 20)]
-        ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        turns = [device_ms(fn, sets, 20), device_ms(yard, sets, 20),
+                 device_ms(yard, sets, 20), device_ms(fn, sets, 20)]
+        times[kind] = {"kernel": [turns[0], turns[3]],
+                       "library": [turns[1], turns[2]]}
+    log(f"[flash-times] {len(sets)} input sets (B,Hq,Hkv,S,D)=({b},{hq},"
+        f"{hkv},{s},{d}) bf16, device ms per call: {json.dumps(times)}")
+    return times, sets
+
+
+def flash_table(errs, launches, kern_ms):
+    """The flash kernels at the main path's shape (bf16), each beside SDPA
+    (:func:`flash_times`); the plain version and the bound per launch;
+    scaled to the flash path's launches per step. ``path_events_ms`` keeps
+    the CUDA events around the launches on the path. Each row carries its
+    kernel's registers, local memory, shared memory and resident blocks
+    per SM, as the runtime reports them (the registers and local bytes are
+    those ``nvcc -Xptxas -v`` printed in phase 2)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    times, sets = flash_times()
+    b, hq, hkv, s, d = FLASH_CASES[0][:5]
+    scale = d ** -0.5
+    plain = {"fwd": lambda x: fa.flash_attention_fwd_ref(*x[:3], scale=scale),
+             "dq": lambda x: fa.flash_attention_bwd_dq_ref(*x[:6],
+                                                           scale=scale),
+             "dkv": lambda x: fa.flash_attention_bwd_dkv_ref(*x[:6],
+                                                             scale=scale)}
+    kinds = {"flash_attention": "fwd", "flash_attention_bwd_dq": "dq",
+             "flash_attention_bwd_dkv": "dkv"}
+    rows, per_launch = [], {}
+    for name, kind in kinds.items():
+        n = launches[name] // STEPS
+        kt, lt = times[kind]["kernel"], times[kind]["library"]
+        ms, lib_ms = sum(kt) / 2, sum(lt) / 2
         per_launch[kind] = (ms, lib_ms)
-        plain_ms = device_ms(plain, sets, 3)
+        plain_ms = device_ms(plain[kind], sets, 3)
         flops = fa.flop_estimate(kind, b, hq, s, s, d)
         nbytes = fa.byte_estimate(kind, b, hq, hkv, s, s, d, 2)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[str(dt)] * 1e3
+        t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
         steady = [m[name] for m in kern_ms[1:]] or [kern_ms[0][name]]
         info = fa.kernel_info(kind, d)
-        entry = {"fwd": f"fwd_mmaILi{d}ELb0E", "dq": f"dq_mmaILi{d}EE",
-                 "dkv": f"dkv_mmaILi{d}ELb0E"}[kind]
-        regs, spill = ptxas_usage(build_log, entry)
         log(f"[table] {name} bf16 x{n}/step: kernel {ms:.4f} ms (turns "
-            f"{turns[0]:.4f}, {turns[3]:.4f}), library {lib_ms:.4f} ms "
-            f"(turns {turns[1]:.4f}, {turns[2]:.4f}), plain {plain_ms:.3f} "
+            f"{kt[0]:.4f}, {kt[1]:.4f}), library {lib_ms:.4f} ms "
+            f"(turns {lt[0]:.4f}, {lt[1]:.4f}), plain {plain_ms:.3f} "
             f"ms, bound {bound:.4f} ms ({by}: {flops:.3g} flops, "
-            f"{nbytes:.3g} B), {bound / ms:.1%} of bound; ptxas {regs} "
-            f"registers, {spill} B spilled; {info['smem_bytes']} B shared "
-            f"memory, {info['threads']} threads, {info['blocks_per_sm']} "
-            f"blocks per SM (runtime: {info['registers']} registers, "
-            f"{info['spill_bytes']} B local); on the flash path "
-            f"{sum(steady) / len(steady):.3f} ms per step (events)")
+            f"{nbytes:.3g} B), {bound / ms:.1%} of bound; "
+            f"{info['registers']} registers, {info['local_bytes']} B local, "
+            f"{info['smem_bytes']} B shared memory, {info['threads']} "
+            f"threads, {info['blocks_per_sm']} blocks per SM; on the flash "
+            f"path {sum(steady) / len(steady):.3f} ms per step (events)")
         row = {"name": name, "route": "cuda", "source": SOURCES[name][0],
                "replaces": SOURCES[name][1], "launches": launches[name],
                "max_abs_err": errs[name], "ms": n * ms,
                "path_events_ms": sum(steady) / len(steady),
                "plain_ms": n * plain_ms, "bound_ms": n * bound,
                "bound_by": by, "bound_share": bound / ms,
-               "library_ms": n * lib_ms, "registers": regs,
-               "spill_bytes": spill, "smem_bytes": info["smem_bytes"],
+               "library_ms": n * lib_ms, "registers": info["registers"],
+               "local_bytes": info["local_bytes"],
+               "smem_bytes": info["smem_bytes"],
                "blocks_per_sm": info["blocks_per_sm"],
                "per": "flash-path step, B=8 S=512 bf16"}
         if kind != "fwd":

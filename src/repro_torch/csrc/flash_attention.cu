@@ -82,7 +82,10 @@
 //   (Tile<D, ROWS>): 64-column sub-tiles swizzled within 128-byte rows for
 //   D >= 64, 8-column chunks unswizzled for D = 32. Rows whose base or
 //   strides are not multiples of 16 bytes (no tensor map describes them)
-//   are staged by loads and stores into the same tiles instead.
+//   are staged by loads and stores into the same tiles instead. The Python
+//   launcher decides both the route and the dK/dV blocks' key tiles and
+//   q-tile ranges, and passes them in; the kernels hold no rule of their
+//   own for either.
 // dQ (dq_mma) keeps its first form: 4 warps x 16 rows of a 64-row tile,
 //   mma.sync m16n8k16 from ldmatrix'd padded rows, staged synchronously.
 // f32 runs on the FMA pipes: 4 threads per row, each owning D/4 of the
@@ -133,7 +136,10 @@ struct Params {
   Strides q_st, k_st, v_st, do_st, out0_st, out1_st;
   bool vec;              // 16-byte loads for every bf16 input row
   bool vec_out;          // 16-byte stores for every bf16 output row
-  bool tma;              // bf16 forward and dK/dV: tiles by TMA (else staged)
+  bool tma;              // bf16 forward and dK/dV: tiles by TMA (else staged),
+                         // as the launcher chose (see dispatch())
+  const int* work;       // bf16 dK/dV: 6 ints a block (see dkv_mma)
+  int n_work;            // blocks of that table
 };
 
 // Whether key j is visible from query i: the reference's mask.
@@ -1017,14 +1023,15 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
   // all 64 keys, its warp g keys 16 g .. + 15
   const int g = warp & 3, half = warp >> 2;
 
-  // Key tile x, then n - 1 - x (the middle tile of an odd n alone): under
-  // the causal mask each block meets n + 1 q tiles per q head.
-  const int n_k = (p.Sk + kTile - 1) / kTile;
-  const int tile0 = blockIdx.x, tile1 = n_k - 1 - static_cast<int>(blockIdx.x);
-  const int n_tiles = tile1 > tile0 ? 2 : 1;
-  int lo0, lo1, hi0, hi1;
-  query_tiles(p, tile0 * kTile, kTile, kTile, lo0, hi0);
-  query_tiles(p, tile1 * kTile, kTile, kTile, lo1, hi1);
+  // The block's key tiles and, for each, the q tiles [lo, hi) it walks,
+  // from the launcher's table (dkv_work in kernels/flash_attention.py):
+  // tile x, then n - 1 - x, so that under the causal mask each block meets
+  // n + 1 q tiles per q head; the middle tile of an odd n alone (both
+  // entries the same).
+  const int* w = p.work + 6 * blockIdx.x;
+  const int tile0 = __ldg(w), lo0 = __ldg(w + 1), hi0 = __ldg(w + 2);
+  const int tile1 = __ldg(w + 3), lo1 = __ldg(w + 4), hi1 = __ldg(w + 5);
+  const int n_tiles = tile1 != tile0 ? 2 : 1;
   const int nq0 = max(hi0 - lo0, 0), nq1 = max(hi1 - lo1, 0);
   const int steps0 = p.rep * nq0;
   const int total = steps0 + (n_tiles == 2 ? p.rep * nq1 : 0);
@@ -1468,7 +1475,7 @@ void bf16_kernel(Kind kind, int B, int Hkv, const Params& p,
   } else {
     fn = dkv_mma<D, kCap>;
     threads = kWideThreads;
-    grid = dim3(((p.Sk + kTile - 1) / kTile + 1) / 2, Hkv, B);
+    grid = dim3(p.n_work, Hkv, B);
   }
 }
 
@@ -1496,7 +1503,7 @@ int launch(Kind kind, bool bf16_inputs, int B, int Hkv, const Params& p,
   return launch_one(dkv_f32<D>, k_grid, kF32Threads, smem, p, stream);
 }
 
-// Registers, local (spill) bytes a thread, dynamic shared memory, threads
+// Registers, local memory bytes a thread, dynamic shared memory, threads
 // and resident blocks per SM of a bf16 kernel without a softcap, as the
 // runtime sees them.
 template <int D>
@@ -1599,8 +1606,13 @@ int dispatch(Kind kind, int dtype, int B, int Hkv, int D, Params& p,
           (kind == Kind::kFwd || aligned16(p.dout, p.do_st));
   p.vec_out = aligned16(p.out0, p.out0_st) &&
               (kind != Kind::kDkv || aligned16(p.out1, p.out1_st));
-  // TMA takes what 16-byte copies take: bases and strides in 16 bytes
-  p.tma = bf && p.vec && kind != Kind::kDq;
+  // The launcher picks the copy route (copy_route in
+  // kernels/flash_attention.py) and the dK/dV schedule (dkv_work); a tensor
+  // map refuses a base or stride that is no multiple of 16 bytes.
+  if (p.tma && (!bf || kind == Kind::kDq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bf && kind == Kind::kDkv && (p.work == nullptr || p.n_work <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (p.tma) {
     const int q_rows = kind == Kind::kFwd ? kRows : kTile;
     cudaError_t err =
@@ -1645,15 +1657,20 @@ Params make_params(const void* q, const void* k, const void* v, int Hq,
 // Every entry point takes the element strides of its tensors as one host
 // array of (batch, head, sequence) triples, in the order of its tensor
 // arguments; lse and delta are contiguous (B, Hq, Sq) f32. softcap 0 means
-// no softcap and window 0 no window. Each returns cudaGetLastError() after
-// its launch (0 on success).
+// no softcap and window 0 no window. For bf16, tma 1 brings the forward's
+// and dK/dV's tiles by TMA and 0 stages them by loads and stores; work is
+// the dK/dV schedule, n_work rows of (key tile, first q tile, end q tile) x
+// 2 in device memory, one row a block. Each returns cudaGetLastError()
+// after its launch (0 on success).
 
 // strides: q, k, v, o
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D, float scale,
-    float softcap, int window, const long long* strides, void* stream) {
+    float softcap, int window, const long long* strides, int tma,
+    void* stream) {
   Params p = make_params(q, k, v, Hq, Sq, Sk, scale, softcap, window, strides);
+  p.tma = tma != 0;
   p.out0 = o;
   p.out0_st = strides_at(strides, 3);
   p.lse_out = static_cast<float*>(lse);
@@ -1683,8 +1700,12 @@ extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int dtype, int B,
     int Hq, int Hkv, int Sq, int Sk, int D, float scale, float softcap,
-    int window, const long long* strides, void* stream) {
+    int window, const long long* strides, int tma, const int* work,
+    int n_work, void* stream) {
   Params p = make_params(q, k, v, Hq, Sq, Sk, scale, softcap, window, strides);
+  p.tma = tma != 0;
+  p.work = work;
+  p.n_work = n_work;
   p.dout = dout;
   p.do_st = strides_at(strides, 3);
   p.lse = static_cast<const float*>(lse);
@@ -1697,9 +1718,9 @@ extern "C" int flash_attention_bwd_dkv_launch(
                   static_cast<cudaStream_t>(stream));
 }
 
-// Registers, spill bytes a thread, dynamic shared memory bytes, threads and
-// resident blocks per SM (out[0..4]) of the bf16 kernel `kind` (0 forward,
-// 1 dQ, 2 dK/dV) at head dim D, without a softcap.
+// Registers, local memory bytes a thread, dynamic shared memory bytes,
+// threads and resident blocks per SM (out[0..4]) of the bf16 kernel `kind`
+// (0 forward, 1 dQ, 2 dK/dV) at head dim D, without a softcap.
 extern "C" int flash_attention_kernel_info(int kind, int D, int* out) {
   if (kind < 0 || kind > 2) return static_cast<int>(cudaErrorInvalidValue);
   const Kind k = static_cast<Kind>(kind);

@@ -64,13 +64,13 @@ _SIGNATURES = {
     "rowsumsq_launch": (_P, _P, _I, _I, _I, _I, _L, _L, _P),
     "clip_scale_launch": (_P, _P, _P, _I, _I, _I, _I, _L, _L, _P),
     "flash_attention_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _F, _I, _LP, _P),
+                                   _I, _I, _F, _F, _I, _LP, _I, _P),
     "flash_attention_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _I, _I, _I, _F, _F, _I, _LP,
                                       _P),
     "flash_attention_bwd_dkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                                       _LP, _P),
+                                       _LP, _I, _P, _I, _P),
     "flash_attention_kernel_info": (_I, _I, _IP),
 }
 

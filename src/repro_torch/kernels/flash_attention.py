@@ -17,8 +17,12 @@ rows. The dK/dV kernel gives each block a pair of 64-key tiles, ``x`` and
 number of q tiles under the causal mask, brings the rep q heads' Q and dO
 through the same kind of ring, and splits the queries between its two
 warpgroups, whose dK and dV it sums in a fixed order. Rows that TMA cannot
-describe are staged by loads and stores instead (:func:`copy_route`). dQ
-and the f32 kernels keep their first form (``mma.sync``, FMA pipes).
+describe are staged by loads and stores instead (:func:`copy_route`). The
+launchers here own both choices: each passes its route to the kernel, and
+the dK/dV launcher its blocks' key tiles and q-tile ranges
+(:func:`dkv_work`, a small table cached in device memory per shape);
+:data:`route_launches` counts the launches of each route. dQ and the f32
+kernels keep their first form (``mma.sync``, FMA pipes).
 
 Layout is the reference's: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), with
 Hq a multiple of Hkv (query head h reads kv head h // rep). The kernels take
@@ -37,7 +41,9 @@ the tensors' device. Δ = rowsum(dO ⊙ O) stays a torch expression
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -48,7 +54,6 @@ _F32 = torch.float32
 NEG_INF = -1.0e30      # the reference's finite mask value
 HEAD_DIMS = (32, 64, 128)
 KEY_TILE = 64          # keys of a staged tile; rows of a dQ / dK/dV q tile
-FWD_ROWS = 128         # query rows of a forward block (8 warps x 16)
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +202,7 @@ def byte_estimate(kind: str, b: int, hq: int, hkv: int, sq: int, sk: int,
 def query_tiles(k0: int, sq: int, sk: int,
                 window: Optional[int] = None) -> range:
     """The 64-row q tiles holding a query that sees some key of the 64-key
-    tile starting at ``k0`` (the kernel's ``query_tiles``)."""
+    tile starting at ``k0``: those a dK/dV block walks for that tile."""
     q_end = sq
     if window is not None:
         q_end = min(q_end, min(k0 + KEY_TILE, sk) - 1 + window)
@@ -215,20 +220,36 @@ def dkv_key_tiles(sk: int) -> list:
             for x in range((n + 1) // 2)]
 
 
-def dkv_block_steps(sq: int, sk: int, rep: int,
-                    window: Optional[int] = None) -> list:
-    """(q head, q tile) steps each dK/dV block walks: rep × the q tiles of
-    each of its key tiles."""
-    return [rep * sum(len(query_tiles(t * KEY_TILE, sq, sk, window))
-                      for t in tiles) for tiles in dkv_key_tiles(sk)]
+def dkv_work(sq: int, sk: int, window: Optional[int] = None) -> list:
+    """The bf16 dK/dV kernel's schedule, one row per block: (key tile,
+    first q tile, end q tile) for each of its two key tiles
+    (:func:`dkv_key_tiles`, :func:`query_tiles`), the middle tile of an odd
+    count given twice. The launcher passes these rows to the kernel."""
+    rows = []
+    for tiles in dkv_key_tiles(sk):
+        row = []
+        for t in (tiles[0], tiles[-1]):
+            r = query_tiles(t * KEY_TILE, sq, sk, window)
+            row += [t, r.start, r.stop]
+        rows.append(tuple(row))
+    return rows
+
+
+@functools.lru_cache(maxsize=64)
+def _work_table(sq, sk, window, device):
+    """:func:`dkv_work` as an int32 tensor on ``device``, made once per
+    shape."""
+    return torch.tensor(dkv_work(sq, sk, window), dtype=torch.int32,
+                        device=device)
 
 
 def copy_route(*tensors) -> str:
     """How the bf16 forward and dK/dV kernels bring these inputs into
     shared memory: ``"tma"`` when every tensor's base and (batch, head,
-    sequence) strides are multiples of 16 bytes (the kernel's
-    ``aligned16``), so a 5-d tensor map can describe the rows; else
-    ``"synchronous"`` (element loads and stores into the same tiles)."""
+    sequence) strides are multiples of 16 bytes, so a tensor map can
+    describe the rows; else ``"synchronous"`` (loads and stores into the
+    same tiles). The launchers pass it to the kernel, which takes no other
+    rule."""
     def aligned(t):
         return (t.data_ptr() % 16 == 0
                 and all(t.stride(d) * t.element_size() % 16 == 0
@@ -236,16 +257,31 @@ def copy_route(*tensors) -> str:
     return "tma" if all(aligned(t) for t in tensors) else "synchronous"
 
 
+#: bf16 launches of the forward ("fwd") and dK/dV ("dkv") kernels by copy
+#: route, as the launchers passed it: {(kind, route): launches}
+route_launches = collections.Counter()
+
+
+def _route(kind, dtype, *tensors) -> int:
+    """The copy route of a launch (1 for TMA), counted; f32 has none."""
+    if dtype != torch.bfloat16:
+        return 0
+    route = copy_route(*tensors)
+    route_launches[kind, route] += 1
+    return int(route == "tma")
+
+
 def kernel_info(kind: str, d: int) -> dict:
-    """Registers, spill bytes per thread, dynamic shared memory, threads
-    and resident blocks per SM of the bf16 kernel ``kind`` ("fwd", "dq" or
-    "dkv") at head dim ``d`` without a softcap, as the CUDA runtime reports
-    them (the same registers and spills as ``nvcc -Xptxas -v``)."""
+    """Registers, local memory bytes per thread, dynamic shared memory,
+    threads and resident blocks per SM of the bf16 kernel ``kind`` ("fwd",
+    "dq" or "dkv") at head dim ``d`` without a softcap, as the CUDA runtime
+    reports them (the registers and local bytes are those ``nvcc -Xptxas
+    -v`` prints for the kernel)."""
     out = (ctypes.c_int * 5)()
     code = _build.load().flash_attention_kernel_info(
         ("fwd", "dq", "dkv").index(kind), d, out)
     _build.check(code, "flash_attention_kernel_info")
-    return dict(zip(("registers", "spill_bytes", "smem_bytes", "threads",
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads",
                      "blocks_per_sm"), out))
 
 
@@ -320,7 +356,8 @@ def flash_attention_fwd(q, k, v, *, scale: float,
     code = _build.load().flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _build.dtype_code(q), b, hq, hkv, sq, sk, d,
-        float(scale), cap, win, _build.strides_arg((q, k, v, o)), stream)
+        float(scale), cap, win, _build.strides_arg((q, k, v, o)),
+        _route("fwd", q.dtype, q, k, v), stream)
     _build.check(code, "flash_attention")
     return o, lse
 
@@ -356,11 +393,16 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
     b, hq, hkv, sq, sk, d = _sizes(q, k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    work = (_work_table(sq, sk, window, q.device)
+            if q.dtype == torch.bfloat16 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _build.load().flash_attention_bwd_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _build.dtype_code(q), b, hq, hkv, sq, sk, d, float(scale), cap, win,
-        _build.strides_arg((q, k, v, do, dk, dv)), stream)
+        _build.strides_arg((q, k, v, do, dk, dv)),
+        _route("dkv", q.dtype, q, k, v, do),
+        None if work is None else work.data_ptr(),
+        0 if work is None else work.shape[0], stream)
     _build.check(code, "flash_attention_bwd_dkv")
     return dk, dv

@@ -154,7 +154,8 @@ def test_cuda_empty_inputs_launch_nothing(cuda_device, shape):
 # multiple of 64 but not of 128, one row past a tile, a window smaller than
 # a q tile, rep = 8, and two strided layouts: q, k and v sliced out of one
 # fused projection (16-byte strides: the TMA route) and out of
-# (B, S, H, D + 1) tensors (the synchronous route)
+# (B, S, H, D + 1) tensors (the synchronous route, at D = 64, 128 and 32,
+# whose tiles are laid out apart)
 FLASH_CASES = [(8, 32, 8, 512, 64, None, None, None),
                (2, 8, 2, 200, 64, None, None, None),
                (2, 4, 4, 256, 64, None, None, None),
@@ -169,7 +170,8 @@ FLASH_CASES = [(8, 32, 8, 512, 64, None, None, None),
                (2, 32, 4, 256, 64, None, None, None),
                (2, 8, 2, 200, 64, None, None, "fused"),
                (2, 8, 2, 200, 64, None, None, "odd"),
-               (1, 8, 2, 320, 128, 20.0, 48, "odd")]
+               (1, 8, 2, 320, 128, 20.0, 48, "odd"),
+               (2, 4, 2, 200, 32, None, None, "odd")]
 
 
 def _flash_inputs(case, dtype, device, seed=7):
@@ -208,11 +210,9 @@ def test_cuda_flash_kernels_match_plain(cuda_device, case, dtype):
     """O and lse, then dQ, dK, dV on the plain forward's O and lse."""
     tol = 1e-4 if dtype == "float32" else 1e-2
     q, k, v, do = _flash_inputs(case, getattr(torch, dtype), cuda_device)
-    if case[7] is not None:
-        assert tfa.copy_route(q, k, v, do) == {
-            "fused": "tma", "odd": "synchronous"}[case[7]]
     kw = _flash_kw(case)
     tops.reset_launch_counts()
+    tfa.route_launches.clear()
     o, lse = tops.flash_attention(q, k, v, return_lse=True, **kw)
     o_ref, lse_ref = tfa.flash_attention_fwd_ref(q, k, v, **kw)
     assert o.dtype == q.dtype and o.shape == q.shape
@@ -226,6 +226,12 @@ def test_cuda_flash_kernels_match_plain(cuda_device, case, dtype):
     assert tops.launch_counts() == _counts(flash_attention=1,
                                            flash_attention_bwd_dq=1,
                                            flash_attention_bwd_dkv=1)
+    # the route each bf16 launch was given: the model's views and the fused
+    # projection by TMA, rows of an odd pitch staged
+    route = "synchronous" if case[7] == "odd" else "tma"
+    assert dict(tfa.route_launches) == (
+        {("fwd", route): 1, ("dkv", route): 1} if dtype == "bfloat16"
+        else {})
 
 
 @pytest.mark.cuda

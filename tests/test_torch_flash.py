@@ -202,20 +202,27 @@ def test_launchers_take_only_cuda_tensors():
 
 
 # ---------------------------------------------------------------------------
-# the bf16 kernels' schedule and copy route, mirrored on the host
+# the bf16 kernels' schedule and copy route, as the launchers pass them
 # ---------------------------------------------------------------------------
+
+def _work_tiles(row):
+    """The distinct (key tile, first q tile, end q tile) of a dK/dV block's
+    row of ``dkv_work``."""
+    return [row[:3]] if row[0] == row[3] else [row[:3], row[3:]]
+
 
 @pytest.mark.parametrize("sk", [1, 63, 64, 65, 200, 320, 333, 448, 512,
                                 4097])
 def test_dkv_pairs_cover_every_key_tile_once(sk):
     """Each (batch, kv head)'s 64-key tiles, ragged last tile included, go
-    to exactly one dK/dV block: one writer per output tile."""
+    to exactly one dK/dV block of the launcher's table: one writer per
+    output tile."""
     n = -(-sk // tfa.KEY_TILE)
-    blocks = tfa.dkv_key_tiles(sk)
-    assert len(blocks) == (n + 1) // 2
-    owned = [t for tiles in blocks for t in tiles]
+    rows = tfa.dkv_work(sk, sk)
+    assert len(rows) == (n + 1) // 2
+    owned = [t[0] for row in rows for t in _work_tiles(row)]
     assert sorted(owned) == list(range(n))
-    assert all(len(tiles) == 2 for tiles in blocks[:n // 2])
+    assert all(len(_work_tiles(row)) == 2 for row in rows[:n // 2])
 
 
 @pytest.mark.parametrize("s,rep", [(512, 4), (320, 8), (448, 1), (65, 2),
@@ -225,9 +232,12 @@ def test_dkv_pairs_balance_the_causal_walk(s, rep):
     middle tile of an odd n, alone, meets (n + 1) / 2): the blocks of a
     launch walk the same number of steps."""
     n = -(-s // tfa.KEY_TILE)
-    steps = tfa.dkv_block_steps(s, s, rep)
-    for tiles, got in zip(tfa.dkv_key_tiles(s), steps):
-        assert got == rep * (n + 1 if len(tiles) == 2 else (n + 1) // 2)
+    steps = []
+    for row in tfa.dkv_work(s, s):
+        tiles = _work_tiles(row)
+        steps.append(rep * sum(max(hi - lo, 0) for _, lo, hi in tiles))
+        assert steps[-1] == rep * (n + 1 if len(tiles) == 2
+                                   else (n + 1) // 2)
     assert sum(steps) == rep * n * (n + 1) // 2
 
 
@@ -235,7 +245,7 @@ def test_dkv_pairs_balance_the_causal_walk(s, rep):
                                           (256, 256, 48), (65, 65, None),
                                           (64, 100, None), (100, 64, 7)])
 def test_query_tiles_hold_every_visible_query(sq, sk, window):
-    """The q tiles the kernel walks for a key tile are those holding a
+    """The q tiles the dK/dV table gives a key tile are those holding a
     query that sees one of its keys, at ragged S and with a window."""
     qpos = np.arange(sq)[:, None]
     kpos = np.arange(sk)[None, :]
@@ -243,10 +253,15 @@ def test_query_tiles_hold_every_visible_query(sq, sk, window):
     if window is not None:
         mask &= (qpos - kpos) < window
     t = tfa.KEY_TILE
-    for k0 in range(0, sk, t):
+    walked = {}
+    for row in tfa.dkv_work(sq, sk, window):
+        for tile, lo, hi in _work_tiles(row):
+            walked[tile] = set(range(lo, hi))
+    assert sorted(walked) == list(range(-(-sk // t)))
+    for tile, got in walked.items():
+        k0 = tile * t
         seen = np.flatnonzero(mask[:, k0:k0 + t].any(axis=1)) // t
         want = set(seen.tolist())
-        got = set(tfa.query_tiles(k0, sq, sk, window))
         assert want <= got
         # no tile walked in vain, but those a window's end rounds into
         assert len(got - want) <= (0 if window is None else 1)
