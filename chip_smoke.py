@@ -1169,6 +1169,73 @@ def flash_times():
     return times, sets
 
 
+CLOCK_NAMES = ("total", "first_tile", "copy_waits", "product_waits",
+               "softmax")
+
+
+def flash_clocks(reps=5):
+    """Clock counts inside the bf16 forward at the main path's shape: a copy
+    of ``csrc/flash_attention.cu`` built with ``-DREPRO_FLASH_CLOCKS`` into
+    ``build/flash_clocks/`` (the package's own library is not touched),
+    launched ``reps`` times; the last launch's records, one per (block,
+    consumer warpgroup) of ``CLOCK_NAMES`` cycles: from the warpgroup's
+    start to the end of its tiles, to its first tile's arrival, in waits for
+    copies and block barriers, in waits for products, in the softmax.
+    Returns their means and each mean's share of the total. Like
+    :func:`flash_times` it uses only the forward launch's C signature, so a
+    copy of this file in an older checkout with the probes reads that
+    checkout's kernel: ``python3 -c "import chip_smoke;
+    chip_smoke.flash_clocks()"``."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+
+    out_dir = os.path.join(ROOT, "build", "flash_clocks")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_file = os.path.join(out_dir, "libflash_clocks.so")
+    csrc = os.path.join(ROOT, "src", "repro_torch", "csrc")
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+                    "-Xcompiler", "-fPIC", "-DREPRO_FLASH_CLOCKS", "-shared",
+                    "-o", lib_file, os.path.join(csrc, "flash_attention.cu"),
+                    os.path.join(csrc, "errors.cu")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(lib_file)
+    launch = lib.flash_attention_fwd_launch
+    launch.argtypes = list(_build._SIGNATURES["flash_attention_fwd_launch"])
+    launch.restype = ctypes.c_int
+    lib.flash_attention_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.flash_attention_clocks.restype = ctypes.c_int
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, hq, hkv, s, d = FLASH_CASES[0][:5]
+    q, k, v, _ = flash_inputs(b, hq, hkv, s, d, torch.bfloat16, gen)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+    strides = _build.strides_arg((q, k, v, o))
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(reps):
+        code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      lse.data_ptr(), 1, b, hq, hkv, s, s, d, d ** -0.5, 0.0,
+                      0, strides, 1, stream)
+        if code != 0:
+            raise RuntimeError(f"instrumented forward: CUDA error {code}")
+    torch.cuda.synchronize()
+    n = b * hq * -(-s // 128) * 2 * len(CLOCK_NAMES)
+    buf = (ctypes.c_longlong * n)()
+    code = lib.flash_attention_clocks(buf, n)
+    if code != 0:
+        raise RuntimeError(f"reading the clock records: CUDA error {code}")
+    recs = torch.tensor(list(buf), dtype=torch.float64).view(
+        -1, len(CLOCK_NAMES))
+    means = recs.mean(dim=0).tolist()
+    out = {name: {"cycles": m, "share": m / means[0]}
+           for name, m in zip(CLOCK_NAMES, means)}
+    log(f"[flash-clocks] forward (B,Hq,Hkv,S,D)=({b},{hq},{hkv},{s},{d}) "
+        f"bf16, mean over {recs.shape[0]} (block, warpgroup) records: "
+        f"{json.dumps(out)}")
+    return out
+
+
 def flash_table(errs, launches, kern_ms):
     """The flash kernels at the main path's shape (bf16), each beside SDPA
     (:func:`flash_times`); the plain version and the bound per launch;

@@ -723,6 +723,51 @@ __device__ __forceinline__ unsigned char* smem_base() {
   return smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
 }
 
+// Clock counts inside the bf16 forward, compiled in only with
+// -DREPRO_FLASH_CLOCKS (chip_smoke.flash_clocks builds such a copy apart
+// from the package's library). Thread 0 of each consumer warpgroup records
+// five counts of clock64() cycles: from its start to the end of its tiles,
+// to its first tile's arrival, in waits for copies (and block barriers), in
+// waits for products, and in the softmax.
+#ifdef REPRO_FLASH_CLOCKS
+constexpr int kClockSlots = 5;
+constexpr int kClockRecords = 8192;  // (block, warpgroup) records
+__device__ long long g_flash_clocks[kClockRecords * kClockSlots];
+#define CLOCKS_BEGIN()                                  \
+  long long clk_[kClockSlots] = {0, 0, 0, 0, 0};        \
+  const long long clk_t0 = clock64();                   \
+  long long clk_mark = clk_t0
+#define CLOCK_MARK() (clk_mark = clock64())
+#define CLOCK_ADD(slot) (clk_[slot] += clock64() - clk_mark)
+#define CLOCK_FIRST() \
+  if (clk_[1] == 0) clk_[1] = clock64() - clk_t0
+#define CLOCKS_END()                                                      \
+  do {                                                                    \
+    clk_[0] = clock64() - clk_t0;                                         \
+    const int rec = ((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +  \
+                     blockIdx.x) * 2 + (threadIdx.x >> 7);                \
+    if ((threadIdx.x & 127) == 0 && rec < kClockRecords)                  \
+      for (int i = 0; i < kClockSlots; ++i)                               \
+        g_flash_clocks[rec * kClockSlots + i] = clk_[i];                  \
+  } while (0)
+#else
+#define CLOCKS_BEGIN() \
+  do {                 \
+  } while (0)
+#define CLOCK_MARK() \
+  do {               \
+  } while (0)
+#define CLOCK_ADD(slot) \
+  do {                  \
+  } while (0)
+#define CLOCK_FIRST() \
+  do {                \
+  } while (0)
+#define CLOCKS_END() \
+  do {               \
+  } while (0)
+#endif
+
 template <int D, bool kCap>
 __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
     fwd_mma(const __grid_constant__ Params p) {
@@ -740,6 +785,7 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
   const int r0 = q0 + warp * 16;         // the warp's: r0 .. r0 + 15
   const int row = r0 + (lane >> 2);      // this thread's: row and row + 8
 
+  CLOCKS_BEGIN();
   int lo, hi;
   key_tiles(p, q0, kRows, kTile, lo, hi);
   if (threadIdx.x == 0) {
@@ -774,11 +820,14 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
     const int next_stage = (j + 1) % kFwdStages;
     const bf16* ks = ring + stage * 2 * kTileElems;
     const bf16* vs = ks + kTileElems;
+    CLOCK_MARK();
     if (p.tma)
       mbar_wait(&full[stage], (j / kFwdStages) & 1);
     else
       fence_async_smem();
     __syncthreads();  // tile kt is in; every warp is done with tile kt - 2
+    CLOCK_ADD(2);
+    CLOCK_FIRST();
     if (kt + 1 < hi) {
       bf16* next = ring + next_stage * 2 * kTileElems;
       const int k1 = (kt + 1) * kTile;
@@ -798,8 +847,10 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
     const int k0 = kt * kTile;
     if (w0 >= p.Sq || k0 > w0 + 63 ||
         (p.window > 0 && w0 - (k0 + kTile - 1) >= p.window)) {
+      CLOCK_MARK();
       wgmma_wait();  // tile kt - 1's products read the stage kt + 2 fills
       pin<D / 2>(&o[0][0]);
+      CLOCK_ADD(3);
       continue;
     }
     const bool edge = k0 + kTile - 1 > r0 || k0 + kTile > p.Sk ||
@@ -812,10 +863,13 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
     issue_abt<D, 64, kRows, kTile>(&s[0][0],
                                    qs + Tile<D, kRows>::row(w0 - q0), ks);
     wgmma_commit();
+    CLOCK_MARK();
     wgmma_wait();  // and tile kt - 1's P V products
     pin<32>(&s[0][0]);
     pin<D / 2>(&o[0][0]);
     pin_u<16>(&pa[0][0]);
+    CLOCK_ADD(3);
+    CLOCK_MARK();
 #pragma unroll
     for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
@@ -860,12 +914,16 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
     pack_rows<4>(pa, s);
     pin_u<16>(&pa[0][0]);
     pin<D / 2>(&o[0][0]);
+    CLOCK_ADD(4);
     wgmma_fence();
     issue_xb<D, 4, kTile>(&o[0][0], pa, vs);
     wgmma_commit();
   }
+  CLOCK_MARK();
   wgmma_wait();
   pin<D / 2>(&o[0][0]);
+  CLOCK_ADD(3);
+  CLOCKS_END();
   if (hi <= lo) {  // no key tile: let Q land before O overwrites it
     if (p.tma) mbar_wait(&full[0], 0);
     __syncthreads();
@@ -1717,6 +1775,16 @@ extern "C" int flash_attention_bwd_dkv_launch(
   return dispatch(Kind::kDkv, dtype, B, Hkv, D, p,
                   static_cast<cudaStream_t>(stream));
 }
+
+#ifdef REPRO_FLASH_CLOCKS
+// The clock records of the last forward launch (kClockSlots counts per
+// (block, warpgroup) record, see CLOCKS_BEGIN) into out, at most n values.
+extern "C" int flash_attention_clocks(long long* out, int n) {
+  const int all = kClockRecords * kClockSlots;
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, g_flash_clocks, sizeof(long long) * (n < all ? n : all)));
+}
+#endif
 
 // Registers, local memory bytes a thread, dynamic shared memory bytes,
 // threads and resident blocks per SM (out[0..4]) of the bf16 kernel `kind`
