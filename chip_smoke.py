@@ -540,7 +540,8 @@ def phase_flash_kernels(errs):
             # the route the bf16 launches were given: the model's views and
             # the fused projection by TMA, rows of an odd pitch staged
             route = "synchronous" if layout == "odd" else "tma"
-            want_routes = ({("fwd", route): 1, ("dkv", route): 1}
+            want_routes = ({("fwd", route): 1, ("dq", route): 1,
+                            ("dkv", route): 1}
                            if dt == torch.bfloat16 else {})
             if dict(fa.route_launches) != want_routes:
                 raise AssertionError(f"flash routes {dict(fa.route_launches)}"
@@ -568,14 +569,15 @@ def phase_flash_kernels(errs):
                            "dQ": "flash_attention_bwd_dq"}.get(
                                name, "flash_attention_bwd_dkv")
                     errs[key] = max(errs.get(key, 0.0), err)
-            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-                raise AssertionError(f"flash backward not bitwise "
-                                     f"reproducible at {case} {dt}")
+            for name, a, b in zip(("dQ", "dK", "dV"), grads, again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"flash {name} not bitwise "
+                                         f"reproducible at {case} {dt}")
             how = f", {route} route" if dt == torch.bfloat16 else ""
             log(f"[kernels] flash {str(dt)[6:]} (B,Hq,Hkv,S,D,cap,win,"
                 f"layout)={case}{how}: err/max " + ", ".join(line)
-                + f" (tol {tol}, lse {LSE_TOL}); backward bitwise equal "
-                f"on a second run")
+                + f" (tol {tol}, lse {LSE_TOL}); dQ, dK and dV bitwise "
+                f"equal on a second run")
             del q, k, v, do, o, lse, o_ref, lse_ref, grads, again, want
 
 
@@ -1123,10 +1125,12 @@ def flash_times():
     path's shape and of its yardstick, PyTorch's
     ``scaled_dot_product_attention``: its forward beside ``fwd``, its
     autograd backward (dQ, dK and dV in one call) beside ``dq`` and
-    ``dkv``. Each pair is timed with ``device_ms`` (card held busy, input
-    copies cycled past the L2) in turns kernel, library, library, kernel.
-    Returns ``{kind: {"kernel": [t1, t4], "library": [t2, t3]}}`` and the
-    input sets. It uses only the launchers' public signatures, so a copy of
+    ``dkv``, and beside ``delta``, Δ = rowsum(dO ⊙ O) (``row_delta``, a
+    torch expression the port runs before its two backward kernels, while
+    SDPA's backward forms its own). Each pair is timed with ``device_ms``
+    (card held busy, input copies cycled past the L2) in turns kernel,
+    library, library, kernel. Returns ``{kind: {"kernel": [t1, t4],
+    "library": [t2, t3]}}`` and the input sets. It uses only the launchers' public signatures, so a copy of
     this file placed in an older checkout times that checkout's kernels:
     ``python3 -c "import chip_smoke; chip_smoke.flash_times()"``."""
     import torch
@@ -1146,10 +1150,12 @@ def flash_times():
         ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
         out = F.scaled_dot_product_attention(
             ql, kl, vl, is_causal=True, scale=scale, enable_gqa=True)
-        sets.append((q, k, v, do, lse, fa.row_delta(o, do), ql, kl, vl, out))
+        sets.append((q, k, v, do, lse, fa.row_delta(o, do), ql, kl, vl, out,
+                     o))
     kern = {"fwd": lambda x: fa.flash_attention_fwd(*x[:3], scale=scale),
             "dq": lambda x: fa.flash_attention_bwd_dq(*x[:6], scale=scale),
-            "dkv": lambda x: fa.flash_attention_bwd_dkv(*x[:6], scale=scale)}
+            "dkv": lambda x: fa.flash_attention_bwd_dkv(*x[:6], scale=scale),
+            "delta": lambda x: fa.row_delta(x[10], x[3])}
     # the yardstick: one PyTorch call for the same attention; never on the
     # path
     lib = {"fwd": lambda x: F.scaled_dot_product_attention(
@@ -1167,6 +1173,92 @@ def flash_times():
     log(f"[flash-times] {len(sets)} input sets (B,Hq,Hkv,S,D)=({b},{hq},"
         f"{hkv},{s},{d}) bf16, device ms per call: {json.dumps(times)}")
     return times, sets
+
+
+def flash_host_us(reps=200):
+    """Host time of one call (µs) of each bf16 flash launcher at the main
+    path's shape, with the card held busy so that no call waits for it
+    (``time.perf_counter`` around ``reps`` calls after a warm-up), split
+    into: ``checks`` (the launcher's checks of its inputs and options),
+    ``python`` (the rest of the launcher before the C call: outputs, the
+    stream, the strides array, the route), ``ctypes_launch`` (the C call
+    with its launch, on the staged route, which encodes no tensor map) and
+    ``encode`` (the TMA route's C call less the staged one's: its tensor
+    maps). The C calls replay the arguments the launcher passed."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dt = torch.bfloat16
+    b, hq, hkv, s, d = FLASH_CASES[0][:5]
+    scale = d ** -0.5
+    q, k, v, do = flash_inputs(b, hq, hkv, s, d, dt, gen)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale=scale)
+    delta = fa.row_delta(o, do)
+    launchers = {
+        "fwd": ("flash_attention_fwd_launch", 16,
+                lambda: fa.flash_attention_fwd(q, k, v, scale=scale),
+                lambda: fa._inputs("flash_attention", q, k, v)),
+        "dq": ("flash_attention_bwd_dq_launch", 18,
+               lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                 scale=scale),
+               lambda: fa._inputs("flash_attention_bwd_dq", q, k, v, do)),
+        "dkv": ("flash_attention_bwd_dkv_launch", 19,
+                lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                   scale=scale),
+                lambda: fa._inputs("flash_attention_bwd_dkv", q, k, v, do))}
+    lib = _build.load()
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(400_000_000)    # ~0.2 s at the H100's clocks
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    out = {}
+    for kind, (name, tma_arg, call, inputs) in launchers.items():
+        recorded = {}
+        c_fn = getattr(lib, name)
+
+        class Spy:      # the C call's arguments, as the launcher made them
+            def __getattr__(self, attr):
+                if attr != name:
+                    return getattr(lib, attr)
+                return lambda *a: recorded.setdefault("args", a) and c_fn(*a)
+        real_load = _build.load
+        _build.load = Spy
+        try:
+            kept = call()   # its outputs stay alive for the replays
+        finally:
+            _build.load = real_load
+        args = list(recorded["args"])
+        staged = args[:tma_arg] + [0] + args[tma_arg + 1:]
+
+        def checks():
+            inputs()
+            if kind != "fwd":
+                fa._rows(lse, q, "lse")
+                fa._rows(delta, q, "delta")
+            fa._options(None, None)
+        total = host_us(call)
+        c_tma = host_us(lambda: c_fn(*args))
+        c_staged = host_us(lambda: c_fn(*staged))
+        chk = host_us(checks)
+        out[kind] = {"total": total, "checks": chk,
+                     "python": total - c_tma - chk,
+                     "ctypes_launch": c_staged,
+                     "encode": c_tma - c_staged,
+                     "route": "tma" if args[tma_arg] else "synchronous"}
+        del kept
+    log(f"[flash-host] host µs per call, card held busy, (B,Hq,Hkv,S,D)="
+        f"({b},{hq},{hkv},{s},{d}) bf16: {json.dumps(out)}")
+    return out
 
 
 CLOCK_NAMES = ("total", "first_tile", "copy_waits", "product_waits",
@@ -1297,9 +1389,18 @@ def flash_table(errs, launches, kern_ms):
                                    "one call")
         rows.append(row)
     bwd = per_launch["dq"][0] + per_launch["dkv"][0]
+    delta = sum(times["delta"]["kernel"]) / 2
+    lib_bwd = [t for k in ("dq", "dkv", "delta")
+               for t in times[k]["library"]]
     log(f"[table] per launch: forward {per_launch['fwd'][0]:.4f} ms vs SDPA "
-        f"forward {per_launch['fwd'][1]:.4f} ms; dQ + dK/dV {bwd:.4f} ms vs "
-        f"SDPA autograd backward {per_launch['dkv'][1]:.4f} ms")
+        f"forward {per_launch['fwd'][1]:.4f} ms; dQ + dK/dV {bwd:.4f} ms, "
+        f"with Δ (row_delta, {delta:.4f} ms) {bwd + delta:.4f} ms, vs SDPA "
+        f"autograd backward (which forms its own Δ) "
+        f"{sum(lib_bwd) / len(lib_bwd):.4f} ms ({min(lib_bwd):.4f}–"
+        f"{max(lib_bwd):.4f} over its six turns)")
+    host = flash_host_us()
+    for row in rows:
+        row["host_us"] = host[kinds[row["name"]]]
     return rows
 
 

@@ -134,10 +134,9 @@ struct Params {
   float scale, cap;      // cap 0: no softcap
   int window;            // 0: no window
   Strides q_st, k_st, v_st, do_st, out0_st, out1_st;
-  bool vec;              // 16-byte loads for every bf16 input row
   bool vec_out;          // 16-byte stores for every bf16 output row
-  bool tma;              // bf16 forward and dK/dV: tiles by TMA (else staged),
-                         // as the launcher chose (see dispatch())
+  bool tma;              // bf16: tiles by TMA (else staged), as the
+                         // launcher chose (see dispatch())
   const int* work;       // bf16 dK/dV: 6 ints a block (see dkv_mma)
   int n_work;            // blocks of that table
 };
@@ -213,119 +212,11 @@ __device__ __forceinline__ const T* row_ptr(const void* base, Strides st,
   return static_cast<const T*>(base) + b * st.b + h * st.h + s * st.s;
 }
 
-// ---------------------------------------------------------------------------
-// bf16 dQ: mma.sync, 4 warps x 16 rows of a 64-row tile
-// ---------------------------------------------------------------------------
-
-constexpr int kTile = 64;          // rows of a q tile and of a key tile
-constexpr int kMmaThreads = 128;   // 4 warps (dQ)
-
-// Copy rows [s0, s0 + 64) of one (b, h) slice into shared memory as
-// [64][D + 8] (rows padded by 16 bytes: ldmatrix reads are free of bank
-// conflicts); rows at or past S read as 0.
-template <int D>
-__device__ __forceinline__ void stage_tile(bf16* dst, const void* base,
-                                           Strides st, int b, int h, int s0,
-                                           int S, bool vec) {
-  constexpr int kLd = D + 8, kChunks = D / 8;
-  for (int c = threadIdx.x; c < kTile * kChunks; c += blockDim.x) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    bf16* d = dst + r * kLd + col;
-    if (s0 + r < S)
-      repro::stage8_bf16(row_ptr<bf16>(base, st, b, h, s0 + r), col, D, vec, d);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// A operand: the 16x16 block at (row0, col0) of a row-major [m][k] tile.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* s, int ld,
-                                       int row0, int col0, int lane) {
-  repro::ldmatrix_x4(a, s + (row0 + (lane & 15)) * ld + col0 + (lane >> 4) * 8);
-}
-
-// B operands of two 8-wide n blocks (n0 .. n0 + 15) at depth k0 .. k0 + 15,
-// from a tile stored [n][k]: b[0], b[1] for n0, b[2], b[3] for n0 + 8.
-__device__ __forceinline__ void load_b_nk(uint32_t b[4], const bf16* s, int ld,
-                                          int n0, int k0, int lane) {
-  const int j = lane >> 3, r = lane & 7;
-  repro::ldmatrix_x4(b, s + (n0 + r + (j >> 1) * 8) * ld + k0 + (j & 1) * 8);
-}
-
-// The same from a tile stored [k][n], transposed on the way in.
-__device__ __forceinline__ void load_b_kn(uint32_t b[4], const bf16* s, int ld,
-                                          int k0, int n0, int lane) {
-  const int j = lane >> 3, r = lane & 7;
-  repro::ldmatrix_x4_trans(b, s + (k0 + r + (j & 1) * 8) * ld + n0 + (j >> 1) * 8);
-}
+constexpr int kTile = 64;  // rows of a key tile; of a dK/dV q tile
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c (16 x 64) += A[row0 .. row0 + 16) . B^T for two [64][D] tiles: the
-// warp's rows of A against all 64 rows of B (Q K^T, dO V^T).
-template <int D>
-__device__ __forceinline__ void mma_abt(float c[8][4], const bf16* a_s,
-                                        const bf16* b_s, int row0, int lane) {
-  constexpr int kLd = D + 8;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t a[4];
-    load_a(a, a_s, kLd, row0, kc * 16, lane);
-#pragma unroll
-    for (int n2 = 0; n2 < 4; ++n2) {
-      uint32_t b[4];
-      load_b_nk(b, b_s, kLd, n2 * 16, kc * 16, lane);
-      repro::mma_bf16_16816(c[2 * n2], a, b[0], b[1]);
-      repro::mma_bf16_16816(c[2 * n2 + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// c (16 x D) += X . B, X (16 x 64) the accumulator fragments of mma_abt,
-// rounded to bf16 (the C fragment of m16n8 is the A fragment of m16k16),
-// and B a [64][D] tile (dS K).
-template <int D>
-__device__ __forceinline__ void mma_xb(float c[D / 8][4], const float x[8][4],
-                                       const bf16* b_s, int lane) {
-  constexpr int kLd = D + 8;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kc][0], x[2 * kc][1]),
-                           pack_bf16(x[2 * kc][2], x[2 * kc][3]),
-                           pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]),
-                           pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3])};
-#pragma unroll
-    for (int n2 = 0; n2 < D / 16; ++n2) {
-      uint32_t b[4];
-      load_b_kn(b, b_s, kLd, kc * 16, n2 * 16, lane);
-      repro::mma_bf16_16816(c[2 * n2], a, b[0], b[1]);
-      repro::mma_bf16_16816(c[2 * n2 + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Write the warp's 16 x D fragments, times mul[half], to rows row (half 0)
-// and row + 8 (half 1) of one (b, h) slice; rows at or past S are skipped.
-template <int D>
-__device__ __forceinline__ void store_frags(void* base, Strides st, int b,
-                                            int h, int row, int S,
-                                            const float c[D / 8][4],
-                                            const float mul[2], int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row + half * 8;
-    if (r >= S) continue;
-    bf16* dst = static_cast<bf16*>(base) + b * st.b + h * st.h + r * st.s;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      dst[nd * 8 + 2 * t] = __float2bfloat16(c[nd][2 * half] * mul[half]);
-      dst[nd * 8 + 2 * t + 1] = __float2bfloat16(c[nd][2 * half + 1] * mul[half]);
-    }
-  }
 }
 
 template <int N>
@@ -337,13 +228,15 @@ __device__ __forceinline__ void zero(float c[][4]) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward and dK/dV: two warpgroups on wgmma, tiles brought by TMA
+// bf16: two warpgroups on wgmma, tiles brought by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 128;          // rows of a forward q tile: 2 x 64
+constexpr int kRows = 128;          // rows of a forward or dQ q tile: 2 x 64
 constexpr int kFwdStages = 3;       // the forward's ring of K and V
+constexpr int kDqStages = 4;        // dQ's ring of K and V
 constexpr int kDkvStages = 3;       // the dK/dV ring of Q, dO, lse, Delta
-constexpr int kWideThreads = 256;   // the forward and dK/dV kernels
+constexpr int kWideThreads = 256;   // two consumer warpgroups
+constexpr int kConsumerWarps = kWideThreads / 32;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -425,8 +318,23 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+// A barrier whose phase completes after `count` arrivals (and the bytes
+// any arrival announced).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make the barriers just initialised visible to TMA; a barrier follows.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
                : "memory");
 }
 
@@ -475,6 +383,58 @@ __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* tm,
         : "memory");
   }
 }
+
+// The forward's and dQ's ring of K and V: S stages, each a 64-key K tile
+// and V tile, with a `full` barrier for each (TMA completion: the products
+// on K need not wait for V) and an `empty` barrier, which each of the
+// kConsumerWarps warps arrives at once its products on the stage have
+// landed (dQ). Tile j of a block's walk lies in stage j % S.
+template <int D, int S>
+struct KvRing {
+  static constexpr int kElems = kTile * D;  // of one K or V tile
+  bf16* tiles;  // S x {K, V}
+  uint64_t* full_k;
+  uint64_t* full_v;
+  uint64_t* empty;
+
+  // the ring from `base`, its barriers after the tiles; end() follows them
+  __device__ explicit KvRing(bf16* base)
+      : tiles(base),
+        full_k(reinterpret_cast<uint64_t*>(base + 2 * S * kElems)),
+        full_v(full_k + S),
+        empty(full_v + S) {}
+  __device__ uint64_t* end() const { return empty + S; }
+  static constexpr size_t bytes() {
+    return 2 * S * kElems * sizeof(bf16) + 3 * S * sizeof(uint64_t);
+  }
+  __device__ bf16* k(int j) const { return tiles + (j % S) * 2 * kElems; }
+  __device__ bf16* v(int j) const { return k(j) + kElems; }
+  // the parity of tile j's phase on its stage's barriers
+  __device__ static uint32_t parity(int j) { return (j / S) & 1; }
+  __device__ void init() const {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full_k[i]);
+      mbar_init(&full_v[i]);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+  }
+  // one thread: start bringing key tile kt of kv head hk, example b, as
+  // tile j of the walk
+  __device__ void load(const Params& p, int j, int kt, int hk, int b) const {
+    const int st = j % S;
+    mbar_expect(&full_k[st], kElems * sizeof(bf16));
+    tma_rows<D, kTile>(k(j), &p.tm_k, &full_k[st], kt * kTile, hk, b);
+    mbar_expect(&full_v[st], kElems * sizeof(bf16));
+    tma_rows<D, kTile>(v(j), &p.tm_v, &full_v[st], kt * kTile, hk, b);
+  }
+  __device__ void wait_k(int j) const { mbar_wait(&full_k[j % S], parity(j)); }
+  __device__ void wait_v(int j) const { mbar_wait(&full_v[j % S], parity(j)); }
+  // one lane of each warp, once its products on tile j have landed: the
+  // stage may take another tile
+  __device__ void release(const Params& p, int j, int lane) const {
+    if (p.tma && j >= 0 && lane == 0) mbar_arrive(&empty[j % S]);
+  }
+};
 
 // The route for rows that TMA cannot take (a base or stride that is no
 // multiple of 16 bytes): rows [s0, s0 + ROWS) of one (b, h) slice into a
@@ -554,6 +514,11 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most the last committed group of products still runs.
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Keep every read and write of the N accumulators d on its side of this
@@ -790,7 +755,7 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
   key_tiles(p, q0, kRows, kTile, lo, hi);
   if (threadIdx.x == 0) {
     for (int i = 0; i < kFwdStages; ++i) mbar_init(&full[i]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   // Q and the first K/V tile; then tile kt + 1 while tile kt is computed
@@ -807,7 +772,11 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
                        b);
   }
 
+  // Without a softcap, the scores of a tile off every edge stay raw until
+  // the exponent, where fma(s, c2, -m) applies scale * log2(e); on an edge,
+  // and with a softcap (score2), they are scaled first.
   const float c2 = p.scale * kLog2e;
+  const float k2 = kCap ? 1.f : c2;  // what makes a raw score a base-2 one
   float o[D / 8][4];
   zero<D / 8>(o);
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -870,22 +839,28 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
     pin_u<16>(&pa[0][0]);
     CLOCK_ADD(3);
     CLOCK_MARK();
+    if constexpr (kCap) {
 #pragma unroll
-    for (int nj = 0; nj < 8; ++nj)
+      for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float chain;
-        s[nj][e] = score2<kCap>(p, s[nj][e], c2, chain);
-      }
+        for (int e = 0; e < 4; ++e) {
+          float chain;
+          s[nj][e] = score2<kCap>(p, s[nj][e], c2, chain);
+        }
+    }
+    float kk = k2;
     if (edge) {
 #pragma unroll
       for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (!visible(p, row + (e >> 1) * 8, k0 + nj * 8 + 2 * t + (e & 1)))
-            s[nj][e] = kNegInf;
+          s[nj][e] = visible(p, row + (e >> 1) * 8,
+                             k0 + nj * 8 + 2 * t + (e & 1))
+                         ? s[nj][e] * k2
+                         : kNegInf;
+      kk = 1.f;
     }
-    float mx[2] = {m[0], m[1]};
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
@@ -895,6 +870,7 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      mx[i] = fmaxf(m[i], mx[i] * kk);
       corr[i] = exp2_fast(m[i] - mx[i]);
       m[i] = mx[i];
     }
@@ -902,7 +878,7 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
     for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[nj][e] = exp2_fast(s[nj][e] - m[e >> 1]);
+        s[nj][e] = exp2_fast(fmaf(s[nj][e], kk, -m[e >> 1]));
         sum[e >> 1] += s[nj][e];
       }
 #pragma unroll
@@ -952,64 +928,141 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) dq_mma(Params p) {
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kTile * kLd;
-  bf16* ks = dos + kTile * kLd;
-  bf16* vs = ks + kTile * kLd;
+template <int D, bool kCap>
+__global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
+    dq_mma(const __grid_constant__ Params p) {
+  bf16* qs = reinterpret_cast<bf16*>(smem_base());  // [kRows][D]: Q, then dQ
+  bf16* dos = qs + kRows * D;                        // [kRows][D]: dO
+  using Ring = KvRing<D, kDqStages>;
+  const Ring ring(dos + kRows * D);
+  uint64_t* bar_q = ring.end();  // Q and dO
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.rep;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / p.rep;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // longest rows first
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane & 3;
-  const int row = q0 + warp * 16 + (lane >> 2);
+  const int w0 = q0 + (warp >> 2) * 64;  // the warpgroup's rows: w0 .. + 63
+  const int r0 = q0 + warp * 16;         // the warp's: r0 .. r0 + 15
+  const int row = r0 + (lane >> 2);      // this thread's: row and row + 8
 
-  stage_tile<D>(qs, p.q, p.q_st, b, h, q0, p.Sq, p.vec);
-  stage_tile<D>(dos, p.dout, p.do_st, b, h, q0, p.Sq, p.vec);
+  int lo, hi;
+  key_tiles(p, q0, kRows, kTile, lo, hi);
+  const int n = hi - lo;  // key tiles of the walk, at least 1
+  if (threadIdx.x == 0) {
+    ring.init();
+    mbar_init(bar_q);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (!p.tma) {
+    stage_rows<D, kRows>(qs, p.q, p.q_st, b, h, q0, p.Sq);
+    stage_rows<D, kRows>(dos, p.dout, p.do_st, b, h, q0, p.Sq);
+  } else if (threadIdx.x == 0) {  // Q and dO; K/V tiles to fill the ring
+    mbar_expect(bar_q, 2 * kRows * D * sizeof(bf16));
+    tma_rows<D, kRows>(qs, &p.tm_q, bar_q, q0, h, b);
+    tma_rows<D, kRows>(dos, &p.tm_do, bar_q, q0, h, b);
+    for (int j = 0; j < n && j < kDqStages; ++j) ring.load(p, j, lo + j, hk, b);
+  }
+  __syncwarp();
+  // lse in base 2 and Delta of this thread's two rows
   const long long bh = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
-  float lse[2], dl[2];
+  float lse2[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row + i * 8;
-    lse[i] = r < p.Sq ? p.lse[bh + r] : 0.f;
-    dl[i] = r < p.Sq ? p.delta[bh + r] : 0.f;
+    lse2[i] = r < p.Sq ? __ldg(p.lse + bh + r) * kLog2e : 0.f;
+    dl[i] = r < p.Sq ? __ldg(p.delta + bh + r) : 0.f;
   }
+  if (p.tma) mbar_wait(bar_q, 0);
 
+  const float c2 = p.scale * kLog2e;
   float acc[D / 8][4];
   zero<D / 8>(acc);
-  int lo, hi;
-  key_tiles(p, q0, kTile, kTile, lo, hi);
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    stage_tile<D>(ks, p.k, p.k_st, b, hk, k0, p.Sk, p.vec);
-    stage_tile<D>(vs, p.v, p.v_st, b, hk, k0, p.Sk, p.vec);
-    __syncthreads();
+  // Tile j's dS K products are left to land while tile j + 1's S and dP
+  // run; the wait for those releases tile j's stage. Thread 0 refills the
+  // stage of tile j - 2, which every warp released in step j - 1, at step
+  // j: no block barrier on the TMA route, and a lookahead of kDqStages - 2
+  // tiles after the first kDqStages.
+  uint32_t pa[4][4];  // dS in bf16, read by those products
+  for (int j = 0; j < n; ++j) {
+    const int jn = j + kDqStages - 2;
+    const int k0 = (lo + j) * kTile;
+    const bf16* ks = ring.k(j);
+    const bf16* vs = ring.v(j);
+    if (!p.tma) {  // every warp is past tile j - 2 (step j - 1)
+      stage_rows<D, kTile>(ring.k(j), p.k, p.k_st, b, hk, k0, p.Sk);
+      stage_rows<D, kTile>(ring.v(j), p.v, p.v_st, b, hk, k0, p.Sk);
+      fence_async_smem();
+      __syncthreads();
+    } else if (threadIdx.x == 0 && jn >= kDqStages && jn < n) {
+      mbar_wait(&ring.empty[jn % kDqStages], Ring::parity(jn - kDqStages));
+      ring.load(p, jn, lo + jn, hk, b);
+    }
+    __syncwarp();
+    if (w0 >= p.Sq || k0 > w0 + 63 ||
+        (p.window > 0 && w0 - (k0 + kTile - 1) >= p.window)) {
+      wgmma_wait();  // tile j - 1's dS K products
+      pin<D / 2>(&acc[0][0]);
+      ring.release(p, j - 1, lane);
+      continue;
+    }
+    const bool edge = k0 + kTile - 1 > r0 || k0 + kTile > p.Sk ||
+                      (p.window > 0 && r0 + 15 - k0 >= p.window);
 
+    // S = Q K^T as soon as K is in, dP = dO V^T once V is
     float s[8][4], dp[8][4];
     zero<8>(s);
     zero<8>(dp);
-    mma_abt<D>(s, qs, ks, warp * 16, lane);
-    mma_abt<D>(dp, dos, vs, warp * 16, lane);
+    pin<32>(&s[0][0]);
+    pin<32>(&dp[0][0]);
+    const int qrow = Tile<D, kRows>::row(w0 - q0);
+    if (p.tma) ring.wait_k(j);
+    wgmma_fence();
+    issue_abt<D, 64, kRows, kTile>(&s[0][0], qs + qrow, ks);
+    if (p.tma) ring.wait_v(j);
+    issue_abt<D, 64, kRows, kTile>(&dp[0][0], dos + qrow, vs);
+    wgmma_commit();
+    wgmma_wait();  // and tile j - 1's dS K products
+    pin<32>(&s[0][0]);
+    pin<32>(&dp[0][0]);
+    pin<D / 2>(&acc[0][0]);
+    pin_u<16>(&pa[0][0]);
+    ring.release(p, j - 1, lane);
+    // dS = P o (dP - Delta) o chain, P = exp2(S c2 - lse log2 e)
 #pragma unroll
     for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        bool valid;
         float chain;
-        const int i = e >> 1;
-        const float x = score(p, s[nj][e], row + i * 8,
-                              k0 + nj * 8 + 2 * t + (e & 1), valid, chain);
-        const float pr = valid ? expf(x - lse[i]) : 0.f;
-        s[nj][e] = valid ? pr * (dp[nj][e] - dl[i]) * chain : 0.f;  // dS
+        const float x = score2<kCap>(p, s[nj][e], c2, chain);
+        const float pr = exp2_fast(x - lse2[e >> 1]);
+        s[nj][e] = pr * (dp[nj][e] - dl[e >> 1]) * chain;
       }
-    mma_xb<D>(acc, s, ks, lane);
+    if (edge) {
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(p, row + (e >> 1) * 8, k0 + nj * 8 + 2 * t + (e & 1)))
+            s[nj][e] = 0.f;
+    }
+    pack_rows<4>(pa, s);
+    pin_u<16>(&pa[0][0]);
+    pin<D / 2>(&acc[0][0]);
+    wgmma_fence();
+    issue_xb<D, 4, kTile>(&acc[0][0], pa, ks);  // dQ += dS K
+    wgmma_commit();
   }
+  wgmma_wait();
+  pin<D / 2>(&acc[0][0]);
+
+  // dQ, scaled, leaves through the warp's own 16 rows of Q, which only its
+  // own warpgroup's finished products have read
   const float mul[2] = {p.scale, p.scale};
-  store_frags<D>(p.out0, p.out0_st, b, h, row, p.Sq, acc, mul, lane);
+  frags_to_tile<D, kRows>(qs, acc, mul, warp * 16, lane);
+  __syncwarp();
+  store_tile16<D, kRows>(qs, warp * 16, p.out0, p.out0_st, b, h, r0, p.Sq,
+                         p.vec_out, lane);
 }
 
 // Write one finished key tile of dkv_mma, once this warpgroup's products
@@ -1475,17 +1528,18 @@ enum class Kind { kFwd, kDq, kDkv };
 template <int D>
 size_t smem_bytes(Kind kind, bool bf16_inputs) {
   if (bf16_inputs) {
-    const size_t tile = static_cast<size_t>(kTile) * (D + 8) * sizeof(bf16);
-    if (kind == Kind::kDq) return 4 * tile;
-    // 1024 bytes of slack to align the tiles (smem_base) and 3 mbarriers
+    // 1024 bytes of slack to align the tiles (smem_base)
     const size_t cm = static_cast<size_t>(kTile) * D * sizeof(bf16);
-    const size_t extra = 1024 + 3 * sizeof(uint64_t);
-    if (kind == Kind::kFwd)  // Q (128 rows); kFwdStages stages of K and V
-      return (2 + 2 * kFwdStages) * cm + extra;
-    // K and V of two key tiles, and kDkvStages stages of Q, dO, lse and
-    // Delta
-    return (4 + 2 * kDkvStages) * cm + 2 * kDkvStages * kTile * sizeof(float) +
-           extra + sizeof(uint64_t);
+    if (kind == Kind::kFwd)  // Q (128 rows), kFwdStages of K and V, a
+      return 1024 + (2 + 2 * kFwdStages) * cm +  // barrier each
+             kFwdStages * sizeof(uint64_t);
+    if (kind == Kind::kDq)  // Q and dO (128 rows each), the ring, a barrier
+      return 1024 + 4 * cm + KvRing<D, kDqStages>::bytes() + sizeof(uint64_t);
+    // K and V of two key tiles, kDkvStages stages of Q, dO, lse and Delta,
+    // and kDkvStages + 1 barriers
+    return 1024 + (4 + 2 * kDkvStages) * cm +
+           2 * kDkvStages * kTile * sizeof(float) +
+           (kDkvStages + 1) * sizeof(uint64_t);
   }
   const size_t tile = static_cast<size_t>(kF32Tile) * D * sizeof(float);
   if (kind == Kind::kDkv) return 2 * tile + 2 * kF32Tile * sizeof(float);
@@ -1527,9 +1581,9 @@ void bf16_kernel(Kind kind, int B, int Hkv, const Params& p,
     threads = kWideThreads;
     grid = dim3(p.Hq, B, (p.Sq + kRows - 1) / kRows);
   } else if (kind == Kind::kDq) {
-    fn = dq_mma<D>;
-    threads = kMmaThreads;
-    grid = dim3((p.Sq + kTile - 1) / kTile, p.Hq, B);
+    fn = dq_mma<D, kCap>;
+    threads = kWideThreads;
+    grid = dim3(p.Hq, B, (p.Sq + kRows - 1) / kRows);
   } else {
     fn = dkv_mma<D, kCap>;
     threads = kWideThreads;
@@ -1659,28 +1713,24 @@ int dispatch(Kind kind, int dtype, int B, int Hkv, int D, Params& p,
     return static_cast<int>(cudaErrorInvalidValue);
   p.rep = p.Hq / Hkv;
   const bool bf = dtype == repro::kBFloat16;
-  p.vec = aligned16(p.q, p.q_st) && aligned16(p.k, p.k_st) &&
-          aligned16(p.v, p.v_st) &&
-          (kind == Kind::kFwd || aligned16(p.dout, p.do_st));
   p.vec_out = aligned16(p.out0, p.out0_st) &&
               (kind != Kind::kDkv || aligned16(p.out1, p.out1_st));
   // The launcher picks the copy route (copy_route in
   // kernels/flash_attention.py) and the dK/dV schedule (dkv_work); a tensor
   // map refuses a base or stride that is no multiple of 16 bytes.
-  if (p.tma && (!bf || kind == Kind::kDq))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.tma && !bf) return static_cast<int>(cudaErrorInvalidValue);
   if (bf && kind == Kind::kDkv && (p.work == nullptr || p.n_work <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (p.tma) {
-    const int q_rows = kind == Kind::kFwd ? kRows : kTile;
+  if (p.tma) {  // q tiles of 128 rows (forward, dQ) or 64 (dK/dV)
+    const int q_rows = kind == Kind::kDkv ? kTile : kRows;
     cudaError_t err =
         encode_rows(&p.tm_q, p.q, p.q_st, B, p.Hq, p.Sq, D, q_rows);
     if (err == cudaSuccess)
       err = encode_rows(&p.tm_k, p.k, p.k_st, B, Hkv, p.Sk, D, kTile);
     if (err == cudaSuccess)
       err = encode_rows(&p.tm_v, p.v, p.v_st, B, Hkv, p.Sk, D, kTile);
-    if (err == cudaSuccess && kind == Kind::kDkv)
-      err = encode_rows(&p.tm_do, p.dout, p.do_st, B, p.Hq, p.Sq, D, kTile);
+    if (err == cudaSuccess && kind != Kind::kFwd)
+      err = encode_rows(&p.tm_do, p.dout, p.do_st, B, p.Hq, p.Sq, D, q_rows);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   switch (D) {
@@ -1741,8 +1791,9 @@ extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int dtype, int B, int Hq,
     int Hkv, int Sq, int Sk, int D, float scale, float softcap, int window,
-    const long long* strides, void* stream) {
+    const long long* strides, int tma, void* stream) {
   Params p = make_params(q, k, v, Hq, Sq, Sk, scale, softcap, window, strides);
+  p.tma = tma != 0;
   p.dout = dout;
   p.do_st = strides_at(strides, 3);
   p.lse = static_cast<const float*>(lse);

@@ -67,7 +67,7 @@ _SIGNATURES = {
                                    _I, _I, _F, _F, _I, _LP, _I, _P),
     "flash_attention_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _I, _I, _I, _F, _F, _I, _LP,
-                                      _P),
+                                      _I, _P),
     "flash_attention_bwd_dkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _I, _F, _F, _I,
                                        _LP, _I, _P, _I, _P),

@@ -7,22 +7,24 @@ and the per-row log-sum-exp, the dQ kernel and the dK/dV kernel recompute
 the probabilities from that lse. The (Sq, Sk) score matrix never reaches
 device memory in either direction.
 
-In bf16 the forward gives each block two warpgroups and 128 query rows,
-brings Q once and the 64-key K/V tiles through a three-stage ring by TMA
-(``mbarrier`` completion), and forms Q Kᵀ and P V with ``wgmma``; the
-softmax runs in base 2 and the mask is tested only on tiles that cross the
-diagonal, the window's edge or the end of the keys; O leaves in 16-byte
-rows. The dK/dV kernel gives each block a pair of 64-key tiles, ``x`` and
-``n - 1 - x`` (:func:`dkv_key_tiles`), so that every block walks the same
-number of q tiles under the causal mask, brings the rep q heads' Q and dO
-through the same kind of ring, and splits the queries between its two
-warpgroups, whose dK and dV it sums in a fixed order. Rows that TMA cannot
-describe are staged by loads and stores instead (:func:`copy_route`). The
-launchers here own both choices: each passes its route to the kernel, and
-the dK/dV launcher its blocks' key tiles and q-tile ranges
-(:func:`dkv_work`, a small table cached in device memory per shape);
-:data:`route_launches` counts the launches of each route. dQ and the f32
-kernels keep their first form (``mma.sync``, FMA pipes).
+In bf16 the forward and the dQ kernel give each block two warpgroups and
+128 query rows, longest rows first; Q (and dO) arrive once by TMA, and the
+64-key K/V tiles through a four-stage ring (``mbarrier`` completion, K and
+V on barriers of their own, each stage released by the warps that read
+it), and ``wgmma`` forms Q Kᵀ and P V (forward) or S = Q Kᵀ, dP = dO Vᵀ
+and dS K (dQ); the softmax runs in base 2 and the mask is tested only on
+tiles that cross the diagonal, the window's edge or the end of the keys;
+O and dQ leave in 16-byte rows. The dK/dV kernel gives each block a pair
+of 64-key tiles, ``x`` and ``n - 1 - x`` (:func:`dkv_key_tiles`), so that
+every block walks the same number of q tiles under the causal mask, brings
+the rep q heads' Q and dO through a ring of the same kind, and splits the
+queries between its two warpgroups, whose dK and dV it sums in a fixed
+order. Rows that TMA cannot describe are staged by loads and stores
+instead (:func:`copy_route`). The launchers here own both choices: each
+passes its route to the kernel, and the dK/dV launcher its blocks' key
+tiles and q-tile ranges (:func:`dkv_work`, a small table cached in device
+memory per shape); :data:`route_launches` counts the bf16 launches of each
+route. The f32 kernels keep their first form (FMA pipes).
 
 Layout is the reference's: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), with
 Hq a multiple of Hkv (query head h reads kv head h // rep). The kernels take
@@ -244,7 +246,7 @@ def _work_table(sq, sk, window, device):
 
 
 def copy_route(*tensors) -> str:
-    """How the bf16 forward and dK/dV kernels bring these inputs into
+    """How the bf16 kernels bring these inputs into
     shared memory: ``"tma"`` when every tensor's base and (batch, head,
     sequence) strides are multiples of 16 bytes, so a tensor map can
     describe the rows; else ``"synchronous"`` (loads and stores into the
@@ -257,8 +259,9 @@ def copy_route(*tensors) -> str:
     return "tma" if all(aligned(t) for t in tensors) else "synchronous"
 
 
-#: bf16 launches of the forward ("fwd") and dK/dV ("dkv") kernels by copy
-#: route, as the launchers passed it: {(kind, route): launches}
+#: bf16 launches of the forward ("fwd"), dQ ("dq") and dK/dV ("dkv")
+#: kernels by copy route, as the launchers passed it: {(kind, route):
+#: launches}
 route_launches = collections.Counter()
 
 
@@ -377,7 +380,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         _build.dtype_code(q), b, hq, hkv, sq, sk, d, float(scale), cap, win,
-        _build.strides_arg((q, k, v, do, dq)), stream)
+        _build.strides_arg((q, k, v, do, dq)),
+        _route("dq", q.dtype, q, k, v, do), stream)
     _build.check(code, "flash_attention_bwd_dq")
     return dq
 

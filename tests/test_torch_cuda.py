@@ -230,8 +230,8 @@ def test_cuda_flash_kernels_match_plain(cuda_device, case, dtype):
     # projection by TMA, rows of an odd pitch staged
     route = "synchronous" if case[7] == "odd" else "tma"
     assert dict(tfa.route_launches) == (
-        {("fwd", route): 1, ("dkv", route): 1} if dtype == "bfloat16"
-        else {})
+        {("fwd", route): 1, ("dq", route): 1, ("dkv", route): 1}
+        if dtype == "bfloat16" else {})
 
 
 @pytest.mark.cuda

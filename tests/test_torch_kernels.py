@@ -245,3 +245,42 @@ def test_clip_scale_ref_rounds_once_unlike_the_reference_oracle():
         else:
             ulp = 2.0 ** (np.floor(np.log2(np.abs(want) + 1e-30)) - 7)
             assert np.all(np.abs(got - want) <= ulp)
+
+
+def _c_entry_points():
+    """{name: [parameter declarations]} of every ``extern "C" int``
+    function defined in the package's CUDA sources."""
+    import re
+    found = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        text = path.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)\s*\{', text):
+            params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+            found[m.group(1)] = params
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_argtypes_match_the_c_entry_points(name):
+    """ctypes passes each argument as its argtypes say: a count that
+    differs from the C definition's would shift every later argument."""
+    params = _c_entry_points()[name]
+    assert len(params) == len(_build._SIGNATURES[name])
+    for decl, argtype in zip(params, _build._SIGNATURES[name]):
+        if "*" in decl:
+            assert argtype in (_build._P, _build._LP, _build._IP), decl
+        elif decl.startswith("float"):
+            assert argtype is _build._F, decl
+        elif decl.startswith("long long"):
+            assert argtype is _build._L, decl
+        else:
+            assert argtype is _build._I, decl
+
+
+@pytest.mark.parametrize("name", ["flash_attention_fwd_launch",
+                                  "flash_attention_bwd_dq_launch",
+                                  "flash_attention_bwd_dkv_launch"])
+def test_flash_launches_take_their_route_from_the_launcher(name):
+    """Each flash launch takes the copy route as an argument (``tma``):
+    the kernels keep no rule of their own."""
+    assert "int tma" in _c_entry_points()[name]
