@@ -17,7 +17,7 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               windows of 48 to 128, softcaps, and q/k/v sliced from a fused
               projection and from rows of an odd pitch, with the copy route
               each bf16 launch was given), and the backward run twice for
-              bitwise-equal results;
+              bitwise-equal dQ, dK and dV;
 4. exact    — llama3.2-1b at full width in f32: ``Engine.step([Norms(),
               Grads()])``, unfused and with ``AttnCfg.flash``, against a
               per-example loop of plain (unfused) backward passes, and its
@@ -82,7 +82,9 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               and wk/wv's) and its full grid at its own, the flash kernels
               beside PyTorch's ``scaled_dot_product_attention`` (both on
               the device, in turns, with each kernel's registers, local
-              memory, shared memory and blocks per SM), and
+              memory, shared memory and blocks per SM, Δ = ``row_delta``
+              timed beside SDPA's backward, and each launcher's host µs a
+              call, ``flash_host_us``), and
               ``rowsumsq`` and ``clip_scale`` beside
               ``torch.linalg.vector_norm`` and ``torch.mul`` (each library
               call timed as a yardstick only; the port never calls it).
@@ -1269,18 +1271,19 @@ def flash_clocks(reps=5):
     """Clock counts inside the bf16 forward at the main path's shape: a copy
     of ``csrc/flash_attention.cu`` built with ``-DREPRO_FLASH_CLOCKS`` into
     ``build/flash_clocks/`` (the package's own library is not touched),
-    launched ``reps`` times; the last launch's records, one per (block,
-    consumer warpgroup) of ``CLOCK_NAMES`` cycles: from the warpgroup's
-    start to the end of its tiles, to its first tile's arrival, in waits for
-    copies and block barriers, in waits for products, in the softmax.
-    Returns their means and each mean's share of the total. Like
-    :func:`flash_times` it uses only the forward launch's C signature, so a
+    launched ``reps`` times through the forward's launcher; the last
+    launch's records, one per (block, consumer warpgroup) of
+    ``CLOCK_NAMES`` cycles: from the warpgroup's start to the end of its
+    tiles, to its first tile's arrival, in waits for copies and block
+    barriers, in waits for products, in the softmax. Returns their means
+    and each mean's share of the total. It goes through the launcher, so a
     copy of this file in an older checkout with the probes reads that
     checkout's kernel: ``python3 -c "import chip_smoke;
     chip_smoke.flash_clocks()"``."""
     import ctypes
     import torch
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
 
     out_dir = os.path.join(ROOT, "build", "flash_clocks")
     os.makedirs(out_dir, exist_ok=True)
@@ -1292,33 +1295,34 @@ def flash_clocks(reps=5):
                     os.path.join(csrc, "errors.cu")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(lib_file)
-    launch = lib.flash_attention_fwd_launch
-    launch.argtypes = list(_build._SIGNATURES["flash_attention_fwd_launch"])
-    launch.restype = ctypes.c_int
+    for name, argtypes in _build._SIGNATURES.items():
+        if name.startswith("flash_attention"):
+            getattr(lib, name).argtypes = list(argtypes)
+            getattr(lib, name).restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
     lib.flash_attention_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.flash_attention_clocks.restype = ctypes.c_int
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     b, hq, hkv, s, d = FLASH_CASES[0][:5]
     q, k, v, _ = flash_inputs(b, hq, hkv, s, d, torch.bfloat16, gen)
-    o = torch.empty_like(q)
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
-    strides = _build.strides_arg((q, k, v, o))
-    stream = torch.cuda.current_stream().cuda_stream
-    for _ in range(reps):
-        code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      lse.data_ptr(), 1, b, hq, hkv, s, s, d, d ** -0.5, 0.0,
-                      0, strides, 1, stream)
-        if code != 0:
-            raise RuntimeError(f"instrumented forward: CUDA error {code}")
-    torch.cuda.synchronize()
-    n = b * hq * -(-s // 128) * 2 * len(CLOCK_NAMES)
+    real_load = _build.load
+    _build.load = lambda: lib
+    try:
+        for _ in range(reps):
+            fa.flash_attention_fwd(q, k, v, scale=d ** -0.5)
+        torch.cuda.synchronize()
+    finally:
+        _build.load = real_load
+    n = 8192 * len(CLOCK_NAMES)
     buf = (ctypes.c_longlong * n)()
     code = lib.flash_attention_clocks(buf, n)
     if code != 0:
         raise RuntimeError(f"reading the clock records: CUDA error {code}")
     recs = torch.tensor(list(buf), dtype=torch.float64).view(
         -1, len(CLOCK_NAMES))
+    recs = recs[recs[:, 0] > 0]         # the records this launch wrote
     means = recs.mean(dim=0).tolist()
     out = {name: {"cycles": m, "share": m / means[0]}
            for name, m in zip(CLOCK_NAMES, means)}

@@ -29,13 +29,16 @@
 // 59.8 MB against 8.6e9 and 1.29e10 causal flops: 12.7 and 17.8 us), dK/dV
 // by operations (1.72e10 flops, 17.4 us). Everything the kernels move is
 // read once per tile pair from L2, and the quadratic score matrix stays in
-// registers. No kernel reaches either bound at this shape. A forward
-// launch is 1,024 blocks of 2 to 8 tile steps, and clock counts taken
-// inside the kernel on the card put the largest share of a block's life in
-// waiting for its first Q and K/V tiles, the next in the softmax. A dK/dV
-// launch is 256 blocks of 36 steps, each step a chain of two product
-// groups with the element-wise P^T and dS^T between them and a block
-// barrier; the chain's latency, not a pipe's rate, sets its time.
+// registers. No kernel reaches either bound at this shape: a launch is a
+// few waves of short blocks (the forward's and dQ's walk 2 to 8 key tiles),
+// and in each step a chain of product groups and the element-wise work
+// between them, not a pipe's rate, sets the time. Clock counts taken inside
+// the forward on the card (chip_smoke.flash_clocks) put ~18% of a block's
+// life before its first K/V tile lands, ~17% in waits for copies and ~30%
+// in the softmax; a deeper ring, a producer warp, separate K and V
+// barriers, a softmax overlapped with the last tile's P V products and a
+// persistent grid that prefetches the next q tile each made the forward
+// slower on the card (PERF.md, PR 16), so it keeps one barrier per tile.
 //
 // Design. The grid has no order on the card, so each block owns its output
 // tiles and loops over the other sequence axis inside itself; each output
@@ -55,14 +58,27 @@
 //   products are waited for only with tile j + 1's Q K^T, so they run
 //   while the warpgroup waits for tile j + 1 and at the barrier (hence the
 //   third stage: the copy into a stage waits for the products two tiles
-//   back, not one). The softmax
-//   runs in base 2: scale * log2(e) is folded into one multiply and
-//   ex2.approx replaces exp; lse leaves in natural log. The mask is decided
+//   back, not one). The softmax runs in base 2 with ex2.approx; off the
+//   edges the raw scores enter the exponent through one fma with
+//   scale * log2(e), and lse leaves in natural log. The mask is decided
 //   once per warp and tile: a warpgroup skips a tile it cannot see, and only
 //   tiles that cross the diagonal, the window's edge or the end of the keys
 //   test each element. The softcap is a template parameter, so tanh is
 //   compiled in only where one is set. O leaves through shared memory in
 //   16-byte rows.
+// bf16 dQ (dq_mma): the forward's block and tiles, with dO beside Q: one
+//   block of two warpgroups per (q head, example, 128-row q tile), longest
+//   first. Q and dO arrive once by TMA on their own barrier, the K and V
+//   tiles through a four-stage ring (KvRing) with a barrier each for K and
+//   V, so S = Q K^T starts before V lands. No block barrier on this route:
+//   each warp releases a stage (an `empty` mbarrier) once its products on
+//   it have landed, and thread 0 refills the stage of tile j - 2 at step j.
+//   S and dP = dO V^T are wgmma m64n64k16 from shared memory; dS = P o
+//   (dP - Delta) o chain, P = exp2(S c2 - lse log2 e), is packed to bf16
+//   in registers as the operand of dQ += dS K (wgmma m64nDk16, K read
+//   MN-major), which the next step's first group waits for. The masks are
+//   decided per tile as in the forward. dQ, scaled, leaves through the
+//   warp's rows of Q in 16-byte rows.
 // bf16 dK/dV (dkv_mma): one block of two warpgroups per (pair of 64-key
 //   tiles, kv head, example). Under the causal mask key tile kt meets
 //   n - kt q tiles, so a block takes tile x and then tile n - 1 - x: every
@@ -82,19 +98,13 @@
 //   (Tile<D, ROWS>): 64-column sub-tiles swizzled within 128-byte rows for
 //   D >= 64, 8-column chunks unswizzled for D = 32. Rows whose base or
 //   strides are not multiples of 16 bytes (no tensor map describes them)
-//   are staged by loads and stores into the same tiles instead. The Python
-//   launcher decides both the route and the dK/dV blocks' key tiles and
-//   q-tile ranges, and passes them in; the kernels hold no rule of their
-//   own for either.
-// dQ (dq_mma) keeps its first form: 4 warps x 16 rows of a 64-row tile,
-//   mma.sync m16n8k16 from ldmatrix'd padded rows, staged synchronously.
+//   are staged by loads and stores into the same tiles instead, with a
+//   block barrier per tile. The Python launcher decides the route of every
+//   bf16 launch and the dK/dV blocks' key tiles and q-tile ranges, and
+//   passes them in; the kernels hold no rule of their own for either.
 // f32 runs on the FMA pipes: 4 threads per row, each owning D/4 of the
 //   features, with the dot products summed over the 4 by warp shuffles in a
 //   fixed order.
-//
-// Not yet: a producer warp (warp specialisation) so that no consumer warp
-// issues copies or waits at a block barrier, the overlap of one tile's
-// softmax with the next tile's Q K^T, and the same redesign for dQ.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <stdint.h>
@@ -384,13 +394,14 @@ __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* tm,
   }
 }
 
-// The forward's and dQ's ring of K and V: S stages, each a 64-key K tile
-// and V tile, with a `full` barrier for each (TMA completion: the products
-// on K need not wait for V) and an `empty` barrier, which each of the
-// kConsumerWarps warps arrives at once its products on the stage have
-// landed (dQ). Tile j of a block's walk lies in stage j % S.
-template <int D, int S>
+// dQ's ring of K and V: kDqStages stages, each a 64-key K tile and V tile,
+// with a `full` barrier for each (TMA completion: the products on K need
+// not wait for V) and an `empty` barrier, which each of the kConsumerWarps
+// warps arrives at once its products on the stage have landed. Tile j of a
+// block's walk lies in stage j % kDqStages.
+template <int D>
 struct KvRing {
+  static constexpr int S = kDqStages;
   static constexpr int kElems = kTile * D;  // of one K or V tile
   bf16* tiles;  // S x {K, V}
   uint64_t* full_k;
@@ -514,11 +525,6 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Wait until at most the last committed group of products still runs.
-__device__ __forceinline__ void wgmma_wait1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Keep every read and write of the N accumulators d on its side of this
@@ -716,21 +722,11 @@ __device__ long long g_flash_clocks[kClockRecords * kClockSlots];
         g_flash_clocks[rec * kClockSlots + i] = clk_[i];                  \
   } while (0)
 #else
-#define CLOCKS_BEGIN() \
-  do {                 \
-  } while (0)
-#define CLOCK_MARK() \
-  do {               \
-  } while (0)
-#define CLOCK_ADD(slot) \
-  do {                  \
-  } while (0)
-#define CLOCK_FIRST() \
-  do {                \
-  } while (0)
-#define CLOCKS_END() \
-  do {               \
-  } while (0)
+#define CLOCKS_BEGIN()
+#define CLOCK_MARK()
+#define CLOCK_ADD(slot)
+#define CLOCK_FIRST()
+#define CLOCKS_END()
 #endif
 
 template <int D, bool kCap>
@@ -933,7 +929,7 @@ __global__ void __launch_bounds__(kWideThreads, D <= 64 ? 2 : 1)
     dq_mma(const __grid_constant__ Params p) {
   bf16* qs = reinterpret_cast<bf16*>(smem_base());  // [kRows][D]: Q, then dQ
   bf16* dos = qs + kRows * D;                        // [kRows][D]: dO
-  using Ring = KvRing<D, kDqStages>;
+  using Ring = KvRing<D>;
   const Ring ring(dos + kRows * D);
   uint64_t* bar_q = ring.end();  // Q and dO
 
@@ -1534,7 +1530,7 @@ size_t smem_bytes(Kind kind, bool bf16_inputs) {
       return 1024 + (2 + 2 * kFwdStages) * cm +  // barrier each
              kFwdStages * sizeof(uint64_t);
     if (kind == Kind::kDq)  // Q and dO (128 rows each), the ring, a barrier
-      return 1024 + 4 * cm + KvRing<D, kDqStages>::bytes() + sizeof(uint64_t);
+      return 1024 + 4 * cm + KvRing<D>::bytes() + sizeof(uint64_t);
     // K and V of two key tiles, kDkvStages stages of Q, dO, lse and Delta,
     // and kDkvStages + 1 barriers
     return 1024 + (4 + 2 * kDkvStages) * cm +

@@ -8,9 +8,10 @@ the probabilities from that lse. The (Sq, Sk) score matrix never reaches
 device memory in either direction.
 
 In bf16 the forward and the dQ kernel give each block two warpgroups and
-128 query rows, longest rows first; Q (and dO) arrive once by TMA, and the
-64-key K/V tiles through a four-stage ring (``mbarrier`` completion, K and
-V on barriers of their own, each stage released by the warps that read
+128 query rows, longest rows first; Q (and dO) arrive once by TMA, the
+64-key K/V tiles through a ring of TMA stages (``mbarrier`` completion:
+the forward's three with one block barrier per tile, dQ's four with K and
+V on barriers of their own and each stage released by the warps that read
 it), and ``wgmma`` forms Q Kᵀ and P V (forward) or S = Q Kᵀ, dP = dO Vᵀ
 and dS K (dQ); the softmax runs in base 2 and the mask is tested only on
 tiles that cross the diagonal, the window's edge or the end of the keys;
