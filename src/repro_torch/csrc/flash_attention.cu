@@ -36,9 +36,10 @@
 // the forward on the card (chip_smoke.flash_clocks) put ~18% of a block's
 // life before its first K/V tile lands, ~17% in waits for copies and ~30%
 // in the softmax; a deeper ring, a producer warp, separate K and V
-// barriers, a softmax overlapped with the last tile's P V products and a
-// persistent grid that prefetches the next q tile each made the forward
-// slower on the card (PERF.md, PR 16), so it keeps one barrier per tile.
+// barriers, a softmax overlapped with the last tile's P V products, a
+// persistent grid that prefetches the next q tile and 128-key tiles each
+// made the forward slower on the card (PERF.md, PR 16), so it keeps
+// 64-key tiles and one barrier per tile.
 //
 // Design. The grid has no order on the card, so each block owns its output
 // tiles and loops over the other sequence axis inside itself; each output
