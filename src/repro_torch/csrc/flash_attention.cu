@@ -1762,10 +1762,10 @@ Params make_params(const void* q, const void* k, const void* v, int Hq,
 // Every entry point takes the element strides of its tensors as one host
 // array of (batch, head, sequence) triples, in the order of its tensor
 // arguments; lse and delta are contiguous (B, Hq, Sq) f32. softcap 0 means
-// no softcap and window 0 no window. For bf16, tma 1 brings the forward's
-// and dK/dV's tiles by TMA and 0 stages them by loads and stores; work is
-// the dK/dV schedule, n_work rows of (key tile, first q tile, end q tile) x
-// 2 in device memory, one row a block. Each returns cudaGetLastError()
+// no softcap and window 0 no window. For bf16, tma 1 brings the tiles by
+// TMA and 0 stages them by loads and stores; work is the dK/dV schedule,
+// n_work rows of (key tile, first q tile, end q tile) x 2 in device
+// memory, one row a block. Each returns cudaGetLastError()
 // after its launch (0 on success).
 
 // strides: q, k, v, o
