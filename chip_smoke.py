@@ -10,7 +10,11 @@ Phases, each of which fails the script (nonzero exit) if it fails:
 2. build    — compile the CUDA kernels from ``src/repro_torch/csrc``;
 3. kernels  — ``gram_norm`` (triangular and full grid) and ``direct_norm``
               against their plain PyTorch versions in f32 and bf16 at the
-              main path's shapes, a ragged shape and the LM head; the three
+              main path's shapes, a ragged shape and the LM head, each bf16
+              launch's copy route asserted (TMA there; the staged route on
+              rows of an odd pitch, checked too) and the bf16 launches at
+              the main and head shapes run twice for bitwise-equal
+              results; the three
               flash attention kernels (forward, dQ, dK/dV) against theirs in
               f32 and bf16 at every ``FLASH_CASES`` case (the main path's
               shape, ragged S, S = 65 and 320, MHA, rep 8, D=32 and D=128,
@@ -25,8 +29,9 @@ Phases, each of which fails the script (nonzero exit) if it fails:
 5. main     — the main path: llama3.2-1b at full width in bf16, B=8,
               S=512, three DP-SGD steps ``[Norms, Clip, Noise, GNS]`` each
               followed by an AdamW update, with the kernel launches of the
-              forward and of each backward pass counted, and CUDA events
-              around the unfused attention core (forward and backward);
+              forward and of each backward pass counted, every gram and
+              direct launch on the TMA route, and CUDA events around the
+              unfused attention core (forward and backward);
 6. flash    — the same three steps with ``AttnCfg.flash=True`` on the same
               parameters, batches and noise seed: the attention runs
               through the flash kernels, whose launches per pass are
@@ -77,9 +82,15 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               (``clip_scale`` exactly equal, with c holding 0, 1 and values
               below 1);
 15. table   — each kernel's time, plain time and bound at its path's
-              shapes, the gram kernel at the direct kernel's shapes (the LM
-              head's, where the forced direct route is not the cheaper one,
-              and wk/wv's) and its full grid at its own, the flash kernels
+              shapes (gram and direct on ``device_ms``, ``time_ms`` in
+              brackets, with a cuBLAS ``torch.bmm`` of the same products as
+              a yardstick of the tensor cores' rate, the direct form's own
+              operation floor at the head, each bf16 body's registers,
+              local memory, shared memory and blocks per SM, and each
+              launcher's host µs a call, ``norm_host_us``), the gram
+              kernel at the direct kernel's shapes (the LM head's, where
+              the forced direct route is not the cheaper one, and wk/wv's)
+              and its full grid at its own, the flash kernels
               beside PyTorch's ``scaled_dot_product_attention`` (both on
               the device, in turns, with each kernel's registers, local
               memory, shared memory and blocks per SM, Δ = ``row_delta``
@@ -452,8 +463,14 @@ def phase_build():
 
 def phase_kernels(cfg, errs):
     """Every kernel against its plain version; ``errs`` collects the max
-    abs error of each kernel at the main path's shapes in bf16."""
+    abs error of each kernel at the main path's shapes in bf16. Each bf16
+    gram and direct launch's copy route is the one its inputs call for
+    (TMA here; the staged route on rows of an odd pitch), and the bf16
+    launches at the main path's and the head's shapes repeat bit for
+    bit."""
     import torch
+    from repro_torch.kernels import direct_norm as dn
+    from repro_torch.kernels import gram_norm as gn
     from repro_torch.kernels import ops
     from repro_torch.kernels.direct_norm import direct_norm_ref
     from repro_torch.kernels.ref import gram_norm_ref
@@ -463,14 +480,24 @@ def phase_kernels(cfg, errs):
     cases = [(3, 37, 80, 200)] + main + [(2, S, cfg.d_model, cfg.vocab)]
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[str(dt)]
+        bf = dt == torch.bfloat16
         for b, s, pi, po in cases:
             h = torch.randn(b, s, pi, generator=gen, device="cuda").to(dt)
             z = torch.randn(b, s, po, generator=gen, device="cuda").to(dt)
             want_g = gram_norm_ref(h, z)
             want_d = direct_norm_ref(h, z)
+            gn.route_launches.clear()
+            dn.route_launches.clear()
             got = {"gram_norm": ops.gram_norm(h, z),
                    "gram_norm_full": ops.gram_norm(h, z, triangular=False),
                    "direct_norm": ops.direct_norm(h, z)}
+            routes = {**gn.route_launches, **dn.route_launches}
+            want_routes = ({("gram", "tma"): 2, ("direct", "tma"): 1}
+                           if bf else {})
+            if routes != want_routes:
+                raise AssertionError(f"norm routes {routes} at "
+                                     f"{(b, s, pi, po)} {dt}, expected "
+                                     f"{want_routes}")
             torch.cuda.synchronize()
             want = {"gram_norm": want_g, "gram_norm_full": want_g,
                     "direct_norm": want_d}
@@ -482,14 +509,22 @@ def phase_kernels(cfg, errs):
                     raise AssertionError(
                         f"{k} disagrees with its plain version at "
                         f"{(b, s, pi, po)} {dt}: rel err {r} > {tol}")
-                if dt == torch.bfloat16 and (b, s, pi, po) in main + cases[-1:]:
+                if bf and (b, s, pi, po) in main + cases[-1:]:
                     errs[k] = max(errs.get(k, 0.0),
                                   (v - want[k]).abs().max().item())
             r_tf = rel_err(got["gram_norm"], got["gram_norm_full"])
             line.append(f"tri-vs-full rel {r_tf:.2e}")
             if not r_tf <= tol:
                 raise AssertionError(f"triangular vs full grid: {r_tf}")
-            log(f"[kernels] {str(dt)[6:]} {(b, s, pi, po)}: "
+            if bf and (b, s, pi, po) in main + cases[-1:]:
+                for k, again in (("gram_norm", ops.gram_norm(h, z)),
+                                 ("direct_norm", ops.direct_norm(h, z))):
+                    if not torch.equal(got[k], again):
+                        raise AssertionError(f"{k} not bitwise repeatable "
+                                             f"at {(b, s, pi, po)}")
+                line.append("gram and direct bitwise equal on a second run")
+            how = ", TMA route" if bf else ""
+            log(f"[kernels] {str(dt)[6:]} {(b, s, pi, po)}{how}: "
                 + ", ".join(line) + f" (tol {tol})")
             del h, z
         # gram against direct: the identity the kernels rest on
@@ -498,6 +533,30 @@ def phase_kernels(cfg, errs):
             f"rel {r:.2e} (tol {tol})")
         if not r <= tol:
             raise AssertionError(f"gram vs direct disagree: {r}")
+    # rows of an odd pitch from a base off the 16-byte grid: no tensor map
+    # describes them, so both bf16 launches take the staged route
+    h = torch.randn(3, 40, 25, generator=gen, device="cuda").to(
+        torch.bfloat16)[:, :, 1:]
+    z = torch.randn(3, 40, 37, generator=gen, device="cuda").to(
+        torch.bfloat16)[:, :, 1:]
+    gn.route_launches.clear()
+    dn.route_launches.clear()
+    want = gram_norm_ref(h, z)
+    got = {"gram_norm": ops.gram_norm(h, z),
+           "direct_norm": ops.direct_norm(h, z)}
+    routes = {**gn.route_launches, **dn.route_launches}
+    if routes != {("gram", "synchronous"): 1, ("direct", "synchronous"): 1}:
+        raise AssertionError(f"norm routes {routes} on rows of an odd "
+                             f"pitch, expected the staged route")
+    tol = TOL["torch.bfloat16"]
+    for k, v in got.items():
+        r = rel_err(v, want)
+        if not r <= tol:
+            raise AssertionError(f"{k} on the staged route: rel err {r} > "
+                                 f"{tol}")
+    log(f"[kernels] bf16 (3, 40, 24, 36) rows of an odd pitch, staged "
+        f"route: " + ", ".join(f"{k} rel {rel_err(v, want):.2e}"
+                               for k, v in got.items()) + f" (tol {tol})")
 
 
 def flash_inputs(b, hq, hkv, s, d, dt, gen, layout=None):
@@ -750,6 +809,8 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     torch.cuda.reset_peak_memory_stats()
     try:
         ops.reset_launch_counts()
+        gn.route_launches.clear()
+        dn.route_launches.clear()
         for i, batch in enumerate(batches):
             passes.clear()
             attn.clear()
@@ -826,9 +887,17 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
         if n != steps * per_step[k] or (k in kernels and n == 0):
             raise AssertionError(f"{k}: {n} launches on the {tag} path, "
                                  f"expected {steps * per_step[k]}")
+    # every bf16 gram and direct launch of the llama paths on the TMA route
+    routes = {**gn.route_launches, **dn.route_launches}
+    if tag in ("main", "flash"):
+        want_routes = {(k, "tma"): launches[f"{k}_norm"]
+                       for k in ("gram", "direct") if launches[f"{k}_norm"]}
+        if routes != want_routes:
+            raise AssertionError(f"{tag}: norm routes {routes}, expected "
+                                 f"{want_routes}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{tag}] launches over {steps} steps: {launches}; every pass "
-        f"launched what it should")
+        f"launched what it should; gram/direct copy routes {routes}")
     log(f"[{tag}] peak memory {peak:.2f} GiB (since the phase began)")
     return {"launches": launches, "kern_ms": kern_ms, "step_ms": step_ms,
             "attn_ms": attn_ms, "losses": losses, "peak_gib": peak,
@@ -1049,30 +1118,68 @@ def seg_table(path, errs, run):
                    f"S={MOE_S} bf16"}
 
 
+def norm_sets(pi, po, gen):
+    """bf16 (h, z̄) input copies of (B, S, pi), (B, S, po), together past
+    twice the L2 cache (one copy where one already is)."""
+    import torch
+    sets = []
+    while sum((h.numel() + z.numel()) * 2 for h, z in sets) < 2 * L2_BYTES:
+        sets.append(tuple(
+            torch.randn(B, S, p, generator=gen, device="cuda").to(
+                torch.bfloat16) for p in (pi, po)))
+    return sets
+
+
+def bmm_ms(name, sets, reps):
+    """cuBLAS ``torch.bmm`` of the products the kernel forms, a yardstick of
+    the tensor cores' rate at this shape only (the port never calls it):
+    HHᵀ and Z̄Z̄ᵀ for gram, HᵀZ̄ for direct, bf16 out."""
+    import torch
+    if name == "gram_norm":
+        def fn(x):
+            torch.bmm(x[0], x[0].transpose(1, 2))
+            torch.bmm(x[1], x[1].transpose(1, 2))
+    else:
+        def fn(x):
+            torch.bmm(x[0].transpose(1, 2), x[1])
+    return device_ms(fn, sets, reps)
+
+
 def phase_table(expected, errs, launches, kern_ms):
     """Per-shape kernel and plain times and the bound; JSON rows with the
-    main path's per-step totals."""
+    main path's per-step totals. The kernels' times are ``device_ms`` (card
+    held busy, inputs past the L2 cache) with ``time_ms`` (back-to-back
+    launches, host in the loop) in brackets; a cuBLAS ``torch.bmm`` of the
+    same products is timed beside each as a yardstick."""
     import torch
+    from repro_torch.kernels import direct_norm as dn
+    from repro_torch.kernels import gram_norm as gn
     from repro_torch.kernels import ops
     from repro_torch.kernels.direct_norm import direct_norm_ref
     from repro_torch.kernels.ref import gram_norm_ref
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     dt = torch.bfloat16
-    kern = {"gram_norm": (ops.gram_norm, gram_norm_ref),
-            "direct_norm": (ops.direct_norm, direct_norm_ref)}
+    kern = {"gram_norm": (ops.gram_norm, gram_norm_ref, gn.kernel_info()),
+            "direct_norm": (ops.direct_norm, direct_norm_ref,
+                            dn.kernel_info())}
+    host = norm_host_us()
     rows = []
     full_ms = 0.0        # the gram kernel's full grid at the gram shapes
     for name, shapes in expected.items():
-        run, plain = kern[name]
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        run, plain, info = kern[name]
+        tot = {"ms": 0.0, "ev_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "bmm_ms": 0.0}
         bound_by = {}
         for (pi, po), n in sorted(shapes.items()):
-            h = torch.randn(B, S, pi, generator=gen, device="cuda").to(dt)
-            z = torch.randn(B, S, po, generator=gen, device="cuda").to(dt)
-            reps = 3 if po > 10 * pi else 20
-            ms = time_ms(lambda: run(h, z), reps)
+            sets = norm_sets(pi, po, gen)
+            h, z = sets[0]
+            head = po > 10 * pi
+            reps = 3 if head else 20
+            ms = device_ms(lambda x: run(*x), sets, 2 * reps)
+            ev_ms = time_ms(lambda: run(h, z), reps)
             plain_ms = time_ms(lambda: plain(h, z), max(1, reps // 3))
+            lib_ms = bmm_ms(name, sets, reps)
             nbytes = (h.numel() + z.numel()) * h.element_size() + B * 4
             flops = ops.flop_estimate(B, S, pi, po)
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1081,45 +1188,169 @@ def phase_table(expected, errs, launches, kern_ms):
             by = "bytes" if t_bytes >= t_ops else "operations"
             bound_by[by] = bound_by.get(by, 0.0) + n * bound
             log(f"[table] {name} bf16 ({B},{S},{pi})x({B},{S},{po}) x{n}/step:"
-                f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{bound:.4f} ms ({by}: {flops:.3g} flops, {nbytes:.3g} B), "
-                f"{bound / ms:.1%} of bound")
+                f" kernel {ms:.4f} ms [{ev_ms:.4f}], plain {plain_ms:.3f} ms,"
+                f" bound {bound:.4f} ms ({by}: {flops:.3g} flops, "
+                f"{nbytes:.3g} B), {bound / ms:.1%} of bound; cuBLAS bmm of "
+                f"the same products {lib_ms:.4f} ms (yardstick only)")
             if name == "direct_norm":
-                gram_ms = time_ms(lambda: ops.gram_norm(h, z), reps)
+                own = dn.flop_estimate(B, S, pi, po)
+                log(f"[table] direct_norm's own form at this shape: "
+                    f"{own:.3g} flops, {own / PEAK_FLOPS[str(dt)] * 1e3:.4f} "
+                    f"ms at the bf16 peak (its floor), against the "
+                    f"function's bound {bound:.4f} ms")
+                g_ms = device_ms(lambda x: ops.gram_norm(*x), sets, 2 * reps)
                 log(f"[table] gram_norm at the same shape (the route the "
-                    f"main path does not take here): {gram_ms:.3f} ms, "
-                    f"{bound / gram_ms:.1%} of bound")
+                    f"main path does not take here): {g_ms:.4f} ms, "
+                    f"{bound / g_ms:.1%} of bound")
             else:
-                f_ms = time_ms(lambda: ops.gram_norm(h, z, triangular=False),
-                               reps)
+                f_ms = device_ms(
+                    lambda x: ops.gram_norm(*x, triangular=False), sets,
+                    2 * reps)
                 full_ms += n * f_ms
                 log(f"[table] gram_norm full grid (triangular=False, not on "
-                    f"a path) at the same shape: {f_ms:.3f} ms, "
+                    f"a path) at the same shape: {f_ms:.4f} ms, "
                     f"{bound / f_ms:.1%} of bound")
             tot["ms"] += n * ms
+            tot["ev_ms"] += n * ev_ms
             tot["plain_ms"] += n * plain_ms
             tot["bound_ms"] += n * bound
-            del h, z
+            tot["bmm_ms"] += n * lib_ms
+            del h, z, sets
+            torch.cuda.empty_cache()
         steady = [k[name] for k in kern_ms[1:]] or [kern_ms[0][name]]
-        log(f"[table] {name}: per step {tot['ms']:.2f} ms by shape, "
-            f"{sum(steady) / len(steady):.2f} ms on the main path (events)")
+        path_ms = sum(steady) / len(steady)
+        log(f"[table] {name}: per step {tot['ms']:.3f} ms by shape on the "
+            f"device [{tot['ev_ms']:.3f}], {path_ms:.3f} ms on the main path "
+            f"(events); {info['registers']} registers, "
+            f"{info['local_bytes']} B local, {info['smem_bytes']} B shared "
+            f"memory, {info['threads']} threads, {info['blocks_per_sm']} "
+            f"blocks per SM")
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": launches[name],
-            "max_abs_err": errs[name],
-            "ms": sum(steady) / len(steady),
-            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "max_abs_err": errs[name], "ms": tot["ms"],
+            "path_events_ms": path_ms, "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
             "bound_by": max(bound_by, key=bound_by.get),
-            "library_ms": None, "per": "main-path step, B=8 S=512 bf16"})
+            "library_ms": None, "bmm_ms": tot["bmm_ms"],
+            "registers": info["registers"],
+            "local_bytes": info["local_bytes"],
+            "smem_bytes": info["smem_bytes"],
+            "blocks_per_sm": info["blocks_per_sm"],
+            "host_us": host[name],
+            "per": "main-path step, B=8 S=512 bf16"})
         if name == "gram_norm":
             rows.append({**rows[-1], "name": "gram_norm_full",
                          "source": SOURCES["gram_norm_full"][0],
                          "replaces": SOURCES["gram_norm_full"][1],
                          "launches": 0, "max_abs_err": errs["gram_norm_full"],
-                         "ms": full_ms,
+                         "ms": full_ms, "path_events_ms": None,
                          "per": "main-path step if the gram launches ran the "
                                 "full grid (not on a path; by shape)"})
     return rows
+
+
+NORM_SHAPES = {"gram_norm": [(2048, 2048), (2048, 8192), (8192, 2048),
+                             (2048, 128256)],
+               "direct_norm": [(2048, 512), (2048, 128256)]}
+
+
+def norm_times(reps=20):
+    """Device time of one call (ms) of the bf16 gram and direct kernels at
+    the main path's shapes (B=8, S=512: gram at wq/wo, w1/w3 and w2,
+    direct at wk/wv and the LM head) and of gram at the head's shape, with
+    ``device_ms`` (card held busy, input copies past the L2). Returns
+    ``{"gram_norm 2048x2048": ms, ...}``. It uses only the wrappers' public
+    signatures, so a copy of this file placed in an older checkout times
+    that checkout's kernels: ``python3 -c "import chip_smoke;
+    chip_smoke.norm_times()"``."""
+    import torch
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    fns = {"gram_norm": ops.gram_norm, "direct_norm": ops.direct_norm}
+    out = {}
+    for name, shapes in NORM_SHAPES.items():
+        for pi, po in shapes:
+            sets = norm_sets(pi, po, gen)
+            n = max(2, reps // 10) if po > 10 * pi else reps
+            out[f"{name} {pi}x{po}"] = device_ms(
+                lambda x: fns[name](*x), sets, n)
+            del sets
+            torch.cuda.empty_cache()
+    log(f"[norm-times] B={B} S={S} bf16, device ms per call: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def norm_host_us(reps=200):
+    """Host time of one call (µs) of the bf16 gram launcher at wq's shape
+    and of the direct launcher at wk's (B=8, S=512), with the card held
+    busy so that no call waits for it (``time.perf_counter`` around
+    ``reps`` calls after a warm-up), split into ``checks``
+    (``_build.pair_inputs``), ``python`` (the rest of the launcher before
+    the C call: outputs, scratch, the plan, the route, the stream),
+    ``ctypes_launch`` (the C call with its launches, on the staged route,
+    which encodes no tensor map) and ``encode`` (the TMA route's C call
+    less the staged one's: its tensor maps). The C calls replay the
+    arguments the launcher passed."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import direct_norm as dn
+    from repro_torch.kernels import gram_norm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h = torch.randn(B, S, 2048, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    zq, zk = (torch.randn(B, S, p, generator=gen, device="cuda").to(
+        torch.bfloat16) for p in (2048, 512))
+    launchers = {"gram_norm": ("gram_norm_launch", 15,
+                               lambda: gn.gram_norm(h, zq), zq),
+                 "direct_norm": ("direct_norm_launch", 13,
+                                 lambda: dn.direct_norm(h, zk), zk)}
+    lib = _build.load()
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(400_000_000)    # ~0.2 s at the H100's clocks
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    out = {}
+    for name, (c_name, tma_arg, call, z) in launchers.items():
+        recorded = {}
+        c_fn = getattr(lib, c_name)
+
+        class Spy:      # the C call's arguments, as the launcher made them
+            def __getattr__(self, attr):
+                if attr != c_name:
+                    return getattr(lib, attr)
+                return lambda *a: recorded.setdefault("args", a) and c_fn(*a)
+        real_load = _build.load
+        _build.load = Spy
+        try:
+            kept = call()   # its scratch stays alive for the replays
+        finally:
+            _build.load = real_load
+        args = list(recorded["args"])
+        staged = args[:tma_arg] + [0] + args[tma_arg + 1:]
+        total = host_us(call)
+        c_tma = host_us(lambda: c_fn(*args))
+        c_staged = host_us(lambda: c_fn(*staged))
+        chk = host_us(lambda: _build.pair_inputs(h, z, name))
+        out[name] = {"total": total, "checks": chk,
+                     "python": total - c_tma - chk,
+                     "ctypes_launch": c_staged, "encode": c_tma - c_staged,
+                     "route": "tma" if args[tma_arg] else "synchronous"}
+        del kept
+    log(f"[norm-host] host µs per call, card held busy, B={B} S={S} bf16 "
+        f"(gram at 2048→2048, direct at 2048→512): {json.dumps(out)}")
+    return out
 
 
 def flash_times():

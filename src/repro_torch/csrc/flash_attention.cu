@@ -106,19 +106,14 @@
 // f32 runs on the FMA pipes: 4 threads per row, each owning D/4 of the
 //   features, with the dot products summed over the 4 by warp shuffles in a
 //   fixed order.
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <stdint.h>
 
-#include <mutex>
-#include <set>
-#include <utility>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace repro::hopper;
 
 constexpr float kNegInf = -1.0e30f;  // the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
@@ -249,124 +244,6 @@ constexpr int kDkvStages = 3;       // the dK/dV ring of Q, dO, lse, Delta
 constexpr int kWideThreads = 256;   // two consumer warpgroups
 constexpr int kConsumerWarps = kWideThreads / 32;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma's shared-memory operand descriptor: the start address and the
-// leading (LBO) and stride (SBO) byte offsets, each in 16-byte units, and
-// the swizzle (bits 62-63: 1 for 128 bytes).
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo, uint64_t swz) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (swz << 62);
-}
-
-// How a tile of ROWS rows x D bf16 lies in shared memory: where TMA puts
-// it and where wgmma reads it, as a K-major operand (rows are the product's
-// M or N, columns its depth) or an MN-major one (rows are the depth).
-//  D >= 64: 64-column sub-tiles, each [ROWS][64] with its 16-byte chunks
-//    swizzled within 128-byte rows (TMA's SWIZZLE_128B, wgmma's 128-byte
-//    layout; sub-tiles start on 1024-byte boundaries). K-major: SBO 1024 B
-//    between 8-row groups, 32 B further per k16 step, the next sub-tile
-//    after 4; MN-major: SBO 1024 B, LBO one sub-tile between 64-column
-//    halves, 2048 B further per k16 step.
-//  D = 32: chunk-major, each 8-column chunk a [ROWS][8] block, unswizzled.
-//    K-major: LBO one chunk between the halves of a k16 step, SBO 128 B
-//    between 8-row groups; MN-major: LBO 128 B between 8-row groups, SBO one
-//    chunk between 8-column chunks, 256 B further per k16 step.
-template <int D, int ROWS>
-struct Tile {
-  static constexpr bool kSwizzled = D >= 64;
-
-  __device__ static int byte(int r, int c) {
-    if constexpr (kSwizzled)
-      return (c >> 6) * ROWS * 128 + r * 128 +
-             ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
-    else
-      return (c >> 3) * ROWS * 16 + r * 16 + (c & 7) * 2;
-  }
-  // elements from a tile's start to its row r (r a multiple of 8)
-  __device__ static int row(int r) { return r * (kSwizzled ? 64 : 8); }
-  // operands at k16 step kc of the rows starting at p (= tile + row(r))
-  __device__ static uint64_t desc_k(const bf16* p, int kc) {
-    if constexpr (kSwizzled)
-      return smem_desc(p + (kc >> 2) * ROWS * 64 + (kc & 3) * 16, 16, 1024,
-                       1);
-    else
-      return smem_desc(p + kc * 16 * ROWS, 16 * ROWS, 128, 0);
-  }
-  __device__ static uint64_t desc_mn(const bf16* p, int kc) {
-    if constexpr (kSwizzled)
-      return smem_desc(p + kc * 1024, 128 * ROWS, 1024, 1);
-    else
-      return smem_desc(p + kc * 128, 128, 16 * ROWS, 0);
-  }
-};
-
-// 4 bytes from global to shared memory, held in no register; !valid
-// writes zeros and reads nothing (src must still be a valid address).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Order this thread's stores to shared memory before the async proxy's
-// reads (wgmma); a barrier follows.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A barrier whose phase completes after `count` arrivals (and the bytes
-// any arrival announced).
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Make the barriers just initialised visible to TMA; a barrier follows.
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Arrive on bar (one arrival completes a phase) once `bytes` have landed.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of bar's phase of the given parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
 // TMA: rows [s0, s0 + ROWS) of head h of example b into a tile at dst
 // (rows past the end land as 0), completing on bar: through a 4-d map
 // (D, S, H, B) in 64-column boxes for the swizzled layout, a 5-d map
@@ -375,23 +252,12 @@ template <int D, int ROWS>
 __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* tm,
                                          uint64_t* bar, int s0, int h,
                                          int b) {
-  const uint64_t map = reinterpret_cast<uint64_t>(tm);
   if constexpr (Tile<D, ROWS>::kSwizzled) {
 #pragma unroll
     for (int u = 0; u < D / 64; ++u)
-      asm volatile(
-          "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-          "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
-              smem_u32(dst + u * ROWS * 64)),
-          "l"(map), "r"(64 * u), "r"(s0), "r"(h), "r"(b), "r"(smem_u32(bar))
-          : "memory");
+      tma_load_4d(dst + u * ROWS * 64, tm, bar, 64 * u, s0, h, b);
   } else {
-    asm volatile(
-        "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(
-            smem_u32(dst)),
-        "l"(map), "r"(0), "r"(s0), "r"(0), "r"(h), "r"(b), "r"(smem_u32(bar))
-        : "memory");
+    tma_load_5d(dst, tm, bar, 0, s0, 0, h, b);
   }
 }
 
@@ -516,143 +382,6 @@ __device__ __forceinline__ void store_tile16(const bf16* tile, int row0,
   }
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep every read and write of the N accumulators d on its side of this
-// point: the asynchronous products write them between fence and wait.
-template <int N>
-__device__ __forceinline__ void pin(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// The same for N registers that an issued product still reads.
-template <int N>
-__device__ __forceinline__ void pin_u(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// d (64 x N: the warpgroup's rows; each warp's 16 in mma.sync fragment
-// order) = or += A B^T for one k16 step, A and B K-major in shared memory.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
-                                         int acc);
-
-// d (64 x N) += A B for one k16 step, A the warp's 16 x 16 rows in
-// registers (the mma.sync A fragment), B MN-major in shared memory.
-template <int N>
-__device__ __forceinline__ void wgmma_rs_t(float* d, const uint32_t a[4],
-                                           uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t da,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_t<32>(float* d,
-                                               const uint32_t a[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_t<64>(float* d,
-                                               const uint32_t a[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_t<128>(float* d,
-                                               const uint32_t a[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
-      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
-      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // The register operand of issue_xb: X (the warp's 16 x 16 KC) in bf16.
 template <int KC>
 __device__ __forceinline__ void pack_rows(uint32_t a[KC][4],
@@ -686,13 +415,6 @@ __device__ __forceinline__ void issue_xb(float* c, const uint32_t a[KC][4],
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc)
     wgmma_rs_t<D>(c, a[kc], Tile<D, RB>::desc_mn(b, kc));
-}
-
-// The dynamic shared memory from its first 1024-byte boundary (swizzled
-// tiles start on one; smem_bytes() adds the slack).
-__device__ __forceinline__ unsigned char* smem_base() {
-  extern __shared__ __align__(16) unsigned char smem[];
-  return smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
 }
 
 // Clock counts inside the bf16 forward, compiled in only with
@@ -1543,22 +1265,6 @@ size_t smem_bytes(Kind kind, bool bf16_inputs) {
   return 2 * tile;
 }
 
-// Raise a kernel's dynamic shared memory limit once per device, not before
-// every launch: the attribute is a host call that costs more than it need.
-cudaError_t allow_smem(const void* fn, size_t smem) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  static std::mutex mu;
-  static std::set<std::pair<const void*, int>> raised;
-  std::lock_guard<std::mutex> lock(mu);
-  if (raised.count({fn, dev})) return cudaSuccess;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err == cudaSuccess) raised.insert({fn, dev});
-  return err;
-}
-
 template <typename Kernel>
 int launch_one(Kernel kernel, dim3 grid, int threads, size_t smem,
                const Params& p, cudaStream_t stream) {
@@ -1645,21 +1351,9 @@ int bf16_info(Kind kind, int* out) {
 // boxes tma_rows() asks for: for D >= 64 a 4-d map (D, S, H, B) with
 // boxes of 64 columns x `rows` rows, 128-byte swizzled; for D = 32 a 5-d
 // map (8 columns, S rows, D / 8 chunks, H, B) with boxes of (8, rows,
-// D / 8, 1, 1). Rows past S land as zeros. The driver's encoder is reached
-// through the runtime, so the library needs no link to libcuda.
+// D / 8, 1, 1). Rows past S land as zeros.
 cudaError_t encode_rows(CUtensorMap* tm, const void* base, Strides st, int B,
                         int H, int S, int D, int rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
   const cuuint64_t s_b = static_cast<cuuint64_t>(st.s) * 2;
   const cuuint64_t h_b = static_cast<cuuint64_t>(st.h) * 2;
   const cuuint64_t b_b = static_cast<cuuint64_t>(st.b) * 2;
@@ -1667,29 +1361,19 @@ cudaError_t encode_rows(CUtensorMap* tm, const void* base, Strides st, int B,
   const cuuint64_t n_h = static_cast<cuuint64_t>(H);
   const cuuint64_t n_b = static_cast<cuuint64_t>(B);
   const cuuint32_t r = static_cast<cuuint32_t>(rows);
-  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
-  CUresult res;
   if (D >= 64) {
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), n_s, n_h, n_b};
     const cuuint64_t strides[3] = {s_b, h_b, b_b};
     const cuuint32_t box[4] = {64, r, 1, 1};
-    res = encode(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                 const_cast<void*>(base), dims, strides, box, one,
-                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  } else {
-    const cuuint64_t dims[5] = {8, n_s, static_cast<cuuint64_t>(D / 8), n_h,
-                                n_b};
-    const cuuint64_t strides[4] = {s_b, 16, h_b, b_b};
-    const cuuint32_t box[5] = {8, r, static_cast<cuuint32_t>(D / 8), 1, 1};
-    res = encode(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
-                 const_cast<void*>(base), dims, strides, box, one,
-                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return encode_tiled(tm, 4, base, dims, strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
   }
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  const cuuint64_t dims[5] = {8, n_s, static_cast<cuuint64_t>(D / 8), n_h,
+                              n_b};
+  const cuuint64_t strides[4] = {s_b, 16, h_b, b_b};
+  const cuuint32_t box[5] = {8, r, static_cast<cuuint32_t>(D / 8), 1, 1};
+  return encode_tiled(tm, 5, base, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 bool aligned16(const void* ptr, Strides st) {

@@ -53,11 +53,14 @@ _IP = ctypes.POINTER(ctypes.c_int)        # host array of ints (out)
 #: argtypes of the C entry points that return an int
 _SIGNATURES = {
     "gram_norm_blocks": (_I, _I),
-    "gram_norm_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _L, _L, _L, _L, _I, _P),
-    "direct_norm_blocks": (_I, _I),
+    "gram_norm_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _L, _L, _L, _L, _I, _I, _P, _I, _I, _I, _I, _I,
+                         _P),
+    "gram_norm_kernel_info": (_IP,),
+    "direct_norm_blocks": (_I, _I, _I),
     "direct_norm_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _L, _L, _L, _L, _P),
+                           _L, _L, _L, _L, _I, _I, _P),
+    "direct_norm_kernel_info": (_IP,),
     "segmented_norm_tiles": (_I, _I),
     "segmented_norm_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _L, _L, _P),
@@ -180,6 +183,24 @@ def strides_arg(tensors):
     order, as the host ``long long`` array the attention launches take."""
     vals = [t.stride(d) for t in tensors for d in (0, 1, 2)]
     return (ctypes.c_longlong * len(vals))(*vals)
+
+
+#: the fields of a kernel_info() reading, in the C functions' order
+INFO_KEYS = ("registers", "local_bytes", "smem_bytes", "threads",
+             "blocks_per_sm")
+
+
+def copy_route(*tensors) -> str:
+    """How a bf16 kernel brings these inputs into shared memory: ``"tma"``
+    when every tensor's base and every stride but the last (which is 1) are
+    multiples of 16 bytes, so a tensor map can describe the rows; else
+    ``"synchronous"`` (loads and stores into the same tiles). The launchers
+    pass it to the kernels, which take no other rule."""
+    def aligned(t):
+        return (t.data_ptr() % 16 == 0
+                and all(t.stride(d) * t.element_size() % 16 == 0
+                        for d in range(t.ndim - 1)))
+    return "tma" if all(aligned(t) for t in tensors) else "synchronous"
 
 
 def pair_inputs(h, zbar, what: str):

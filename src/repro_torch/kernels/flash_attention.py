@@ -246,18 +246,10 @@ def _work_table(sq, sk, window, device):
                         device=device)
 
 
-def copy_route(*tensors) -> str:
-    """How the bf16 kernels bring these inputs into
-    shared memory: ``"tma"`` when every tensor's base and (batch, head,
-    sequence) strides are multiples of 16 bytes, so a tensor map can
-    describe the rows; else ``"synchronous"`` (loads and stores into the
-    same tiles). The launchers pass it to the kernel, which takes no other
-    rule."""
-    def aligned(t):
-        return (t.data_ptr() % 16 == 0
-                and all(t.stride(d) * t.element_size() % 16 == 0
-                        for d in (0, 1, 2)))
-    return "tma" if all(aligned(t) for t in tensors) else "synchronous"
+#: the copy route of the bf16 kernels' inputs (the rule all bf16 kernels
+#: share): TMA where every base and (batch, head, sequence) stride is a
+#: multiple of 16 bytes, else synchronous staging
+copy_route = _build.copy_route
 
 
 #: bf16 launches of the forward ("fwd"), dQ ("dq") and dK/dV ("dkv")
@@ -285,8 +277,7 @@ def kernel_info(kind: str, d: int) -> dict:
     code = _build.load().flash_attention_kernel_info(
         ("fwd", "dq", "dkv").index(kind), d, out)
     _build.check(code, "flash_attention_kernel_info")
-    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads",
-                     "blocks_per_sm"), out))
+    return dict(zip(_build.INFO_KEYS, out))
 
 
 # ---------------------------------------------------------------------------

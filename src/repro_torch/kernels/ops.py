@@ -63,10 +63,11 @@ def _zeros(h: torch.Tensor) -> torch.Tensor:
 
 
 def flop_estimate(b: int, s: int, p_in: int, p_out: int) -> float:
-    """The fewest operations either kernel needs for ||H_jᵀZ̄_j||²_F on a
+    """The fewer operations of the two forms of ||H_jᵀZ̄_j||²_F on a
     (b, s, p) problem: the least work the function takes, whichever route
-    the dispatch picks."""
-    return min(_gn.flop_estimate(b, s, p_in, p_out),
+    the dispatch picks. The gram form is counted as the bound counts it
+    (``gram_norm.bound_flop_estimate``), not at the kernel's own tile."""
+    return min(_gn.bound_flop_estimate(b, s, p_in, p_out),
                _dn.flop_estimate(b, s, p_in, p_out))
 
 

@@ -20,7 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import direct_norm as tdn
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import gram_norm as tgn
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -62,10 +64,18 @@ def test_cuda_kernels_match_plain(cuda_device, shape, dtype):
     h, z = (torch.from_numpy(x).to(cuda_device, dt) for x in _pair(shape, 4))
     want = tref.gram_norm_ref(h, z)
     tops.reset_launch_counts()
+    tgn.route_launches.clear()
+    tdn.route_launches.clear()
     for got in (tops.gram_norm(h, z), tops.gram_norm(h, z, triangular=False),
                 tops.direct_norm(h, z)):
         torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
     assert tops.launch_counts() == _counts(gram_norm=2, direct_norm=1)
+    # contiguous bf16 rows whose width is a multiple of 8 take TMA; the odd
+    # widths (37, 33, 5) are no multiple of 16 bytes and are staged
+    bf = dtype == "bfloat16"
+    route = "tma" if all(p % 8 == 0 for p in shape[2:]) else "synchronous"
+    assert dict(tgn.route_launches) == ({("gram", route): 2} if bf else {})
+    assert dict(tdn.route_launches) == ({("direct", route): 1} if bf else {})
 
 
 @pytest.mark.cuda
@@ -91,10 +101,69 @@ def test_cuda_bf16_unaligned_rows(cuda_device):
             _pair((3, 40, 25, 37), 6))
     h, z = h[:, :, 1:], z[:, :, 1:]
     want = tref.gram_norm_ref(h, z)
+    tgn.route_launches.clear()
+    tdn.route_launches.clear()
     torch.testing.assert_close(tops.gram_norm(h, z), want, rtol=5e-4,
                                atol=0.0)
     torch.testing.assert_close(tops.direct_norm(h, z), want, rtol=5e-4,
                                atol=0.0)
+    assert dict(tgn.route_launches) == {("gram", "synchronous"): 1}
+    assert dict(tdn.route_launches) == {("direct", "synchronous"): 1}
+
+
+# (B, S, p_in, p_out, offset) of bf16 launches whose plan splits the
+# feature axes into several ranges (n_h or n_z > 1), on the TMA route
+# (offset 0) and the staged one (rows 8 elements wide shifted by one
+# element: a base no multiple of 16 bytes)
+SPLIT_CASES = [(2, 300, 2048, 9000, 0), (1, 700, 9000, 1000, 0),
+               (2, 200, 3000, 5000, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("triangular", [True, False])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_cuda_gram_split_plans(cuda_device, case, triangular):
+    """A plan with split feature ranges: the partial Grams are summed in a
+    fixed order before the fold, so the norm matches the plain version at
+    5e-4 and repeats bit for bit."""
+    b, s, pi, po, off = case
+    h, z = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in
+            _pair((b, s, pi + off, po + off), 7))
+    h, z = h[:, :, off:], z[:, :, off:]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tgn.plan(b, s, pi, po, triangular, sms)
+    assert plan.n_h + plan.n_z > 2
+    tgn.route_launches.clear()
+    got = tops.gram_norm(h, z, triangular=triangular)
+    again = tops.gram_norm(h, z, triangular=triangular)
+    torch.testing.assert_close(got, tref.gram_norm_ref(h, z), rtol=5e-4,
+                               atol=0.0)
+    assert torch.equal(got, again)
+    route = "synchronous" if off else "tma"
+    assert dict(tgn.route_launches) == {("gram", route): 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [0, 1])
+def test_cuda_direct_is_bitwise_repeatable(cuda_device, off):
+    """bf16 direct launches over several p_in and p_out tiles and a ragged
+    sequence, on both routes, give the same bits twice."""
+    h, z = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in
+            _pair((3, 333, 300 + off, 700 + off), 8))
+    h, z = h[:, :, off:], z[:, :, off:]
+    got, again = tops.direct_norm(h, z), tops.direct_norm(h, z)
+    torch.testing.assert_close(got, tref.gram_norm_ref(h, z), rtol=5e-4,
+                               atol=0.0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_cuda_norm_kernel_info(cuda_device):
+    """The bf16 bodies' resources as the runtime reports them: two
+    warpgroups and a producer warp, no local memory."""
+    for info in (tgn.kernel_info(), tdn.kernel_info()):
+        assert info["threads"] == 288 and info["blocks_per_sm"] >= 1
+        assert info["local_bytes"] == 0
 
 
 @pytest.mark.cuda

@@ -134,14 +134,20 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_gram_flop_model_halves():
-    """The triangular grid's work approaches half the full grid's."""
+    """The triangular grid's work approaches half the full grid's. The
+    kernel's estimate counts its own 128-row tiles; the bound counts 64-row
+    tiles whatever the kernels' tiles are."""
     full = tgn.flop_estimate(1, 4096, 512, 512, triangular=False)
     tri = tgn.flop_estimate(1, 4096, 512, 512, triangular=True)
     assert 1.9 < full / tri < 2.0
-    # a ragged last tile counts at its true height: 130 = 64 + 64 + 2 rows
-    pairs = [(64, 64), (64, 64), (64, 2), (64, 64), (64, 2), (2, 2)]
-    want = sum(2.0 * a * b * (10 + 20 + 1) for a, b in pairs)
-    assert tgn.flop_estimate(1, 130, 10, 20) == want
+    # a ragged last tile counts at its true height: 130 = 128 + 2 rows in
+    # the kernel's tiles, 64 + 64 + 2 in the bound's
+    def work(pairs):
+        return sum(2.0 * a * b * (10 + 20 + 1) for a, b in pairs)
+    wide = work([(128, 128), (128, 2), (2, 2)])
+    narrow = work([(64, 64), (64, 64), (64, 2), (64, 64), (64, 2), (2, 2)])
+    assert tgn.flop_estimate(1, 130, 10, 20) == wide
+    assert tgn.bound_flop_estimate(1, 130, 10, 20) == narrow
 
 
 @pytest.mark.parametrize("shape, route", [
@@ -153,11 +159,18 @@ def test_gram_flop_model_halves():
     ((8, 512, 2048, 8192), "gram"),     # up / gate
     ((3, 37, 80, 200), "gram")])
 def test_least_work_takes_the_cheaper_route(shape, route):
-    """``ops.flop_estimate`` is the fewer operations of the two kernels,
-    whichever the dispatch runs: the work a bound holds the kernel to."""
-    est = {"gram": tgn.flop_estimate(*shape),
+    """``ops.flop_estimate`` is the fewer operations of the two forms,
+    whichever the dispatch runs: the work a bound holds the kernel to. The
+    gram form is counted over the triangle of 64-row tile pairs (36 pairs at
+    S=512), the bound's own count, not at the kernel's 128-row tiles, so the
+    bound column keeps its numbers when a kernel's tile changes."""
+    b, s, pi, po = shape
+    est = {"gram": tgn.bound_flop_estimate(*shape),
            "direct": tdn.flop_estimate(*shape)}
     assert tops.flop_estimate(*shape) == est[route] == min(est.values())
+    if s == 512:
+        assert est["gram"] == b * 36 * 2.0 * 64 * 64 * (pi + po + 1)
+    assert est["gram"] != tgn.flop_estimate(*shape) or s <= 64
 
 
 def _dt_pair(x, dtype):
