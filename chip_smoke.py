@@ -7,7 +7,9 @@ Phases, each of which fails the script (nonzero exit) if it fails:
 
 1. device   — the card's name, and its name and power limit as
               ``nvidia-smi --query-gpu=name,power.limit`` reports them;
-2. build    — compile the CUDA kernels from ``src/repro_torch/csrc``;
+2. build    — compile the CUDA kernels from ``src/repro_torch/csrc``
+              (logging each kernel's registers, any spills and ptxas's
+              notes that it serialized wgmma);
 3. kernels  — ``gram_norm`` (triangular and full grid) and ``direct_norm``
               against their plain PyTorch versions in f32 and bf16 at the
               main path's shapes, a ragged shape and the LM head, each bf16
@@ -456,6 +458,7 @@ def phase_build():
     log(f"[build] {_build.lib_path()} in {time.perf_counter() - t0:.1f} s")
     for line in _build.build_log().splitlines():
         if ("Used" in line or "Compiling entry" in line
+                or "Performance Loss" in line
                 or ("spill stores" in line
                     and " 0 bytes spill stores" not in line)):
             log(f"[build] {line.strip()}")

@@ -26,7 +26,7 @@
 // producer warp walks the sequence in 64-row stages through a ring of
 // kStages 128-byte-swizzled stages filled by TMA with mbarrier completion;
 // a consumer releases a stage through its `empty` mbarrier once the products
-// that read it have landed. That is 87 flops per byte moved from L2, against
+// that read it have landed. That is 85 flops per byte moved from L2, against
 // 64 for a 128 x 128 tile. At the end of the sweep each thread squares and
 // sums its accumulators; the block's sum is one f32 partial, and a second
 // launch sums each example's partials in a fixed order: no atomics, the same

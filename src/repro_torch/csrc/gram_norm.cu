@@ -12,11 +12,11 @@
 // out (B,) f32.
 //
 // What bounds it on the H100: at llama3.2-1b's shapes (B=8, S=512) bytes,
-// barely: per example it does ~S^2 (P_in + P_out) multiply-adds on the
-// triangle against S (P_in + P_out) input elements, S/2 flops per element
-// read, ~256 at S=512 against the card's ~295 flops/byte balance in bf16.
-// So the kernel has to keep the tensor cores fed from L2 as well as move
-// every input byte from device memory about once.
+// barely: per example the triangle is ~S^2 (P_in + P_out) / 2
+// multiply-adds against S (P_in + P_out) input elements, S flops per bf16
+// element or S/2 per byte: 256 at S=512 against the card's ~295 flops/byte
+// balance. So the kernel has to keep the tensor cores fed from L2 as well
+// as move every input byte from device memory about once.
 //
 // bf16 design (gram_partial_wgmma, gram_fold). A pair of 128-row sequence
 // tiles (ti, tj) is the unit: its Gram tile X_ti X_tj^T (128 x 128) is the
