@@ -48,13 +48,17 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               bf16, B=32, S=256, three DP-SGD steps ``[Norms, Clip, Noise,
               GNS]`` each followed by AdamW, the launches of each pass
               counted (3 ``segmented_norm`` launches per layer in the norms
-              backward, none in the reweighted one) and CUDA events around
-              every segmented launch;
+              backward, none in the reweighted one), every non-empty
+              segment on the gram route, and CUDA events around every
+              segmented launch;
 9. segmented — ``segmented_norm`` against its plain version in f32 and bf16
               at the MoE path's gate/up (4096→6400) and down (6400→4096)
               shapes with the segment ids of its first step, a ragged T and
-              p_out, all rows dropped, empty segments and one segment, each
-              run twice for bitwise-equal results;
+              p_out, all rows dropped, empty segments, one segment (direct
+              route) and mixed lengths (512→384, 1 to 1,500 rows on both
+              routes in one launch), each run twice for bitwise-equal
+              results, each launch's segments and kernels by route
+              asserted;
 10. token-exact — llama3.2-1b at full width in f32,
               ``Engine(granularity="token")``: the (B, S) norm map against
               per-token stats summed in plain f32 from a recorded plain
@@ -92,7 +96,15 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               launcher's host µs a call, ``norm_host_us``), the gram
               kernel at the direct kernel's shapes (the LM head's, where
               the forced direct route is not the cheaper one, and wk/wv's)
-              and its full grid at its own, the flash kernels
+              and its full grid at its own, the segmented kernel at the
+              MoE path's two shapes with its ids (``device_ms`` by shape
+              times launches, the path's events beside it, a cuBLAS
+              ``bmm`` of each segment's Grams padded to the longest
+              segment as a yardstick, the gram body's registers, local
+              memory, shared memory and blocks per SM, the kernels' own
+              operations over the fewest, the launcher's host µs a call,
+              ``seg_host_us``, and its device time split into the sort,
+              the plan and the kernels, ``seg_parts``), the flash kernels
               beside PyTorch's ``scaled_dot_product_attention`` (both on
               the device, in turns, with each kernel's registers, local
               memory, shared memory and blocks per SM, Δ = ``row_delta``
@@ -191,6 +203,10 @@ ROW_TOL = 1e-5                        # rowsumsq vs its plain version, both
 TOKEN_TOL = 1e-4                      # token-exact and onepass, f32 vs
                                       # plain autograd: summation order
 ONEPASS_B, ONEPASS_D = 256, 4096      # §6 MLP form: B, widths D→D→D
+# segment sizes of phase 9's mixed case at 512 → 384 (the gram route takes
+# up to 376 rows there): one and three tile pairs, both sides of the
+# crossover, an empty segment, and 1,500 rows on the direct route
+MIXED_SIZES = (1, 5, 30, 63, 64, 65, 129, 250, 376, 377, 0, 700, 1500, 90)
 NORM_KERNELS = ("gram_norm", "direct_norm")
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
@@ -814,6 +830,7 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
         ops.reset_launch_counts()
         gn.route_launches.clear()
         dn.route_launches.clear()
+        sn.reset_route_counts()
         for i, batch in enumerate(batches):
             passes.clear()
             attn.clear()
@@ -898,6 +915,17 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
         if routes != want_routes:
             raise AssertionError(f"{tag}: norm routes {routes}, expected "
                                  f"{want_routes}")
+    if "segmented_norm" in kernels:
+        # every non-empty segment of the MoE path on the gram route
+        segs = sn.route_segments()
+        kept = sum(int((sn.segment_sizes(seg, n) > 0).sum())
+                   for calls in seg_calls for seg, n, *_ in calls)
+        if segs != {"gram": kept, "direct": 0}:
+            raise AssertionError(f"{tag}: segments by route {segs}, expected "
+                                 f"all {kept} non-empty ones on gram")
+        log(f"[{tag}] segmented routes: segments {segs} (every non-empty "
+            f"segment on gram); launches by route and copy "
+            f"{dict(sn.route_launches)}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{tag}] launches over {steps} steps: {launches}; every pass "
         f"launched what it should; gram/direct copy routes {routes}")
@@ -996,7 +1024,9 @@ def phase_seg_kernels(seg_calls, errs):
     (random inputs), and at the edge cases; each twice, for bitwise-equal
     results. Returns the two path cases for the table."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ops
+    from repro_torch.kernels import segmented_norm as sn
     from repro_torch.kernels.segmented_norm import segmented_norm_ref
 
     first = {(pi, po): (seg, n_seg) for seg, n_seg, _, pi, po, _
@@ -1016,12 +1046,27 @@ def phase_seg_kernels(seg_calls, errs):
             ("empty segments", 600, 200, 136, 2 * ids(600, 15, 0.1), 30),
             ("one segment", 3000, 512, 384,
              torch.zeros(3000, dtype=torch.long, device="cuda"), 1)]
+    # mixed lengths: one launch with segments on both sides of 512 → 384's
+    # crossover (gram up to 376 rows, direct from 377), an empty one and
+    # dropped rows
+    mixed = torch.cat([
+        torch.repeat_interleave(torch.arange(len(MIXED_SIZES),
+                                             device="cuda"),
+                                torch.tensor(MIXED_SIZES, device="cuda")),
+        torch.full((100,), len(MIXED_SIZES) + 2, device="cuda")])
+    mixed = mixed[torch.randperm(mixed.numel(), generator=gen,
+                                 device="cuda")]
+    edge.append(("mixed lengths", mixed.numel(), 512, 384, mixed,
+                 len(MIXED_SIZES)))
     cases = [(f"path {pi}->{po}", t, pi, po, seg, n)
              for t, pi, po, seg, n in path] + edge
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[str(dt)]
         for name, t, pi, po, seg, n in cases:
             h, z = seg_inputs(t, pi, po, dt, gen)
+            copy = "fma" if dt == torch.float32 else (
+                "cp.async" if _build.aligned_rows(h, z) else "synchronous")
+            sn.reset_route_counts()
             got = ops.segmented_norm(h, z, seg, n)
             again = ops.segmented_norm(h, z, seg, n)
             want = segmented_norm_ref(h, z, seg, n)
@@ -1036,6 +1081,20 @@ def phase_seg_kernels(seg_calls, errs):
             if not torch.equal(got, again):
                 raise AssertionError(f"segmented_norm not bitwise "
                                      f"reproducible at {name} {dt}")
+            # each launch's segments by route, and its kernels by route
+            sizes = sn.segment_sizes(seg, n).cpu().numpy()
+            gram = sn.takes_gram(sizes, pi, po)
+            want_segs = {"gram": 2 * int(gram.sum()),
+                         "direct": 2 * int(((sizes > 0) & ~gram).sum())}
+            lim = sn.limits(t, n, pi, po)
+            want_launch = {(k, copy): 2 for k, on in
+                           (("gram", lim.gram), ("direct", lim.directs)) if on}
+            segs = sn.route_segments()
+            if segs != want_segs or dict(sn.route_launches) != want_launch:
+                raise AssertionError(
+                    f"segmented routes at {name} {dt}: segments {segs}, "
+                    f"launches {dict(sn.route_launches)}; expected "
+                    f"{want_segs}, {want_launch}")
             if dt == torch.bfloat16 and name.startswith("path"):
                 errs["segmented_norm"] = max(
                     errs.get("segmented_norm", 0.0),
@@ -1044,7 +1103,8 @@ def phase_seg_kernels(seg_calls, errs):
                 f"segments ({int(full.sum())} non-empty, "
                 f"{int(((seg >= 0) & (seg < n)).sum())} rows kept): rel "
                 f"{r:.2e} (tol {tol}); empty segments 0; bitwise equal on a "
-                f"second run")
+                f"second run; segments by route over both runs {segs}, "
+                f"kernel launches {dict(sn.route_launches)}")
             del h, z
     return path
 
@@ -1055,8 +1115,9 @@ def seg_bound_ms(calls):
     kept rows of h and z̄, the ids, the output) over the HBM rate and the
     fewest operations it needs on this data (per segment, the gram or the
     direct form, ``ops.segmented_flop_estimate``) over the peak for its
-    type. Also returns the kernel's own operations (the direct form) over
-    the least, summed over the launches."""
+    type. Also returns the kernels' own operations (by the route each
+    segment takes, ``segmented_norm.flop_estimate``) over the fewest,
+    summed over the launches."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import segmented_norm as sn
     total, by, done, least = 0.0, {}, 0.0, 0.0
@@ -1074,11 +1135,222 @@ def seg_bound_ms(calls):
     return total, max(by, key=by.get), done / least
 
 
-def seg_table(path, errs, run):
-    """The segmented kernel's row: its time per MoE step (events), the plain
-    version's and the bound from this run's launches."""
+#: (p_in, p_out) of the MoE path's segmented launches: gate and up, down
+SEG_SHAPES = [(4096, 6400), (6400, 4096)]
+
+
+def moe_path_ids(seed=0):
+    """(seg_ids (T,), n_seg) laid out as the MoE path's segmented launches
+    lay them out, for timing the kernel alone: ``nn/moe.py``'s grouped
+    capacity dispatch of phase 8's B=MOE_B, S=MOE_S tokens over
+    phi3.5-moe's experts (16 groups, top-2 of 16, capacity 88), each token
+    routed by the top-k of normal logits from ``seed``, and
+    ``core/taps.py``'s (group, expert, example) composite ids, padding
+    slots past n_seg. Phase 8's own ids come from its router."""
+    import torch
+    from repro_torch.models import registry
+    mcfg = registry.get("phi3.5-moe").full().moe
+    ng, e, k = mcfg.dispatch_groups, mcfg.n_experts, mcfg.top_k
+    bg = MOE_B // ng
+    tg = bg * MOE_S
+    cap = mcfg.capacity(tg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn(ng, tg, e, generator=gen, device="cuda")
+    flat_e = logits.topk(k, dim=-1).indices.reshape(ng, tg * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(e + 1, device="cuda").expand(ng, e + 1)
+        .contiguous())
+    rank = torch.arange(tg * k, device="cuda") \
+        - torch.gather(starts, 1, sorted_e)
+    group = torch.arange(ng, device="cuda")[:, None].expand_as(sorted_e)
+    n_seg = ng * e * bg
+    ids = torch.full((ng, e * cap), n_seg, dtype=torch.long, device="cuda")
+    keep = rank < cap
+    ids[group[keep], (sorted_e * cap + rank)[keep]] = \
+        ((group * e + sorted_e) * bg + order // k // MOE_S)[keep]
+    return ids.reshape(-1), n_seg
+
+
+def seg_sets(t, pi, po, gen):
+    """bf16 (h, z̄) input copies of (T, pi), (T, po), together past twice
+    the L2 cache (one copy where one already is)."""
+    import torch
+    sets = []
+    while sum((h.numel() + z.numel()) * 2 for h, z in sets) < 2 * L2_BYTES:
+        sets.append(tuple(
+            torch.randn(t, p, generator=gen, device="cuda").to(
+                torch.bfloat16) for p in (pi, po)))
+    return sets
+
+
+def seg_times(ids=None, reps=10):
+    """Device time of one bf16 segmented launch (ms) at the MoE path's
+    gate/up (4096→6400) and down (6400→4096) shapes, with ``device_ms``
+    (card held busy, input copies past the L2), on the segment ids ``ids``
+    = (seg_ids, n_seg) (default :func:`moe_path_ids`). A call takes ~0.4 ms
+    of host time (``seg_host_us``), so ``reps`` stays small enough for the
+    host to queue them all inside ``device_ms``'s busy window. Returns
+    ``{"segmented_norm 4096x6400": ms, ...}``. It uses only the wrapper's
+    public signature, so a copy of this file placed in an older checkout
+    times that checkout's kernel: ``python3 -c "import chip_smoke;
+    chip_smoke.seg_times()"``."""
     import torch
     from repro_torch.kernels import ops
+
+    seg, n = ids if ids is not None else moe_path_ids()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for pi, po in SEG_SHAPES:
+        sets = seg_sets(seg.numel(), pi, po, gen)
+        out[f"segmented_norm {pi}x{po}"] = device_ms(
+            lambda x: ops.segmented_norm(x[0], x[1], seg, n), sets, reps)
+        del sets
+        torch.cuda.empty_cache()
+    kept = int(((seg >= 0) & (seg < n)).sum())
+    log(f"[seg-times] T={seg.numel()}, {n} segments, {kept} rows kept, "
+        f"bf16, device ms per call: {json.dumps(out)}")
+    return out
+
+
+def seg_host_us(ids, reps=20):
+    """Host time of one call (µs) of the bf16 segmented launcher at the
+    gate/up shape on the segment ids ``ids`` = (seg_ids, n_seg), with the
+    card held busy so that no call waits for it (``time.perf_counter``
+    around ``reps`` calls after a warm-up; few enough that their ~35
+    launches each do not fill the stream's launch queue), and the parts of
+    it spent in ``csr`` (the sort and offsets), ``plan``
+    (``segmented_norm.plan``) and ``ctypes_launch`` (the C call with its
+    launches), timed inside the same number of launcher calls; ``python``
+    is the rest (checks, scratch, route counts). Fails if the calls took
+    half the ~0.2 s the card was held busy: a launcher that waited for the
+    card (a host sync on the launch path) would take all of it."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import segmented_norm as sn
+
+    seg, n = ids
+    pi, po = SEG_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h, z = seg_sets(seg.numel(), pi, po, gen)[0]
+    lib = _build.load()
+    spent = {"csr": 0.0, "plan": 0.0, "ctypes_launch": 0.0}
+
+    def timed(key, fn):
+        def wrapper(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    class Spy:          # the C launch, timed
+        def __getattr__(self, attr):
+            fn = getattr(lib, attr)
+            return (timed("ctypes_launch", fn)
+                    if attr == "segmented_norm_launch" else fn)
+
+    def host_us():
+        sn.segmented_norm(h, z, seg, n)
+        torch.cuda.synchronize()
+        spent.update(dict.fromkeys(spent, 0.0))
+        torch.cuda._sleep(400_000_000)    # ~0.2 s at the H100's clocks
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            sn.segmented_norm(h, z, seg, n)
+        us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        if us * reps > 0.1e6:
+            raise AssertionError(f"segmented launcher: {reps} calls took "
+                                 f"{us * reps / 1e3:.1f} ms of host time "
+                                 f"with the card held busy ~200 ms: it "
+                                 f"waits for the card")
+        return us
+
+    out = {"total": host_us()}
+    real = (sn.csr, sn.plan, _build.load)
+    sn.csr, sn.plan = timed("csr", sn.csr), timed("plan", sn.plan)
+    _build.load = Spy
+    try:
+        host_us()
+    finally:
+        sn.csr, sn.plan, _build.load = real
+    out.update({k: v / reps * 1e6 for k, v in spent.items()})
+    out["python"] = out["total"] - sum(out[k] for k in spent)
+    log(f"[seg-host] host µs per call, card held busy, T={seg.numel()} "
+        f"{pi}->{po} bf16: {json.dumps(out)}; no call waited for the card")
+    return out
+
+
+def seg_parts(ids, reps=10):
+    """Device time (ms) of the parts of one bf16 segmented call at each of
+    the MoE path's shapes on the segment ids ``ids`` = (seg_ids, n_seg),
+    with ``device_ms``: ``csr`` (the sort and offsets), ``plan``
+    (``segmented_norm.plan`` from those offsets), ``call`` (the whole
+    launcher) and ``kernels`` (the call less the other two: the gram and
+    direct kernels and the sums, and the scratch)."""
+    import torch
+    from repro_torch.kernels import segmented_norm as sn
+
+    seg, n = ids
+    t = seg.numel()
+    _, offsets = sn.csr(seg, n)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for pi, po in SEG_SHAPES:
+        sets = seg_sets(t, pi, po, gen)
+        part = {"csr": device_ms(lambda x: sn.csr(seg, n), sets, reps),
+                "plan": device_ms(lambda x: sn.plan(offsets, t, pi, po),
+                                  sets, reps),
+                "call": device_ms(lambda x: sn.segmented_norm(x[0], x[1],
+                                                              seg, n),
+                                  sets, reps)}
+        part["kernels"] = part["call"] - part["csr"] - part["plan"]
+        out[f"{pi}x{po}"] = part
+        del sets
+        torch.cuda.empty_cache()
+    log(f"[seg-parts] T={t}, {n} segments, bf16, device ms: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def seg_bmm_ms(sets, seg, n, reps):
+    """cuBLAS ``torch.bmm`` of HHᵀ and Z̄Z̄ᵀ over each segment's rows padded
+    to the longest segment (bf16 out), a yardstick of the tensor cores'
+    rate on the gram form's products only (the port never calls it). The
+    padded copies are made outside the timing."""
+    import torch
+    from repro_torch.kernels import segmented_norm as sn
+    order, offsets = sn.csr(seg, n)
+    sizes = (offsets[1:] - offsets[:-1]).long()
+    longest = int(sizes.max())
+    pos = offsets[:-1, None].long() + torch.arange(longest, device="cuda")
+    rows = order.long()[pos.clamp(max=order.numel() - 1)]
+    valid = (torch.arange(longest, device="cuda") < sizes[:, None])[..., None]
+    padded = [tuple(torch.where(valid, x[rows], torch.zeros((), dtype=x.dtype,
+                                                            device="cuda"))
+                    for x in xs) for xs in sets]
+
+    def fn(x):
+        torch.bmm(x[0], x[0].transpose(1, 2))
+        torch.bmm(x[1], x[1].transpose(1, 2))
+    ms = device_ms(fn, padded, reps)
+    return ms, longest
+
+
+def seg_table(path, errs, run):
+    """The segmented kernel's row: device time a launch at the path's two
+    shapes with the path's ids (``device_ms``) times launches per step, the
+    CUDA events around its launches on the path per steady step in
+    brackets, the plain version's time and the bound from this run's
+    launches, a cuBLAS ``bmm`` yardstick of the gram form's products
+    (:func:`seg_bmm_ms`), the bf16 gram body's registers, local memory,
+    shared memory and blocks per SM, the kernels' own operations over the
+    fewest, and the launcher's host µs (:func:`seg_host_us`)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segmented_norm as sn
     from repro_torch.kernels.segmented_norm import segmented_norm_ref
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1086,37 +1358,68 @@ def seg_table(path, errs, run):
     per_step = {}        # (p_in, p_out) → launches per step
     for _, _, _, pi, po, _ in run["seg_calls"][0]:
         per_step[(pi, po)] = per_step.get((pi, po), 0) + 1
-    plain_ms = 0.0
+    info = sn.kernel_info()
+    tot = {"ms": 0.0, "ev_ms": 0.0, "plain_ms": 0.0, "bmm_ms": 0.0}
     for t, pi, po, seg, n in path:
-        h, z = seg_inputs(t, pi, po, dt, gen)
-        ms = time_ms(lambda: ops.segmented_norm(h, z, seg, n), 10)
+        k = per_step[(pi, po)]
+        sets = seg_sets(t, pi, po, gen)
+        h, z = sets[0]
+        ms = device_ms(lambda x: ops.segmented_norm(x[0], x[1], seg, n),
+                       sets, 10)
+        ev_ms = time_ms(lambda: ops.segmented_norm(h, z, seg, n), 10)
         p_ms = time_ms(lambda: segmented_norm_ref(h, z, seg, n), 1)
         b_ms, by, extra = seg_bound_ms([(seg, n, t, pi, po, dt)])
+        lib_ms, longest = seg_bmm_ms(sets, seg, n, 10)
+        items = int(sn.plan(sn.csr(seg, n)[1], t, pi, po).n_items)
+        grid = min(sn.limits(t, n, pi, po).items,
+                   sn.BLOCKS_PER_SM * torch.cuda.get_device_properties(
+                       0).multi_processor_count)
         log(f"[table] segmented_norm bf16 T={t} {pi}->{po}, {n} segments "
-            f"x{per_step[(pi, po)]}/step: kernel {ms:.3f} ms, plain "
-            f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / ms:.2%} of "
-            f"bound; the kernel's direct form does {extra:.1f}x the fewest "
-            f"operations the function needs here")
-        plain_ms += per_step[(pi, po)] * p_ms
-        del h, z
+            f"({items} gram items on a grid of {grid} blocks: "
+            f"{items / grid:.2f} waves) x{k}/step: kernel {ms:.4f} ms "
+            f"[{ev_ms:.4f}], plain "
+            f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / ms:.1%} of "
+            f"bound; the kernels do {extra:.2f}x the fewest operations the "
+            f"function needs here; cuBLAS bmm of HHᵀ and Z̄Z̄ᵀ over the "
+            f"segments padded to {longest} rows {lib_ms:.4f} ms (yardstick "
+            f"only)")
+        tot["ms"] += k * ms
+        tot["ev_ms"] += k * ev_ms
+        tot["plain_ms"] += k * p_ms
+        tot["bmm_ms"] += k * lib_ms
+        del h, z, sets
+        torch.cuda.empty_cache()
     steady = run["seg_calls"][1:] or run["seg_calls"][:1]
     bounds = [seg_bound_ms(c) for c in steady]
     kms = [m["segmented_norm"] for m in run["kern_ms"][1:]] \
         or [run["kern_ms"][0]["segmented_norm"]]
-    ms = sum(kms) / len(kms)
+    path_ms = sum(kms) / len(kms)
     bound = sum(b for b, _, _ in bounds) / len(bounds)
-    log(f"[table] segmented_norm on the MoE path: {ms:.3f} ms per steady "
-        f"step (events), bound {bound:.4f} ms per step from its launches' "
-        f"segments and kept rows ({bounds[0][1]}), {bound / ms:.2%} of "
-        f"bound; the kernel's direct form does "
-        f"{bounds[0][2]:.1f}x the fewest operations")
+    host = seg_host_us(path[0][3:])
+    parts = seg_parts(path[0][3:])
+    alone = seg_times()
+    log(f"[table] segmented_norm: per step {tot['ms']:.3f} ms by shape on "
+        f"the device [{tot['ev_ms']:.3f}], {path_ms:.3f} ms on the MoE path "
+        f"(events); bound {bound:.4f} ms per step from its launches' "
+        f"segments and kept rows ({bounds[0][1]}), {bound / tot['ms']:.1%} "
+        f"of bound; the kernels do {bounds[0][2]:.2f}x the fewest "
+        f"operations; gram body {info['registers']} registers, "
+        f"{info['local_bytes']} B local, {info['smem_bytes']} B shared "
+        f"memory, {info['threads']} threads, {info['blocks_per_sm']} blocks "
+        f"per SM; alone on moe_path_ids() {json.dumps(alone)}")
     return {"name": "segmented_norm", "route": "cuda",
             "source": SOURCES["segmented_norm"][0],
             "replaces": SOURCES["segmented_norm"][1],
             "launches": run["launches"]["segmented_norm"],
-            "max_abs_err": errs["segmented_norm"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bounds[0][1], "library_ms": None,
+            "max_abs_err": errs["segmented_norm"], "ms": tot["ms"],
+            "path_events_ms": path_ms, "plain_ms": tot["plain_ms"],
+            "bound_ms": bound, "bound_by": bounds[0][1], "library_ms": None,
+            "bmm_ms": tot["bmm_ms"], "own_over_fewest": bounds[0][2],
+            "registers": info["registers"],
+            "local_bytes": info["local_bytes"],
+            "smem_bytes": info["smem_bytes"],
+            "blocks_per_sm": info["blocks_per_sm"], "host_us": host,
+            "parts_ms": parts,
             "per": f"phi3.5-moe step, {MOE_LAYERS} layers, B={MOE_B} "
                    f"S={MOE_S} bf16"}
 

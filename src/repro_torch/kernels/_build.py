@@ -62,8 +62,9 @@ _SIGNATURES = {
                            _L, _L, _L, _L, _I, _I, _P),
     "direct_norm_kernel_info": (_IP,),
     "segmented_norm_tiles": (_I, _I),
-    "segmented_norm_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _L, _L, _P),
+    "segmented_norm_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _L, _L, _I, _I, _I, _P),
+    "segmented_norm_kernel_info": (_IP,),
     "rowsumsq_launch": (_P, _P, _I, _I, _I, _I, _L, _L, _P),
     "clip_scale_launch": (_P, _P, _P, _I, _I, _I, _I, _L, _L, _P),
     "flash_attention_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -190,17 +191,22 @@ INFO_KEYS = ("registers", "local_bytes", "smem_bytes", "threads",
              "blocks_per_sm")
 
 
+def aligned_rows(*tensors) -> bool:
+    """Every tensor's base and every stride but the last (which is 1) are
+    multiples of 16 bytes: its rows can be copied in 16-byte pieces."""
+    return all(t.data_ptr() % 16 == 0
+               and all(t.stride(d) * t.element_size() % 16 == 0
+                       for d in range(t.ndim - 1))
+               for t in tensors)
+
+
 def copy_route(*tensors) -> str:
     """How a bf16 kernel brings these inputs into shared memory: ``"tma"``
-    when every tensor's base and every stride but the last (which is 1) are
-    multiples of 16 bytes, so a tensor map can describe the rows; else
-    ``"synchronous"`` (loads and stores into the same tiles). The launchers
-    pass it to the kernels, which take no other rule."""
-    def aligned(t):
-        return (t.data_ptr() % 16 == 0
-                and all(t.stride(d) * t.element_size() % 16 == 0
-                        for d in range(t.ndim - 1)))
-    return "tma" if all(aligned(t) for t in tensors) else "synchronous"
+    when their rows are aligned (:func:`aligned_rows`), so a tensor map can
+    describe them; else ``"synchronous"`` (loads and stores into the same
+    tiles). The launchers pass it to the kernels, which take no other
+    rule."""
+    return "tma" if aligned_rows(*tensors) else "synchronous"
 
 
 def pair_inputs(h, zbar, what: str):

@@ -76,9 +76,10 @@ def segmented_flop_estimate(seg_ids: torch.Tensor, n_seg: int, p_in: int,
     """The fewest operations ||Σ_{t:seg=j} h_t z̄_tᵀ||²_F needs on this
     data: each segment of n kept rows is a (1, n, p) problem of
     :func:`flop_estimate`, and an empty one costs nothing. The segmented
-    kernel computes the direct form (``segmented_norm.flop_estimate``),
-    which at a few dozen rows per segment is far more than the gram
-    form."""
+    launcher sends each segment to the form this counts as the fewer
+    (``segmented_norm.takes_gram``); the kernels' own count
+    (``segmented_norm.flop_estimate``) is above it by the gram route's
+    padding to 64-row tiles and 64-feature chunks."""
     sizes = _sn.segment_sizes(seg_ids, n_seg).tolist()
     return float(sum(flop_estimate(1, n, p_in, p_out) for n in sizes if n))
 

@@ -419,12 +419,47 @@ def test_cuda_segmented_matches_plain(cuda_device, case, dtype):
     h, z, seg, n = _seg_case(case, getattr(torch, dtype), cuda_device)
     want = tsn.segmented_norm_ref(h, z, seg, n)
     tops.reset_launch_counts()
+    tsn.reset_route_counts()
     got = tops.segmented_norm(h, z, seg, n)
     again = tops.segmented_norm(h, z, seg, n)
     assert got.dtype == torch.float32 and got.shape == (n,)
     torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
     assert torch.equal(got, again)
     assert tops.launch_counts() == _counts(segmented_norm=2)
+    sizes = tsn.segment_sizes(seg, n).cpu().numpy()
+    gram = tsn.takes_gram(sizes, case[1], case[2])
+    assert tsn.route_segments() == {
+        "gram": 2 * int(gram.sum()),
+        "direct": 2 * int(((sizes > 0) & ~gram).sum())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_segmented_mixed_routes(cuda_device, dtype):
+    """Segments of 1, 63, 64, 65, 128 and 300 rows, empty ones and dropped
+    rows at 200 → 136 in one launch: up to 65 rows on the gram route (one
+    or three tile pairs), 128 and 300 on the direct route; each route's
+    kernel launched once, with the launcher's copy route."""
+    from repro_torch.kernels import segmented_norm as tsn
+    dt = getattr(torch, dtype)
+    sizes = [1, 0, 63, 64, 0, 65, 128, 300, 0]
+    rng = np.random.default_rng(12)
+    seg = np.concatenate([np.full(k, j) for j, k in enumerate(sizes)]
+                         + [len(sizes) + rng.integers(0, 4, size=30)])
+    seg = torch.from_numpy(rng.permutation(seg)).to(cuda_device)
+    t = seg.shape[0]
+    h, z = (torch.from_numpy(rng.normal(size=(t, p)).astype(np.float32))
+            .to(cuda_device, dt) for p in (200, 136))
+    want = tsn.segmented_norm_ref(h, z, seg, len(sizes))
+    tsn.reset_route_counts()
+    got = tops.segmented_norm(h, z, seg, len(sizes))
+    torch.testing.assert_close(got, want, rtol=1e-4 if dtype == "float32"
+                               else 5e-4, atol=0.0)
+    assert (got[torch.tensor(sizes) == 0] == 0).all()
+    assert torch.equal(got, tops.segmented_norm(h, z, seg, len(sizes)))
+    copy = "cp.async" if dtype == "bfloat16" else "fma"
+    assert tsn.route_launches == {("gram", copy): 2, ("direct", copy): 2}
+    assert tsn.route_segments() == {"gram": 8, "direct": 4}
 
 
 @pytest.mark.cuda
@@ -469,9 +504,11 @@ def test_cuda_segmented_strided_and_unaligned_rows(cuda_device):
                                want, rtol=1e-4, atol=0.0)
     hb, zb = h.to(torch.bfloat16), z.to(torch.bfloat16)
     want = tsn.segmented_norm_ref(hb[:, 1:], zb[:, 1:], seg, n)
+    tsn.reset_route_counts()
     torch.testing.assert_close(tops.segmented_norm(hb[:, 1:], zb[:, 1:], seg,
                                                    n), want, rtol=5e-4,
                                atol=0.0)
+    assert {c for _, c in tsn.route_launches} == {"synchronous"}
 
 
 @pytest.mark.cuda

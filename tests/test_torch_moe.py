@@ -200,14 +200,16 @@ def test_segmented_wrapper_rejects_other_devices():
 
 
 def test_segmented_work_estimates():
-    """The kernel's own work is the direct form over the kept rows; the
-    bytes count the kept rows of h and z̄, the ids and the output, never
-    a dropped row."""
+    """The kernels' own work follows each segment's route: 27 rows take the
+    gram route, one pair of 64-row tiles over 64-feature chunks (padding
+    included); 5,000 rows (past the crossover, 4,931) the direct form over
+    its kept rows. The bytes count the kept rows of h and z̄, the ids and
+    the output, never a dropped row."""
     pi, po = 4096, 6400
     seg = torch.tensor([0] * 27 + [2] * 5000 + [9] * 40 + [-1] * 3)
     assert tsn.segment_sizes(seg, 3).tolist() == [27, 0, 5000]
     assert tsn.flop_estimate(seg, 3, pi, po) == \
-        2.0 * (27 + 5000) * pi * po + 2 * 2.0 * pi * po
+        2.0 * 64 * 64 * (pi + po + 1) + 2.0 * 5000 * pi * po + 2.0 * pi * po
     assert tsn.bytes_estimate(seg, 3, pi, po, 2) == \
         5027 * (pi + po) * 2 + seg.numel() * 8 + 3 * 4
 
@@ -224,8 +226,9 @@ def test_segmented_least_work_takes_the_cheaper_form_per_segment():
     assert tgn_est(1, 27, pi, po) == gram < tdn_est(1, 27, pi, po)
     assert tdn_est(1, 5000, pi, po) == direct < tgn_est(1, 5000, pi, po)
     assert tops.segmented_flop_estimate(seg, 3, pi, po) == gram + direct
-    assert tops.segmented_flop_estimate(seg[:27], 3, pi, po) * 90 < \
-        tsn.flop_estimate(seg[:27], 3, pi, po)
+    # the kernels' gram route pads 27 rows to a 64-row tile: 64²/27² more
+    assert tsn.flop_estimate(seg[:27], 3, pi, po) == \
+        tops.segmented_flop_estimate(seg[:27], 3, pi, po) * 64 ** 2 / 27 ** 2
 
 
 def test_grouped_composite_parity():
