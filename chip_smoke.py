@@ -50,15 +50,17 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               counted (3 ``segmented_norm`` launches per layer in the norms
               backward, none in the reweighted one), every non-empty
               segment on the gram route, and CUDA events around every
-              segmented launch;
+              segmented launch; the segment ids of its first step are
+              saved to ``build/moe_seg_ids.pt`` for ``seg_times()``;
 9. segmented — ``segmented_norm`` against its plain version in f32 and bf16
               at the MoE path's gate/up (4096→6400) and down (6400→4096)
               shapes with the segment ids of its first step, a ragged T and
               p_out, all rows dropped, empty segments, one segment (direct
-              route) and mixed lengths (512→384, 1 to 1,500 rows on both
-              routes in one launch), each run twice for bitwise-equal
-              results, each launch's segments and kernels by route
-              asserted;
+              route), mixed lengths (512→384, 1 to 1,500 rows on both
+              routes in one launch) and wide rows (28,672→8,192), each run
+              twice for bitwise-equal results, each launch's segments and
+              kernels by route asserted; the rows of a segment share a
+              random component, so every tile pair weighs in the norm;
 10. token-exact — llama3.2-1b at full width in f32,
               ``Engine(granularity="token")``: the (B, S) norm map against
               per-token stats summed in plain f32 from a recorded plain
@@ -1012,27 +1014,61 @@ def phase_moe_exact(spec, registry, pex):
         raise AssertionError(f"phi3.5-moe summed gradients disagree: {worst}")
 
 
-def seg_inputs(t, p_in, p_out, dt, gen):
+def seg_inputs(t, p_in, p_out, dt, gen, seg, n_seg):
+    """Random (h, z̄) whose rows share a component within each segment
+    (x = a + b_seg), so that the Grams' entries off the diagonal are of
+    the order of those on it and every tile pair weighs in the norm."""
     import torch
-    return (torch.randn(t, p_in, generator=gen, device="cuda").to(dt),
-            torch.randn(t, p_out, generator=gen, device="cuda").to(dt))
+    from repro_torch.kernels import segmented_norm as sn
+    key = sn.drop_bucket(seg, n_seg)
+    return tuple((torch.randn(t, p, generator=gen, device="cuda")
+                  + torch.randn(n_seg + 1, p, generator=gen,
+                                device="cuda")[key]).to(dt)
+                 for p in (p_in, p_out))
 
 
-def phase_seg_kernels(seg_calls, errs):
+#: where phase 8 leaves the segment ids of its first step, for
+#: :func:`seg_times` (in the checkout's build directory)
+SEG_IDS = os.path.join(ROOT, "build", "moe_seg_ids.pt")
+
+
+def seg_path(seg_calls):
+    """[(T, p_in, p_out, seg_ids, n_seg)] of the MoE path's two shapes, with
+    the ids of the first launch at each in its first step; saved to
+    :data:`SEG_IDS`."""
+    import torch
+    first = {(pi, po): (seg, n_seg) for seg, n_seg, _, pi, po, _
+             in reversed(seg_calls[0])}
+    path = [(seg.shape[0], pi, po, seg, n_seg)
+            for (pi, po), (seg, n_seg) in sorted(first.items())]
+    os.makedirs(os.path.dirname(SEG_IDS), exist_ok=True)
+    torch.save([(t, pi, po, seg.cpu(), n) for t, pi, po, seg, n in path],
+               SEG_IDS)
+    return path
+
+
+def load_seg_path():
+    """The MoE path's segment ids as :func:`seg_path` saved them, on the
+    card."""
+    import torch
+    if not os.path.exists(SEG_IDS):
+        raise FileNotFoundError(f"{SEG_IDS}: run chip_smoke.py first (its "
+                                f"phase 8 saves the MoE path's segment ids)")
+    return [(t, pi, po, seg.cuda(), n)
+            for t, pi, po, seg, n in torch.load(SEG_IDS)]
+
+
+def phase_seg_kernels(path, errs):
     """``segmented_norm`` against its plain version: at the MoE path's
     gate/up and down shapes with the segment ids of its first step
-    (random inputs), and at the edge cases; each twice, for bitwise-equal
-    results. Returns the two path cases for the table."""
+    (``path``, :func:`seg_path`; random inputs), and at the edge cases;
+    each twice, for bitwise-equal results."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops
     from repro_torch.kernels import segmented_norm as sn
     from repro_torch.kernels.segmented_norm import segmented_norm_ref
 
-    first = {(pi, po): (seg, n_seg) for seg, n_seg, _, pi, po, _
-             in reversed(seg_calls[0])}
-    path = [(seg.shape[0], pi, po, seg, n_seg)
-            for (pi, po), (seg, n_seg) in sorted(first.items())]
     gen = torch.Generator(device="cuda").manual_seed(5)
 
     def ids(t, n, drop):
@@ -1058,12 +1094,16 @@ def phase_seg_kernels(seg_calls, errs):
                                  device="cuda")]
     edge.append(("mixed lengths", mixed.numel(), 512, 384, mixed,
                  len(MIXED_SIZES)))
+    # rows wider than the path's: llama3-70b's down projection (28,672 →
+    # 8,192), 24 segments of ~77 rows; the bf16 error must not grow with
+    # the width
+    edge.append(("wide rows", 2048, *WIDE, ids(2048, 24, 0.1), 24))
     cases = [(f"path {pi}->{po}", t, pi, po, seg, n)
              for t, pi, po, seg, n in path] + edge
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[str(dt)]
         for name, t, pi, po, seg, n in cases:
-            h, z = seg_inputs(t, pi, po, dt, gen)
+            h, z = seg_inputs(t, pi, po, dt, gen, seg, n)
             copy = "fma" if dt == torch.float32 else (
                 "cp.async" if _build.aligned_rows(h, z) else "synchronous")
             sn.reset_route_counts()
@@ -1105,8 +1145,8 @@ def phase_seg_kernels(seg_calls, errs):
                 f"{r:.2e} (tol {tol}); empty segments 0; bitwise equal on a "
                 f"second run; segments by route over both runs {segs}, "
                 f"kernel launches {dict(sn.route_launches)}")
-            del h, z
-    return path
+            del h, z, got, again, want
+            torch.cuda.empty_cache()
 
 
 def seg_bound_ms(calls):
@@ -1137,40 +1177,8 @@ def seg_bound_ms(calls):
 
 #: (p_in, p_out) of the MoE path's segmented launches: gate and up, down
 SEG_SHAPES = [(4096, 6400), (6400, 4096)]
-
-
-def moe_path_ids(seed=0):
-    """(seg_ids (T,), n_seg) laid out as the MoE path's segmented launches
-    lay them out, for timing the kernel alone: ``nn/moe.py``'s grouped
-    capacity dispatch of phase 8's B=MOE_B, S=MOE_S tokens over
-    phi3.5-moe's experts (16 groups, top-2 of 16, capacity 88), each token
-    routed by the top-k of normal logits from ``seed``, and
-    ``core/taps.py``'s (group, expert, example) composite ids, padding
-    slots past n_seg. Phase 8's own ids come from its router."""
-    import torch
-    from repro_torch.models import registry
-    mcfg = registry.get("phi3.5-moe").full().moe
-    ng, e, k = mcfg.dispatch_groups, mcfg.n_experts, mcfg.top_k
-    bg = MOE_B // ng
-    tg = bg * MOE_S
-    cap = mcfg.capacity(tg)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    logits = torch.randn(ng, tg, e, generator=gen, device="cuda")
-    flat_e = logits.topk(k, dim=-1).indices.reshape(ng, tg * k)
-    order = torch.argsort(flat_e, dim=1, stable=True)
-    sorted_e = torch.gather(flat_e, 1, order)
-    starts = torch.searchsorted(
-        sorted_e, torch.arange(e + 1, device="cuda").expand(ng, e + 1)
-        .contiguous())
-    rank = torch.arange(tg * k, device="cuda") \
-        - torch.gather(starts, 1, sorted_e)
-    group = torch.arange(ng, device="cuda")[:, None].expand_as(sorted_e)
-    n_seg = ng * e * bg
-    ids = torch.full((ng, e * cap), n_seg, dtype=torch.long, device="cuda")
-    keep = rank < cap
-    ids[group[keep], (sorted_e * cap + rank)[keep]] = \
-        ((group * e + sorted_e) * bg + order // k // MOE_S)[keep]
-    return ids.reshape(-1), n_seg
+#: (p_in, p_out) of phase 9's wide case
+WIDE = (28672, 8192)
 
 
 def seg_sets(t, pi, po, gen):
@@ -1185,32 +1193,33 @@ def seg_sets(t, pi, po, gen):
     return sets
 
 
-def seg_times(ids=None, reps=10):
+def seg_times(path=None, reps=10):
     """Device time of one bf16 segmented launch (ms) at the MoE path's
     gate/up (4096→6400) and down (6400→4096) shapes, with ``device_ms``
-    (card held busy, input copies past the L2), on the segment ids ``ids``
-    = (seg_ids, n_seg) (default :func:`moe_path_ids`). A call takes ~0.4 ms
-    of host time (``seg_host_us``), so ``reps`` stays small enough for the
-    host to queue them all inside ``device_ms``'s busy window. Returns
+    (card held busy, input copies past the L2), on the path's own segment
+    ids: ``path`` as :func:`seg_path` gives it, by default the ids phase 8
+    of a whole run left in :data:`SEG_IDS`. A call takes ~0.4 ms of host
+    time (``seg_host_us``), so ``reps`` stays small enough for the host to
+    queue them all inside ``device_ms``'s busy window. Returns
     ``{"segmented_norm 4096x6400": ms, ...}``. It uses only the wrapper's
-    public signature, so a copy of this file placed in an older checkout
-    times that checkout's kernel: ``python3 -c "import chip_smoke;
+    public signature, so a copy of this file placed in an older checkout,
+    with the ids file copied to that checkout's ``build/``, times that
+    checkout's kernel on the same ids: ``python3 -c "import chip_smoke;
     chip_smoke.seg_times()"``."""
     import torch
     from repro_torch.kernels import ops
 
-    seg, n = ids if ids is not None else moe_path_ids()
     gen = torch.Generator(device="cuda").manual_seed(8)
     out = {}
-    for pi, po in SEG_SHAPES:
-        sets = seg_sets(seg.numel(), pi, po, gen)
+    for t, pi, po, seg, n in path or load_seg_path():
+        sets = seg_sets(t, pi, po, gen)
         out[f"segmented_norm {pi}x{po}"] = device_ms(
             lambda x: ops.segmented_norm(x[0], x[1], seg, n), sets, reps)
         del sets
         torch.cuda.empty_cache()
-    kept = int(((seg >= 0) & (seg < n)).sum())
-    log(f"[seg-times] T={seg.numel()}, {n} segments, {kept} rows kept, "
-        f"bf16, device ms per call: {json.dumps(out)}")
+        kept = int(((seg >= 0) & (seg < n)).sum())
+    log(f"[seg-times] the MoE path's ids: T={t}, {n} segments, {kept} rows "
+        f"kept, bf16, device ms per call: {json.dumps(out)}")
     return out
 
 
@@ -1223,9 +1232,10 @@ def seg_host_us(ids, reps=20):
     it spent in ``csr`` (the sort and offsets), ``plan``
     (``segmented_norm.plan``) and ``ctypes_launch`` (the C call with its
     launches), timed inside the same number of launcher calls; ``python``
-    is the rest (checks, scratch, route counts). Fails if the calls took
-    half the ~0.2 s the card was held busy: a launcher that waited for the
-    card (a host sync on the launch path) would take all of it."""
+    is the rest of those timed calls (checks, scratch, route counts).
+    Fails if the calls took half the ~0.2 s the card was held busy: a
+    launcher that waited for the card (a host sync on the launch path)
+    would take all of it."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import segmented_norm as sn
@@ -1273,11 +1283,11 @@ def seg_host_us(ids, reps=20):
     sn.csr, sn.plan = timed("csr", sn.csr), timed("plan", sn.plan)
     _build.load = Spy
     try:
-        host_us()
+        spied = host_us()
     finally:
         sn.csr, sn.plan, _build.load = real
     out.update({k: v / reps * 1e6 for k, v in spent.items()})
-    out["python"] = out["total"] - sum(out[k] for k in spent)
+    out["python"] = spied - sum(out[k] for k in spent)
     log(f"[seg-host] host µs per call, card held busy, T={seg.numel()} "
         f"{pi}->{po} bf16: {json.dumps(out)}; no call waited for the card")
     return out
@@ -1397,7 +1407,6 @@ def seg_table(path, errs, run):
     bound = sum(b for b, _, _ in bounds) / len(bounds)
     host = seg_host_us(path[0][3:])
     parts = seg_parts(path[0][3:])
-    alone = seg_times()
     log(f"[table] segmented_norm: per step {tot['ms']:.3f} ms by shape on "
         f"the device [{tot['ev_ms']:.3f}], {path_ms:.3f} ms on the MoE path "
         f"(events); bound {bound:.4f} ms per step from its launches' "
@@ -1406,7 +1415,7 @@ def seg_table(path, errs, run):
         f"operations; gram body {info['registers']} registers, "
         f"{info['local_bytes']} B local, {info['smem_bytes']} B shared "
         f"memory, {info['threads']} threads, {info['blocks_per_sm']} blocks "
-        f"per SM; alone on moe_path_ids() {json.dumps(alone)}")
+        f"per SM")
     return {"name": "segmented_norm", "route": "cuda",
             "source": SOURCES["segmented_norm"][0],
             "replaces": SOURCES["segmented_norm"][1],
@@ -2432,7 +2441,8 @@ def main() -> int:
         f" attention core fwd+bwd ms per steady step "
         f"{[round(a + b, 3) for a, b in moe_run['attn_ms'][1:]]}; peak "
         f"memory {moe_run['peak_gib']:.2f} GiB")
-    path = phase_seg_kernels(moe_run["seg_calls"], errs)
+    path = seg_path(moe_run["seg_calls"])
+    phase_seg_kernels(path, errs)
     torch.cuda.empty_cache()
     phase_token_exact(spec, registry, pex)
     torch.cuda.empty_cache()

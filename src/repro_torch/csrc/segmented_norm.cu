@@ -47,7 +47,13 @@
 // diagonal pair loads its tile once. G_H and G_Z of one warpgroup have the
 // same fragment layout, so the fold sum(G_H .* G_Z) is an elementwise
 // product of the two accumulators (32 f32 a thread each), then a block
-// sum: no partial Gram leaves the registers. Rows come through the sort's
+// sum: no partial Gram leaves the registers. Each Gram is summed in chains
+// of kChain chunks, each chain's sum added in f32: the tensor cores'
+// accumulator loses precision with a chain's length, so one chain over the
+// whole of P_in or P_out would have an error that grows with the width.
+// G_H is the sum of its chains; each chain of G_Z is folded against G_H as
+// it completes (the fold is linear in G_Z), so the chains cost no
+// registers beyond the two accumulators. Rows come through the sort's
 // permutation, which no tensor map describes (and TMA has no gather): each
 // thread copies its 16-byte pieces of 4 rows of each tile with cp.async,
 // straight to their swizzled addresses, zero-filled past a segment's end
@@ -313,6 +319,8 @@ constexpr int kChunk = 64;         // features of a chunk: one swizzled row
 constexpr int kSlots = 6;          // the ring, in tile slots: kSlots chunks
                                    // of a diagonal pair's one tile ahead,
                                    // kSlots / 2 of another pair's two
+constexpr int kChain = 4;          // chunks a tensor-core chain sums
+                                   // before its sum is added in f32
 constexpr int kGramThreads = 128;  // one warpgroup
 constexpr int kGramBlocks = 4;     // resident blocks per SM
 constexpr int kTileElems = kSegRows * kChunk;  // bf16 of a tile's chunk
@@ -411,9 +419,9 @@ struct GramItem {
     cp_async_commit();
   }
 
-  // Chunks [g0, g1) into acc (64 x 64, this warpgroup's fragment): each
-  // waits for its chunk, refills the stage of the chunk before it, and
-  // runs its four k16 products to completion.
+  // acc = the products of chunks [g0, g1) (64 x 64, this warpgroup's
+  // fragment; one chain): each waits for its chunk, refills the stage of
+  // the chunk before it, and runs its four k16 products to completion.
   __device__ __forceinline__ void chunks(float (&acc)[32], int g0,
                                          int g1) const {
     for (int g = g0; g < g1; ++g) {
@@ -435,18 +443,26 @@ struct GramItem {
     pin<32>(acc);
   }
 
-  // This thread's share of sum(G_H .* G_Z).
+  // This thread's share of sum(G_H .* G_Z): G_H as the f32 sum of its
+  // chains, then each chain of G_Z folded against it as it completes
+  // (the fold is linear in G_Z, so no third accumulator is needed).
   __device__ __forceinline__ float fold() const {
 #pragma unroll
     for (int s = 0; s < kDepth - 1; ++s) load(s);
-    float gh[32], gz[32];
+    float gh[32], acc[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) gh[i] = gz[i] = 0.f;
-    chunks(gh, 0, c_h);
-    chunks(gz, c_h, n_chunks);
+    for (int i = 0; i < 32; ++i) gh[i] = 0.f;
+    for (int g = 0; g < c_h; g += kChain) {
+      chunks(acc, g, min(g + kChain, c_h));
+#pragma unroll
+      for (int i = 0; i < 32; ++i) gh[i] += acc[i];
+    }
     float v = 0.f;
+    for (int g = c_h; g < n_chunks; g += kChain) {
+      chunks(acc, g, min(g + kChain, n_chunks));
 #pragma unroll
-    for (int i = 0; i < 32; ++i) v = fmaf(gh[i], gz[i], v);
+      for (int i = 0; i < 32; ++i) v = fmaf(gh[i], acc[i], v);
+    }
     return v;
   }
 };

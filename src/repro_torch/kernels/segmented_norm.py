@@ -36,7 +36,9 @@ operations, and the kernels compute it:
   the items; each computes the two 64 × 64 Grams of its pair on ``wgmma``
   over 64-feature chunks copied by ``cp.async`` through the permutation
   into a ring of swizzled stages, folds Σ G_H ⊙ G_Z in registers and
-  writes one partial. f32 inputs take the same items on the FMA pipes.
+  writes one partial. Each Gram is summed in chains of :data:`CHAIN`
+  chunks whose sums are added in f32, so its error does not grow with the
+  width. f32 inputs take the same items on the FMA pipes.
 - The direct route: one block per (128-wide p_in tile, 128-wide p_out
   tile) walks the direct list and keeps its tile of G_j in registers
   (bf16 on ``mma.sync``, f32 on the FMA pipes).
@@ -72,6 +74,10 @@ _I32 = torch.int32
 TILE_ROWS = _gn.BOUND_TILE_S
 #: features of a chunk of the bf16 gram body (``kChunk``)
 CHUNK = 64
+#: chunks a tensor-core chain of the bf16 gram body sums before its sum is
+#: added in f32 (``kChain``): the error stays that of 256 features however
+#: wide the rows
+CHAIN = 4
 #: p_in and p_out columns of G per direct-route block (``kTile``)
 DIRECT_TILE = 128
 #: int32 columns of a work item (``kItemCols``): segment, ti, tj, weight
@@ -293,10 +299,12 @@ def bytes_estimate(seg_ids: torch.Tensor, n_seg: int, p_in: int, p_out: int,
 #: ("cp.async" or "synchronous" for bf16, "fma" for f32): {("gram" or
 #: "direct", copy): launches}
 route_launches = collections.Counter()
-#: per device, the segments that took the gram and the direct route over
-#: the launches since :func:`reset_route_counts`, accumulated on the device
-#: (read by :func:`route_segments`, which waits for it)
-_segments = {}
+#: per device, the (2,) counts of gram and direct segments of each launch
+#: since :func:`reset_route_counts`: views of its plan's ``ends``, left on
+#: the device, so a launch adds no device op for them; every FOLD_ROUTES
+#: launches a device's list is summed into one entry on the device
+_segments = collections.defaultdict(list)
+FOLD_ROUTES = 256
 
 
 def reset_route_counts() -> None:
@@ -306,9 +314,9 @@ def reset_route_counts() -> None:
 
 def route_segments() -> dict:
     """{"gram": segments, "direct": segments} over the launches since
-    :func:`reset_route_counts`."""
-    total = sum((c.cpu() for c in _segments.values()),
-                torch.zeros(2, dtype=torch.int64))
+    :func:`reset_route_counts` (waits for them)."""
+    total = sum((c.long().cpu() for counts in _segments.values()
+                 for c in counts), torch.zeros(2, dtype=torch.int64))
     return {"gram": int(total[0]), "direct": int(total[1])}
 
 
@@ -384,7 +392,8 @@ def segmented_norm(h: torch.Tensor, zbar: torch.Tensor,
         route_launches["gram", copy] += 1
     if lim.directs:
         route_launches["direct", copy] += 1
-    counts = _segments.setdefault(
-        dev, torch.zeros(2, dtype=torch.int64, device=dev))
-    counts += p.ends[1:, -1]
+    counts = _segments[dev]
+    counts.append(p.ends[1:, -1])
+    if len(counts) >= FOLD_ROUTES:
+        counts[:] = [torch.stack([c.long() for c in counts]).sum(0)]
     return out

@@ -28,9 +28,9 @@ from repro_torch.kernels import segmented_norm as tsn
 RTOL = 1e-5
 
 # (p_in, p_out): the MoE path's gate/up and down, chip_smoke's edge-case
-# widths, and the narrow and ragged widths of the cases below
-WIDTHS = [(4096, 6400), (6400, 4096), (512, 384), (200, 136), (24, 40),
-          (520, 700), (3, 5)]
+# and wide widths, and the narrow and ragged widths of the cases below
+WIDTHS = [(4096, 6400), (6400, 4096), (512, 384), (28672, 8192), (200, 136),
+          (24, 40), (520, 700), (3, 5)]
 
 
 def _crossover(p_in, p_out):
@@ -69,12 +69,15 @@ def test_routes_at_the_paths_shapes():
     """Every MoE-path segment (at most a capacity slice of 88 rows) takes
     the gram route at gate/up and at down; chip_smoke's one segment of
     3,000 rows at 512 → 384 takes the direct route; its mixed case (512 →
-    384, 1 to ~1,500 rows) has sizes on both sides."""
+    384, 1 to ~1,500 rows) has sizes on both sides; its wide case (28,672
+    → 8,192) sends every segment to gram."""
     for p_in, p_out in ((4096, 6400), (6400, 4096)):
         assert all(tsn.takes_gram(n, p_in, p_out) for n in range(1, 89))
         assert _crossover(p_in, p_out) == 4932
     assert not tsn.takes_gram(3000, 512, 384)
     assert _crossover(512, 384) == 377
+    # chip_smoke's wide case: ~77 rows a segment, all on gram
+    assert all(tsn.takes_gram(n, 28672, 8192) for n in range(1, 300))
 
 
 @pytest.mark.parametrize("widths", WIDTHS)
@@ -147,8 +150,9 @@ def _check_plan(seg, n_seg, p_in, p_out):
 
 # (p_in, p_out, segment sizes, dropped rows, both routes): ragged widths
 # with segments of 1, 63, 64, 65, 128 and 300 rows and empty ones between
-# them (gram up to 107 rows there); wider rows where 300 rows take gram over
-# 15 tile pairs and 700 take direct; narrow rows whose crossover is 16
+# them (gram up to 107 rows there); wider rows, three chains of the bf16
+# body's each, where 300 rows take gram over 15 tile pairs and 700 take
+# direct; narrow rows whose crossover is 16
 # rows; and no drops with every segment on gram
 PLAN_CASES = [(200, 136, [1, 0, 63, 64, 0, 65, 128, 300, 0], 40, True),
               (520, 700, [300, 129, 2, 0, 700], 25, True),
@@ -197,21 +201,31 @@ def _tile_rows(x, order, r0, r1, tile):
     return torch.where((pos < r1)[:, None], rows, torch.zeros_like(rows))
 
 
+def _chains(a, b):
+    """The products a bᵀ of each chain of the bf16 gram body: CHAIN chunks
+    of CHUNK features, the last one ragged."""
+    step = tsn.CHAIN * tsn.CHUNK
+    return [a[:, c:c + step] @ b[:, c:c + step].T
+            for c in range(0, a.shape[1], step)]
+
+
 def plan_model(h, z, order, offsets, p):
-    """In f32: each item's weight × Σ (X_ti X_tjᵀ) ⊙ (Z̄_ti Z̄_tjᵀ); each
-    listed direct segment's ||H_jᵀZ̄_j||² summed over 128 × 128 tiles of G
-    in tile order; then each segment's item partials in item order, or its
-    direct partials, or 0."""
+    """In f32: each item's weight × Σ (X_ti X_tjᵀ) ⊙ (Z̄_ti Z̄_tjᵀ), as the
+    bf16 gram body sums it: G_H the sum of its chains, each chain of G_Z
+    folded against G_H in turn; each listed direct segment's ||H_jᵀZ̄_j||²
+    summed over 128 × 128 tiles of G in tile order; then each segment's
+    item partials in item order, or its direct partials, or 0."""
     h, z = h.float(), z.float()
     off = offsets.tolist()
     partial = []
     for seg, ti, tj, w in p.items[:int(p.n_items)].tolist():
         r0, r1 = off[seg], off[seg + 1]
-        gh = (_tile_rows(h, order, r0, r1, ti)
-              @ _tile_rows(h, order, r0, r1, tj).T)
-        gz = (_tile_rows(z, order, r0, r1, ti)
-              @ _tile_rows(z, order, r0, r1, tj).T)
-        partial.append(w * torch.sum(gh * gz))
+        gh = sum(_chains(_tile_rows(h, order, r0, r1, ti),
+                         _tile_rows(h, order, r0, r1, tj)))
+        gz = _chains(_tile_rows(z, order, r0, r1, ti),
+                     _tile_rows(z, order, r0, r1, tj))
+        fold = sum(torch.sum(gh * c) for c in gz)
+        partial.append(w * fold)
     direct = []
     for seg in p.direct[:int(p.n_direct)].tolist():
         rows = order[off[seg]:off[seg + 1]].long()
@@ -267,10 +281,11 @@ def _constant(name):
 
 
 def test_constants_match_the_source():
-    """The plan's tile, chunk, item and running-count layout and the
-    persistent grid's blocks per SM are the kernels'."""
+    """The plan's tile, chunk, chain, item and running-count layout and
+    the persistent grid's blocks per SM are the kernels'."""
     assert _constant("kSegRows") == tsn.TILE_ROWS
     assert _constant("kChunk") == tsn.CHUNK
+    assert _constant("kChain") == tsn.CHAIN
     assert _constant("kTile") == tsn.DIRECT_TILE
     assert _constant("kItemCols") == tsn.ITEM_COLS
     assert _constant("kEndRows") == tsn.END_ROWS
