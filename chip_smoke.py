@@ -95,10 +95,10 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               a yardstick of the tensor cores' rate, the direct form's own
               operation floor at the head, each bf16 body's registers,
               local memory, shared memory and blocks per SM, and each
-              launcher's host µs a call, ``norm_host_us``), the gram
-              kernel at the direct kernel's shapes (the LM head's, where
-              the forced direct route is not the cheaper one, and wk/wv's)
-              and its full grid at its own, the segmented kernel at the
+              launcher's host µs a call, ``norm_host_us``), each of
+              the two kernels at the other's shapes (the route the pick
+              did not take: direct at the LM head's, gram at wk/wv's) and
+              gram's full grid at its own, the segmented kernel at the
               MoE path's two shapes with its ids (``device_ms`` by shape
               times launches, the path's events beside it, a cuBLAS
               ``bmm`` of each segment's Grams padded to the longest
@@ -114,7 +114,21 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               call, ``flash_host_us``), and
               ``rowsumsq`` and ``clip_scale`` beside
               ``torch.linalg.vector_norm`` and ``torch.mul`` (each library
-              call timed as a yardstick only; the port never calls it).
+              call timed as a yardstick only; the port never calls it);
+16. dispatch — at each main-path shape and the LM head's, the priced cost
+              of both routes (``core.norms.dense_cost(use_kernels=True)``),
+              both kernels' measured times (``norm_times()``) and the
+              pick, which must be the faster kernel wherever the two
+              times differ by more than ``PICK_MARGIN`` (20%);
+17. train   — the port's ``Trainer`` (``repro_torch.train``) on
+              llama3.2-1b at full width in bf16 with ``SyntheticLM``
+              batches (B=8, S=512): 4 steps of ``consumers_for_mode("clip",
+              8, noise_std=0.1)`` under AdamW with a warm-up cosine
+              schedule, then 2 of ``consumers_for_mode("importance", 8)``
+              (k = 2): each step's norms pass launches gram and direct by
+              the priced pick on 8 examples, its gradient pass none (on 8
+              examples, or on the 2 sampled ones), every launch on the TMA
+              route; the trainer's metric lines, step ms and peak memory.
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -138,6 +152,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -267,15 +282,14 @@ def with_flash(cfg):
 
 def main_path_launches(cfg, s):
     """{kernel: {(p_in, p_out): launches per step}} from the port's own
-    dispatch: each block's dense layers by ``pick_method``, the head
-    forced to direct (``nn/embedding.lm_head``)."""
+    dispatch: each block's dense layers and the LM head by the priced pick
+    (``pick_method(..., use_kernels=True)``)."""
     from repro_torch.core.norms import pick_method
     out = {"gram_norm": {}, "direct_norm": {}}
-    for pi, po in layer_shapes(cfg):
-        k = pick_method(s, pi, po) + "_norm"
-        out[k][(pi, po)] = out[k].get((pi, po), 0) + cfg.n_layers
-    head = (cfg.d_model, cfg.vocab)
-    out["direct_norm"][head] = out["direct_norm"].get(head, 0) + 1
+    shapes = [(sh, cfg.n_layers) for sh in layer_shapes(cfg)]
+    for (pi, po), n in shapes + [((cfg.d_model, cfg.vocab), 1)]:
+        k = pick_method(s, pi, po, use_kernels=True) + "_norm"
+        out[k][(pi, po)] = out[k].get((pi, po), 0) + n
     return out
 
 
@@ -1507,17 +1521,18 @@ def phase_table(expected, errs, launches, kern_ms):
                 f" bound {bound:.4f} ms ({by}: {flops:.3g} flops, "
                 f"{nbytes:.3g} B), {bound / ms:.1%} of bound; cuBLAS bmm of "
                 f"the same products {lib_ms:.4f} ms (yardstick only)")
-            if name == "direct_norm":
+            other = "gram_norm" if name == "direct_norm" else "direct_norm"
+            o_ms = device_ms(lambda x: kern[other][0](*x), sets, 2 * reps)
+            log(f"[table] {other} at the same shape (the route the main "
+                f"path does not take here): {o_ms:.4f} ms, "
+                f"{bound / o_ms:.1%} of bound")
+            if head:
                 own = dn.flop_estimate(B, S, pi, po)
                 log(f"[table] direct_norm's own form at this shape: "
                     f"{own:.3g} flops, {own / PEAK_FLOPS[str(dt)] * 1e3:.4f} "
                     f"ms at the bf16 peak (its floor), against the "
                     f"function's bound {bound:.4f} ms")
-                g_ms = device_ms(lambda x: ops.gram_norm(*x), sets, 2 * reps)
-                log(f"[table] gram_norm at the same shape (the route the "
-                    f"main path does not take here): {g_ms:.4f} ms, "
-                    f"{bound / g_ms:.1%} of bound")
-            else:
+            if name == "gram_norm":
                 f_ms = device_ms(
                     lambda x: ops.gram_norm(*x, triangular=False), sets,
                     2 * reps)
@@ -1565,15 +1580,15 @@ def phase_table(expected, errs, launches, kern_ms):
     return rows
 
 
-NORM_SHAPES = {"gram_norm": [(2048, 2048), (2048, 8192), (8192, 2048),
-                             (2048, 128256)],
-               "direct_norm": [(2048, 512), (2048, 128256)]}
+#: (p_in, p_out) of every tapped dense layer of a llama3.2-1b block and of
+#: its LM head: wk/wv, wq/wo, w1/w3, w2, head
+NORM_SHAPES = [(2048, 512), (2048, 2048), (2048, 8192), (8192, 2048),
+               (2048, 128256)]
 
 
 def norm_times(reps=20):
-    """Device time of one call (ms) of the bf16 gram and direct kernels at
-    the main path's shapes (B=8, S=512: gram at wq/wo, w1/w3 and w2,
-    direct at wk/wv and the LM head) and of gram at the head's shape, with
+    """Device time of one call (ms) of the bf16 gram and direct kernels,
+    each at every main-path shape and the LM head's (B=8, S=512), with
     ``device_ms`` (card held busy, input copies past the L2). Returns
     ``{"gram_norm 2048x2048": ms, ...}``. It uses only the wrappers' public
     signatures, so a copy of this file placed in an older checkout times
@@ -1585,17 +1600,175 @@ def norm_times(reps=20):
     gen = torch.Generator(device="cuda").manual_seed(8)
     fns = {"gram_norm": ops.gram_norm, "direct_norm": ops.direct_norm}
     out = {}
-    for name, shapes in NORM_SHAPES.items():
-        for pi, po in shapes:
-            sets = norm_sets(pi, po, gen)
-            n = max(2, reps // 10) if po > 10 * pi else reps
-            out[f"{name} {pi}x{po}"] = device_ms(
-                lambda x: fns[name](*x), sets, n)
-            del sets
-            torch.cuda.empty_cache()
+    for pi, po in NORM_SHAPES:
+        sets = norm_sets(pi, po, gen)
+        n = max(2, reps // 10) if po > 10 * pi else reps
+        for name, fn in fns.items():
+            out[f"{name} {pi}x{po}"] = device_ms(lambda x: fn(*x), sets, n)
+        del sets
+        torch.cuda.empty_cache()
     log(f"[norm-times] B={B} S={S} bf16, device ms per call: "
         f"{json.dumps(out)}")
     return out
+
+
+#: the dispatch phase's margin: where one kernel's measured time exceeds the
+#: other's by more than this, the priced pick must be the faster one
+PICK_MARGIN = 0.2
+
+
+def phase_dispatch(cfg):
+    """At each main-path shape and the LM head's (B=8, S=512): the priced
+    cost of both routes (``core.norms.dense_cost(use_kernels=True)``, ms a
+    launch), both kernels' measured times (``norm_times()``) and the
+    pick. The pick must be the faster kernel wherever the two times differ
+    by more than ``PICK_MARGIN``."""
+    from repro_torch.core.norms import dense_cost, pick_method
+
+    shapes = sorted(set(layer_shapes(cfg)) | {(cfg.d_model, cfg.vocab)})
+    if not set(shapes) <= set(NORM_SHAPES):
+        raise AssertionError(f"main-path shapes {shapes} not all timed by "
+                             f"norm_times ({NORM_SHAPES})")
+    times = norm_times()
+    out = {}
+    for pi, po in shapes:
+        price = {k: dense_cost(k, S, pi, po, use_kernels=True) * B * 1e3
+                 for k in ("gram", "direct")}
+        ms = {k: times[f"{k}_norm {pi}x{po}"] for k in price}
+        pick = pick_method(S, pi, po, use_kernels=True)
+        faster = min(ms, key=ms.get)
+        ratio = max(ms.values()) / min(ms.values())
+        out[f"{pi}x{po}"] = {"priced_ms": price, "measured_ms": ms,
+                             "pick": pick}
+        log(f"[dispatch] {pi}->{po}{' (LM head)' if po == cfg.vocab else ''}"
+            f": priced gram {price['gram']:.4f} ms, direct "
+            f"{price['direct']:.4f} ms a launch; measured gram "
+            f"{ms['gram']:.4f} ms, direct {ms['direct']:.4f} ms; pick "
+            f"{pick}; faster {faster} by {ratio:.2f}x")
+        if ratio > 1 + PICK_MARGIN and pick != faster:
+            raise AssertionError(f"the priced pick at {pi}->{po} is {pick}, "
+                                 f"but {faster} is faster by {ratio:.2f}x")
+    return out
+
+
+TRAIN_CLIP_STEPS, TRAIN_IMPORTANCE_STEPS = 4, 2
+
+
+def phase_train(spec, registry, cfg):
+    """The port's ``Trainer`` on llama3.2-1b at full width in bf16 with
+    ``SyntheticLM`` batches (B=8, S=512): ``TRAIN_CLIP_STEPS`` steps of
+    ``consumers_for_mode("clip", 8, noise_std=0.1)`` under AdamW with a
+    warm-up cosine schedule, then ``TRAIN_IMPORTANCE_STEPS`` of
+    ``consumers_for_mode("importance", 8)`` (k = 2) on the same
+    parameters. Each backward pass's launches are counted: in a clip step
+    the norms pass launches gram and direct by the priced pick and the
+    reweighted pass none; in an importance step the norm kernels run on the
+    8-example pool only and the gradient pass sees 2 examples. Every bf16
+    gram and direct launch takes the TMA route."""
+    import torch
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.taps import PexSpec
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import direct_norm as dn
+    from repro_torch.kernels import gram_norm as gn
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import linear_warmup_cosine
+    from repro_torch.train.trainer import (TrainConfig, Trainer,
+                                           consumers_for_mode)
+
+    steps = TRAIN_CLIP_STEPS + TRAIN_IMPORTANCE_STEPS
+    norms_want = {k: sum(v.values())
+                  for k, v in main_path_launches(cfg, S).items()
+                  if v}
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    loss_fn = registry.make_loss_fn_v2(spec, cfg)
+    passes = []     # per backward: (loss rows, launches, norm-launch rows)
+    rows = []       # examples of each norm-kernel launch
+    orig_grad = plan_mod._grad
+    orig = {"gram_norm": gn.gram_norm, "direct_norm": dn.direct_norm}
+
+    def counted_grad(out, inputs, seed, **kw):
+        before, first = ops.launch_counts(), len(rows)
+        gs = orig_grad(out, inputs, seed, **kw)
+        after = ops.launch_counts()
+        passes.append((out.shape[0], {k: after[k] - before[k] for k in after
+                                      if after[k] != before[k]},
+                       set(rows[first:])))
+        return gs
+
+    def rows_of(name):
+        def wrapper(h, z, *a, **kw):
+            rows.append(h.shape[0])
+            return orig[name](h, z, *a, **kw)
+        return wrapper
+
+    log(f"[train] {cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, "
+        f"SyntheticLM(vocab={cfg.vocab}, seq={S}, global_batch={B}): "
+        f"{TRAIN_CLIP_STEPS} clip+noise steps, then "
+        f"{TRAIN_IMPORTANCE_STEPS} importance steps (k={B // 4}); norms "
+        f"pass launches by the priced pick {norms_want}")
+    plan_mod._grad = counted_grad
+    gn.gram_norm, dn.direct_norm = rows_of("gram_norm"), rows_of("direct_norm")
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    try:
+        ops.reset_launch_counts()
+        gn.route_launches.clear()
+        dn.route_launches.clear()
+        for mode, n, seed in (("clip", TRAIN_CLIP_STEPS, 0),
+                              ("importance", TRAIN_IMPORTANCE_STEPS, 1)):
+            passes.clear()
+            t = Trainer(loss_fn, params, PexSpec(),
+                        adamw.AdamWConfig(
+                            schedule=linear_warmup_cosine(2, steps)),
+                        TrainConfig(consumers=consumers_for_mode(
+                            mode, B, noise_std=0.1), steps=n, log_every=1,
+                            seed=seed),
+                        DataConfig(vocab=cfg.vocab, seq=S, global_batch=B,
+                                   seed=seed))
+            ms = t.train()
+            params = t.params
+            del t
+            k = B if mode == "clip" else B // 4
+            for i, m in enumerate(ms):
+                metrics.append(dict(m, mode=mode))
+                (n_norms, norms, r_norms), (n_grads, grads, r_grads) = \
+                    passes[2 * i:2 * i + 2]
+                log(f"[train] {mode} step {i}: {m['time_s'] * 1e3:.1f} ms; "
+                    f"norms pass on {n_norms} examples launched {norms}; "
+                    f"gradient pass on {n_grads} examples launched "
+                    f"{grads or 'nothing'}")
+                if not all(math.isfinite(m[key]) for key in
+                           ("loss", "norm_mean", "norm_max")):
+                    raise AssertionError(f"train {mode} step {i}: {m}")
+                if norms != norms_want or r_norms != {B} or n_norms != B \
+                        or grads or r_grads or n_grads != k:
+                    raise AssertionError(
+                        f"train {mode} step {i}: norms pass on {n_norms} "
+                        f"examples launched {norms} on {r_norms} (want "
+                        f"{norms_want} on {B}); gradient pass on {n_grads} "
+                        f"examples launched {grads} (want none on {k})")
+            if len(passes) != 2 * n:
+                raise AssertionError(f"train {mode}: {len(passes)} backward "
+                                     f"passes over {n} steps")
+        launches = ops.launch_counts()
+    finally:
+        plan_mod._grad = orig_grad
+        gn.gram_norm, dn.direct_norm = orig["gram_norm"], orig["direct_norm"]
+    routes = {**gn.route_launches, **dn.route_launches}
+    want_routes = {(k[:-5], "tma"): steps * n for k, n in norms_want.items()}
+    if routes != want_routes:
+        raise AssertionError(f"train: norm routes {routes}, expected "
+                             f"{want_routes}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] launches over {steps} steps: "
+        f"{ {k: v for k, v in launches.items() if v} }; gram/direct copy "
+        f"routes {routes}; peak memory {peak:.2f} GiB (since the phase "
+        f"began)")
+    return {"metrics": metrics, "launches": launches, "peak_gib": peak,
+            "step_ms": [m["time_s"] * 1e3 for m in metrics]}
 
 
 def norm_host_us(reps=200):
@@ -2470,11 +2643,21 @@ def main() -> int:
     rows.append(seg_table(path, errs, moe_run))
     rows += flash_table(errs, flash_run["launches"], flash_run["kern_ms"])
     rows += row_table(errs, token_run, onepass)
+    torch.cuda.empty_cache()
+    phase_dispatch(cfg)
+    torch.cuda.empty_cache()
+    train_run = phase_train(spec, registry, cfg)
+    torch.cuda.empty_cache()
+    log(f"[compare] train: step ms {train_run['step_ms']} (clip steps "
+        f"{TRAIN_CLIP_STEPS}, then importance); main path steady step ms "
+        f"{main_run['step_ms'][1:]}; peak memory {train_run['peak_gib']:.2f} "
+        f"GiB (main {main_run['peak_gib']:.2f})")
     log(f"[table] kernels: {', '.join(r['name'] for r in rows)}; main step "
         f"ms {main_run['step_ms']}; flash step ms {flash_run['step_ms']}; "
         f"moe step ms {moe_run['step_ms']}; token step ms "
         f"{token_run['step_ms']}; moe-token step ms "
-        f"{moe_token_run['step_ms']}; whole run "
+        f"{moe_token_run['step_ms']}; train step ms "
+        f"{train_run['step_ms']}; whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -103,8 +103,9 @@ class Engine:
              seq: Optional[int] = None) -> StepResult:
         """Run a consumer list as one fused pass. ``consumers`` is any
         subset of ``{Norms(), Grads(), Clip(C, granularity=...),
-        Noise(σ, gen), GNS()}``; ``loss_weights`` is an optional (B,) user
-        weight vector folded into the same reweighted backward. With
+        Noise(σ, gen), Importance(k, rng=gen), GNS()}``; ``loss_weights``
+        is an optional (B,) user weight vector folded into the same
+        reweighted backward (with ``Importance``, its sampled rows). With
         ``consumers=()`` the program is the plain forward. ``seq`` is the
         token map's length at token granularity (default: the batch's
         sequence axis)."""

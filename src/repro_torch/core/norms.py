@@ -13,11 +13,20 @@ Methods: ``factorized`` (paper §4, exact only for (B, p)), ``gram``
 (Σ_{t,t'} (H_jH_jᵀ)_{tt'} (Z̄_jZ̄_jᵀ)_{tt'}), ``direct`` (||H_jᵀZ̄_j||_F²)
 and ``auto``, the cost-model pick between gram and direct.
 
-Dispatch uses the **logical** flop model of the reference (gram
-2·S²·(p_in+p_out) + S², direct 2·S·p_in·p_out + 2·p_in·p_out) for both
-routes. The reference's Pallas-side prices (``ops.gram_cost`` /
-``direct_cost``) priced 128-lane TPU tiles and are not carried over; a
-Hopper-priced model follows once the kernels are measured.
+Cost model (``dense_cost``), one price list per route, as in the
+reference:
+
+* ``use_kernels=False``: the **logical** flop model (gram
+  2·S²·(p_in+p_out) + S², direct 2·S·p_in·p_out + 2·p_in·p_out), the
+  reference's ``use_pallas=False`` side;
+* ``use_kernels=True``: the Hopper kernels' device time per example
+  (``kernels.ops.gram_cost`` / ``direct_cost``: the work each body does at
+  its own tiles over the rate it reaches on the H100, or its bytes over
+  the HBM rate). The reference priced its Pallas kernels at padded TPU
+  tiles; the port derives its prices from its own kernels.
+
+``stat_dense(method="auto")`` picks with the price list of the route it
+runs.
 
 The segmented estimator (``stat_direct_segmented``, the MoE expert taps'
 stat) has two routes: ``method="xla"``, the reference's scan/segment-sum
@@ -86,11 +95,44 @@ def direct_flops(s: int, p_in: int, p_out: int) -> float:
     return 2.0 * s * p_in * p_out + 2.0 * p_in * p_out
 
 
-def pick_method(s: int, p_in: int, p_out: int) -> str:
-    """Cost-model choice between gram and direct (both exact), on the
-    logical flop model."""
-    return "gram" if gram_flops(s, p_in, p_out) <= \
-        direct_flops(s, p_in, p_out) else "direct"
+def dense_cost(method: str, s: int, p_in: int, p_out: int, *,
+               use_kernels: bool = False) -> float:
+    """Per-example cost of one dense-layer stat on one route: logical flops
+    without ``use_kernels``, the kernel's device seconds on the H100 with
+    it (``kernels.ops.gram_cost`` / ``direct_cost``)."""
+    if method == "gram":
+        return kops.gram_cost(s, p_in, p_out) if use_kernels \
+            else gram_flops(s, p_in, p_out)
+    if method == "direct":
+        return kops.direct_cost(s, p_in, p_out) if use_kernels \
+            else direct_flops(s, p_in, p_out)
+    raise ValueError(f"unknown method {method!r}")
+
+
+def pick_method(s: int, p_in: int, p_out: int,
+                use_kernels: bool = False) -> str:
+    """Cost-model choice between gram and direct (both exact) for the
+    route that will run the stat."""
+    g = dense_cost("gram", s, p_in, p_out, use_kernels=use_kernels)
+    d = dense_cost("direct", s, p_in, p_out, use_kernels=use_kernels)
+    return "gram" if g <= d else "direct"
+
+
+def crossover_s(p_in: int, p_out: int, *, use_kernels: bool = False,
+                s_max: int = 1 << 16) -> int:
+    """Smallest sequence length at which ``direct`` beats ``gram`` under
+    the route's cost model (binary search; gram grows ~s² and direct ~s),
+    or ``s_max`` when gram wins there."""
+    if pick_method(s_max, p_in, p_out, use_kernels) == "gram":
+        return s_max
+    lo, hi = 1, s_max
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if pick_method(mid, p_in, p_out, use_kernels) == "direct":
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
 
 
 def stat_dense(h: torch.Tensor, zbar: torch.Tensor, method: Method = "auto",
@@ -99,12 +141,14 @@ def stat_dense(h: torch.Tensor, zbar: torch.Tensor, method: Method = "auto",
 
     With ``use_kernels`` the gram and direct routes go through
     ``kernels.ops`` (the CUDA kernels for CUDA tensors, their plain
-    versions for CPU tensors); without it they run the plain estimators
-    above on any device."""
+    versions for CPU tensors) and ``method="auto"`` picks by the kernels'
+    prices; without it they run the plain estimators above on any device,
+    picked by the logical flop model."""
     if h.ndim == 2:
         return stat_factorized(h, zbar)
     if method == "auto":
-        method = pick_method(h.shape[1], h.shape[2], zbar.shape[-1])
+        method = pick_method(h.shape[1], h.shape[2], zbar.shape[-1],
+                             use_kernels)
     if method == "factorized":
         return stat_factorized(h, zbar)
     if method == "gram":

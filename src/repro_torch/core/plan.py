@@ -8,9 +8,15 @@ a ``Plan`` and ``execute`` runs it as:
   * one backward seeded with ones when a consumer needs norms — the
     norms-only backward (the tap's mode forms no ``dW``);
   * at most one reweighted backward, seeded with the product of clip
-    coefficients and user loss weights (the tap's mode computes no stat, so
-    it launches no norm kernel). With no weights the norms and gradients
-    fold into a single backward (paper §4/§5).
+    coefficients, importance weights and user loss weights (the tap's mode
+    computes no stat, so it launches no norm kernel). With no weights the
+    norms and gradients fold into a single backward (paper §4/§5).
+
+``Importance(k, ...)`` splits the plan: a norms-only pass on the candidate
+pool, the sample (``core.importance``), the gather, and one gradient pass
+on the k-example sub-batch seeded with clip × importance × user weights;
+the clip coefficients come from the gathered pool norms, so the sub-batch
+pays no second norms pass.
 
 Per-example weights seed the (B,) loss vector. Per-token weights
 (``Clip(C, granularity="token")``) seed the (B, S) **per-token loss map**
@@ -22,11 +28,9 @@ The reference applies its ``vjp_fn`` twice; the port makes two
 ``torch.autograd.grad`` calls over one retained graph: the first over the
 initial accumulator, the second over the parameters.
 
-Not in this slice: ``Importance`` (raises ``NotImplementedError``;
-ROADMAP.md Queue 1 lists it), user-segmented noise, the mesh path
-(``dist.pex``), the ``core.provenance`` identity markers, and the
-static-cost helpers (``Plan.static_cost``/``describe``), which serve the
-analysis passes.
+Not in this slice: user-segmented noise, the mesh path (``dist.pex``,
+with ``execute``'s ``fused_fn`` hook) and the ``core.provenance`` identity
+markers, which only the analysis passes read.
 """
 from __future__ import annotations
 
@@ -35,14 +39,11 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch.core import importance as imp
 from repro_torch.core.clipping import (clip_coefficients,
                                        token_clip_coefficients)
 from repro_torch.core.passes import add_grad_noise, check_noise_args
 from repro_torch.nn.param import tree_flatten, tree_unflatten
-
-_NOT_PORTED = ("is not ported yet: ROADMAP.md Queue 1 item 5 lists it as "
-               "waiting for a later slice of the PyTorch port")
-
 
 # ---------------------------------------------------------------------------
 # consumers — the declarative surface
@@ -88,7 +89,11 @@ class Noise:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Importance:
-    """Importance-sampled sub-batch. Not ported yet: ``analyze`` raises."""
+    """Importance-sampled sub-batch (Zhao & Zhang; paper §1): norms on the
+    candidate pool, sample ``k`` examples ∝ ‖∇L_j‖ with ``rng`` (a
+    ``torch.Generator`` on the norms' device), continue the plan on the
+    gathered sub-batch with unbiased 1/(k·p_j) weights folded into the
+    reweighted backward."""
     k: int
     smoothing: float = 0.1
     rng: Any = None
@@ -116,6 +121,7 @@ class Plan:
     per-token loss map."""
     clip: Optional[Clip] = None
     noise: Optional[Noise] = None
+    importance: Optional[Importance] = None
     gns: bool = False
     needs_norms: bool = False
     needs_grads: bool = False
@@ -126,7 +132,64 @@ class Plan:
     def weighted(self) -> bool:
         """Does any consumer reweight the backward? (User loss_weights
         add to this at execute time.)"""
-        return self.clip is not None
+        return self.clip is not None or self.importance is not None
+
+    @property
+    def n_backwards(self) -> int:
+        """Backward passes over one forward's graph (without user
+        loss_weights): 0 for the plain forward, 1 when norms and the
+        unweighted gradient fold into one seed, 2 when a reweighted
+        backward follows the norms pass."""
+        if not self.needs_norms and not self.needs_grads:
+            return 0
+        if not self.needs_norms:
+            return 1
+        if self.needs_grads and (self.weighted or self.token_weighted):
+            return 2
+        return 1
+
+    def static_cost(self, *, fwd_flops: Optional[float] = None,
+                    param_bytes: Optional[float] = None) -> dict:
+        """Structural step-budget estimate from the plan's shape alone:
+        flops by the 1-forward/2-backward rule per region, and the
+        plan-side full passes over the gradient (its write and the noise
+        add; the optimizer adds its own)."""
+        regions = 1 if self.importance is None else 2
+        grad_reads = int(self.needs_grads) * (
+            1 + (1 if self.noise is not None else 0))
+        out = {"regions": regions, "backwards": self.n_backwards,
+               "grad_stream_reads": grad_reads}
+        if fwd_flops is not None:
+            out["flops_est"] = float(fwd_flops) * (
+                regions + 2.0 * self.n_backwards)
+        if param_bytes is not None:
+            out["grad_bytes_est"] = float(param_bytes) * (1 + grad_reads)
+        return out
+
+    def describe(self, *, fwd_flops: Optional[float] = None,
+                 param_bytes: Optional[float] = None) -> str:
+        """One-line static cost shape of the pass this plan runs, with the
+        ``static_cost`` flop and byte estimates when their inputs are
+        given."""
+        regions = 1 if self.importance is None else 2
+        parts = [f"regions={regions}", f"backwards={self.n_backwards}",
+                 "acc=(B,S)" if self.token_norms else
+                 ("acc=(B,G)" if self.needs_norms else "acc=none")]
+        if self.clip is not None:
+            parts.append(f"clip[{self.clip.granularity}]")
+        if self.noise is not None:
+            parts.append("noise")
+        if self.gns:
+            parts.append("gns")
+        if self.importance is not None:
+            parts.append(f"importance(k={self.importance.k})")
+        est = self.static_cost(fwd_flops=fwd_flops,
+                               param_bytes=param_bytes)
+        if "flops_est" in est:
+            parts.append(f"flops≈{est['flops_est']:.3g}")
+        if "grad_bytes_est" in est:
+            parts.append(f"grad_bytes≈{est['grad_bytes_est']:.3g}")
+        return " ".join(parts)
 
 
 def analyze(consumers: Sequence, *,
@@ -145,6 +208,7 @@ def analyze(consumers: Sequence, *,
 
     clip: Optional[Clip] = seen.get(Clip)
     noise: Optional[Noise] = seen.get(Noise)
+    importance: Optional[Importance] = seen.get(Importance)
     gns = GNS in seen
 
     token_norms = engine_granularity == "token" or (
@@ -161,13 +225,11 @@ def analyze(consumers: Sequence, *,
             "GNS needs per-example ‖g_j‖²; the (B, S) token map does not "
             "sum to them (cross-token terms) — run GNS at example "
             "granularity")
-    if token_norms and Importance in seen:
+    if token_norms and importance is not None:
         raise NotImplementedError(
             "Importance samples examples from per-example norms; it does "
             "not compose with token-granularity norms in one plan — run "
             "the token pass on the selected sub-batch instead")
-    if Importance in seen:
-        raise NotImplementedError(f"the Importance consumer {_NOT_PORTED}")
     if noise is not None:
         check_noise_args(noise.noise_std, noise.rng)
         if noise.scale is None and clip is None:
@@ -183,12 +245,19 @@ def analyze(consumers: Sequence, *,
                 "Noise(σ, rng, scale=...) with the sensitivity your "
                 "accounting assumes")
 
+    if importance is not None and importance.rng is None:
+        raise ValueError(
+            "Importance needs an rng: pass Importance(k, rng=torch."
+            "Generator(device=...).manual_seed(...)) — or run through the "
+            "Trainer, which gives rng=None consumers a generator each step")
+
     needs_grads = (Grads in seen or clip is not None or noise is not None
                    or gns)
-    needs_norms = Norms in seen or clip is not None or gns
-    return Plan(clip=clip, noise=noise, gns=gns, needs_norms=needs_norms,
-                needs_grads=needs_grads, token_norms=token_norms,
-                token_weighted=token_weighted)
+    needs_norms = (Norms in seen or clip is not None or gns
+                   or importance is not None)
+    return Plan(clip=clip, noise=noise, importance=importance, gns=gns,
+                needs_norms=needs_norms, needs_grads=needs_grads,
+                token_norms=token_norms, token_weighted=token_weighted)
 
 
 class StepResult(NamedTuple):
@@ -203,6 +272,8 @@ class StepResult(NamedTuple):
     token_weights: Optional[torch.Tensor] = None  # (B, S) token seed
     clip_coef: Optional[torch.Tensor] = None  # (B,) or (B, S)
     gns: Optional[torch.Tensor] = None
+    sample: Optional[imp.ImportanceSample] = None
+    sub_sq_norms: Optional[torch.Tensor] = None  # pool norms on the sub-batch
 
 
 # ---------------------------------------------------------------------------
@@ -290,10 +361,14 @@ def run_fused(plan: Plan, acc_loss: Callable, params, batch,
     return lv.detach(), aux, sq, grads, w, tw, cc
 
 
-def _compose_weights(plan: Plan, sq_norms, loss_weights):
-    """Product of clip coefficients × user loss weights. Returns
-    (per-example w | None, token w | None, clip_coef | None)."""
+def _compose_weights(plan: Plan, sq_norms, loss_weights,
+                     extra_weights=None):
+    """Product of clip coefficients × importance weights
+    (``extra_weights``) × user loss weights. Returns (per-example w | None,
+    token w | None, clip_coef | None)."""
     w = loss_weights
+    if extra_weights is not None:
+        w = extra_weights if w is None else w * extra_weights
     cc = tw = None
     if plan.clip is not None:
         if plan.clip.granularity == "token":
@@ -307,25 +382,54 @@ def _compose_weights(plan: Plan, sq_norms, loss_weights):
 
 
 # ---------------------------------------------------------------------------
-# the driver: noise, GNS
+# execute: the importance split, noise, GNS
 # ---------------------------------------------------------------------------
+
+_NORMS_ONLY = Plan(needs_norms=True)
+_GRADS_ONLY = Plan(needs_grads=True)
+
 
 def execute(plan: Plan, acc_loss: Callable, params, batch,
             batch_size: int, layout, *, loss_weights=None) -> StepResult:
-    """Run a full plan: the fused region, then noise and GNS."""
-    lv, aux, sq, grads, w, tw, cc = run_fused(plan, acc_loss, params, batch,
-                                              batch_size, layout,
-                                              loss_weights=loss_weights)
+    """Run a full plan: the fused region(s), then noise and GNS."""
+    samp = sub_sq = None
+    if plan.importance is None:
+        lv, aux, sq, grads, w, tw, cc = run_fused(
+            plan, acc_loss, params, batch, batch_size, layout,
+            loss_weights=loss_weights)
+    else:
+        ip = plan.importance
+        lv, aux, sq, _, _, _, _ = run_fused(_NORMS_ONLY, acc_loss, params,
+                                            batch, batch_size, layout)
+        samp = imp.sample(ip.rng, sq, ip.k, smoothing=ip.smoothing,
+                          replace=ip.replace)
+        sub_batch = imp.gather_batch(batch, samp.indices,
+                                     batch_size=batch_size)
+        sub_sq = sq.index_select(0, samp.indices)
+        w, tw, cc = _compose_weights(
+            plan, sub_sq,
+            None if loss_weights is None
+            else loss_weights.index_select(0, samp.indices),
+            extra_weights=samp.weights)
+        grads = None
+        if plan.needs_grads:
+            _, _, _, grads, w, _, _ = run_fused(
+                _GRADS_ONLY, acc_loss, params, sub_batch, ip.k, layout,
+                loss_weights=w)
+
     gns = None
     if plan.gns:
-        gns = gradient_noise_scale(sq, grads, batch_size=batch_size,
-                                   weights=w)
+        gns = gradient_noise_scale(
+            sq if sub_sq is None else sub_sq, grads,
+            batch_size=batch_size if samp is None else plan.importance.k,
+            weights=w)
     if plan.noise is not None and grads is not None:
         scale = plan.noise.scale if plan.noise.scale is not None \
             else plan.clip.clip_norm
         grads = add_grad_noise(grads, plan.noise.noise_std, scale,
                                plan.noise.rng)
-    return StepResult(torch.sum(lv), lv, aux, sq, grads, w, tw, cc, gns)
+    return StepResult(torch.sum(lv), lv, aux, sq, grads, w, tw, cc, gns,
+                      samp, sub_sq)
 
 
 # ---------------------------------------------------------------------------

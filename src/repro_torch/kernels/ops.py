@@ -20,13 +20,17 @@ zero batch, sequence or feature extent) has the norm 0 and launches
 nothing, so it is answered here and not counted; so are an empty
 ``rowsumsq`` (zeros) and an empty ``clip_scale`` (an empty tensor).
 
+``gram_cost`` and ``direct_cost`` price the two dense kernels for
+``core.norms.pick_method(use_kernels=True)``: device seconds per example on
+the H100, from the work each bf16 body does at its own tiles, the rate it
+reaches and the bytes it must read. The reference priced its Pallas
+kernels in flops at padded TPU tiles; none of those constants is carried
+over.
+
 Not carried over: the TPU wrappers' 128-lane padding (``_launch_tiles``,
 ``_seg_launch_tiles``, and the zero-padding of ``rowsumsq`` and
 ``clip_scale`` to whole tiles), the segmented kernel's run tables
-(``_run_tables``)
-and the ``gram_cost``/``direct_cost``/``segmented_cost`` prices of padded
-TPU tiles; the port's dispatch uses the logical flop model in
-``core.norms``.
+(``_run_tables``) and ``segmented_cost``.
 """
 from __future__ import annotations
 
@@ -69,6 +73,44 @@ def flop_estimate(b: int, s: int, p_in: int, p_out: int) -> float:
     (``gram_norm.bound_flop_estimate``), not at the kernel's own tile."""
     return min(_gn.bound_flop_estimate(b, s, p_in, p_out),
                _dn.flop_estimate(b, s, p_in, p_out))
+
+
+#: Rates of the bf16 bodies on an NVIDIA H100 80GB HBM3 at a 700 W power
+#: limit, each over its own work (``gram_norm.flop_estimate`` at 128-row
+#: tile pairs; ``direct_norm.flop_estimate`` at the body's ``TILE``), from
+#: ``chip_smoke.norm_times()`` at llama3.2-1b's wk/wv launch (B=8, S=512,
+#: 2048 → 512), the main path's closest call between the two: gram
+#: 0.02672–0.02685 ms, direct 0.01950–0.01970 ms a launch. Each body's rate
+#: grows with the launch (gram to ~540, direct to ~690 TFLOP/s at the LM
+#: head), so these price large launches high, both by a like factor.
+GRAM_FLOPS_PER_S = 250.7e12
+DIRECT_FLOPS_PER_S = 439.2e12
+#: HBM3 rate of the H100 SXM
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _read_s(s: int, p_in: int, p_out: int) -> float:
+    """Seconds to read one example's bf16 rows of h and z̄ once and write
+    its f32 norm: the floor under either kernel."""
+    return (2.0 * s * (p_in + p_out) + 4.0) / HBM_BYTES_PER_S
+
+
+def gram_cost(s: int, p_in: int, p_out: int) -> float:
+    """Device seconds per example of the gram kernel on a (·, s, p_in) ×
+    (·, s, p_out) layer: its work over its rate, or its bytes over the HBM
+    rate, whichever is longer."""
+    return max(_gn.flop_estimate(1, s, p_in, p_out) / GRAM_FLOPS_PER_S,
+               _read_s(s, p_in, p_out))
+
+
+def direct_cost(s: int, p_in: int, p_out: int) -> float:
+    """Device seconds per example of the direct kernel: its work with the
+    feature axes padded to its bf16 tile, over its rate, or its bytes
+    over the HBM rate, whichever is longer."""
+    t_in, t_out = _dn.TILE[torch.bfloat16]
+    work = _dn.flop_estimate(1, s, -(-p_in // t_in) * t_in,
+                             -(-p_out // t_out) * t_out)
+    return max(work / DIRECT_FLOPS_PER_S, _read_s(s, p_in, p_out))
 
 
 def segmented_flop_estimate(seg_ids: torch.Tensor, n_seg: int, p_in: int,

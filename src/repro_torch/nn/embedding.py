@@ -48,9 +48,13 @@ def init_lm_head(gen: torch.Generator, cfg: VocabCfg, *, dtype, device):
 
 def lm_head(p, x, *, tap: Tap, cfg: VocabCfg,
             group: str = "head") -> torch.Tensor:
+    """Logits of x (B, S, d_model), the vocab padding masked to -inf. The
+    head's stat takes the tap's method like any dense layer: under
+    ``method="auto"`` the priced pick, which sends llama3.2-1b's head at
+    S=512 to the gram kernel. The reference forces the direct route here
+    for its TPU kernels; both routes give the same norm."""
     t = tap if tap.spec.tap_head else taps.NULL
-    logits = t.dense(x, p["w"], group=group,
-                     method="direct" if t.live else None)
+    logits = t.dense(x, p["w"], group=group)
     if cfg.vocab_p != cfg.vocab:
         mask = torch.arange(cfg.vocab_p, device=logits.device) < cfg.vocab
         logits = torch.where(mask, logits,

@@ -110,3 +110,7 @@ def tree_map(fn, tree, *rest):
     others = [tree_flatten(r)[0] for r in rest]
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
 
+
+def count_params(tree) -> int:
+    """Elements over every leaf of a parameter tree."""
+    return sum(x.numel() for x in tree_leaves(tree))

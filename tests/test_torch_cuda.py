@@ -169,7 +169,8 @@ def test_cuda_norm_kernel_info(cuda_device):
 @pytest.mark.cuda
 def test_cuda_engine_step_matches_cpu(cuda_device):
     """The smoke llama step on the card (kernels) against the same step on
-    the CPU (plain versions), f32; the launches follow ``pick_method``."""
+    the CPU (plain versions), f32; the launches follow the priced
+    ``pick_method``, the LM head's included."""
     from repro_torch import pex
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.core.norms import pick_method
@@ -194,11 +195,12 @@ def test_cuda_engine_step_matches_cpu(cuda_device):
     a = cfg.attn
     d, hq, hkv, f = (cfg.d_model, a.n_heads_p * a.head_dim,
                      a.n_kv * a.head_dim, cfg.mlp.d_ff)
-    picks = [pick_method(shape.seq, pi, po) for pi, po in
+    picks = [pick_method(shape.seq, pi, po, use_kernels=True) for pi, po in
              ((d, hq), (d, hkv), (d, hkv), (hq, d), (d, f), (d, f), (f, d))]
+    head = pick_method(shape.seq, d, cfg.vocab, use_kernels=True)
     assert tops.launch_counts() == _counts(
-        gram_norm=cfg.n_layers * picks.count("gram"),
-        direct_norm=cfg.n_layers * picks.count("direct") + 1)
+        gram_norm=cfg.n_layers * picks.count("gram") + (head == "gram"),
+        direct_norm=cfg.n_layers * picks.count("direct") + (head == "direct"))
 
 
 @pytest.mark.cuda

@@ -266,11 +266,8 @@ def test_each_backward_does_only_its_work(setup, monkeypatch):
     assert calls == {"stat": n_dense, "dw": n_dense}
 
 
-def test_unported_consumers_raise(setup):
+def test_noise_without_a_generator_raises(setup):
     eng = pex.Engine(pex.PexSpec())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.step(setup["loss"], setup["params"], setup["batch"],
-                 [pex.Importance(2, rng=torch.Generator())])
     with pytest.raises(ValueError, match="generator"):
         eng.step(setup["loss"], setup["params"], setup["batch"],
                  [pex.Clip(1.0), pex.Noise(0.5)])
@@ -350,7 +347,9 @@ def _imports(path):
 def test_port_imports_no_jax_and_nothing_of_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 20
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert len(files) > 20 and len(examples) >= 3
+    files += examples
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]

@@ -1,0 +1,351 @@
+"""The port's training loop and its parts against the reference's.
+
+Schedules, Adafactor and the int8 error-feedback compression are compared
+on the same numpy inputs; the data pipeline's batches must equal the
+reference's bit for bit; and the port's ``Trainer`` runs 10 steps of the
+llama3.2-1b smoke config in f32 (B=8, S=16) beside the reference's, from
+the reference's ``init`` parameters, in modes plain, norms and clip (noise
+off) and with ``[Norms, Clip, GNS]``: each step's loss, ``norm_mean``,
+``norm_max`` and ``gns`` agree at 1e-4 relative. A loss poisoned for some
+examples is quarantined as the reference does. The launcher runs each mode
+on the CPU.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import plan as jplan
+from repro.core.taps import PexSpec as JPexSpec
+from repro.data import pipeline as jpipe
+from repro.models import registry as jreg
+from repro.nn.param import unbox
+from repro.optim import adafactor as jada
+from repro.optim import adamw as jadamw
+from repro.optim import grad_compress as jgc
+from repro.optim import schedule as jsched
+from repro.train import trainer as jtrainer
+from repro_torch import interop
+from repro_torch.core import plan as tplan
+from repro_torch.core.taps import PexSpec
+from repro_torch.data import pipeline as tpipe
+from repro_torch.launch import train as tlaunch
+from repro_torch.models import registry
+from repro_torch.optim import adafactor as tada
+from repro_torch.optim import adamw
+from repro_torch.optim import grad_compress as tgc
+from repro_torch.optim import schedule as tsched
+from repro_torch.train import trainer as ttrainer
+
+ARCH = "llama3.2-1b"
+B, S, STEPS = 8, 16, 10
+
+
+def _np_params(seed=0):
+    jspec = jreg.get(ARCH)
+    return unbox(jreg.family_module(jspec).init(jax.random.PRNGKey(seed),
+                                                jspec.smoke()))
+
+
+def _leaves(tree):
+    return [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
+
+
+# --- schedules, Adafactor, compression --------------------------------------
+
+@pytest.mark.parametrize("name, args", [("linear_warmup_cosine", (10, 100)),
+                                        ("linear_warmup_cosine", (0, 150)),
+                                        ("constant", ()), ("rsqrt", (10,))])
+def test_schedule_matches_reference(name, args):
+    steps = np.arange(201)
+    want = np.asarray(getattr(jsched, name)(*args)(jnp.asarray(steps)))
+    f = getattr(tsched, name)(*args)
+    got = np.asarray([f(int(t)) for t in steps])
+    assert all(isinstance(f(int(t)), float) for t in (0, 5, 200))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_adafactor_matches_reference():
+    """Over leaves of each rank (the RMS of the update clipping and of the
+    relative step is taken per leaf, so the trees hold the same leaves:
+    the reference's stacked (L, ...) block leaves would take one RMS over
+    all layers where the port's per-layer leaves take one each)."""
+    rng = np.random.default_rng(2)
+    params = {"w": rng.normal(size=(16, 24)).astype(np.float32),
+              "b": rng.normal(size=(24,)).astype(np.float32) * 0.1,
+              "e": rng.normal(size=(3, 8, 5)).astype(np.float32),
+              "s": np.asarray(0.7, np.float32)}
+    jcfg = jada.AdafactorConfig(lr=1e-2, weight_decay=0.1,
+                                schedule=jsched.linear_warmup_cosine(2, 10))
+    tcfg = tada.AdafactorConfig(lr=1e-2, weight_decay=0.1,
+                                schedule=tsched.linear_warmup_cosine(2, 10))
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    js = jada.init(jp)
+    tp = interop.params_from_numpy(params, device="cpu")
+    ts = tada.init(tp)
+    for _ in range(3):
+        grads = jax.tree_util.tree_map(
+            lambda x: rng.normal(size=x.shape).astype(np.float32), params)
+        jp, js = jada.update(jcfg, js, jp,
+                             jax.tree_util.tree_map(jnp.asarray, grads))
+        tp, ts = tada.update(tcfg, ts, tp,
+                             interop.params_from_numpy(grads, device="cpu"))
+    assert ts.step == 3
+    for got, want in ((tp, jp), (ts.vr, js.vr), (ts.vc, js.vc)):
+        for g, w in zip(_leaves(interop.params_to_numpy(got)), _leaves(want)):
+            np.testing.assert_allclose(g, w, rtol=1e-6,
+                                       atol=1e-6 * np.abs(w).max())
+    assert tp["s"].ndim == 0 and ts.vc["s"].ndim == 0
+
+
+def test_compress_decompress_matches_reference():
+    rng = np.random.default_rng(5)
+    shapes = {"a": (64, 33), "b": (7,), "c": (3, 4, 5)}
+    jerr = jgc.init_error({k: jnp.zeros(s) for k, s in shapes.items()})
+    terr = tgc.init_error({k: torch.zeros(s) for k, s in shapes.items()})
+    for call in range(3):
+        g = {k: rng.normal(size=s).astype(np.float32) * 10 ** call
+             for k, s in shapes.items()}
+        if call == 1:
+            g["b"][3] = np.nan          # a non-finite tensor passes through
+        jout, jerr = jgc.compress_decompress(
+            {k: jnp.asarray(v) for k, v in g.items()}, jerr)
+        tout, terr = tgc.compress_decompress(
+            {k: torch.from_numpy(v) for k, v in g.items()}, terr)
+        for k in shapes:
+            for got, want in ((tout[k], jout[k]), (terr[k], jerr[k])):
+                want = np.asarray(want)
+                np.testing.assert_allclose(
+                    got.numpy(), want, rtol=1e-6,
+                    atol=1e-6 * np.nanmax(np.abs(want)), equal_nan=True)
+
+
+# --- the data pipeline -------------------------------------------------------
+
+@pytest.mark.parametrize("seed, step, host, hosts", [(0, 0, 0, 1),
+                                                     (0, 7, 1, 2),
+                                                     (3, 123, 3, 4),
+                                                     (11, 2, 0, 2)])
+def test_synthetic_lm_batches_equal_reference(seed, step, host, hosts):
+    cfg = dict(vocab=1000, seq=40, global_batch=8, seed=seed)
+    want = jpipe.SyntheticLM(jpipe.DataConfig(**cfg), host, hosts)
+    got = tpipe.SyntheticLM(tpipe.DataConfig(**cfg), host, hosts,
+                            device="cpu")
+    w, g = want.batch_at(step), got.batch_at(step)
+    assert sorted(g) == ["ids", "labels"]
+    for k in w:
+        assert g[k].device.type == "cpu" and not g[k].is_floating_point()
+        np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))
+
+
+def test_logical_sharded_lm_equals_reference():
+    cfg = dict(vocab=500, seq=24, global_batch=8, seed=4)
+    want = jpipe.LogicalShardedLM(jpipe.DataConfig(**cfg), 4)
+    got = tpipe.LogicalShardedLM(tpipe.DataConfig(**cfg), 4, device="cpu")
+    owned = tpipe.assign_logical_shards(4, [5, 2])
+    assert owned == jpipe.assign_logical_shards(4, [5, 2])
+    for step in (0, 9):
+        for g, w in ((got.batch_at(step), want.batch_at(step)),
+                     (got.global_batch_at(step, owned),
+                      want.global_batch_at(step, owned)),
+                     (got.shard_batch_at(step, [3, 1]),
+                      want.shard_batch_at(step, [3, 1]))):
+            for k in w:
+                np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))
+    for mod in (tpipe, jpipe):
+        with pytest.raises(ValueError, match="divide"):
+            mod.assign_logical_shards(4, [0, 1, 2])
+        with pytest.raises(ValueError, match="no active hosts"):
+            mod.assign_logical_shards(4, [])
+        with pytest.raises(ValueError, match="divisible"):
+            mod.LogicalShardedLM(mod.DataConfig(**cfg), 3)
+
+
+def test_pipeline_state_round_trip_and_errors():
+    for mod in (tpipe, jpipe):
+        st = mod.PipelineState(step=17, seed=3)
+        assert mod.PipelineState.from_dict(st.to_dict()) == st
+        assert st.to_dict() == {"step": 17, "seed": 3}
+        with pytest.raises(ValueError, match=r"missing key\(s\) \['seed'\]"):
+            mod.PipelineState.from_dict({"step": 1})
+
+
+# --- the trainer against the reference's -------------------------------------
+
+MODES = ("plain", "norms", "clip", "norms+clip+gns")
+
+
+def _consumers(mode, port):
+    if mode == "norms+clip+gns":
+        p = tplan if port else jplan
+        return (p.Norms(), p.Clip(1.0), p.GNS())
+    mod = ttrainer if port else jtrainer
+    return mod.consumers_for_mode(mode, B, clip_norm=1.0)
+
+
+def _trainers(consumers_j, consumers_t, loss_wrap=lambda f: f, steps=STEPS,
+              lr=1e-3):
+    jspec = jreg.get(ARCH)
+    jcfg = jspec.smoke()
+    spec = registry.get(ARCH)
+    cfg = spec.smoke()
+    jparams = _np_params()
+    dcfg = dict(vocab=cfg.vocab, seq=S, global_batch=B, seed=1)
+    jt = jtrainer.Trainer(
+        loss_wrap(jreg.make_loss_fn_v2(jspec, jcfg)), jparams, JPexSpec(),
+        jadamw.AdamWConfig(lr=lr,
+                           schedule=jsched.linear_warmup_cosine(3, steps)),
+        jtrainer.TrainConfig(consumers=consumers_j, steps=steps,
+                             log_every=0),
+        jpipe.DataConfig(**dcfg))
+    tt = ttrainer.Trainer(
+        loss_wrap(registry.make_loss_fn_v2(spec, cfg)),
+        interop.params_from_numpy(
+            jax.tree_util.tree_map(np.asarray, jparams), device="cpu"),
+        PexSpec(),
+        adamw.AdamWConfig(lr=lr,
+                          schedule=tsched.linear_warmup_cosine(3, steps)),
+        ttrainer.TrainConfig(consumers=consumers_t, steps=steps,
+                             log_every=0),
+        tpipe.DataConfig(**dcfg), device="cpu")
+    return jt, tt
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_trainer_loss_curve_matches_reference(mode):
+    jt, tt = _trainers(_consumers(mode, False), _consumers(mode, True))
+    jm, tm = jt.train(), tt.train()
+    assert len(tm) == STEPS
+    for j, t in zip(jm, tm):
+        assert sorted(t) == sorted(j)
+        for k in ("loss", "norm_mean", "norm_max", "gns"):
+            if k in j:
+                np.testing.assert_allclose(t[k], j[k], rtol=1e-4,
+                                           err_msg=f"step {t['step']} {k}")
+
+
+def _poisoned(loss_fn):
+    def poisoned(params, batch, tap):
+        inner = {k: v for k, v in batch.items() if k != "poison"}
+        loss_vec, aux = loss_fn(params, inner, tap)
+        return loss_vec * batch["poison"], aux
+    return poisoned
+
+
+def test_trainer_quarantine_matches_reference():
+    """A loss that is NaN for examples 2 and 5: both trainers record the
+    same quarantine event, log the same metrics and keep finite
+    parameters; a batch poisoned everywhere skips the step."""
+    cons = (jplan.Norms(), jplan.Clip(1.0))
+    jt, tt = _trainers(cons, (tplan.Norms(), tplan.Clip(1.0)),
+                       loss_wrap=_poisoned, steps=2)
+    poison = np.ones(B, np.float32)
+    poison[[2, 5]] = np.nan
+    jb = dict(jt.data.batch_at(0), poison=jnp.asarray(poison))
+    tb = dict(tt.data.batch_at(0), poison=torch.from_numpy(poison))
+    jm, tm = jt.run_step(jb), tt.run_step(tb)
+    assert tt.events == jt.events == [{"step": 0, "kind": "quarantine",
+                                       "examples": [2, 5]}]
+    assert tm["quarantined"] == jm["quarantined"] == 2
+    for k in ("loss", "norm_mean", "norm_max"):
+        np.testing.assert_allclose(tm[k], jm[k], rtol=1e-4)
+    got = _leaves(interop.params_to_numpy(tt.params))
+    for g, w in zip(got, _leaves(jt.params)):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max())
+    before = _leaves(interop.params_to_numpy(tt.params))
+    tb["poison"] = torch.full((B,), float("nan"))
+    m = tt.run_step(tb)
+    assert m["skipped"] == 1 and tt.events[-1]["kind"] == "skip_step"
+    for g, w in zip(_leaves(interop.params_to_numpy(tt.params)), before):
+        np.testing.assert_array_equal(g, w)
+
+
+def _port_trainer(consumers, **kw):
+    spec = registry.get(ARCH)
+    cfg = spec.smoke()
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator().manual_seed(0), device="cpu")
+    return ttrainer.Trainer(
+        registry.make_loss_fn_v2(spec, cfg), params, PexSpec(),
+        adamw.AdamWConfig(lr=1e-3),
+        ttrainer.TrainConfig(consumers=consumers, steps=3, log_every=0,
+                             **kw),
+        tpipe.DataConfig(vocab=cfg.vocab, seq=S, global_batch=B),
+        device="cpu")
+
+
+def test_trainer_refuses_a_plan_without_a_gradient():
+    with pytest.raises(ValueError, match="gradient-producing"):
+        _port_trainer((tplan.Norms(),))
+
+
+def test_trainer_refuses_meshes_and_checkpoints():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        _port_trainer(None, ckpt_dir="ck")
+    spec = registry.get(ARCH)
+    cfg = spec.smoke()
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        ttrainer.Trainer(registry.make_loss_fn_v2(spec, cfg), params,
+                         PexSpec(), adamw.AdamWConfig(),
+                         ttrainer.TrainConfig(), tpipe.DataConfig(
+                             vocab=cfg.vocab, seq=S, global_batch=B),
+                         mesh=object(), device="cpu")
+    t = _port_trainer(None)
+    for call in (t.save_checkpoint, t.restore_from,
+                 lambda: t.rebind_mesh(None),
+                 lambda: t.train(resume=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    assert ttrainer.RESUME_EXTRA_KEYS == jtrainer.RESUME_EXTRA_KEYS
+
+
+def test_trainer_generators_are_stable_per_seed():
+    """Noise and Importance slots left at rng=None get child generators
+    from the trainer's seed: the same seed replays the same run, another
+    seed does not."""
+    def run(seed):
+        t = _port_trainer((tplan.Importance(4), tplan.Clip(1.0),
+                           tplan.Noise(0.5)), seed=seed)
+        return [m["loss"] for m in t.train()], t.params["head"]["w"]
+    (l0, w0), (l1, w1), (l2, w2) = run(0), run(0), run(1)
+    assert l0 == l1 and torch.equal(w0, w1)
+    assert not torch.equal(w0, w2)
+    assert all(math.isfinite(x) for x in l0 + l2)
+
+
+def test_trainer_runs_on_cuda_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlaunch.main(["--arch", ARCH, "--smoke", "--steps", "1"])
+    spec = registry.get(ARCH)
+    cfg = spec.smoke()
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrainer.Trainer(registry.make_loss_fn_v2(spec, cfg), params,
+                         PexSpec(), adamw.AdamWConfig(),
+                         ttrainer.TrainConfig(), tpipe.DataConfig(
+                             vocab=cfg.vocab, seq=S, global_batch=B))
+
+
+@pytest.mark.parametrize("mode", ["plain", "norms", "clip", "importance"])
+def test_launcher_runs_each_mode_on_cpu(mode, capsys):
+    ms = tlaunch.main(["--arch", ARCH, "--smoke", "--mode", mode,
+                       "--steps", "2", "--batch", "8", "--seq", "16",
+                       "--noise-std", "0.1", "--device", "cpu"])
+    assert len(ms) == 2 and all(math.isfinite(m["loss"]) for m in ms)
+    assert f"mode={mode}, device=cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", [["--data-parallel"], ["--ckpt-dir", "ck"],
+                                  ["--resume"]])
+def test_launcher_refuses_unported_flags(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu"] + flag)
