@@ -12,7 +12,12 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               notes that it serialized wgmma);
 3. kernels  — ``gram_norm`` (triangular and full grid) and ``direct_norm``
               against their plain PyTorch versions in f32 and bf16 at the
-              main path's shapes, a ragged shape and the LM head, each bf16
+              main path's shapes, a ragged shape and the LM head (in bf16
+              also at the gemma2 and qwen2-vl paths' block and head
+              shapes, 3584 → 256,000 the widest; every head at B=8, S=512,
+              the shape and so the plan its path launches, and after the
+              dense paths every bf16 gram and direct launch of theirs
+              asserted to be at a shape held here), each bf16
               launch's copy route asserted (TMA there; the staged route on
               rows of an odd pitch, checked too) and the bf16 launches at
               the main and head shapes run twice for bitwise-equal
@@ -20,6 +25,7 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               flash attention kernels (forward, dQ, dK/dV) against theirs in
               f32 and bf16 at every ``FLASH_CASES`` case (the main path's
               shape, ragged S, S = 65 and 320, MHA, rep 8, D=32 and D=128,
+              qwen2-vl's shape (B=8, 32 q heads on 4, S=512, D=128),
               windows of 48 to 128, softcaps, and q/k/v sliced from a fused
               projection and from rows of an odd pitch, with the copy route
               each bf16 launch was given), and the backward run twice for
@@ -30,8 +36,10 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               summed gradient against a plain batch backward;
 5. main     — the main path: llama3.2-1b at full width in bf16, B=8,
               S=512, three DP-SGD steps ``[Norms, Clip, Noise, GNS]`` each
-              followed by an AdamW update, with the kernel launches of the
-              forward and of each backward pass counted, every gram and
+              followed by an AdamW update (CUDA events split each step's
+              stream time into ``Engine.step`` and the update), with the
+              kernel launches of the forward and of each backward pass
+              counted, every gram and
               direct launch on the TMA route, and CUDA events around the
               unfused attention core (forward and backward);
 6. flash    — the same three steps with ``AttnCfg.flash=True`` on the same
@@ -115,7 +123,9 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               ``rowsumsq`` and ``clip_scale`` beside
               ``torch.linalg.vector_norm`` and ``torch.mul`` (each library
               call timed as a yardstick only; the port never calls it);
-16. dispatch — at each main-path shape and the LM head's, the priced cost
+16. dispatch — at each launch shape of the main, gemma2 and qwen2-vl
+              paths and of qwen2-7b and minitron-4b (their blocks and
+              heads), the priced cost
               of both routes (``core.norms.dense_cost(use_kernels=True)``),
               both kernels' measured times (``norm_times()``) and the
               pick, which must be the faster kernel wherever the two
@@ -128,7 +138,23 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               (k = 2): each step's norms pass launches gram and direct by
               the priced pick on 8 examples, its gradient pass none (on 8
               examples, or on the 2 sampled ones), every launch on the TMA
-              route; the trainer's metric lines, step ms and peak memory.
+              route; the trainer's metric lines, step ms and peak memory;
+18. gemma2-exact — gemma2-9b at full width, 4 layers (two local/global
+              periods), f32, B=4, S=256: phase 4's checks, and with
+              ``AttnCfg.flash=True`` no flash launch at all (its softcap and
+              local layers close the reference's gate);
+19. gemma2  — gemma2-9b at full width, 4 layers, bf16, B=8, S=512: three
+              steps of phase 5's consumers under AdamW, the launches of
+              each pass asserted (gram and direct by the priced pick), the
+              unfused attention core timed; at S=512 the window of 4,096
+              does not bind, so its local and global layers compute alike
+              here (the CPU tests hold the window);
+20. qwen2-vl — qwen2-vl-7b at full width, 2 layers, bf16, B=8, S=512,
+              with the registry's visual embeds, mask and (B, 3, S) M-RoPE
+              positions and ``AttnCfg.flash=True``: the same three steps,
+              the flash kernels counted (D=128, 32 q heads on 4), and step
+              0's loss against a plain unfused forward on the same
+              parameters and batch.
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -141,8 +167,8 @@ bf16 tensor-core peak, whichever is longer.
 The flash path's step time, peak memory and attention time are logged
 beside the main path's from the same call, the MoE path's step time,
 peak memory and segmented kernel time per step after them, then the token
-paths' step times, peak memory and ``rowsumsq`` time per step, and the
-whole run's seconds. TF32 is off
+paths' step times, peak memory and ``rowsumsq`` time per step, those of
+gemma2 and qwen2-vl, and the whole run's seconds. TF32 is off
 for matmuls and cuDNN throughout, so the f32 plain versions are full f32.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the kernel table as JSON, and the line before that the
@@ -167,6 +193,9 @@ MOE_LAYERS = 2           # phi3.5-moe depth cut 32 → 2 (the reference's
                          # own probe depth); widths as published
 MOE_B, MOE_S = 32, 256   # MoE path: ng=16 groups of bg=2, capacity 88
 MOE_EXACT_B, MOE_EXACT_S = 32, 64
+GEMMA_LAYERS = 4         # gemma2-9b depth cut 42 → 4: two local/global
+                         # periods, the reference's own probe depth
+VL_LAYERS = 2            # qwen2-vl-7b depth cut 28 → 2 (its probe depth)
 STEPS = 3
 T0 = 0.0                 # perf_counter at the start of main()
 PEAK_BYTES_PER_S = 3.35e12                      # H100 SXM HBM3
@@ -246,6 +275,7 @@ FLASH_CASES = [(B, 32, 8, S, 64, None, None, None),
                (2, 4, 2, 65, 64, None, None, None),      # one row past
                (2, 8, 2, 256, 64, None, 48, None),       # window < a tile
                (2, 32, 4, 256, 64, None, None, None),    # rep = 8
+               (B, 32, 4, S, 128, None, None, None),     # qwen2-vl's
                (2, 8, 2, 200, 64, None, None, "fused"),
                (2, 8, 2, 200, 64, None, None, "odd"),
                (1, 8, 2, 320, 128, 20.0, 48, "odd"),
@@ -272,6 +302,12 @@ def layer_shapes(cfg):
         return attn + [(d, cfg.moe.n_experts)]
     f = cfg.mlp.d_ff
     return attn + [(d, f), (d, f), (f, d)]
+
+
+def cut(spec, n_layers, **kw):
+    """``spec``'s published config at ``n_layers`` layers, every width as
+    published."""
+    return dataclasses.replace(spec.full(**kw), n_layers=n_layers)
 
 
 def with_flash(cfg):
@@ -496,13 +532,19 @@ def phase_build():
             log(f"[build] {line.strip()}")
 
 
-def phase_kernels(cfg, errs):
+def phase_kernels(cfg, errs, others=()):
     """Every kernel against its plain version; ``errs`` collects the max
-    abs error of each kernel at the main path's shapes in bf16. Each bf16
-    gram and direct launch's copy route is the one its inputs call for
-    (TMA here; the staged route on rows of an odd pitch), and the bf16
-    launches at the main path's and the head's shapes repeat bit for
-    bit."""
+    abs error of each kernel at the main path's shapes in bf16. The other
+    paths' configs ``others`` (gemma2-9b, qwen2-vl-7b) add their block
+    shapes and heads in bf16. Every head is checked at (B, S), the shape
+    its path launches, so on the path's plan (gram's feature ranges and
+    scratch follow B); the other heads' direct_norm_ref would hold a
+    (B, p_in, p_out) f32 product of 29 GB, so both kernels are held
+    against gram_norm_ref there. Each bf16 gram and direct launch's copy
+    route is the one its inputs call for (TMA here; the staged route on
+    rows of an odd pitch), and the bf16 launches at the main path's and
+    the head's shapes repeat bit for bit. Returns the bf16 shapes checked,
+    (b, s, p_in, p_out)."""
     import torch
     from repro_torch.kernels import direct_norm as dn
     from repro_torch.kernels import gram_norm as gn
@@ -511,16 +553,24 @@ def phase_kernels(cfg, errs):
     from repro_torch.kernels.ref import gram_norm_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     main = [(B, S, pi, po) for pi, po in sorted(set(layer_shapes(cfg)))]
-    cases = [(3, 37, 80, 200)] + main + [(2, S, cfg.d_model, cfg.vocab)]
+    cases = [(3, 37, 80, 200)] + main + [(B, S, cfg.d_model, cfg.vocab)]
+    heads = [(B, S, c.d_model, c.vocab) for c in others]
+    extra = sorted({(B, S, pi, po) for c in others
+                    for pi, po in layer_shapes(c)} - set(main)) + heads
+    checked = set()
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[str(dt)]
         bf = dt == torch.bfloat16
-        for b, s, pi, po in cases:
+        # the llama head stays last: the gram-vs-direct check reads it
+        for b, s, pi, po in (cases[:-1] + extra + cases[-1:] if bf
+                             else cases):
             h = torch.randn(b, s, pi, generator=gen, device="cuda").to(dt)
             z = torch.randn(b, s, po, generator=gen, device="cuda").to(dt)
             want_g = gram_norm_ref(h, z)
-            want_d = direct_norm_ref(h, z)
+            want_d = (want_g if (b, s, pi, po) in heads
+                      else direct_norm_ref(h, z))
             gn.route_launches.clear()
             dn.route_launches.clear()
             got = {"gram_norm": ops.gram_norm(h, z),
@@ -559,9 +609,15 @@ def phase_kernels(cfg, errs):
                                              f"at {(b, s, pi, po)}")
                 line.append("gram and direct bitwise equal on a second run")
             how = ", TMA route" if bf else ""
+            if bf and po > 100_000:
+                p = gn.plan(b, s, pi, po, True, sms)
+                how += (f", plan {p.n_h}x{p.n_z} feature ranges, scratch "
+                        f"{4 * math.prod(p.gram_shape(b)) / 1e6:.1f} MB")
+            if bf:
+                checked.add((b, s, pi, po))
             log(f"[kernels] {str(dt)[6:]} {(b, s, pi, po)}{how}: "
                 + ", ".join(line) + f" (tol {tol})")
-            del h, z
+            del h, z, want_g, want_d
         # gram against direct: the identity the kernels rest on
         r = rel_err(got["gram_norm"], got["direct_norm"])
         log(f"[kernels] {str(dt)[6:]} gram vs direct at the head shape: "
@@ -592,6 +648,7 @@ def phase_kernels(cfg, errs):
     log(f"[kernels] bf16 (3, 40, 24, 36) rows of an odd pitch, staged "
         f"route: " + ", ".join(f"{k} rel {rel_err(v, want):.2e}"
                                for k, v in got.items()) + f" (tol {tol})")
+    return checked
 
 
 def flash_inputs(b, hq, hkv, s, d, dt, gen, layout=None):
@@ -677,38 +734,53 @@ def phase_flash_kernels(errs):
             del q, k, v, do, o, lse, o_ref, lse_ref, grads, again, want
 
 
-def phase_exact(spec, registry, pex):
-    """Full width in f32: Engine norms vs per-example plain backward."""
+def phase_exact(spec, registry, pex, cfg=None, tag="exact",
+                flash_launches=None):
+    """Full width in f32: Engine norms vs per-example plain backward, for
+    llama3.2-1b (phase 4; ``cfg`` None) or another config (gemma2-9b at
+    its cut depth, phase 18), unfused and with ``AttnCfg.flash``.
+    ``flash_launches`` is the launches of each flash kernel the flash run
+    must make (default: one per layer). Where it is 0 (gemma2: its softcap
+    and local layers close the reference's gate) the flash run repeats the
+    unfused one, so only its launch counts are kept."""
     import torch
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.nn.param import tree_flatten, tree_unflatten
 
     from repro_torch.kernels import ops
 
-    cfg = spec.full(dtype="float32")
+    cfg = cfg or spec.full(dtype="float32")
+    if flash_launches is None:
+        flash_launches = cfg.n_layers
     mod = registry.family_module(spec)
     params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     batch = registry.make_train_batch(
-        spec, cfg, ShapeSpec("exact", "train", EXACT_S, EXACT_B), rng_seed=0)
+        spec, cfg, ShapeSpec(tag, "train", EXACT_S, EXACT_B), rng_seed=0)
     loss_fn = registry.make_loss_fn_v2(spec, cfg)
     results = {}
     for flash in (False, True):
         c = with_flash(cfg) if flash else cfg
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        results[flash] = pex.Engine(pex.PexSpec()).step(
+        res = pex.Engine(pex.PexSpec()).step(
             registry.make_loss_fn_v2(spec, c), params, batch,
             [pex.Norms(), pex.Grads()])
         torch.cuda.synchronize()
         n = ops.launch_counts()
-        log(f"[exact] Engine.step([Norms, Grads]) f32 B={EXACT_B} "
-            f"S={EXACT_S} flash={flash}: "
+        log(f"[{tag}] {cfg.name}, {cfg.n_layers} layers: Engine.step([Norms, "
+            f"Grads]) f32 B={EXACT_B} S={EXACT_S} flash={flash}: "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call); "
             f"launches {n}")
-        want = cfg.n_layers if flash else 0
+        want = flash_launches if flash else 0
         if any(n[k] != want for k in FLASH_KERNELS):
-            raise AssertionError(f"flash={flash}: flash launches {n}, "
+            raise AssertionError(f"{tag} flash={flash}: flash launches {n}, "
                                  f"expected {want} of each")
+        if flash and not want:
+            log(f"[{tag}] flash=True took the unfused route, as the gate "
+                f"says; its result is not kept")
+        else:
+            results[flash] = res
+        del res
 
     leaves, treedef = tree_flatten(params)
     leaves = [x.detach().requires_grad_() for x in leaves]
@@ -720,26 +792,26 @@ def phase_exact(spec, registry, pex):
         oracle.append(sum(torch.sum(torch.square(g.float())) for g in gs))
         del gs
     oracle = torch.stack(oracle)
-    log(f"[exact] per-example sq norms: plain  {oracle.tolist()}")
+    log(f"[{tag}] per-example sq norms: plain  {oracle.tolist()}")
     gs = torch.autograd.grad(loss_fn(p, batch, pex.NULL)[0].sum(), leaves)
     for flash, res in results.items():
         norms = res.sq_norms.sum(-1)
         r = rel_err(norms, oracle)
-        log(f"[exact] flash={flash} per-example sq norms: engine "
+        log(f"[{tag}] flash={flash} per-example sq norms: engine "
             f"{norms.tolist()}")
-        log(f"[exact] flash={flash} norms max rel err {r:.2e} (tol 1e-3: "
+        log(f"[{tag}] flash={flash} norms max rel err {r:.2e} (tol 1e-3: "
             f"f32, summation order of the kernels vs cuBLAS)")
         if not r < 1e-3:
-            raise AssertionError(f"full-width norms disagree (flash="
+            raise AssertionError(f"{tag}: full-width norms disagree (flash="
                                  f"{flash}): {r}")
         worst = 0.0
         for g_eng, g in zip(tree_flatten(res.grads)[0], gs):
             worst = max(worst, ((g_eng - g).norm() / g.norm()).item())
-        log(f"[exact] flash={flash} summed grads vs plain batch backward: "
+        log(f"[{tag}] flash={flash} summed grads vs plain batch backward: "
             f"max rel (Frobenius) err over {len(gs)} leaves {worst:.2e} "
             f"(tol 1e-4: f32)")
         if not worst < 1e-4:
-            raise AssertionError(f"summed gradients disagree (flash="
+            raise AssertionError(f"{tag}: summed gradients disagree (flash="
                                  f"{flash}): {worst}")
 
 
@@ -794,6 +866,7 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     events = {k: [] for k in kernels}
     seg_calls = []        # per step: (seg_ids, n_seg, T, p_in, p_out, dtype)
     row_calls = []        # per step: (rows shape, dtype) of each rowsumsq
+    norm_shapes = set()   # (b, s, p_in, p_out) of each bf16 gram/direct
     orig_grad = plan_mod._grad
     kfns = {"gram_norm": (gn, "gram_norm"),
             "direct_norm": (dn, "direct_norm"),
@@ -827,6 +900,9 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
                                       z.shape[1], h.dtype))
             if name == "rowsumsq":
                 row_calls[-1].append((tuple(a[0].shape), a[0].dtype))
+            if (name in NORM_KERNELS and a[0].dtype == torch.bfloat16
+                    and kw.get("triangular", True)):
+                norm_shapes.add(tuple(a[0].shape) + (a[1].shape[-1],))
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -841,6 +917,7 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
         setattr(m, a, timed(k))
     setattr(core_mod, core_name, attn)
     step_ms, kern_ms, attn_ms, losses = [], [], [], []
+    engine_ms, adamw_ms = [], []   # stream ms in Engine.step, in AdamW
     torch.cuda.reset_peak_memory_stats()
     try:
         ops.reset_launch_counts()
@@ -856,11 +933,17 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
                 v.clear()
             torch.cuda.synchronize()
             at_start = ops.launch_counts()
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             t0 = time.perf_counter()
+            marks[0].record()
             res = eng.step(loss_fn, params, batch, consumers)
+            marks[1].record()
             params, opt = adamw.update(opt_cfg, opt, params, res.grads)
+            marks[2].record()
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            engine_ms.append(marks[0].elapsed_time(marks[1]))
+            adamw_ms.append(marks[1].elapsed_time(marks[2]))
             kern_ms.append({k: sum(a.elapsed_time(b) for a, b in v)
                             for k, v in events.items()})
             attn_ms.append(attn.ms())
@@ -883,7 +966,9 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
                         f"{cc.tolist()}; gns {res.gns.item():.4g}")
                 finite = (("loss", res.loss), ("norms", norms),
                           ("gns", res.gns))
-            log(f"[{tag}] step {i}: {step_ms[-1]:.1f} ms; loss "
+            log(f"[{tag}] step {i}: {step_ms[-1]:.1f} ms (stream ms in "
+                f"Engine.step {engine_ms[-1]:.1f}, in the AdamW update "
+                f"{adamw_ms[-1]:.1f}); loss "
                 f"{losses[-1]:.4f}; {seen}; kernel ms "
                 f"{ {k: round(v, 3) for k, v in kern_ms[-1].items()} }; "
                 f"attention core fwd/bwd ms {attn_ms[-1][0]:.3f}/"
@@ -923,9 +1008,9 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
         if n != steps * per_step[k] or (k in kernels and n == 0):
             raise AssertionError(f"{k}: {n} launches on the {tag} path, "
                                  f"expected {steps * per_step[k]}")
-    # every bf16 gram and direct launch of the llama paths on the TMA route
+    # every bf16 gram and direct launch of the dense paths on the TMA route
     routes = {**gn.route_launches, **dn.route_launches}
-    if tag in ("main", "flash"):
+    if tag in ("main", "flash", "gemma2", "qwen2-vl"):
         want_routes = {(k, "tma"): launches[f"{k}_norm"]
                        for k in ("gram", "direct") if launches[f"{k}_norm"]}
         if routes != want_routes:
@@ -948,7 +1033,9 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     log(f"[{tag}] peak memory {peak:.2f} GiB (since the phase began)")
     return {"launches": launches, "kern_ms": kern_ms, "step_ms": step_ms,
             "attn_ms": attn_ms, "losses": losses, "peak_gib": peak,
-            "seg_calls": seg_calls, "row_calls": row_calls}
+            "seg_calls": seg_calls, "row_calls": row_calls,
+            "norm_shapes": norm_shapes, "engine_ms": engine_ms,
+            "adamw_ms": adamw_ms}
 
 
 def phase_moe_exact(spec, registry, pex):
@@ -1580,15 +1667,22 @@ def phase_table(expected, errs, launches, kern_ms):
     return rows
 
 
-#: (p_in, p_out) of every tapped dense layer of a llama3.2-1b block and of
-#: its LM head: wk/wv, wq/wo, w1/w3, w2, head
+#: (p_in, p_out) of every tapped dense layer of a block and of the LM head
+#: of llama3.2-1b (wk/wv, wq/wo, w1/w3, w2, head), gemma2-9b (wq, wk/wv,
+#: wo, w1/w3, w2, head), qwen2-vl-7b and qwen2-7b (wk/wv, w1/w3, w2, head;
+#: their wq/wo are gemma2's) and minitron-4b (wk/wv, wq, wo, w1, w2, head)
 NORM_SHAPES = [(2048, 512), (2048, 2048), (2048, 8192), (8192, 2048),
-               (2048, 128256)]
+               (2048, 128256),
+               (3584, 4096), (3584, 2048), (4096, 3584), (3584, 14336),
+               (14336, 3584), (3584, 256000),
+               (3584, 512), (3584, 18944), (18944, 3584), (3584, 152064),
+               (3072, 1024), (3072, 4096), (4096, 3072), (3072, 9216),
+               (9216, 3072), (3072, 256000)]
 
 
 def norm_times(reps=20):
     """Device time of one call (ms) of the bf16 gram and direct kernels,
-    each at every main-path shape and the LM head's (B=8, S=512), with
+    each at every ``NORM_SHAPES`` shape (B=8, S=512), with
     ``device_ms`` (card held busy, input copies past the L2). Returns
     ``{"gram_norm 2048x2048": ms, ...}``. It uses only the wrappers' public
     signatures, so a copy of this file placed in an older checkout times
@@ -1617,17 +1711,23 @@ def norm_times(reps=20):
 PICK_MARGIN = 0.2
 
 
-def phase_dispatch(cfg):
-    """At each main-path shape and the LM head's (B=8, S=512): the priced
-    cost of both routes (``core.norms.dense_cost(use_kernels=True)``, ms a
-    launch), both kernels' measured times (``norm_times()``) and the
-    pick. The pick must be the faster kernel wherever the two times differ
-    by more than ``PICK_MARGIN``."""
+def phase_dispatch(cfgs):
+    """At each launch shape of the paths of ``cfgs`` (their blocks' dense
+    layers and LM heads, B=8, S=512): the priced cost of both routes
+    (``core.norms.dense_cost(use_kernels=True)``, ms a launch), both
+    kernels' measured times (``norm_times()``) and the pick. The pick must
+    be the faster kernel wherever the two times differ by more than
+    ``PICK_MARGIN``."""
     from repro_torch.core.norms import dense_cost, pick_method
 
-    shapes = sorted(set(layer_shapes(cfg)) | {(cfg.d_model, cfg.vocab)})
+    paths = {}
+    for c in cfgs:
+        for sh in layer_shapes(c) + [(c.d_model, c.vocab)]:
+            paths.setdefault(sh, []).append(
+                c.name + (" head" if sh == (c.d_model, c.vocab) else ""))
+    shapes = sorted(paths)
     if not set(shapes) <= set(NORM_SHAPES):
-        raise AssertionError(f"main-path shapes {shapes} not all timed by "
+        raise AssertionError(f"path shapes {shapes} not all timed by "
                              f"norm_times ({NORM_SHAPES})")
     times = norm_times()
     out = {}
@@ -1640,7 +1740,7 @@ def phase_dispatch(cfg):
         ratio = max(ms.values()) / min(ms.values())
         out[f"{pi}x{po}"] = {"priced_ms": price, "measured_ms": ms,
                              "pick": pick}
-        log(f"[dispatch] {pi}->{po}{' (LM head)' if po == cfg.vocab else ''}"
+        log(f"[dispatch] {pi}->{po} ({', '.join(sorted(set(paths[pi, po])))})"
             f": priced gram {price['gram']:.4f} ms, direct "
             f"{price['direct']:.4f} ms a launch; measured gram "
             f"{ms['gram']:.4f} ms, direct {ms['direct']:.4f} ms; pick "
@@ -1649,6 +1749,21 @@ def phase_dispatch(cfg):
             raise AssertionError(f"the priced pick at {pi}->{po} is {pick}, "
                                  f"but {faster} is faster by {ratio:.2f}x")
     return out
+
+
+def plain_loss(spec, registry, pex, cfg):
+    """Step 0's loss of a ``phase_main`` path (parameters from seed 0, the
+    batch of numpy seed 0 at (B, S)) from a plain forward under ``cfg``."""
+    import torch
+    from repro_torch.configs.common import ShapeSpec
+
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = registry.make_train_batch(spec, cfg,
+                                      ShapeSpec("plain", "train", S, B),
+                                      rng_seed=0)
+    return pex.Engine(pex.PexSpec()).step(
+        registry.make_loss_fn_v2(spec, cfg), params, batch, []).loss.item()
 
 
 TRAIN_CLIP_STEPS, TRAIN_IMPORTANCE_STEPS = 4, 2
@@ -2568,8 +2683,12 @@ def main() -> int:
     phase_build()
     spec = registry.get("llama3.2-1b")
     cfg = spec.full()
+    gemma_spec = registry.get("gemma2-9b")
+    gemma_cfg = cut(gemma_spec, GEMMA_LAYERS)
+    vl_spec = registry.get("qwen2-vl-7b")
+    vl_cfg = with_flash(cut(vl_spec, VL_LAYERS))
     errs = {}
-    phase_kernels(cfg, errs)
+    checked = phase_kernels(cfg, errs, (gemma_cfg, vl_cfg))
     phase_flash_kernels(errs)
     phase_exact(spec, registry, pex)
     torch.cuda.empty_cache()
@@ -2644,7 +2763,9 @@ def main() -> int:
     rows += flash_table(errs, flash_run["launches"], flash_run["kern_ms"])
     rows += row_table(errs, token_run, onepass)
     torch.cuda.empty_cache()
-    phase_dispatch(cfg)
+    phase_dispatch((cfg, gemma_cfg, vl_cfg,
+                    cut(registry.get("qwen2-7b"), VL_LAYERS),
+                    cut(registry.get("minitron-4b"), VL_LAYERS)))
     torch.cuda.empty_cache()
     train_run = phase_train(spec, registry, cfg)
     torch.cuda.empty_cache()
@@ -2652,12 +2773,62 @@ def main() -> int:
         f"{TRAIN_CLIP_STEPS}, then importance); main path steady step ms "
         f"{main_run['step_ms'][1:]}; peak memory {train_run['peak_gib']:.2f} "
         f"GiB (main {main_run['peak_gib']:.2f})")
+    phase_exact(gemma_spec, registry, pex,
+                cut(gemma_spec, GEMMA_LAYERS, dtype="float32"),
+                "gemma2-exact", flash_launches=0)
+    torch.cuda.empty_cache()
+    gemma_want = main_path_launches(gemma_cfg, S)
+    gemma_kernels = tuple(k for k, v in gemma_want.items() if v)
+    gemma_run = phase_main(gemma_spec, registry, pex, gemma_cfg, (B, S),
+                           "gemma2", pass_launches(gemma_want, gemma_cfg),
+                           gemma_kernels)
+    torch.cuda.empty_cache()
+    vl_unfused = plain_loss(vl_spec, registry, pex, dataclasses.replace(
+        vl_cfg, attn=dataclasses.replace(vl_cfg.attn, flash=False)))
+    torch.cuda.empty_cache()
+    vl_want = main_path_launches(vl_cfg, S)
+    vl_kernels = tuple(k for k, v in vl_want.items() if v) + FLASH_KERNELS
+    vl_run = phase_main(vl_spec, registry, pex, vl_cfg, (B, S), "qwen2-vl",
+                        pass_launches(vl_want, vl_cfg), vl_kernels)
+    torch.cuda.empty_cache()
+    d_loss = abs(vl_run["losses"][0] - vl_unfused) / abs(vl_unfused)
+    log(f"[qwen2-vl] step-0 loss {vl_run['losses'][0]:.6f} (flash) vs "
+        f"unfused {vl_unfused:.6f} on the same params and batch: rel diff "
+        f"{d_loss:.2e} (tol {LOSS_TOL})")
+    if not d_loss <= LOSS_TOL:
+        raise AssertionError(f"qwen2-vl flash and unfused step-0 losses "
+                             f"differ by {d_loss}")
+    # every bf16 gram and direct launch of a dense path at a shape, and so
+    # on a plan, that phase 3 held against its plain version
+    for tag, r in (("main", main_run), ("flash", flash_run),
+                   ("gemma2", gemma_run), ("qwen2-vl", vl_run)):
+        if not r["norm_shapes"] <= checked:
+            raise AssertionError(f"{tag}: gram/direct launched at "
+                                 f"{sorted(r['norm_shapes'] - checked)}, "
+                                 f"not checked in phase 3")
+        log(f"[kernels] {tag}: every bf16 gram/direct launch shape "
+            f"{sorted(r['norm_shapes'])} was held in phase 3")
+    for tag, r in (("main", main_run), ("gemma2", gemma_run),
+                   ("qwen2-vl", vl_run)):
+        log(f"[compare] {tag}: steady stream ms in Engine.step "
+            f"{[round(x, 1) for x in r['engine_ms'][1:]]}, in the AdamW "
+            f"update {[round(x, 1) for x in r['adamw_ms'][1:]]} (host step "
+            f"ms {[round(x, 1) for x in r['step_ms'][1:]]})")
+    for tag, r, kerns in (("gemma2", gemma_run, gemma_kernels),
+                          ("qwen2-vl", vl_run, vl_kernels)):
+        log(f"[compare] {tag}: steady step ms {r['step_ms'][1:]} (step 0 "
+            f"{r['step_ms'][0]:.1f}); kernel ms per steady step "
+            f"{[{k: round(m[k], 3) for k in kerns} for m in r['kern_ms'][1:]]}"
+            f"; attention core fwd+bwd ms per steady step "
+            f"{[round(a + b, 3) for a, b in r['attn_ms'][1:]]}; peak memory "
+            f"{r['peak_gib']:.2f} GiB")
     log(f"[table] kernels: {', '.join(r['name'] for r in rows)}; main step "
         f"ms {main_run['step_ms']}; flash step ms {flash_run['step_ms']}; "
         f"moe step ms {moe_run['step_ms']}; token step ms "
         f"{token_run['step_ms']}; moe-token step ms "
         f"{moe_token_run['step_ms']}; train step ms "
-        f"{train_run['step_ms']}; whole run "
+        f"{train_run['step_ms']}; gemma2 step ms {gemma_run['step_ms']}; "
+        f"qwen2-vl step ms {vl_run['step_ms']}; whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

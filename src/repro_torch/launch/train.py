@@ -5,8 +5,11 @@ Port of ``src/repro/launch/train.py``:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --smoke --mode clip --steps 50 [--device cpu]
 
-It runs on the CUDA device unless ``--device cpu`` is given, and raises
-when there is none. ``--smoke`` runs the reduced config; without it the
+``--arch`` is any arch of ``models.registry.ARCHS``. The batches come
+from ``SyntheticLM`` (ids and labels only, as in the reference), so
+qwen2-vl-7b trains there on its text-only M-RoPE fallback. It runs on the
+CUDA device unless ``--device cpu`` is given, and raises when there is
+none. ``--smoke`` runs the reduced config; without it the
 published widths. ``--data-parallel``, ``--ckpt-dir`` and ``--resume`` are
 refused: meshes and checkpointing wait for ROADMAP.md Queue 1 items 9 and
 10.

@@ -2,9 +2,10 @@
 
 Port of the subset of ``src/repro/models/registry.py`` the port needs so
 far: ``get``, ``family_module``, ``make_loss_fn_v2`` and
-``make_train_batch``. llama3.2-1b and phi3.5-moe are registered; the other
-configs and families, serving and the input-spec builders of the dry run
-come in later slices.
+``make_train_batch``. The transformer family's archs are registered:
+llama3.2-1b, qwen2-7b, qwen2-vl-7b, minitron-4b, gemma2-9b and
+phi3.5-moe. deepseek-v2 (MLA), the other families, serving and the
+input-spec builders of the dry run come in later slices.
 """
 from __future__ import annotations
 
@@ -13,13 +14,15 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs import llama3_2_1b, phi35_moe
+from repro_torch.configs import (gemma2_9b, llama3_2_1b, minitron_4b,
+                                 phi35_moe, qwen2_7b, qwen2_vl_7b)
 from repro_torch.configs.common import ArchSpec, ShapeSpec
 from repro_torch.models import transformer
 from repro_torch.nn.param import resolve_device
 
-ARCHS: Dict[str, ArchSpec] = {s.arch_id: s for s in [llama3_2_1b.SPEC,
-                                                      phi35_moe.SPEC]}
+ARCHS: Dict[str, ArchSpec] = {s.arch_id: s for s in [
+    llama3_2_1b.SPEC, qwen2_7b.SPEC, qwen2_vl_7b.SPEC, minitron_4b.SPEC,
+    gemma2_9b.SPEC, phi35_moe.SPEC]}
 
 _FAMILIES = {"transformer": transformer}
 
@@ -47,13 +50,27 @@ def make_loss_fn_v2(spec: ArchSpec, cfg):
 def make_train_batch(spec: ArchSpec, cfg, shape: ShapeSpec, rng_seed=0,
                      device=None):
     """Synthetic batch from numpy ``default_rng(rng_seed)``, drawn as the
-    reference draws it (the same ids and labels for the same seed), on
-    ``device`` (default CUDA)."""
+    reference draws it (the same arrays for the same seed), on ``device``
+    (default CUDA): ids and labels, then for a config with ``vl_inputs``
+    the visual embeds (B, S, d_model) in the config's dtype, the visual
+    mask (the first half of each stream) and (B, 3, S) M-RoPE positions
+    (the text arange on all three streams)."""
     device = resolve_device(device)
     rng = np.random.default_rng(rng_seed)
     b, s = shape.batch, shape.seq
     ids = rng.integers(0, cfg.vocab, (b, s))
     labels = rng.integers(0, cfg.vocab, (b, s))
-    return {"ids": torch.as_tensor(ids, dtype=torch.long, device=device),
-            "labels": torch.as_tensor(labels, dtype=torch.long,
-                                      device=device)}
+    batch = {"ids": torch.as_tensor(ids, dtype=torch.long, device=device),
+             "labels": torch.as_tensor(labels, dtype=torch.long,
+                                       device=device)}
+    if cfg.vl_inputs:
+        vis = rng.normal(size=(b, s, cfg.d_model)) * 0.1
+        batch["vis_embeds"] = torch.as_tensor(vis, device=device).to(
+            cfg.torch_dtype)
+        vm = np.zeros((b, s), bool)
+        vm[:, : s // 2] = True  # first half of the stream is visual
+        batch["vis_mask"] = torch.as_tensor(vm, device=device)
+        pos = np.broadcast_to(np.arange(s), (b, 3, s))
+        batch["positions"] = torch.as_tensor(pos.copy(), dtype=torch.long,
+                                             device=device)
+    return batch

@@ -1,5 +1,5 @@
-"""Decoder-only LM, GQA stack with a dense or MoE FFN (llama3.2-1b,
-phi3.5-moe).
+"""Decoder-only LM, GQA stack with a dense or MoE FFN: llama3.2-1b,
+qwen2-7b, qwen2-vl-7b, minitron-4b, gemma2-9b and phi3.5-moe.
 
 Port of ``src/repro/models/transformer.py`` for the GQA family. The
 reference stacks the layers and runs them under ``lax.scan`` with
@@ -10,8 +10,12 @@ an 80 GB card with room to spare. ``interop`` converts between the
 reference's stacked layout and this one.
 
 Each block's FFN is ``mlp`` or, when the config has ``moe``, ``nn.moe``.
-Not in this slice: MLA, LoRA, dense prefixes, gemma's norms and softcaps,
-vision inputs, ``init_caches`` and ``forward_tokens`` (serving).
+gemma2's features are config switches: ``(1+g)`` RMSNorm gains, sandwich
+norms after attention and the FFN, even layers local (windowed), the
+final logit softcap and embeds × √d. qwen2-vl's merged visual embeds
+replace the token embeds where ``vis_mask`` is set, and its (B, 3, S)
+M-RoPE positions come with the batch. Not in this slice: MLA, LoRA, dense
+prefixes, ``init_caches`` and ``forward_tokens`` (serving).
 """
 from __future__ import annotations
 
@@ -40,6 +44,12 @@ class LMConfig:
     mlp: Optional[MlpCfg] = None          # dense FFN
     moe: Optional[MoeCfg] = None          # MoE FFN (takes precedence)
     rms_eps: float = 1e-6
+    rms_plus_one: bool = False            # gemma (1+g)
+    post_norms: bool = False              # gemma2 sandwich norms
+    alt_local_global: bool = False        # gemma2 even layers local
+    logit_softcap: Optional[float] = None
+    scale_embeds: bool = False            # gemma ×√d
+    vl_inputs: bool = False               # qwen2-vl merged visual embeds
     dtype: str = "float32"
 
     @property
@@ -48,53 +58,92 @@ class LMConfig:
 
     @property
     def vocab_cfg(self) -> VocabCfg:
-        return VocabCfg(self.vocab, self.d_model)
+        return VocabCfg(self.vocab, self.d_model,
+                        logit_softcap=self.logit_softcap,
+                        scale_by_sqrt_dim=self.scale_embeds)
 
 
 def _init_block(gen, cfg: LMConfig, device):
     kw = dict(dtype=cfg.torch_dtype, device=device)
+    norm = dict(kw, plus_one=cfg.rms_plus_one)
     p = {
-        "ln_attn": init_rmsnorm(cfg.d_model, **kw),
+        "ln_attn": init_rmsnorm(cfg.d_model, **norm),
         "attn": init_attention(gen, cfg.attn, **kw),
-        "ln_mlp": init_rmsnorm(cfg.d_model, **kw),
+        "ln_mlp": init_rmsnorm(cfg.d_model, **norm),
     }
     if cfg.moe is None:
         p["mlp"] = init_mlp(gen, cfg.mlp, **kw)
     else:
         p["moe"] = init_moe(gen, cfg.moe, **kw)
+    if cfg.post_norms:
+        p["ln_attn_post"] = init_rmsnorm(cfg.d_model, **norm)
+        p["ln_mlp_post"] = init_rmsnorm(cfg.d_model, **norm)
     return p
 
 
 def init(cfg: LMConfig, generator: torch.Generator, device=None):
     """Random parameters with the reference's distributions (std 0.02 for
-    embed/head, fan-in for linear layers, ones for RMSNorm gains), drawn
-    from ``generator`` on ``device`` (default CUDA)."""
+    embed/head, fan-in for linear layers, ones for RMSNorm gains, zeros
+    for gemma's ``(1+g)`` ones), drawn from ``generator`` on ``device``
+    (default CUDA)."""
     device = pm.resolve_device(device)
     kw = dict(dtype=cfg.torch_dtype, device=device)
     return {
         "embed": init_embedding(generator, cfg.vocab_cfg, **kw),
         "head": init_lm_head(generator, cfg.vocab_cfg, **kw),
-        "ln_f": init_rmsnorm(cfg.d_model, **kw),
+        "ln_f": init_rmsnorm(cfg.d_model, plus_one=cfg.rms_plus_one, **kw),
         "blocks": [_init_block(generator, cfg, device)
                    for _ in range(cfg.n_layers)],
     }
 
 
-def _block(p, x, tap: Tap, cfg: LMConfig):
-    h = rmsnorm(p["ln_attn"], x, tap=tap, eps=cfg.rms_eps)
-    x = x + attention(p["attn"], h, tap=tap, cfg=cfg.attn)
-    h = rmsnorm(p["ln_mlp"], x, tap=tap, eps=cfg.rms_eps)
+def _block(p, x, tap: Tap, cfg: LMConfig, *, positions, local_flag=None):
+    def norm(q, y):
+        return rmsnorm(q, y, tap=tap, eps=cfg.rms_eps,
+                       plus_one=cfg.rms_plus_one)
+    a = attention(p["attn"], norm(p["ln_attn"], x), tap=tap, cfg=cfg.attn,
+                  positions=positions, local_flag=local_flag)
+    if cfg.post_norms:
+        a = norm(p["ln_attn_post"], a)
+    x = x + a
+    h = norm(p["ln_mlp"], x)
     if "moe" in p:
-        return x + moe(p["moe"], h, tap=tap, cfg=cfg.moe)
-    return x + mlp(p["mlp"], h, tap=tap, cfg=cfg.mlp)
+        m = moe(p["moe"], h, tap=tap, cfg=cfg.moe)
+    else:
+        m = mlp(p["mlp"], h, tap=tap, cfg=cfg.mlp)
+    if cfg.post_norms:
+        m = norm(p["ln_mlp_post"], m)
+    return x + m
+
+
+def _inputs_to_embeds(params, batch, tap: Tap, cfg: LMConfig):
+    x = embed(params["embed"], batch["ids"], tap=tap, cfg=cfg.vocab_cfg)
+    if cfg.vl_inputs and "vis_embeds" in batch:
+        # merged multimodal stream: the frontend (a stub) supplies the
+        # patch embeds
+        x = torch.where(batch["vis_mask"][..., None], batch["vis_embeds"],
+                        x)
+    return x
+
+
+def _positions(batch, cfg: LMConfig):
+    """(3, B, S) M-RoPE streams from the batch's (B, 3, S) ``positions``,
+    or None (the default arange)."""
+    if cfg.attn.mrope_sections is not None:
+        pos = batch.get("positions")
+        return None if pos is None else pos.movedim(1, 0)
+    return None
 
 
 def loss_fn(params, batch, tap: Tap, *, cfg: LMConfig):
     """Canonical instrumented loss: (loss_vec, aux)."""
-    x = embed(params["embed"], batch["ids"], tap=tap, cfg=cfg.vocab_cfg)
-    for p in params["blocks"]:
-        x = _block(p, x, tap, cfg)
-    x = rmsnorm(params["ln_f"], x, tap=tap, eps=cfg.rms_eps)
+    x = _inputs_to_embeds(params, batch, tap, cfg)
+    positions = _positions(batch, cfg)
+    for i, p in enumerate(params["blocks"]):
+        local = (i % 2 == 0) if cfg.alt_local_global else None
+        x = _block(p, x, tap, cfg, positions=positions, local_flag=local)
+    x = rmsnorm(params["ln_f"], x, tap=tap, eps=cfg.rms_eps,
+                plus_one=cfg.rms_plus_one)
     logits = lm_head(params["head"], x, tap=tap, cfg=cfg.vocab_cfg)
     loss_vec = per_example_xent(logits, batch["labels"],
                                 batch.get("label_mask"), tap=tap)

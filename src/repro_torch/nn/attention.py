@@ -1,18 +1,20 @@
 """Grouped-query causal self-attention: the unfused path and the flash route.
 
 Port of ``src/repro/nn/attention.py`` for the GQA family at training time:
-RoPE, optional QKV bias, Q-head padding to ``head_multiple`` (padded heads
-get zero in/out projections, so logits, gradients and per-example stats are
-exact). ``AttnCfg.flash`` (default False, as in the reference) sends the
-attention core through the flash kernels (``kernels.ops.flash_attention_vjp``)
-under the reference's own gate; otherwise the unfused ``_attend`` runs. Not
-in this slice: the decode KV cache, cross-attention, M-RoPE, logit softcap
-and sliding windows in the model (the flash kernels themselves take both).
+RoPE (partial with ``rope_dim``) or M-RoPE (``mrope_sections``), optional
+QKV bias, gemma2's attention-logit softcap and sliding window (applied on
+the layers whose ``local_flag`` is set), Q-head padding to
+``head_multiple`` (padded heads get zero in/out projections, so logits,
+gradients and per-example stats are exact). ``AttnCfg.flash`` (default
+False, as in the reference) sends the attention core through the flash
+kernels (``kernels.ops.flash_attention_vjp``) under the reference's own
+gate; otherwise the unfused ``_attend`` runs. Not ported: the decode KV
+cache, cross-attention, ``causal=False`` and ``d_out``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,7 +22,7 @@ from repro_torch.core.taps import Tap
 from repro_torch.kernels import ops
 from repro_torch.nn import param as pm
 from repro_torch.nn.linear import init_linear, linear
-from repro_torch.nn.rotary import apply_rope, rope_angles
+from repro_torch.nn.rotary import apply_rope, mrope_angles, rope_angles
 
 NEG_INF = -2.0e38
 
@@ -32,7 +34,12 @@ class AttnCfg:
     n_kv: int
     head_dim: int
     bias: bool = False                 # qwen2-style QKV bias
+    softcap: Optional[float] = None    # gemma2 attn logit softcap
+    window: Optional[int] = None       # sliding-window size (None = global)
     rope_theta: float = 10000.0
+    rope_dim: Optional[int] = None     # partial rotary (None = full head_dim)
+    mrope_sections: Optional[Tuple[int, ...]] = None
+    attn_scale: Optional[float] = None # None → head_dim ** -0.5
     head_multiple: int = 16            # pad n_heads up to this multiple
     flash: bool = False                # flash kernels for the full-seq
                                        # causal path (see ``attention``)
@@ -43,7 +50,8 @@ class AttnCfg:
 
     @property
     def scale(self) -> float:
-        return self.head_dim ** -0.5
+        return self.attn_scale if self.attn_scale is not None \
+            else self.head_dim ** -0.5
 
 
 def init_attention(gen: torch.Generator, cfg: AttnCfg, *, dtype, device):
@@ -62,18 +70,25 @@ def init_attention(gen: torch.Generator, cfg: AttnCfg, *, dtype, device):
     return p
 
 
-def _attend(q, k, v, cfg: AttnCfg):
-    """q (B,S,Hp,D), k/v (B,T,Hkv,D) → (B, S, Hp·D); causal, logits and
-    softmax in f32."""
+def _attend(q, k, v, cfg: AttnCfg, local_flag: Optional[bool] = None):
+    """q (B,S,Hp,D), k/v (B,T,Hkv,D) → (B, S, Hp·D); causal, logits (then
+    the softcap) and softmax in f32. ``cfg.window`` applies where
+    ``local_flag`` is None or True (gemma2's local layers), not where it is
+    False (its global ones)."""
     b, s, hp, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     rep = hp // hkv
     qg = q.reshape(b, s, hkv, rep, d)
     logits = torch.einsum("bskrd,btkd->bkrst", qg.to(torch.float32),
                           k.to(torch.float32)) * cfg.scale
+    if cfg.softcap is not None:
+        logits = cfg.softcap * torch.tanh(logits / cfg.softcap)
     qpos = torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(t, device=q.device)[None, :]
-    logits = torch.where(kpos <= qpos, logits,
+    mask = kpos <= qpos
+    if cfg.window is not None and local_flag is not False:
+        mask = mask & ((qpos - kpos) < cfg.window)
+    logits = torch.where(mask, logits,
                          torch.full((), NEG_INF, device=q.device))
     attn = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkrst,btkd->bskrd", attn, v)
@@ -82,16 +97,22 @@ def _attend(q, k, v, cfg: AttnCfg):
 
 def attention(p, x, *, tap: Tap, cfg: AttnCfg,
               positions: Optional[torch.Tensor] = None,
+              local_flag: Optional[bool] = None,
               group: str = "attn") -> torch.Tensor:
-    """Full-sequence causal attention. positions: (S,) / (B,S) int.
+    """Full-sequence causal attention. positions: (S,) / (B,S) int, or
+    (3,B,S) for M-RoPE (a 2-D stream is broadcast to all three sections,
+    the text-only fallback). ``local_flag``: gemma2's per-layer switch of
+    the window (see ``_attend``), a Python bool.
 
-    With ``cfg.flash`` and S a multiple of 128 the core runs through the
-    flash kernels on (B, H, S, D) views of q, k and v (no copy); otherwise
-    through ``_attend``. The ``S % 128`` test is the reference's dispatch
-    (``attention.py:182-184``, whose other conditions — no cache, not
-    cross, causal, no softcap, no local flag — always hold here), kept so
-    that one configuration takes one route in both packages; the kernels
-    themselves take any S, so it is not a fallback."""
+    With ``cfg.flash`` the core runs through the flash kernels on (B, H,
+    S, D) views of q, k and v (no copy, ``cfg.window`` passed on) under the
+    reference's gate (``attention.py:182-184``): no softcap, no local flag
+    and S a multiple of 128 (the reference's cache, cross-attention and
+    ``causal`` conditions hold here, as none of them is ported). Otherwise
+    ``_attend`` runs. The gate is the reference's dispatch, kept so that
+    one configuration takes one route in both packages; the kernels
+    themselves take a softcap, a window and any S, so it is not a
+    fallback."""
     b, s, _ = x.shape
     q = linear(p["wq"], x, tap=tap, group=group)
     k = linear(p["wk"], x, tap=tap, group=group)
@@ -101,15 +122,23 @@ def attention(p, x, *, tap: Tap, cfg: AttnCfg,
     v = v.reshape(b, s, cfg.n_kv, cfg.head_dim)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    elif positions.ndim == 1:
-        positions = positions[None]
-    ang = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    q = apply_rope(q, ang)
-    k = apply_rope(k, ang)
-    if cfg.flash and s % 128 == 0:
+    rot = cfg.rope_dim or cfg.head_dim
+    if cfg.mrope_sections is not None:
+        if positions.ndim == 2:       # text-only fallback: t=h=w stream
+            positions = positions.expand(3, *positions.shape)
+        ang = mrope_angles(positions, rot, cfg.rope_theta,
+                           cfg.mrope_sections)
+    else:
+        if positions.ndim == 1:
+            positions = positions[None]
+        ang = rope_angles(positions, rot, cfg.rope_theta)
+    q = apply_rope(q, ang, cfg.rope_dim)
+    k = apply_rope(k, ang, cfg.rope_dim)
+    if (cfg.flash and cfg.softcap is None and local_flag is None
+            and s % 128 == 0):
         y = ops.flash_attention_vjp(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), cfg.scale, None)
+                                    v.transpose(1, 2), cfg.scale, cfg.window)
         y = y.transpose(1, 2).reshape(b, s, -1)
     else:
-        y = _attend(q, k, v, cfg)
+        y = _attend(q, k, v, cfg, local_flag)
     return linear(p["wo"], y, tap=tap, group=group)

@@ -23,6 +23,8 @@ class VocabCfg:
     vocab: int
     d_model: int
     vocab_multiple: int = 16
+    logit_softcap: Optional[float] = None   # gemma2 final softcap
+    scale_by_sqrt_dim: bool = False         # gemma multiplies embeds by √d
 
     @property
     def vocab_p(self) -> int:
@@ -38,7 +40,12 @@ def init_embedding(gen: torch.Generator, cfg: VocabCfg, *, dtype, device):
 
 def embed(p, ids, *, tap: Tap, cfg: VocabCfg,
           group: str = "embed") -> torch.Tensor:
-    return tap.embedding(p["table"], ids, group=group)
+    x = tap.embedding(p["table"], ids, group=group)
+    if cfg.scale_by_sqrt_dim:
+        # the constant rounds to x's dtype first (bf16: √3584 → 59.75)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
 def init_lm_head(gen: torch.Generator, cfg: VocabCfg, *, dtype, device):
@@ -48,13 +55,16 @@ def init_lm_head(gen: torch.Generator, cfg: VocabCfg, *, dtype, device):
 
 def lm_head(p, x, *, tap: Tap, cfg: VocabCfg,
             group: str = "head") -> torch.Tensor:
-    """Logits of x (B, S, d_model), the vocab padding masked to -inf. The
-    head's stat takes the tap's method like any dense layer: under
+    """Logits of x (B, S, d_model), softcapped (gemma2: ``cap ·
+    tanh(logits / cap)`` in the logits' dtype) and the vocab padding
+    masked to -inf. The head's stat takes the tap's method like any dense layer: under
     ``method="auto"`` the priced pick, which sends llama3.2-1b's head at
     S=512 to the gram kernel. The reference forces the direct route here
     for its TPU kernels; both routes give the same norm."""
     t = tap if tap.spec.tap_head else taps.NULL
     logits = t.dense(x, p["w"], group=group)
+    if cfg.logit_softcap is not None:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if cfg.vocab_p != cfg.vocab:
         mask = torch.arange(cfg.vocab_p, device=logits.device) < cfg.vocab
         logits = torch.where(mask, logits,

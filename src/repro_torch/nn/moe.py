@@ -13,8 +13,9 @@ layout's expert taps scatter their per-slot stats through.
 
 Covers phi3.5-moe (16 experts, top-2, renormalized gates) and the routed
 part of deepseek-v2 (with ``n_shared`` shared experts as one MLP). Not
-carried over: the ``shard`` constraints (identities off a TPU mesh) and
-``load_balance_loss`` (off the loss: it couples examples).
+carried over: the ``shard`` constraints (identities off a TPU mesh).
+``load_balance_loss`` is ported, and, as in the reference, no loss calls
+it: it couples examples.
 """
 from __future__ import annotations
 
@@ -161,3 +162,16 @@ def moe(p, x, *, tap: Tap, cfg: MoeCfg, group: str = "moe",
                     cfg=MlpCfg(d, cfg.n_shared * cfg.d_ff, act=cfg.act),
                     group=group)
     return y
+
+
+def load_balance_loss(cfg: MoeCfg, logits: torch.Tensor) -> torch.Tensor:
+    """Switch-style aux loss over router ``logits`` (..., E): E · Σ_e f_e ·
+    p̄_e, with f the share of top-k picks and p̄ the mean router
+    probability along the leading axis. Batch-coupled, so off by default
+    when exact per-example norms are required (DESIGN.md §5)."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    _, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    onehot = torch.nn.functional.one_hot(idx, cfg.n_experts).sum(dim=-2)
+    f = torch.mean(onehot.to(torch.float32), dim=0)
+    p_mean = torch.mean(probs, dim=0)
+    return cfg.n_experts * torch.sum(f * p_mean)

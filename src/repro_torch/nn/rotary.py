@@ -1,10 +1,10 @@
-"""Rotary position embeddings (standard RoPE, half-split convention).
+"""Rotary position embeddings: standard RoPE (half-split convention),
+partial RoPE and Qwen2-VL's multimodal M-RoPE (per-section t/h/w streams).
 
-Port of ``rope_angles`` and ``apply_rope`` from ``src/repro/nn/rotary.py``;
-M-RoPE waits for qwen2-vl."""
+Port of ``src/repro/nn/rotary.py``."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -19,6 +19,24 @@ def rope_angles(positions: torch.Tensor, dim: int,
     """positions (..., S) int → angles (..., S, dim/2) f32."""
     inv = _inv_freq(dim, theta, positions.device)
     return positions[..., None].to(torch.float32) * inv
+
+
+def mrope_angles(positions: torch.Tensor, dim: int, theta: float,
+                 sections: Sequence[int]) -> torch.Tensor:
+    """M-RoPE: positions (3, B, S), the temporal/height/width streams →
+    angles (B, S, dim/2) f32. ``sections`` are in half-dim units and sum to
+    dim/2 (qwen2-vl: 16/24/24 at head_dim 128); each frequency band takes
+    its angle from its section's stream."""
+    if positions.shape[0] != 3 or sum(sections) != dim // 2:
+        raise ValueError(f"M-RoPE needs (3, B, S) positions and sections "
+                         f"summing to {dim // 2}, got {tuple(positions.shape)}"
+                         f" and {tuple(sections)}")
+    full = rope_angles(positions, dim, theta)        # (3, B, S, dim/2)
+    parts, off = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(full[i, ..., off:off + sec])
+        off += sec
+    return torch.cat(parts, dim=-1)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor,

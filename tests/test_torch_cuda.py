@@ -167,17 +167,20 @@ def test_cuda_norm_kernel_info(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_engine_step_matches_cpu(cuda_device):
-    """The smoke llama step on the card (kernels) against the same step on
-    the CPU (plain versions), f32; the launches follow the priced
-    ``pick_method``, the LM head's included."""
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2-7b", "minitron-4b",
+                                  "gemma2-9b", "qwen2-vl-7b"])
+def test_cuda_engine_step_matches_cpu(cuda_device, arch):
+    """The smoke step of each dense config (gemma2 at S=96, past its
+    window of 8; qwen2-vl with its visual inputs) on the card (kernels)
+    against the same step on the CPU (plain versions), f32; the launches
+    follow the priced ``pick_method``, the LM head's included."""
     from repro_torch import pex
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.core.norms import pick_method
     from repro_torch.models import registry
     from repro_torch.nn.param import tree_map
 
-    spec = registry.get("llama3.2-1b")
+    spec = registry.get(arch)
     cfg = spec.smoke()
     params = registry.family_module(spec).init(
         cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -195,12 +198,14 @@ def test_cuda_engine_step_matches_cpu(cuda_device):
     a = cfg.attn
     d, hq, hkv, f = (cfg.d_model, a.n_heads_p * a.head_dim,
                      a.n_kv * a.head_dim, cfg.mlp.d_ff)
-    picks = [pick_method(shape.seq, pi, po, use_kernels=True) for pi, po in
-             ((d, hq), (d, hkv), (d, hkv), (hq, d), (d, f), (d, f), (f, d))]
-    head = pick_method(shape.seq, d, cfg.vocab, use_kernels=True)
-    assert tops.launch_counts() == _counts(
-        gram_norm=cfg.n_layers * picks.count("gram") + (head == "gram"),
-        direct_norm=cfg.n_layers * picks.count("direct") + (head == "direct"))
+    layer = [(d, hq), (d, hkv), (d, hkv), (hq, d), (d, f), (f, d)]
+    if cfg.mlp.gated:
+        layer.append((d, f))
+    picks = [pick_method(shape.seq, pi, po, use_kernels=True)
+             for pi, po in layer] * cfg.n_layers
+    picks.append(pick_method(shape.seq, d, cfg.vocab, use_kernels=True))
+    assert tops.launch_counts() == _counts(gram_norm=picks.count("gram"),
+                                           direct_norm=picks.count("direct"))
 
 
 @pytest.mark.cuda
@@ -223,7 +228,8 @@ def test_cuda_empty_inputs_launch_nothing(cuda_device, shape):
 # checks: llama3.2-1b's main-path shape, ragged S, MHA, D=32, D=128, a
 # window, a softcap, all three of ragged, window and softcap together, S a
 # multiple of 64 but not of 128, one row past a tile, a window smaller than
-# a q tile, rep = 8, and two strided layouts: q, k and v sliced out of one
+# a q tile, rep = 8, qwen2-vl-7b's shape (rep 8 at D=128), and two strided
+# layouts: q, k and v sliced out of one
 # fused projection (16-byte strides: the TMA route) and out of
 # (B, S, H, D + 1) tensors (the synchronous route, at D = 64, 128 and 32,
 # whose tiles are laid out apart)
@@ -239,6 +245,7 @@ FLASH_CASES = [(8, 32, 8, 512, 64, None, None, None),
                (2, 4, 2, 65, 64, None, None, None),
                (2, 8, 2, 256, 64, None, 48, None),
                (2, 32, 4, 256, 64, None, None, None),
+               (8, 32, 4, 512, 128, None, None, None),
                (2, 8, 2, 200, 64, None, None, "fused"),
                (2, 8, 2, 200, 64, None, None, "odd"),
                (1, 8, 2, 320, 128, 20.0, 48, "odd"),

@@ -5,10 +5,12 @@ on the same numpy inputs; the data pipeline's batches must equal the
 reference's bit for bit; and the port's ``Trainer`` runs 10 steps of the
 llama3.2-1b smoke config in f32 (B=8, S=16) beside the reference's, from
 the reference's ``init`` parameters, in modes plain, norms and clip (noise
-off) and with ``[Norms, Clip, GNS]``: each step's loss, ``norm_mean``,
-``norm_max`` and ``gns`` agree at 1e-4 relative. A loss poisoned for some
-examples is quarantined as the reference does. The launcher runs each mode
-on the CPU.
+off) and with ``[Norms, Clip, GNS]``, and the gemma2-9b smoke config
+(softcaps, local/global layers, (1+g) and sandwich norms, × √d) in mode
+clip: each step's loss, ``norm_mean``, ``norm_max`` and ``gns`` agree at
+1e-4 relative. A loss poisoned for some
+examples is quarantined as the reference does. The launcher runs each mode,
+and each arch of the transformer family, on the CPU.
 """
 import math
 
@@ -44,8 +46,8 @@ ARCH = "llama3.2-1b"
 B, S, STEPS = 8, 16, 10
 
 
-def _np_params(seed=0):
-    jspec = jreg.get(ARCH)
+def _np_params(seed=0, arch=ARCH):
+    jspec = jreg.get(arch)
     return unbox(jreg.family_module(jspec).init(jax.random.PRNGKey(seed),
                                                 jspec.smoke()))
 
@@ -187,12 +189,12 @@ def _consumers(mode, port):
 
 
 def _trainers(consumers_j, consumers_t, loss_wrap=lambda f: f, steps=STEPS,
-              lr=1e-3):
-    jspec = jreg.get(ARCH)
+              lr=1e-3, arch=ARCH):
+    jspec = jreg.get(arch)
     jcfg = jspec.smoke()
-    spec = registry.get(ARCH)
+    spec = registry.get(arch)
     cfg = spec.smoke()
-    jparams = _np_params()
+    jparams = _np_params(arch=arch)
     dcfg = dict(vocab=cfg.vocab, seq=S, global_batch=B, seed=1)
     jt = jtrainer.Trainer(
         loss_wrap(jreg.make_loss_fn_v2(jspec, jcfg)), jparams, JPexSpec(),
@@ -225,6 +227,20 @@ def test_trainer_loss_curve_matches_reference(mode):
             if k in j:
                 np.testing.assert_allclose(t[k], j[k], rtol=1e-4,
                                            err_msg=f"step {t['step']} {k}")
+
+
+def test_trainer_gemma2_clip_curve_matches_reference():
+    """gemma2-9b's smoke config (S=16 reaches past its window of 8) under
+    the clip mode: 10 steps beside the reference's ``Trainer``."""
+    jt, tt = _trainers(_consumers("clip", False), _consumers("clip", True),
+                       arch="gemma2-9b")
+    jm, tm = jt.train(), tt.train()
+    assert len(tm) == STEPS
+    for j, t in zip(jm, tm):
+        assert sorted(t) == sorted(j)
+        for k in ("loss", "norm_mean", "norm_max"):
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-4,
+                                       err_msg=f"step {t['step']} {k}")
 
 
 def _poisoned(loss_fn):
@@ -342,6 +358,18 @@ def test_launcher_runs_each_mode_on_cpu(mode, capsys):
                        "--noise-std", "0.1", "--device", "cpu"])
     assert len(ms) == 2 and all(math.isfinite(m["loss"]) for m in ms)
     assert f"mode={mode}, device=cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "minitron-4b", "gemma2-9b",
+                                  "qwen2-vl-7b"])
+def test_launcher_runs_each_arch_on_cpu(arch, capsys):
+    """qwen2-vl trains on ``SyntheticLM``'s ids and labels alone: the
+    text-only M-RoPE fallback, as in the reference."""
+    ms = tlaunch.main(["--arch", arch, "--smoke", "--mode", "clip",
+                       "--steps", "2", "--batch", "4", "--seq", "24",
+                       "--device", "cpu"])
+    assert len(ms) == 2 and all(math.isfinite(m["loss"]) for m in ms)
+    assert f"{arch}: " in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flag", [["--data-parallel"], ["--ckpt-dir", "ck"],
