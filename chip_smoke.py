@@ -13,11 +13,16 @@ Phases, each of which fails the script (nonzero exit) if it fails:
 3. kernels  — ``gram_norm`` (triangular and full grid) and ``direct_norm``
               against their plain PyTorch versions in f32 and bf16 at the
               main path's shapes, a ragged shape and the LM head (in bf16
-              also at the gemma2 and qwen2-vl paths' block and head
-              shapes, 3584 → 256,000 the widest; every head at B=8, S=512,
-              the shape and so the plan its path launches, and after the
-              dense paths every bf16 gram and direct launch of theirs
-              asserted to be at a shape held here), each bf16
+              also at the moe, gemma2 and qwen2-vl paths' block and head
+              shapes, 3584 → 256,000 the widest, and at the deepseek
+              path's, its prefix layer's and MoE layers' included, kv_down's
+              5120 → 576 and kv_up's 512 → 32,768 the first path widths
+              off the multiples of 128; in f32 also at the f32 MoE routers,
+              phi3.5-moe's 4096 → 16 and deepseek's 5120 → 160; every
+              shape at the (B, S), and so on the plan, its path launches:
+              B=8, S=512, moe's B=32, S=256, deepseek's B=16, S=256; after
+              the paths every gram and direct launch of theirs, of either
+              dtype, asserted to be at a shape held here), each bf16
               launch's copy route asserted (TMA there; the staged route on
               rows of an odd pitch, checked too) and the bf16 launches at
               the main and head shapes run twice for bitwise-equal
@@ -62,7 +67,9 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               saved to ``build/moe_seg_ids.pt`` for ``seg_times()``;
 9. segmented — ``segmented_norm`` against its plain version in f32 and bf16
               at the MoE path's gate/up (4096→6400) and down (6400→4096)
-              shapes with the segment ids of its first step, a ragged T and
+              shapes with the segment ids of its first step (after phase
+              22 also at the deepseek path's 5120→1536 and 1536→5120 on
+              its ids, timed by ``seg_times``), a ragged T and
               p_out, all rows dropped, empty segments, one segment (direct
               route), mixed lengths (512→384, 1 to 1,500 rows on both
               routes in one launch) and wide rows (28,672→8,192), each run
@@ -123,9 +130,11 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               ``rowsumsq`` and ``clip_scale`` beside
               ``torch.linalg.vector_norm`` and ``torch.mul`` (each library
               call timed as a yardstick only; the port never calls it);
-16. dispatch — at each launch shape of the main, gemma2 and qwen2-vl
+16. dispatch — at each bf16 launch shape of the main, gemma2 and qwen2-vl
               paths and of qwen2-7b and minitron-4b (their blocks and
-              heads), the priced cost
+              heads) at B=8, S=512, and of the deepseek path (its prefix
+              and MoE layers' dense shapes and head) at B=16, S=256, the
+              priced cost
               of both routes (``core.norms.dense_cost(use_kernels=True)``),
               both kernels' measured times (``norm_times()``) and the
               pick, which must be the faster kernel wherever the two
@@ -154,7 +163,20 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               positions and ``AttnCfg.flash=True``: the same three steps,
               the flash kernels counted (D=128, 32 q heads on 4), and step
               0's loss against a plain unfused forward on the same
-              parameters and batch.
+              parameters and batch;
+21. deepseek-exact — deepseek-v2-236b at full width, 2 layers (the dense
+              prefix layer and one MoE layer: MLA, 2 shared and 160 routed
+              experts, top-6), f32, B=16, S=32: ``Engine.step([Norms()])``
+              against phase 7's batched-graph oracle, one f32 gradient
+              tree at a time;
+22. deepseek — the same at full width in bf16 (5.36B parameters), B=16
+              (16 dispatch groups of one example), S=256: three steps of
+              phase 5's consumers under AdamW (its loop over chunks and
+              the in-place noise add keep the step on the card), 17 gram
+              and 1 direct (the f32 router) launch and 3 segmented
+              launches (2,560 segments of ≤ 16 rows, every one on the
+              gram route) per norms backward, MLA's unfused attention core
+              timed, ``Engine.step`` and AdamW stream ms and peak memory.
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -168,7 +190,9 @@ The flash path's step time, peak memory and attention time are logged
 beside the main path's from the same call, the MoE path's step time,
 peak memory and segmented kernel time per step after them, then the token
 paths' step times, peak memory and ``rowsumsq`` time per step, those of
-gemma2 and qwen2-vl, and the whole run's seconds. TF32 is off
+gemma2, qwen2-vl and deepseek, and the whole run's seconds.
+``update_times()`` (not in a whole run) times one AdamW update and one
+in-place noise add, with the transient memory of each. TF32 is off
 for matmuls and cuDNN throughout, so the f32 plain versions are full f32.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the kernel table as JSON, and the line before that the
@@ -196,6 +220,11 @@ MOE_EXACT_B, MOE_EXACT_S = 32, 64
 GEMMA_LAYERS = 4         # gemma2-9b depth cut 42 → 4: two local/global
                          # periods, the reference's own probe depth
 VL_LAYERS = 2            # qwen2-vl-7b depth cut 28 → 2 (its probe depth)
+DS_LAYERS = 2            # deepseek-v2-236b depth cut 60 → 2 (the reference's
+                         # probe depth): the dense prefix and one MoE layer
+DS_B, DS_S = 16, 256     # deepseek path: 16 dispatch groups of one example,
+                         # capacity 16, so 2,560 segments of <= 16 rows
+DS_EXACT_B, DS_EXACT_S = 16, 32
 STEPS = 3
 T0 = 0.0                 # perf_counter at the start of main()
 PEAK_BYTES_PER_S = 3.35e12                      # H100 SXM HBM3
@@ -290,18 +319,51 @@ def rel_err(got, want):
     return ((got - want).abs() / want.abs()).max().item()
 
 
-def layer_shapes(cfg):
+def norm_key(h, z, *_):
+    """(dtype, b, s, p_in, p_out) of a gram or direct launch on ``h``,
+    ``z``: the key by which phase 3 holds each launch shape of a path."""
+    return (str(h.dtype),) + tuple(h.shape) + (z.shape[-1],)
+
+
+def router_shapes(cfg):
+    """(p_in, p_out) of the MoE router: the one dense tap whose weight, and
+    so whose gram/direct launch, stays f32 in a bf16 model."""
+    return [(cfg.d_model, cfg.moe.n_experts)] if cfg.moe is not None else []
+
+
+def layer_shapes(cfg, dense_mlp=False):
     """(p_in, p_out) of every tapped dense layer of one block that the
-    gram/direct dispatch takes: attention, then the MLP or the MoE router
-    (the MoE experts go to ``segmented_norm``)."""
-    a = cfg.attn
+    gram/direct dispatch takes: attention (GQA's four projections or MLA's
+    five), then the MLP (a prefix layer's own with ``dense_mlp``) or the MoE
+    router (f32) and shared MLP (the MoE experts go to
+    ``segmented_norm``)."""
     d = cfg.d_model
-    hq, hkv = a.n_heads_p * a.head_dim, a.n_kv * a.head_dim
-    attn = [(d, hq), (d, hkv), (d, hkv), (hq, d)]
-    if cfg.moe is not None:
-        return attn + [(d, cfg.moe.n_experts)]
-    f = cfg.mlp.d_ff
-    return attn + [(d, f), (d, f), (f, d)]
+    if cfg.mla is not None:
+        m = cfg.mla
+        attn = [(d, m.q_lora), (m.q_lora, m.n_heads * (m.qk_nope + m.qk_rope)),
+                (d, m.kv_lora + m.qk_rope),
+                (m.kv_lora, m.n_heads * (m.qk_nope + m.v_dim)),
+                (m.n_heads * m.v_dim, d)]
+    else:
+        a = cfg.attn
+        hq, hkv = a.n_heads_p * a.head_dim, a.n_kv * a.head_dim
+        attn = [(d, hq), (d, hkv), (d, hkv), (hq, d)]
+    if cfg.moe is not None and not dense_mlp:
+        f = cfg.moe.n_shared * cfg.moe.d_ff
+        shared = [(d, f), (d, f), (f, d)] if f else []
+        return attn + [(d, cfg.moe.n_experts)] + shared
+    mcfg = cfg.dense_prefix_mlp if dense_mlp and cfg.dense_prefix_mlp \
+        else cfg.mlp
+    f = mcfg.d_ff
+    return attn + ([(d, f)] if mcfg.gated else []) + [(d, f), (f, d)]
+
+
+def model_shapes(cfg):
+    """[(shapes of one block, layers of that kind)]: the dense prefix
+    layers, then the blocks."""
+    n_pre = cfg.n_dense_prefix
+    out = [(layer_shapes(cfg, dense_mlp=True), n_pre)] if n_pre else []
+    return out + [(layer_shapes(cfg), cfg.n_layers - n_pre)]
 
 
 def cut(spec, n_layers, **kw):
@@ -311,18 +373,27 @@ def cut(spec, n_layers, **kw):
 
 
 def with_flash(cfg):
-    """``cfg`` with ``AttnCfg.flash`` set."""
+    """``cfg`` with ``AttnCfg.flash`` set (MLA has no flash route: an MLA
+    config is returned as it is)."""
+    if cfg.attn is None:
+        return cfg
     return dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn,
                                                              flash=True))
 
 
+def moe_layers(cfg):
+    """Layers with a MoE FFN: all but the dense prefix."""
+    return cfg.n_layers - cfg.n_dense_prefix if cfg.moe is not None else 0
+
+
 def main_path_launches(cfg, s):
     """{kernel: {(p_in, p_out): launches per step}} from the port's own
-    dispatch: each block's dense layers and the LM head by the priced pick
+    dispatch: each block's dense layers (a dense prefix layer's apart from
+    the MoE layers') and the LM head by the priced pick
     (``pick_method(..., use_kernels=True)``)."""
     from repro_torch.core.norms import pick_method
     out = {"gram_norm": {}, "direct_norm": {}}
-    shapes = [(sh, cfg.n_layers) for sh in layer_shapes(cfg)]
+    shapes = [(sh, n) for block, n in model_shapes(cfg) for sh in block]
     for (pi, po), n in shapes + [((cfg.d_model, cfg.vocab), 1)]:
         k = pick_method(s, pi, po, use_kernels=True) + "_norm"
         out[k][(pi, po)] = out[k].get((pi, po), 0) + n
@@ -332,16 +403,16 @@ def main_path_launches(cfg, s):
 def pass_launches(expected, cfg):
     """Launches of every counted kernel in the tapped forward, the norms
     backward and the reweighted backward of one step: the norm kernels in
-    the norms backward only (with MoE, three segmented launches per layer:
-    gate, up, down); with ``AttnCfg.flash``, one forward launch per layer
-    in the forward and one dQ and one dK/dV launch per layer in each
+    the norms backward only (with MoE, three segmented launches per MoE
+    layer: gate, up, down); with ``AttnCfg.flash``, one forward launch per
+    layer in the forward and one dQ and one dK/dV launch per layer in each
     backward."""
     from repro_torch.kernels import ops
-    flash = cfg.attn.flash
+    flash = cfg.attn is not None and cfg.attn.flash
     zero = dict.fromkeys(ops.launch_counts(), 0)
     norms = {k: sum(v.values()) for k, v in expected.items()}
     if cfg.moe is not None:
-        norms["segmented_norm"] = 3 * cfg.n_layers
+        norms["segmented_norm"] = 3 * moe_layers(cfg)
     bwd = ({"flash_attention_bwd_dq": cfg.n_layers,
             "flash_attention_bwd_dkv": cfg.n_layers} if flash else {})
     return ({**zero, "flash_attention": cfg.n_layers if flash else 0},
@@ -353,14 +424,17 @@ def token_pass_launches(cfg):
     backward and the reweighted backward of one token-clipping step: in the
     norms backward one ``rowsumsq`` per operand of every per-token stat —
     two per dense or expert tap (h and z̄), one per bias tap (z̄), one per
-    scale tap (h ⊙ z̄) and one for the embedding (z̄) — and nothing else;
-    nothing in the other two passes."""
+    scale tap (h ⊙ z̄: two RMSNorms a layer, two more for gemma2's sandwich
+    norms or MLA's q_norm and kv_norm) and one for the embedding (z̄) — and
+    nothing else; nothing in the other two passes."""
     from repro_torch.kernels import ops
     zero = dict.fromkeys(ops.launch_counts(), 0)
-    dense = cfg.n_layers * len(layer_shapes(cfg)) + 1       # and the head
-    expert = 3 * cfg.n_layers if cfg.moe is not None else 0  # gate, up, down
-    bias = 3 * cfg.n_layers if cfg.attn.bias else 0         # wq, wk, wv
-    scale = 2 * cfg.n_layers + 1                             # and ln_f
+    dense = sum(len(block) * n for block, n in model_shapes(cfg)) + 1  # head
+    expert = 3 * moe_layers(cfg)                             # gate, up, down
+    bias = (3 * cfg.n_layers if cfg.attn is not None and cfg.attn.bias
+            else 0)                                          # wq, wk, wv
+    per_layer = 2 + 2 * cfg.post_norms + 2 * (cfg.mla is not None)
+    scale = per_layer * cfg.n_layers + 1                     # and ln_f
     n = 2 * (dense + expert) + bias + scale + 1              # and the embed
     return dict(zero), {**zero, "rowsumsq": n}, dict(zero)
 
@@ -535,16 +609,19 @@ def phase_build():
 def phase_kernels(cfg, errs, others=()):
     """Every kernel against its plain version; ``errs`` collects the max
     abs error of each kernel at the main path's shapes in bf16. The other
-    paths' configs ``others`` (gemma2-9b, qwen2-vl-7b) add their block
-    shapes and heads in bf16. Every head is checked at (B, S), the shape
-    its path launches, so on the path's plan (gram's feature ranges and
-    scratch follow B); the other heads' direct_norm_ref would hold a
-    (B, p_in, p_out) f32 product of 29 GB, so both kernels are held
+    paths ``others``, each (config, B, S) (phi3.5-moe at (MOE_B, MOE_S),
+    gemma2-9b and qwen2-vl-7b at (B, S), deepseek-v2-236b at (DS_B,
+    DS_S)), add their block shapes (a dense prefix layer's too) and heads
+    in bf16 at their own (B, S), the shape its path launches, so on the
+    path's plan (gram's feature ranges and scratch follow B); their MoE
+    routers, whose weights stay f32, are held in f32 at that (B, S)
+    against both plain versions. The other heads' direct_norm_ref would
+    hold a (B, p_in, p_out) f32 product of 29 GB, so both kernels are held
     against gram_norm_ref there. Each bf16 gram and direct launch's copy
     route is the one its inputs call for (TMA here; the staged route on
     rows of an odd pitch), and the bf16 launches at the main path's and
-    the head's shapes repeat bit for bit. Returns the bf16 shapes checked,
-    (b, s, p_in, p_out)."""
+    the head's shapes repeat bit for bit. Returns the launch shapes
+    checked, keyed as ``norm_key`` keys a path's launches."""
     import torch
     from repro_torch.kernels import direct_norm as dn
     from repro_torch.kernels import gram_norm as gn
@@ -556,16 +633,19 @@ def phase_kernels(cfg, errs, others=()):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     main = [(B, S, pi, po) for pi, po in sorted(set(layer_shapes(cfg)))]
     cases = [(3, 37, 80, 200)] + main + [(B, S, cfg.d_model, cfg.vocab)]
-    heads = [(B, S, c.d_model, c.vocab) for c in others]
-    extra = sorted({(B, S, pi, po) for c in others
-                    for pi, po in layer_shapes(c)} - set(main)) + heads
+    heads = [(b, s, c.d_model, c.vocab) for c, b, s in others]
+    routers = sorted({(b, s, pi, po) for c, b, s in others
+                      for pi, po in router_shapes(c)})
+    extra = sorted({(b, s, pi, po) for c, b, s in others
+                    for block, _ in model_shapes(c) for pi, po in block}
+                   - set(main) - set(routers)) + heads
     checked = set()
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[str(dt)]
         bf = dt == torch.bfloat16
         # the llama head stays last: the gram-vs-direct check reads it
-        for b, s, pi, po in (cases[:-1] + extra + cases[-1:] if bf
-                             else cases):
+        for b, s, pi, po in cases[:-1] + (extra if bf else routers) \
+                + cases[-1:]:
             h = torch.randn(b, s, pi, generator=gen, device="cuda").to(dt)
             z = torch.randn(b, s, po, generator=gen, device="cuda").to(dt)
             want_g = gram_norm_ref(h, z)
@@ -609,12 +689,19 @@ def phase_kernels(cfg, errs, others=()):
                                              f"at {(b, s, pi, po)}")
                 line.append("gram and direct bitwise equal on a second run")
             how = ", TMA route" if bf else ""
+            if (b, s, pi, po) in routers and not bf:
+                # the least time of the f32 router's launch on the card
+                by = {"bytes": 4 * (h.numel() + z.numel() + b)
+                      / PEAK_BYTES_PER_S,
+                      "operations": ops.flop_estimate(b, s, pi, po)
+                      / PEAK_FLOPS[str(dt)]}
+                kind = max(by, key=by.get)
+                how += f", bound {1e3 * by[kind]:.4f} ms ({kind})"
             if bf and po > 100_000:
                 p = gn.plan(b, s, pi, po, True, sms)
                 how += (f", plan {p.n_h}x{p.n_z} feature ranges, scratch "
                         f"{4 * math.prod(p.gram_shape(b)) / 1e6:.1f} MB")
-            if bf:
-                checked.add((b, s, pi, po))
+            checked.add((str(dt), b, s, pi, po))
             log(f"[kernels] {str(dt)[6:]} {(b, s, pi, po)}{how}: "
                 + ", ".join(line) + f" (tol {tol})")
             del h, z, want_g, want_d
@@ -818,8 +905,9 @@ def phase_exact(spec, registry, pex, cfg=None, tag="exact",
 def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
                token=False, steps=STEPS):
     """A DP-SGD path: ``steps`` steps of ``cfg`` at ``shape`` = (B, S): the
-    main path (phase 5), the flash path (phase 6), the MoE path (phase 8)
-    or, with ``token``, a token-clipping path (phases 11 and 12:
+    main path (phase 5), the flash path (phase 6), the MoE path (phase 8),
+    the gemma2, qwen2-vl and deepseek paths (phases 19, 20 and 22) or,
+    with ``token``, a token-clipping path (phases 11 and 12:
     ``Engine(granularity="token")``, ``[Clip(0.5, granularity="token"),
     Grads()]``). ``want`` holds the launches each pass must make
     (forward, norms backward, reweighted backward); ``kernels`` are the
@@ -835,10 +923,11 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     from repro_torch.kernels import rowsumsq as rs
     from repro_torch.kernels import segmented_norm as sn
     from repro_torch.nn import attention as attn_mod
+    from repro_torch.nn import mla as mla_mod
     from repro_torch.optim import adamw
 
     b, s = shape
-    flash = cfg.attn.flash
+    flash = cfg.attn is not None and cfg.attn.flash
     mod = registry.family_module(spec)
     params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     loss_fn = registry.make_loss_fn_v2(spec, cfg)
@@ -866,7 +955,8 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     events = {k: [] for k in kernels}
     seg_calls = []        # per step: (seg_ids, n_seg, T, p_in, p_out, dtype)
     row_calls = []        # per step: (rows shape, dtype) of each rowsumsq
-    norm_shapes = set()   # (b, s, p_in, p_out) of each bf16 gram/direct
+    norm_shapes = set()   # (dtype, b, s, p_in, p_out) of each gram/direct
+    bf16_norms = dict.fromkeys(NORM_KERNELS, 0)   # bf16 launches
     orig_grad = plan_mod._grad
     kfns = {"gram_norm": (gn, "gram_norm"),
             "direct_norm": (dn, "direct_norm"),
@@ -878,7 +968,8 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     kfns = {k: kfns[k] for k in kernels}
     orig_fns = {k: getattr(m, a) for k, (m, a) in kfns.items()}
     core_mod, core_name = ((ops, "flash_attention_vjp") if flash
-                           else (attn_mod, "_attend"))
+                           else (mla_mod if cfg.mla is not None
+                                 else attn_mod, "_attend"))
     orig_core = getattr(core_mod, core_name)
     attn = AttentionEvents(orig_core)
 
@@ -900,9 +991,11 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
                                       z.shape[1], h.dtype))
             if name == "rowsumsq":
                 row_calls[-1].append((tuple(a[0].shape), a[0].dtype))
-            if (name in NORM_KERNELS and a[0].dtype == torch.bfloat16
-                    and kw.get("triangular", True)):
-                norm_shapes.add(tuple(a[0].shape) + (a[1].shape[-1],))
+            if name in NORM_KERNELS:
+                norm_shapes.add(norm_key(*a))
+                if (a[0].dtype == torch.bfloat16
+                        and kw.get("triangular", True)):
+                    bf16_norms[name] += 1
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -1008,11 +1101,12 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
         if n != steps * per_step[k] or (k in kernels and n == 0):
             raise AssertionError(f"{k}: {n} launches on the {tag} path, "
                                  f"expected {steps * per_step[k]}")
-    # every bf16 gram and direct launch of the dense paths on the TMA route
+    # every bf16 gram and direct launch of the dense paths and of deepseek's
+    # (whose f32 router launches take no copy route) on the TMA route
     routes = {**gn.route_launches, **dn.route_launches}
-    if tag in ("main", "flash", "gemma2", "qwen2-vl"):
-        want_routes = {(k, "tma"): launches[f"{k}_norm"]
-                       for k in ("gram", "direct") if launches[f"{k}_norm"]}
+    if tag in ("main", "flash", "gemma2", "qwen2-vl", "deepseek"):
+        want_routes = {(k, "tma"): bf16_norms[f"{k}_norm"]
+                       for k in ("gram", "direct") if bf16_norms[f"{k}_norm"]}
         if routes != want_routes:
             raise AssertionError(f"{tag}: norm routes {routes}, expected "
                                  f"{want_routes}")
@@ -1038,24 +1132,32 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
             "adamw_ms": adamw_ms}
 
 
-def phase_moe_exact(spec, registry, pex):
-    """phi3.5-moe at full width in f32: Engine norms against per-example
-    gradients of the batched loss. Capacity dispatch couples the examples
-    of a group (which tokens get a slot), so the oracle is example j's
-    gradient of ONE batched forward with every other example present, not
-    a forward of example j alone."""
+def phase_moe_exact(spec, registry, pex, layers=MOE_LAYERS,
+                    shape=(MOE_EXACT_B, MOE_EXACT_S), tag="moe-exact",
+                    grads=True):
+    """A MoE config at full width in f32, cut to ``layers``, at ``shape`` =
+    (B, S): Engine norms against per-example gradients of the batched loss
+    (phi3.5-moe, phase 7; deepseek-v2-236b, phase 21). Capacity dispatch
+    couples the examples of a group (which tokens get a slot), so the
+    oracle is example j's gradient of ONE batched forward with every other
+    example present, not a forward of example j alone; each gradient is
+    reduced to its squared norm as soon as it is formed, so one f32
+    gradient tree lives at a time. With ``grads`` the step also takes
+    ``Grads()``, and its summed gradient is held against the batch
+    backward (deepseek's takes ``[Norms()]`` alone: its f32 parameters,
+    a tree of grads and the oracle's would not fit the card together)."""
     import torch
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.kernels import ops
     from repro_torch.kernels import segmented_norm as sn
     from repro_torch.nn.param import tree_flatten, tree_unflatten
 
-    cfg = dataclasses.replace(spec.full(dtype="float32"), n_layers=MOE_LAYERS)
+    b, s = shape
+    cfg = cut(spec, layers, dtype="float32")
     params = registry.family_module(spec).init(
         cfg, torch.Generator(device="cuda").manual_seed(0))
     batch = registry.make_train_batch(
-        spec, cfg, ShapeSpec("moe-exact", "train", MOE_EXACT_S, MOE_EXACT_B),
-        rng_seed=0)
+        spec, cfg, ShapeSpec(tag, "train", s, b), rng_seed=0)
     loss_fn = registry.make_loss_fn_v2(spec, cfg)
     kept = []             # (valid slots, n_seg) of each segmented launch
     launch = sn.segmented_norm
@@ -1064,55 +1166,64 @@ def phase_moe_exact(spec, registry, pex):
         kept.append((int(((seg_ids >= 0) & (seg_ids < n_seg)).sum()), n_seg))
         return launch(h, z, seg_ids, n_seg)
 
+    consumers = [pex.Norms(), pex.Grads()] if grads else [pex.Norms()]
     sn.segmented_norm = recorded
+    torch.cuda.reset_peak_memory_stats()
     try:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         res = pex.Engine(pex.PexSpec()).step(loss_fn, params, batch,
-                                             [pex.Norms(), pex.Grads()])
+                                             consumers)
         torch.cuda.synchronize()
         n = ops.launch_counts()
     finally:
         sn.segmented_norm = launch
-    assignments = MOE_EXACT_B * MOE_EXACT_S * cfg.moe.top_k
-    log(f"[moe-exact] Engine.step([Norms, Grads]) f32 {cfg.n_layers} layers "
-        f"B={MOE_EXACT_B} S={MOE_EXACT_S}: "
-        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call); launches "
-        f"{n}; slots kept per segmented launch {[k for k, _ in kept]} of "
-        f"{assignments} token-expert assignments "
+    assignments = b * s * cfg.moe.top_k
+    log(f"[{tag}] {cfg.name}: Engine.step("
+        f"{[type(c).__name__ for c in consumers]}) f32 {cfg.n_layers} "
+        f"layers B={b} S={s}: {(time.perf_counter() - t0) * 1e3:.1f} ms "
+        f"(first call); launches {n}; slots kept per segmented launch "
+        f"{[k for k, _ in kept]} of {assignments} token-expert assignments "
         f"({assignments - min(k for k, _ in kept)} dropped at most), "
         f"{kept[0][1]} composite segments")
-    if n["segmented_norm"] != 3 * cfg.n_layers:
-        raise AssertionError(f"moe-exact: {n['segmented_norm']} segmented "
-                             f"launches, expected {3 * cfg.n_layers}")
+    if n["segmented_norm"] != 3 * moe_layers(cfg):
+        raise AssertionError(f"{tag}: {n['segmented_norm']} segmented "
+                             f"launches, expected {3 * moe_layers(cfg)}")
 
     leaves, treedef = tree_flatten(params)
     leaves = [x.detach().requires_grad_() for x in leaves]
     p = tree_unflatten(treedef, leaves)
     lv = loss_fn(p, batch, pex.NULL)[0]
     oracle = []
-    for j in range(MOE_EXACT_B):
-        gs = torch.autograd.grad(lv[j], leaves, retain_graph=True)
+    for j in range(b):
+        gs = torch.autograd.grad(lv[j], leaves, retain_graph=grads
+                                 or j < b - 1)
         oracle.append(sum(torch.sum(torch.square(g)) for g in gs))
         del gs
     oracle = torch.stack(oracle)
-    gs = torch.autograd.grad(lv.sum(), leaves)
     norms = res.sq_norms.sum(-1)
     r = rel_err(norms, oracle)
-    log(f"[moe-exact] per-example sq norms: oracle {oracle.tolist()}")
-    log(f"[moe-exact] per-example sq norms: engine {norms.tolist()}")
-    log(f"[moe-exact] norms max rel err {r:.2e} (tol 1e-3: f32, summation "
+    log(f"[{tag}] per-example sq norms: oracle {oracle.tolist()}")
+    log(f"[{tag}] per-example sq norms: engine {norms.tolist()}")
+    log(f"[{tag}] norms max rel err {r:.2e} (tol 1e-3: f32, summation "
         f"order of the kernels vs cuBLAS)")
     if not r < 1e-3:
-        raise AssertionError(f"phi3.5-moe norms disagree with the batched-"
+        raise AssertionError(f"{cfg.name} norms disagree with the batched-"
                              f"graph oracle: {r}")
-    worst = 0.0
-    for g_eng, g in zip(tree_flatten(res.grads)[0], gs):
-        worst = max(worst, ((g_eng - g).norm() / g.norm()).item())
-    log(f"[moe-exact] summed grads vs plain batch backward: max rel "
-        f"(Frobenius) err over {len(gs)} leaves {worst:.2e} (tol 1e-4: f32)")
-    if not worst < 1e-4:
-        raise AssertionError(f"phi3.5-moe summed gradients disagree: {worst}")
+    if grads:
+        gs = torch.autograd.grad(lv.sum(), leaves)
+        worst = 0.0
+        for g_eng, g in zip(tree_flatten(res.grads)[0], gs):
+            worst = max(worst, ((g_eng - g).norm() / g.norm()).item())
+        log(f"[{tag}] summed grads vs plain batch backward: max rel "
+            f"(Frobenius) err over {len(gs)} leaves {worst:.2e} (tol 1e-4: "
+            f"f32)")
+        if not worst < 1e-4:
+            raise AssertionError(f"{cfg.name} summed gradients disagree: "
+                                 f"{worst}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] peak memory {peak:.2f} GiB (since the phase began)")
+    return {"rel_err": r, "peak_gib": peak}
 
 
 def seg_inputs(t, p_in, p_out, dt, gen, seg, n_seg):
@@ -1133,18 +1244,19 @@ def seg_inputs(t, p_in, p_out, dt, gen, seg, n_seg):
 SEG_IDS = os.path.join(ROOT, "build", "moe_seg_ids.pt")
 
 
-def seg_path(seg_calls):
-    """[(T, p_in, p_out, seg_ids, n_seg)] of the MoE path's two shapes, with
-    the ids of the first launch at each in its first step; saved to
-    :data:`SEG_IDS`."""
+def seg_path(seg_calls, save=True):
+    """[(T, p_in, p_out, seg_ids, n_seg)] of a MoE path's two shapes, with
+    the ids of the first launch at each in its first step; with ``save``
+    (the phi3.5-moe path's) saved to :data:`SEG_IDS`."""
     import torch
     first = {(pi, po): (seg, n_seg) for seg, n_seg, _, pi, po, _
              in reversed(seg_calls[0])}
     path = [(seg.shape[0], pi, po, seg, n_seg)
             for (pi, po), (seg, n_seg) in sorted(first.items())]
-    os.makedirs(os.path.dirname(SEG_IDS), exist_ok=True)
-    torch.save([(t, pi, po, seg.cpu(), n) for t, pi, po, seg, n in path],
-               SEG_IDS)
+    if save:
+        os.makedirs(os.path.dirname(SEG_IDS), exist_ok=True)
+        torch.save([(t, pi, po, seg.cpu(), n) for t, pi, po, seg, n in path],
+                   SEG_IDS)
     return path
 
 
@@ -1159,11 +1271,11 @@ def load_seg_path():
             for t, pi, po, seg, n in torch.load(SEG_IDS)]
 
 
-def phase_seg_kernels(path, errs):
-    """``segmented_norm`` against its plain version: at the MoE path's
+def phase_seg_kernels(path, errs, edges=True):
+    """``segmented_norm`` against its plain version: at a MoE path's
     gate/up and down shapes with the segment ids of its first step
-    (``path``, :func:`seg_path`; random inputs), and at the edge cases;
-    each twice, for bitwise-equal results."""
+    (``path``, :func:`seg_path`; random inputs), and with ``edges`` at the
+    edge cases; each twice, for bitwise-equal results."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops
@@ -1200,7 +1312,7 @@ def phase_seg_kernels(path, errs):
     # the width
     edge.append(("wide rows", 2048, *WIDE, ids(2048, 24, 0.1), 24))
     cases = [(f"path {pi}->{po}", t, pi, po, seg, n)
-             for t, pi, po, seg, n in path] + edge
+             for t, pi, po, seg, n in path] + (edge if edges else [])
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[str(dt)]
         for name, t, pi, po, seg, n in cases:
@@ -1294,7 +1406,7 @@ def seg_sets(t, pi, po, gen):
     return sets
 
 
-def seg_times(path=None, reps=10):
+def seg_times(path=None, reps=10, tag="seg-times"):
     """Device time of one bf16 segmented launch (ms) at the MoE path's
     gate/up (4096→6400) and down (6400→4096) shapes, with ``device_ms``
     (card held busy, input copies past the L2), on the path's own segment
@@ -1319,7 +1431,7 @@ def seg_times(path=None, reps=10):
         del sets
         torch.cuda.empty_cache()
         kept = int(((seg >= 0) & (seg < n)).sum())
-    log(f"[seg-times] the MoE path's ids: T={t}, {n} segments, {kept} rows "
+    log(f"[{tag}] the MoE path's ids: T={t}, {n} segments, {kept} rows "
         f"kept, bf16, device ms per call: {json.dumps(out)}")
     return out
 
@@ -1534,14 +1646,14 @@ def seg_table(path, errs, run):
                    f"S={MOE_S} bf16"}
 
 
-def norm_sets(pi, po, gen):
-    """bf16 (h, z̄) input copies of (B, S, pi), (B, S, po), together past
+def norm_sets(pi, po, gen, b=B, s=S):
+    """bf16 (h, z̄) input copies of (b, s, pi), (b, s, po), together past
     twice the L2 cache (one copy where one already is)."""
     import torch
     sets = []
     while sum((h.numel() + z.numel()) * 2 for h, z in sets) < 2 * L2_BYTES:
         sets.append(tuple(
-            torch.randn(B, S, p, generator=gen, device="cuda").to(
+            torch.randn(b, s, p, generator=gen, device="cuda").to(
                 torch.bfloat16) for p in (pi, po)))
     return sets
 
@@ -1678,31 +1790,98 @@ NORM_SHAPES = [(2048, 512), (2048, 2048), (2048, 8192), (8192, 2048),
                (3584, 512), (3584, 18944), (18944, 3584), (3584, 152064),
                (3072, 1024), (3072, 4096), (4096, 3072), (3072, 9216),
                (9216, 3072), (3072, 256000)]
+#: deepseek-v2-236b's (q_down, q_up, kv_down, kv_up, wo, the prefix MLP's
+#: w1/w3 and w2, the shared MLP's, head; its router runs in f32), timed at
+#: its path's (DS_B, DS_S)
+DS_NORM_SHAPES = [(5120, 1536), (1536, 24576), (5120, 576), (512, 32768),
+                  (16384, 5120), (5120, 12288), (12288, 5120), (5120, 3072),
+                  (3072, 5120), (5120, 102400)]
 
 
-def norm_times(reps=20):
+def norm_times(reps=20, shapes=None, b=B, s=S):
     """Device time of one call (ms) of the bf16 gram and direct kernels,
-    each at every ``NORM_SHAPES`` shape (B=8, S=512), with
-    ``device_ms`` (card held busy, input copies past the L2). Returns
-    ``{"gram_norm 2048x2048": ms, ...}``. It uses only the wrappers' public
-    signatures, so a copy of this file placed in an older checkout times
-    that checkout's kernels: ``python3 -c "import chip_smoke;
-    chip_smoke.norm_times()"``."""
+    each at every ``shapes`` shape (default ``NORM_SHAPES``) at (b, s)
+    (default B=8, S=512), with ``device_ms`` (card held busy, input copies
+    past the L2). Returns ``{"gram_norm 2048x2048": ms, ...}``. It uses
+    only the wrappers' public signatures, so a copy of this file placed in
+    an older checkout times that checkout's kernels: ``python3 -c "import
+    chip_smoke; chip_smoke.norm_times()"``."""
     import torch
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     fns = {"gram_norm": ops.gram_norm, "direct_norm": ops.direct_norm}
     out = {}
-    for pi, po in NORM_SHAPES:
-        sets = norm_sets(pi, po, gen)
+    for pi, po in shapes or NORM_SHAPES:
+        sets = norm_sets(pi, po, gen, b, s)
         n = max(2, reps // 10) if po > 10 * pi else reps
         for name, fn in fns.items():
             out[f"{name} {pi}x{po}"] = device_ms(lambda x: fn(*x), sets, n)
         del sets
         torch.cuda.empty_cache()
-    log(f"[norm-times] B={B} S={S} bf16, device ms per call: "
+    log(f"[norm-times] B={b} S={s} bf16, device ms per call: "
         f"{json.dumps(out)}")
+    return out
+
+
+#: (arch, layers) of ``update_times``: full depth where None
+UPDATE_ARCHS = (("llama3.2-1b", None), ("gemma2-9b", GEMMA_LAYERS),
+                ("deepseek-v2-236b", DS_LAYERS))
+
+
+def update_times():
+    """Stream ms and transient GiB (peak allocated less the allocated before
+    the call) of one AdamW update (``adamw.update``, two timed after one
+    untimed) and of one in-place noise add (``passes.add_grad_noise``) on
+    bf16 parameters and random bf16 gradients of each ``UPDATE_ARCHS``
+    arch, with f32 moments. ``python3 -c "import chip_smoke;
+    chip_smoke.update_times()"`` on the card."""
+    import torch
+    from repro_torch.core import passes
+    from repro_torch.models import registry
+    from repro_torch.nn.param import count_params, tree_map
+    from repro_torch.optim import adamw
+
+    out = {}
+
+    def timed(fn, reps=1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return {"ms": e0.elapsed_time(e1) / reps,
+                "transient_gib": (torch.cuda.max_memory_allocated() - base)
+                / 2**30}
+
+    for arch, layers in UPDATE_ARCHS:
+        spec = registry.get(arch)
+        cfg = spec.full() if layers is None else cut(spec, layers)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = registry.family_module(spec).init(cfg, gen)
+        grads = tree_map(lambda p: (torch.randn(p.shape, generator=gen,
+                                                device="cuda") * 1e-3)
+                         .to(p.dtype), params)
+        opt_cfg = adamw.AdamWConfig()
+        state = adamw.init(params)
+
+        def update():
+            adamw.update(opt_cfg, state, params, grads)
+        update()                                      # warm-up, not timed
+        noise = torch.Generator(device="cuda").manual_seed(1)
+        row = {"params": count_params(params),
+               "update": timed(update, reps=2),
+               "noise_in_place": timed(lambda: passes.add_grad_noise(
+                   grads, 0.1, 1.0, noise))}
+        out[arch] = row
+        log(f"[update-times] {arch} ({row['params'] / 1e9:.3f}B parameters, "
+            f"bf16, f32 moments): {json.dumps(row)}")
+        del params, grads, state
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1712,42 +1891,53 @@ PICK_MARGIN = 0.2
 
 
 def phase_dispatch(cfgs):
-    """At each launch shape of the paths of ``cfgs`` (their blocks' dense
-    layers and LM heads, B=8, S=512): the priced cost of both routes
-    (``core.norms.dense_cost(use_kernels=True)``, ms a launch), both
-    kernels' measured times (``norm_times()``) and the pick. The pick must
-    be the faster kernel wherever the two times differ by more than
+    """At each bf16 launch shape of the paths of ``cfgs``, each (config,
+    B, S) (their blocks' dense layers, a dense prefix layer's too, and
+    LM heads; not a MoE router, which runs in f32): the priced cost of both
+    routes (``core.norms.dense_cost(use_kernels=True)``, ms a launch at the
+    path's B and S), both kernels' measured times (``norm_times()`` at
+    ``NORM_SHAPES`` for the paths at (B, S), at ``DS_NORM_SHAPES`` for the
+    deepseek path's (DS_B, DS_S)) and the pick. The pick must be the
+    faster kernel wherever the two times differ by more than
     ``PICK_MARGIN``."""
     from repro_torch.core.norms import dense_cost, pick_method
 
-    paths = {}
-    for c in cfgs:
-        for sh in layer_shapes(c) + [(c.d_model, c.vocab)]:
-            paths.setdefault(sh, []).append(
-                c.name + (" head" if sh == (c.d_model, c.vocab) else ""))
-    shapes = sorted(paths)
-    if not set(shapes) <= set(NORM_SHAPES):
-        raise AssertionError(f"path shapes {shapes} not all timed by "
-                             f"norm_times ({NORM_SHAPES})")
-    times = norm_times()
+    paths = {}        # (b, s) → {(p_in, p_out): [path names]}
+    for c, b, s in cfgs:
+        router = (c.d_model, c.moe.n_experts) if c.moe is not None else None
+        for block, _ in model_shapes(c):
+            for sh in block + [(c.d_model, c.vocab)]:
+                if sh != router:
+                    paths.setdefault((b, s), {}).setdefault(sh, []).append(
+                        c.name + (" head" if sh == (c.d_model, c.vocab)
+                                  else ""))
+    timed = {(B, S): NORM_SHAPES, (DS_B, DS_S): DS_NORM_SHAPES}
     out = {}
-    for pi, po in shapes:
-        price = {k: dense_cost(k, S, pi, po, use_kernels=True) * B * 1e3
-                 for k in ("gram", "direct")}
-        ms = {k: times[f"{k}_norm {pi}x{po}"] for k in price}
-        pick = pick_method(S, pi, po, use_kernels=True)
-        faster = min(ms, key=ms.get)
-        ratio = max(ms.values()) / min(ms.values())
-        out[f"{pi}x{po}"] = {"priced_ms": price, "measured_ms": ms,
-                             "pick": pick}
-        log(f"[dispatch] {pi}->{po} ({', '.join(sorted(set(paths[pi, po])))})"
-            f": priced gram {price['gram']:.4f} ms, direct "
-            f"{price['direct']:.4f} ms a launch; measured gram "
-            f"{ms['gram']:.4f} ms, direct {ms['direct']:.4f} ms; pick "
-            f"{pick}; faster {faster} by {ratio:.2f}x")
-        if ratio > 1 + PICK_MARGIN and pick != faster:
-            raise AssertionError(f"the priced pick at {pi}->{po} is {pick}, "
-                                 f"but {faster} is faster by {ratio:.2f}x")
+    for (b, s), by_shape in sorted(paths.items()):
+        shapes = sorted(by_shape)
+        if not set(shapes) <= set(timed.get((b, s), ())):
+            raise AssertionError(f"path shapes {shapes} at B={b} S={s} not "
+                                 f"all timed by norm_times")
+        times = norm_times(shapes=timed[b, s], b=b, s=s)
+        for pi, po in shapes:
+            price = {k: dense_cost(k, s, pi, po, use_kernels=True) * b * 1e3
+                     for k in ("gram", "direct")}
+            ms = {k: times[f"{k}_norm {pi}x{po}"] for k in price}
+            pick = pick_method(s, pi, po, use_kernels=True)
+            faster = min(ms, key=ms.get)
+            ratio = max(ms.values()) / min(ms.values())
+            out[f"{pi}x{po} B={b} S={s}"] = {
+                "priced_ms": price, "measured_ms": ms, "pick": pick}
+            names = ", ".join(sorted(set(by_shape[pi, po])))
+            log(f"[dispatch] B={b} S={s} {pi}->{po} ({names}): priced gram "
+                f"{price['gram']:.4f} ms, direct {price['direct']:.4f} ms a "
+                f"launch; measured gram {ms['gram']:.4f} ms, direct "
+                f"{ms['direct']:.4f} ms; pick {pick}; faster {faster} by "
+                f"{ratio:.2f}x")
+            if ratio > 1 + PICK_MARGIN and pick != faster:
+                raise AssertionError(f"the priced pick at {pi}->{po} (B={b} "
+                                     f"S={s}) is {pick}, but {faster} is "
+                                     f"faster by {ratio:.2f}x")
     return out
 
 
@@ -1801,6 +1991,7 @@ def phase_train(spec, registry, cfg):
     loss_fn = registry.make_loss_fn_v2(spec, cfg)
     passes = []     # per backward: (loss rows, launches, norm-launch rows)
     rows = []       # examples of each norm-kernel launch
+    norm_shapes = set()     # norm_key of each norm-kernel launch
     orig_grad = plan_mod._grad
     orig = {"gram_norm": gn.gram_norm, "direct_norm": dn.direct_norm}
 
@@ -1816,6 +2007,7 @@ def phase_train(spec, registry, cfg):
     def rows_of(name):
         def wrapper(h, z, *a, **kw):
             rows.append(h.shape[0])
+            norm_shapes.add(norm_key(h, z))
             return orig[name](h, z, *a, **kw)
         return wrapper
 
@@ -1883,7 +2075,8 @@ def phase_train(spec, registry, cfg):
         f"routes {routes}; peak memory {peak:.2f} GiB (since the phase "
         f"began)")
     return {"metrics": metrics, "launches": launches, "peak_gib": peak,
-            "step_ms": [m["time_s"] * 1e3 for m in metrics]}
+            "step_ms": [m["time_s"] * 1e3 for m in metrics],
+            "norm_shapes": norm_shapes}
 
 
 def norm_host_us(reps=200):
@@ -2687,8 +2880,14 @@ def main() -> int:
     gemma_cfg = cut(gemma_spec, GEMMA_LAYERS)
     vl_spec = registry.get("qwen2-vl-7b")
     vl_cfg = with_flash(cut(vl_spec, VL_LAYERS))
+    ds_spec = registry.get("deepseek-v2-236b")
+    ds_cfg = cut(ds_spec, DS_LAYERS)
+    moe_spec = registry.get("phi3.5-moe")
+    moe_cfg = cut(moe_spec, MOE_LAYERS)
     errs = {}
-    checked = phase_kernels(cfg, errs, (gemma_cfg, vl_cfg))
+    checked = phase_kernels(cfg, errs, ((moe_cfg, MOE_B, MOE_S),
+                                        (gemma_cfg, B, S), (vl_cfg, B, S),
+                                        (ds_cfg, DS_B, DS_S)))
     phase_flash_kernels(errs)
     phase_exact(spec, registry, pex)
     torch.cuda.empty_cache()
@@ -2718,10 +2917,8 @@ def main() -> int:
             f"{[round(a + b, 3) for a, b in r['attn_ms'][1:]]}; flash "
             f"kernel ms per steady step {[round(x, 3) for x in fl]}; peak "
             f"memory {r['peak_gib']:.2f} GiB")
-    moe_spec = registry.get("phi3.5-moe")
     phase_moe_exact(moe_spec, registry, pex)
     torch.cuda.empty_cache()
-    moe_cfg = dataclasses.replace(moe_spec.full(), n_layers=MOE_LAYERS)
     moe_run = phase_main(moe_spec, registry, pex, moe_cfg, (MOE_B, MOE_S),
                          "moe", pass_launches(main_path_launches(
                              moe_cfg, MOE_S), moe_cfg),
@@ -2763,9 +2960,10 @@ def main() -> int:
     rows += flash_table(errs, flash_run["launches"], flash_run["kern_ms"])
     rows += row_table(errs, token_run, onepass)
     torch.cuda.empty_cache()
-    phase_dispatch((cfg, gemma_cfg, vl_cfg,
-                    cut(registry.get("qwen2-7b"), VL_LAYERS),
-                    cut(registry.get("minitron-4b"), VL_LAYERS)))
+    phase_dispatch([(c, B, S) for c in (
+        cfg, gemma_cfg, vl_cfg, cut(registry.get("qwen2-7b"), VL_LAYERS),
+        cut(registry.get("minitron-4b"), VL_LAYERS))]
+        + [(ds_cfg, DS_B, DS_S)])
     torch.cuda.empty_cache()
     train_run = phase_train(spec, registry, cfg)
     torch.cuda.empty_cache()
@@ -2798,37 +2996,66 @@ def main() -> int:
     if not d_loss <= LOSS_TOL:
         raise AssertionError(f"qwen2-vl flash and unfused step-0 losses "
                              f"differ by {d_loss}")
-    # every bf16 gram and direct launch of a dense path at a shape, and so
-    # on a plan, that phase 3 held against its plain version
+    ds_exact = phase_moe_exact(ds_spec, registry, pex, DS_LAYERS,
+                               (DS_EXACT_B, DS_EXACT_S), "deepseek-exact",
+                               grads=False)
+    torch.cuda.empty_cache()
+    ds_want = main_path_launches(ds_cfg, DS_S)
+    ds_kernels = tuple(k for k, v in ds_want.items() if v) \
+        + ("segmented_norm",)
+    ds_run = phase_main(ds_spec, registry, pex, ds_cfg, (DS_B, DS_S),
+                        "deepseek", pass_launches(ds_want, ds_cfg),
+                        ds_kernels)
+    torch.cuda.empty_cache()
+    # segmented on the deepseek step's own ids (5120↔1536, 2,560 segments);
+    # the kernel's row stays the phi3.5-moe path's
+    ds_path = seg_path(ds_run["seg_calls"], save=False)
+    ds_errs = {}
+    phase_seg_kernels(ds_path, ds_errs, edges=False)
+    ds_seg_ms = seg_times(ds_path, tag="deepseek-seg-times")
+    torch.cuda.empty_cache()
+    # every gram and direct launch of every path, of either dtype, at a
+    # shape, and so on a plan, that phase 3 held against its plain version
     for tag, r in (("main", main_run), ("flash", flash_run),
-                   ("gemma2", gemma_run), ("qwen2-vl", vl_run)):
+                   ("moe", moe_run), ("token", token_run),
+                   ("moe-token", moe_token_run), ("train", train_run),
+                   ("gemma2", gemma_run), ("qwen2-vl", vl_run),
+                   ("deepseek", ds_run)):
         if not r["norm_shapes"] <= checked:
             raise AssertionError(f"{tag}: gram/direct launched at "
                                  f"{sorted(r['norm_shapes'] - checked)}, "
                                  f"not checked in phase 3")
-        log(f"[kernels] {tag}: every bf16 gram/direct launch shape "
+        log(f"[kernels] {tag}: every gram/direct launch shape "
             f"{sorted(r['norm_shapes'])} was held in phase 3")
     for tag, r in (("main", main_run), ("gemma2", gemma_run),
-                   ("qwen2-vl", vl_run)):
+                   ("qwen2-vl", vl_run), ("deepseek", ds_run)):
         log(f"[compare] {tag}: steady stream ms in Engine.step "
             f"{[round(x, 1) for x in r['engine_ms'][1:]]}, in the AdamW "
             f"update {[round(x, 1) for x in r['adamw_ms'][1:]]} (host step "
             f"ms {[round(x, 1) for x in r['step_ms'][1:]]})")
     for tag, r, kerns in (("gemma2", gemma_run, gemma_kernels),
-                          ("qwen2-vl", vl_run, vl_kernels)):
+                          ("qwen2-vl", vl_run, vl_kernels),
+                          ("deepseek", ds_run, ds_kernels)):
         log(f"[compare] {tag}: steady step ms {r['step_ms'][1:]} (step 0 "
             f"{r['step_ms'][0]:.1f}); kernel ms per steady step "
             f"{[{k: round(m[k], 3) for k in kerns} for m in r['kern_ms'][1:]]}"
             f"; attention core fwd+bwd ms per steady step "
             f"{[round(a + b, 3) for a, b in r['attn_ms'][1:]]}; peak memory "
             f"{r['peak_gib']:.2f} GiB")
+    log(f"[compare] deepseek: launches over {STEPS} steps "
+        f"{ {k: v for k, v in ds_run['launches'].items() if v} }; segmented "
+        f"bf16 max abs err on its ids {ds_errs['segmented_norm']:.3g}, "
+        f"device ms a launch {json.dumps(ds_seg_ms)}; deepseek-exact norms "
+        f"max rel err {ds_exact['rel_err']:.2e}, peak memory "
+        f"{ds_exact['peak_gib']:.2f} GiB")
     log(f"[table] kernels: {', '.join(r['name'] for r in rows)}; main step "
         f"ms {main_run['step_ms']}; flash step ms {flash_run['step_ms']}; "
         f"moe step ms {moe_run['step_ms']}; token step ms "
         f"{token_run['step_ms']}; moe-token step ms "
         f"{moe_token_run['step_ms']}; train step ms "
         f"{train_run['step_ms']}; gemma2 step ms {gemma_run['step_ms']}; "
-        f"qwen2-vl step ms {vl_run['step_ms']}; whole run "
+        f"qwen2-vl step ms {vl_run['step_ms']}; deepseek step ms "
+        f"{ds_run['step_ms']}; whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.nn.param import tree_flatten, tree_unflatten
+from repro_torch.nn.param import tree_leaves
 
 
 class PexResult(NamedTuple):
@@ -47,17 +47,18 @@ def _standard_normal(shape, generator: torch.Generator,
 
 def add_grad_noise(grads, noise_std: float, clip_norm: float,
                    rng: torch.Generator):
-    """σ·C Gaussian noise per leaf — the DP-SGD noise step. Leaves are
-    drawn in the tree's flattening order from one generator, which must
-    live on the gradients' device."""
+    """σ·C Gaussian noise per leaf — the DP-SGD noise step — added in
+    place: the leaves of ``grads`` change and ``grads`` is returned, so no
+    second gradient tree is formed (the temporaries are one leaf's f32
+    sample, scaled in place, and its cast). Leaves are drawn in the tree's
+    flattening order from one generator, which must live on the gradients'
+    device. Each leaf gets the bits of ``g + (σ·C·sample).to(g.dtype)``."""
     check_noise_args(noise_std, rng)
-    flat, tree = tree_flatten(grads)
-    out = []
-    for g in flat:
-        sample = noise_std * clip_norm * _standard_normal(g.shape, rng,
-                                                          g.device)
-        out.append(g + sample.to(g.dtype))
-    return tree_unflatten(tree, out)
+    for g in tree_leaves(grads):
+        sample = _standard_normal(g.shape, rng, g.device)
+        g.add_(sample.mul_(noise_std * clip_norm).to(g.dtype))
+        del sample          # before the next leaf's draw
+    return grads
 
 
 def clip_coefficients(sq_norms: torch.Tensor, clip_norm: float,

@@ -3,9 +3,10 @@
 Port of the subset of ``src/repro/models/registry.py`` the port needs so
 far: ``get``, ``family_module``, ``make_loss_fn_v2`` and
 ``make_train_batch``. The transformer family's archs are registered:
-llama3.2-1b, qwen2-7b, qwen2-vl-7b, minitron-4b, gemma2-9b and
-phi3.5-moe. deepseek-v2 (MLA), the other families, serving and the
-input-spec builders of the dry run come in later slices.
+llama3.2-1b, qwen2-7b, qwen2-vl-7b, minitron-4b, gemma2-9b, phi3.5-moe
+and deepseek-v2-236b (MLA, a dense prefix layer, shared and routed
+experts). The other families, serving and the input-spec builders of the
+dry run come in later slices.
 """
 from __future__ import annotations
 
@@ -14,15 +15,16 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs import (gemma2_9b, llama3_2_1b, minitron_4b,
-                                 phi35_moe, qwen2_7b, qwen2_vl_7b)
+from repro_torch.configs import (deepseek_v2_236b, gemma2_9b, llama3_2_1b,
+                                 minitron_4b, phi35_moe, qwen2_7b,
+                                 qwen2_vl_7b)
 from repro_torch.configs.common import ArchSpec, ShapeSpec
 from repro_torch.models import transformer
 from repro_torch.nn.param import resolve_device
 
 ARCHS: Dict[str, ArchSpec] = {s.arch_id: s for s in [
     llama3_2_1b.SPEC, qwen2_7b.SPEC, qwen2_vl_7b.SPEC, minitron_4b.SPEC,
-    gemma2_9b.SPEC, phi35_moe.SPEC]}
+    gemma2_9b.SPEC, phi35_moe.SPEC, deepseek_v2_236b.SPEC]}
 
 _FAMILIES = {"transformer": transformer}
 

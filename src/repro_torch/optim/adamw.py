@@ -4,7 +4,11 @@ and schedule support.
 Port of ``src/repro/optim/adamw.py``. The reference is functional; the
 port updates the moments and the parameters in place (under
 ``torch.no_grad``) so that a step at full width allocates no second copy of
-either, and returns them for the same calling convention.
+either, and returns them for the same calling convention. The update runs
+over flat chunks of ``CHUNK`` elements of each leaf, so its f32
+temporaries are bounded by a chunk and not by the largest leaf (a
+160 × 5120 × 1536 expert leaf would make each 5 GB). The arithmetic is
+elementwise, so a chunk gives the same bits as the whole leaf.
 """
 from __future__ import annotations
 
@@ -14,6 +18,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.nn.param import tree_leaves, tree_map
+
+#: elements of each flat slice the update runs over (256 MiB of f32)
+CHUNK = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +54,17 @@ def global_norm(tree) -> torch.Tensor:
 @torch.no_grad()
 def update(cfg: AdamWConfig, state: AdamWState, params, grads):
     """One AdamW step; ``params`` and the state's moments change in
-    place. Returns ``(params, new_state)``."""
+    place, so each of their leaves must be contiguous (``init`` and
+    ``interop`` make them so); a gradient leaf may be any layout. Returns
+    ``(params, new_state)``."""
+    for p, m, v in zip(tree_leaves(params), tree_leaves(state.mu),
+                       tree_leaves(state.nu)):
+        if not (p.is_contiguous() and m.is_contiguous()
+                and v.is_contiguous()):
+            raise ValueError(f"adamw.update: a parameter leaf of shape "
+                             f"{tuple(p.shape)} or its moments is not "
+                             f"contiguous; the update changes them in place "
+                             f"through flat views")
     step = state.step + 1
     scale = 1.0
     if cfg.global_clip is not None:
@@ -56,13 +73,17 @@ def update(cfg: AdamWConfig, state: AdamWState, params, grads):
     lr = cfg.lr if cfg.schedule is None else cfg.lr * cfg.schedule(step)
     b1c = 1.0 - cfg.b1 ** step
     b2c = 1.0 - cfg.b2 ** step
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state.mu), tree_leaves(state.nu)):
-        g = g.to(torch.float32) * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-        pf = p.to(torch.float32)
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
-            + cfg.weight_decay * pf
-        p.copy_(pf - lr * delta)
+    for p_, g_, m_, v_ in zip(tree_leaves(params), tree_leaves(grads),
+                              tree_leaves(state.mu), tree_leaves(state.nu)):
+        # p, m and v change in place, so they must be flat views; g is read
+        p_, m_, v_, g_ = p_.view(-1), m_.view(-1), v_.view(-1), g_.reshape(-1)
+        for i in range(0, p_.numel(), CHUNK):
+            p, g, m, v = (x[i:i + CHUNK] for x in (p_, g_, m_, v_))
+            g = g.to(torch.float32) * scale
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+            pf = p.to(torch.float32)
+            delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+                + cfg.weight_decay * pf
+            p.copy_(pf - lr * delta)
     return params, AdamWState(step, state.mu, state.nu)

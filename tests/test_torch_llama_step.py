@@ -274,14 +274,17 @@ def test_noise_without_a_generator_raises(setup):
 
 
 def test_noise_moments():
-    """The port's own draws: mean 0, standard deviation σ·C per leaf."""
-    grads = {"a": torch.zeros(400, 500), "b": [torch.zeros(100_000)]}
-    out = passes.add_grad_noise(grads, 0.3, 2.0,
+    """The port's own draws: mean 0, standard deviation σ·C per leaf; the
+    same seed draws the same noise. The add is in place, so each call gets
+    a tree of its own."""
+    def zeros():
+        return {"a": torch.zeros(400, 500), "b": [torch.zeros(100_000)]}
+    out = passes.add_grad_noise(zeros(), 0.3, 2.0,
                                 torch.Generator().manual_seed(0))
     for x in tree_flatten(out)[0]:
         assert abs(float(x.mean())) < 0.01
         assert abs(float(x.std()) - 0.6) < 0.01
-    again = passes.add_grad_noise(grads, 0.3, 2.0,
+    again = passes.add_grad_noise(zeros(), 0.3, 2.0,
                                   torch.Generator().manual_seed(0))
     torch.testing.assert_close(again, out, rtol=0, atol=0)
 

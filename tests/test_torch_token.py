@@ -5,7 +5,10 @@ expert slots, scattered through the dispatch's slot → token table) against
 the reference's, with the ``rowsumsq`` route (``use_kernels``; on the CPU
 the plain version of ``kernels.ops.rowsumsq``) and without it; the
 llama3.2-1b smoke ``Engine(granularity="token").step`` (the (B, S) norm
-map, the token clip coefficients and the token-weighted gradients); the
+map, the token clip coefficients and the token-weighted gradients), and
+the same ``[Norms]`` and ``[Clip(2.0, token), Grads]`` steps of the
+gemma2-9b (window 8 binding at S=12), qwen2-vl-7b (``seq=`` given),
+qwen2-7b, minitron-4b and deepseek-v2-236b smoke configs; the
 phi3.5-moe smoke token step at ``dispatch_groups`` 1 and 2 (capacity drops
 included); the passes' division of work (``rowsumsq`` calls in the norms
 backward only); and ``analyze``'s token errors. Parameters are carried
@@ -305,6 +308,56 @@ def test_engine_tap_gives_the_token_map(llama):
     torch.testing.assert_close(got, want)
     with pytest.raises(ValueError, match="seq="):
         eng.tap(B, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the other archs' smoke token steps
+# ---------------------------------------------------------------------------
+
+ARCHS = ("gemma2-9b", "qwen2-vl-7b", "qwen2-7b", "minitron-4b",
+         "deepseek-v2-236b")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return _setup(request.param)
+
+
+def _arch_steps(st, consumers, jconsumers):
+    """Both packages' token steps, the reference's jitted. qwen2-vl's
+    (B, 3, S) M-RoPE positions leave the sequence axis ambiguous, so its
+    engines are given ``seq=``, as the reference's needs too."""
+    seq = S if st["cfg"].vl_inputs else None
+    t = pex.Engine(pex.PexSpec(), granularity="token").step(
+        st["loss"], st["params"], st["batch"], consumers, seq=seq)
+    eng = jpex.Engine(jpex.PexSpec(), granularity="token")
+    j = jax.jit(lambda p, b: eng.step(st["jloss"], p, b, jconsumers,
+                                      seq=seq))(st["jparams"], st["jbatch"])
+    return t, j
+
+
+def test_arch_token_norms_match(arch):
+    """[Norms] at token granularity: the (B, S) norm map of gemma2-9b (its
+    window of 8 binding at S=12), qwen2-vl-7b, qwen2-7b, minitron-4b and
+    deepseek-v2-236b (MLA, the dense prefix, shared and routed experts)."""
+    t, j = _arch_steps(arch, [pex.Norms()], [jpex.Norms()])
+    assert t.sq_norms.shape == (B, S) and t.grads is None
+    _close(t.loss_vec, j.loss_vec, STEP_RTOL)
+    _close(t.sq_norms, j.sq_norms, STEP_RTOL)
+
+
+def test_arch_token_clip_matches(arch):
+    """[Clip(2.0, token), Grads()]: the (B, S) norms, the token clip
+    coefficients (some below 1), the token weights and the token-weighted
+    gradients."""
+    t, j = _arch_steps(arch, [pex.Clip(2.0, granularity="token"),
+                              pex.Grads()],
+                       [jpex.Clip(2.0, granularity="token"), jpex.Grads()])
+    _close(t.sq_norms, j.sq_norms, STEP_RTOL)
+    _close(t.clip_coef, j.clip_coef, STEP_RTOL)
+    _close(t.token_weights, j.token_weights, STEP_RTOL)
+    assert 0 < float(t.clip_coef.min()) < 1.0
+    _close_trees(t.grads, j.grads)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
 """The port's training loop and its parts against the reference's.
 
-Schedules, Adafactor and the int8 error-feedback compression are compared
-on the same numpy inputs; the data pipeline's batches must equal the
+Schedules, Adafactor, one AdamW update and the int8 error-feedback
+compression are compared on the same numpy inputs; the AdamW update's
+loop over chunks and the in-place noise add (both bounded in memory) are
+held bit for bit against the whole-leaf and out-of-place forms they
+replaced; the data pipeline's batches must equal the
 reference's bit for bit; and the port's ``Trainer`` runs 10 steps of the
 llama3.2-1b smoke config in f32 (B=8, S=16) beside the reference's, from
 the reference's ``init`` parameters, in modes plain, norms and clip (noise
@@ -10,7 +13,8 @@ off) and with ``[Norms, Clip, GNS]``, and the gemma2-9b smoke config
 clip: each step's loss, ``norm_mean``, ``norm_max`` and ``gns`` agree at
 1e-4 relative. A loss poisoned for some
 examples is quarantined as the reference does. The launcher runs each mode,
-and each arch of the transformer family, on the CPU.
+and each arch of the transformer family (deepseek-v2-236b's MLA, dense
+prefix and MoE among them), on the CPU.
 """
 import math
 
@@ -20,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import passes as jpasses
 from repro.core import plan as jplan
 from repro.core.taps import PexSpec as JPexSpec
 from repro.data import pipeline as jpipe
@@ -31,11 +36,13 @@ from repro.optim import grad_compress as jgc
 from repro.optim import schedule as jsched
 from repro.train import trainer as jtrainer
 from repro_torch import interop
+from repro_torch.core import passes
 from repro_torch.core import plan as tplan
 from repro_torch.core.taps import PexSpec
 from repro_torch.data import pipeline as tpipe
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import registry
+from repro_torch.nn.param import tree_leaves, tree_map
 from repro_torch.optim import adafactor as tada
 from repro_torch.optim import adamw
 from repro_torch.optim import grad_compress as tgc
@@ -101,6 +108,144 @@ def test_adafactor_matches_reference():
             np.testing.assert_allclose(g, w, rtol=1e-6,
                                        atol=1e-6 * np.abs(w).max())
     assert tp["s"].ndim == 0 and ts.vc["s"].ndim == 0
+
+
+# --- AdamW and the noise add: bounded in memory, bitwise the same ----------
+
+def _whole_leaf_update(cfg, state, params, grads):
+    """The AdamW update as it ran before its loop went over chunks: each
+    expression over the whole leaf."""
+    step = state.step + 1
+    scale = 1.0
+    if cfg.global_clip is not None:
+        gn = adamw.global_norm(grads)
+        scale = torch.clamp(cfg.global_clip / (gn + 1e-9), max=1.0)
+    lr = cfg.lr if cfg.schedule is None else cfg.lr * cfg.schedule(step)
+    b1c = 1.0 - cfg.b1 ** step
+    b2c = 1.0 - cfg.b2 ** step
+    with torch.no_grad():
+        for p, g, m, v in zip(*(tree_leaves(t) for t in (
+                params, grads, state.mu, state.nu))):
+            g = g.to(torch.float32) * scale
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+            pf = p.to(torch.float32)
+            delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+                + cfg.weight_decay * pf
+            p.copy_(pf - lr * delta)
+    return params, adamw.AdamWState(step, state.mu, state.nu)
+
+
+@pytest.mark.parametrize("global_clip", [1.0, None])
+def test_adamw_chunked_update_is_bitwise_the_whole_leaf_one(global_clip,
+                                                            monkeypatch):
+    """With the chunk constant forced to 5 elements (so every leaf but the
+    scalar spans chunks, most with a ragged last one), three updates give
+    parameters and moments equal bit for bit to the whole-leaf formula's,
+    on f32 and bf16 leaves, a 0-d leaf and a non-contiguous gradient."""
+    monkeypatch.setattr(adamw, "CHUNK", 5)
+    gen = torch.Generator().manual_seed(3)
+
+    def tree(dtype=None):
+        out = {"w": torch.randn(7, 9, generator=gen),
+               "e": torch.randn(3, 4, 6, generator=gen),
+               "b": [torch.randn(11, generator=gen)],
+               "s": torch.randn((), generator=gen),
+               "h": torch.randn(13, 5, generator=gen).to(torch.bfloat16)}
+        return out if dtype is None else {
+            k: (v.to(dtype) if isinstance(v, torch.Tensor) else v)
+            for k, v in out.items()}
+
+    params = tree()
+    twin = tree_map(torch.clone, params)
+    cfg = adamw.AdamWConfig(lr=1e-2, weight_decay=0.1,
+                            global_clip=global_clip,
+                            schedule=tsched.linear_warmup_cosine(1, 5))
+    state, twin_state = adamw.init(params), adamw.init(twin)
+    for _ in range(3):
+        grads = tree()
+        grads["w"] = torch.randn(9, 7, generator=gen).t()  # not contiguous
+        grads["h"] = grads["h"].to(torch.bfloat16)
+        params, state = adamw.update(cfg, state, params, grads)
+        twin, twin_state = _whole_leaf_update(cfg, twin_state, twin, grads)
+        assert state.step == twin_state.step
+        for got, want in ((params, twin), (state.mu, twin_state.mu),
+                          (state.nu, twin_state.nu)):
+            for g, w in zip(tree_leaves(got), tree_leaves(want)):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_adamw_update_refuses_a_non_contiguous_parameter():
+    """The update writes each parameter through a flat view, so a
+    transposed parameter leaf is refused by name, before anything
+    changes."""
+    gen = torch.Generator().manual_seed(4)
+    params = {"a": torch.randn(6, generator=gen),
+              "w": torch.randn(9, 7, generator=gen).t()}
+    state = adamw.init(params)
+    before = tree_map(torch.clone, params)
+    grads = tree_map(torch.ones_like, params)
+    with pytest.raises(ValueError, match=r"\(7, 9\).*not contiguous"):
+        adamw.update(adamw.AdamWConfig(), state, params, grads)
+    for k in params:
+        assert torch.equal(params[k], before[k])
+
+
+def test_adamw_one_update_matches_reference():
+    """One update of the llama3.2-1b smoke parameters against the
+    reference's ``optim/adamw.update``, global clip and weight decay on:
+    parameters and both moments at 1e-6."""
+    jp = _np_params()
+    np_p = jax.tree_util.tree_map(np.asarray, jp)
+    rng = np.random.default_rng(8)
+    grads = jax.tree_util.tree_map(
+        lambda x: rng.normal(size=x.shape).astype(np.float32), np_p)
+    kw = dict(lr=1e-2, weight_decay=0.1, global_clip=1.0)
+    jp, js = jadamw.update(jadamw.AdamWConfig(**kw), jadamw.init(jp), jp,
+                           jax.tree_util.tree_map(jnp.asarray, grads))
+    tp = interop.params_from_numpy(np_p, device="cpu")
+    tp, ts = adamw.update(adamw.AdamWConfig(**kw), adamw.init(tp), tp,
+                          interop.params_from_numpy(grads, device="cpu"))
+    assert ts.step == 1
+    for got, want in ((tp, jp), (ts.mu, js.mu), (ts.nu, js.nu)):
+        for g, w in zip(_leaves(interop.params_to_numpy(got)), _leaves(want)):
+            np.testing.assert_allclose(g, w, rtol=1e-6,
+                                       atol=1e-6 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noise_add_in_place_is_bitwise_the_out_of_place_sum(dtype,
+                                                            monkeypatch):
+    """The reference's own N(0, 1) sample, injected at
+    ``passes._standard_normal``, added in place: each leaf equals
+    ``g + (σ·C·sample).to(g.dtype)`` bit for bit, and the caller's tree
+    is the one returned."""
+    shapes = {"a": (6, 5), "b": (17,), "c": (2, 3, 4)}
+    key = jax.random.PRNGKey(9)
+    sample = jpasses.add_grad_noise(
+        {k: jnp.zeros(s, jnp.float32) for k, s in shapes.items()}, 1.0, 1.0,
+        key)
+    draws = [torch.tensor(np.asarray(sample[k])) for k in sorted(shapes)]
+    rng = np.random.default_rng(6)
+    grads = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+             .to(dtype) for k, s in shapes.items()}
+    sigma, c = 0.1, 2.0
+    want = {k: grads[k] + (sigma * c * d).to(dtype)
+            for k, d in zip(sorted(shapes), draws)}
+    fresh = [d.clone() for d in draws]
+
+    def injected(shape, generator, device):
+        d = fresh.pop(0)
+        assert tuple(d.shape) == tuple(shape)
+        return d
+
+    monkeypatch.setattr(passes, "_standard_normal", injected)
+    leaves = dict(grads)
+    out = passes.add_grad_noise(grads, sigma, c, torch.Generator())
+    assert out is grads and fresh == []
+    for k in shapes:
+        assert out[k] is leaves[k]
+        assert out[k].dtype == dtype and torch.equal(out[k], want[k])
 
 
 def test_compress_decompress_matches_reference():
@@ -361,7 +506,7 @@ def test_launcher_runs_each_mode_on_cpu(mode, capsys):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "minitron-4b", "gemma2-9b",
-                                  "qwen2-vl-7b"])
+                                  "qwen2-vl-7b", "deepseek-v2-236b"])
 def test_launcher_runs_each_arch_on_cpu(arch, capsys):
     """qwen2-vl trains on ``SyntheticLM``'s ids and labels alone: the
     text-only M-RoPE fallback, as in the reference."""
