@@ -72,10 +72,14 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               its ids, timed by ``seg_times``), a ragged T and
               p_out, all rows dropped, empty segments, one segment (direct
               route), mixed lengths (512→384, 1 to 1,500 rows on both
-              routes in one launch) and wide rows (28,672→8,192), each run
-              twice for bitwise-equal results, each launch's segments and
-              kernels by route asserted; the rows of a segment share a
-              random component, so every tile pair weighs in the norm;
+              routes in one launch), wide rows (28,672→8,192) and the LoRA
+              tenants' example-id segments (256→8 and 8→256 in f32 at
+              512 examples of S=64; 2048→8 and 8→2048 in bf16 at phase
+              26's ragged batch, S=512; every segment on the direct
+              route), each run twice for bitwise-equal results, each
+              launch's segments and kernels by route asserted; the rows
+              of a segment share a random component, so every tile pair
+              weighs in the norm;
 10. token-exact — llama3.2-1b at full width in f32,
               ``Engine(granularity="token")``: the (B, S) norm map against
               per-token stats summed in plain f32 from a recorded plain
@@ -130,9 +134,10 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               ``rowsumsq`` and ``clip_scale`` beside
               ``torch.linalg.vector_norm`` and ``torch.mul`` (each library
               call timed as a yardstick only; the port never calls it);
-16. dispatch — at each bf16 launch shape of the main, gemma2 and qwen2-vl
-              paths and of qwen2-7b and minitron-4b (their blocks and
-              heads) at B=8, S=512, and of the deepseek path (its prefix
+16. dispatch — at each bf16 launch shape of the main, gemma2, qwen2-vl and
+              LoRA paths (the LoRA path's five rank-thin adapter shapes)
+              and of qwen2-7b and minitron-4b (their blocks and heads) at
+              B=8, S=512, and of the deepseek path (its prefix
               and MoE layers' dense shapes and head) at B=16, S=256, the
               priced cost
               of both routes (``core.norms.dense_cost(use_kernels=True)``),
@@ -176,7 +181,44 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               and 1 direct (the f32 router) launch and 3 segmented
               launches (2,560 segments of ≤ 16 rows, every one on the
               gram route) per norms backward, MLA's unfused attention core
-              timed, ``Engine.step`` and AdamW stream ms and peak memory.
+              timed, ``Engine.step`` and AdamW stream ms and peak memory;
+23. lora-exact — llama3.2-1b at full width in f32 with ``LoraCfg(rank=8,
+              alpha=16.0)`` on the 7 default sites of all 16 layers (B
+              factors drawn non-zero), B=4, S=256: ``Engine.step([Norms(),
+              Grads()])`` over the whole LoRA-fied tree against phase 4's
+              per-example loop (1e-3) and plain batch backward (1e-4), the
+              frozen bases' gradients exactly zero, every adapter tap on
+              direct;
+24. lora    — the same model in bf16, B=8, S=512, three steps of phase 5's
+              consumers each followed by AdamW on the adapters: 224
+              ``direct_norm`` launches (the adapters, rank-thin) and the
+              head's ``gram_norm`` per norms pass by the priced pick, none
+              in the reweighted pass, every launch on the TMA route; the
+              adapter launches' host µs, ``Engine.step`` and AdamW stream
+              ms, norm-kernel ms and peak memory;
+25. tenants-exact — ``tests/test_lora_tenancy.py``'s per-tenant oracle in
+              f32 at the reference benchmark's widths (d = o = 256, r = 8,
+              S = 64): 110 tenants of ragged 1–4 examples (seed 7), one
+              fused ``TenantService.step`` against a loop of single-tenant
+              Engines (norms, clip coefficients and each tenant's updated
+              row, rtol 1e-5, atol 1e-6, its noise from its own derived
+              generator), at example granularity (2 segmented launches,
+              every segment on direct) and at token granularity with an
+              explicit noise scale (4 ``rowsumsq`` launches); each tenant's
+              noise bit for bit ``add_grad_noise`` on its tree alone;
+26. tenants — the fused DP step (norms, Clip, per-tenant Noise, SGD)
+              against the plain multi-tenant LoRA step through an inert
+              tap, in turns, as ``bench_lora_tenants.step_pair`` times
+              them: in f32 at its 256 tenants × 2 examples, 1,024 × 1 and
+              64 × 8 (d = o = 256, r = 8, S = 64), and in bf16 at
+              llama3.2-1b's wq width (d = o = 2048, r = 8, α = 16,
+              S = 512, 128 tenants of ragged 1–4 examples, seed 0): both
+              step times and the overhead beside DESIGN.md §14's ≤ 10%
+              target (reported), the segmented launches by route (every
+              segment on direct, asserted), each launch's ``device_ms``
+              (``tenant_seg_times``) against its bound and a cuBLAS
+              ``bmm`` of H_jᵀZ̄_j over the segments, and the per-tenant
+              noise add's ms.
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -190,7 +232,8 @@ The flash path's step time, peak memory and attention time are logged
 beside the main path's from the same call, the MoE path's step time,
 peak memory and segmented kernel time per step after them, then the token
 paths' step times, peak memory and ``rowsumsq`` time per step, those of
-gemma2, qwen2-vl and deepseek, and the whole run's seconds.
+gemma2, qwen2-vl, deepseek and the LoRA path, the tenant steps, and the
+whole run's seconds.
 ``update_times()`` (not in a whole run) times one AdamW update and one
 in-place noise add, with the transient memory of each. TF32 is off
 for matmuls and cuDNN throughout, so the f32 plain versions are full f32.
@@ -338,6 +381,8 @@ def layer_shapes(cfg, dense_mlp=False):
     router (f32) and shared MLP (the MoE experts go to
     ``segmented_norm``)."""
     d = cfg.d_model
+    if cfg.lora is not None:
+        return lora_shapes(cfg, dense_mlp)
     if cfg.mla is not None:
         m = cfg.mla
         attn = [(d, m.q_lora), (m.q_lora, m.n_heads * (m.qk_nope + m.qk_rope)),
@@ -356,6 +401,25 @@ def layer_shapes(cfg, dense_mlp=False):
         else cfg.mlp
     f = mcfg.d_ff
     return attn + ([(d, f)] if mcfg.gated else []) + [(d, f), (f, d)]
+
+
+def lora_shapes(cfg, dense_mlp=False):
+    """(p_in, p_out) of every tapped dense layer of one block of a
+    LoRA-fied GQA config with a dense MLP: each site's two factors, A (p_in
+    → r) and B (r → p_out), in the order of ``layer_shapes`` (the frozen
+    bases are not tapped)."""
+    if cfg.mla is not None or cfg.moe is not None:
+        raise NotImplementedError("chip_smoke's LoRA shapes are those of a "
+                                  "GQA config with a dense MLP")
+    base = layer_shapes(dataclasses.replace(cfg, lora=None), dense_mlp)
+    names = ["wq", "wk", "wv", "wo"] + (["gate"] if cfg.mlp.gated else []) \
+        + ["up", "down"]
+    out = []
+    for name, (pi, po) in zip(names, base):
+        if name in cfg.lora.sites:
+            r = cfg.lora.rank_for(name)
+            out += [(pi, r), (r, po)]
+    return out
 
 
 def model_shapes(cfg):
@@ -633,12 +697,16 @@ def phase_kernels(cfg, errs, others=()):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     main = [(B, S, pi, po) for pi, po in sorted(set(layer_shapes(cfg)))]
     cases = [(3, 37, 80, 200)] + main + [(B, S, cfg.d_model, cfg.vocab)]
-    heads = [(b, s, c.d_model, c.vocab) for c, b, s in others]
+    heads = sorted({(b, s, c.d_model, c.vocab) for c, b, s in others}
+                   - set(cases))
     routers = sorted({(b, s, pi, po) for c, b, s in others
                       for pi, po in router_shapes(c)})
     extra = sorted({(b, s, pi, po) for c, b, s in others
                     for block, _ in model_shapes(c) for pi, po in block}
                    - set(main) - set(routers)) + heads
+    # the LoRA adapters' rank-thin shapes (one side r): repeated bit for
+    # bit too
+    thin = {c for c in extra if min(c[2:]) <= 16}
     checked = set()
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[str(dt)]
@@ -681,7 +749,8 @@ def phase_kernels(cfg, errs, others=()):
             line.append(f"tri-vs-full rel {r_tf:.2e}")
             if not r_tf <= tol:
                 raise AssertionError(f"triangular vs full grid: {r_tf}")
-            if bf and (b, s, pi, po) in main + cases[-1:]:
+            if bf and ((b, s, pi, po) in main + cases[-1:]
+                       or (b, s, pi, po) in thin):
                 for k, again in (("gram_norm", ops.gram_norm(h, z)),
                                  ("direct_norm", ops.direct_norm(h, z))):
                     if not torch.equal(got[k], again):
@@ -735,6 +804,37 @@ def phase_kernels(cfg, errs, others=()):
     log(f"[kernels] bf16 (3, 40, 24, 36) rows of an odd pitch, staged "
         f"route: " + ", ".join(f"{k} rel {rel_err(v, want):.2e}"
                                for k, v in got.items()) + f" (tol {tol})")
+    # rank 4 in bf16: 8-byte rows, off the 16-byte pitch, so both kernels
+    # take the staged route on either side of the adapter
+    for pi, po in ((cfg.d_model, 4), (4, cfg.d_model)):
+        h = torch.randn(B, S, pi, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        z = torch.randn(B, S, po, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        gn.route_launches.clear()
+        dn.route_launches.clear()
+        want = gram_norm_ref(h, z)
+        got = {"gram_norm": ops.gram_norm(h, z),
+               "direct_norm": ops.direct_norm(h, z)}
+        routes = {**gn.route_launches, **dn.route_launches}
+        if routes != {("gram", "synchronous"): 1,
+                      ("direct", "synchronous"): 1}:
+            raise AssertionError(f"norm routes {routes} at rank 4 "
+                                 f"{(B, S, pi, po)}, expected the staged "
+                                 f"route")
+        line = []
+        for k, v in got.items():
+            r = rel_err(v, want)
+            line.append(f"{k} rel {r:.2e}")
+            if not r <= tol:
+                raise AssertionError(f"{k} at rank 4 {(B, S, pi, po)}: rel "
+                                     f"err {r} > {tol}")
+            if not torch.equal(v, getattr(ops, k)(h, z)):
+                raise AssertionError(f"{k} not bitwise repeatable at rank 4 "
+                                     f"{(B, S, pi, po)}")
+        log(f"[kernels] bf16 {(B, S, pi, po)} rank 4, staged route: "
+            + ", ".join(line) + f" (tol {tol}); bitwise equal on a second "
+            f"run")
     return checked
 
 
@@ -822,14 +922,18 @@ def phase_flash_kernels(errs):
 
 
 def phase_exact(spec, registry, pex, cfg=None, tag="exact",
-                flash_launches=None):
+                flash_launches=None, flashes=(False, True), prepare=None):
     """Full width in f32: Engine norms vs per-example plain backward, for
     llama3.2-1b (phase 4; ``cfg`` None) or another config (gemma2-9b at
-    its cut depth, phase 18), unfused and with ``AttnCfg.flash``.
-    ``flash_launches`` is the launches of each flash kernel the flash run
-    must make (default: one per layer). Where it is 0 (gemma2: its softcap
-    and local layers close the reference's gate) the flash run repeats the
-    unfused one, so only its launch counts are kept."""
+    its cut depth, phase 18; the LoRA-fied llama3.2-1b, phase 23), unfused
+    and (in ``flashes``) with ``AttnCfg.flash``. ``flash_launches`` is the
+    launches of each flash kernel the flash run must make (default: one
+    per layer). Where it is 0 (gemma2: its softcap and local layers close
+    the reference's gate) the flash run repeats the unfused one, so only
+    its launch counts are kept. ``prepare`` edits the parameters after
+    ``init``. A leaf the plain loss does not reach (a LoRA site's frozen
+    base) must have an engine gradient of exactly zero. Returns the
+    launches of the unfused run."""
     import torch
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.nn.param import tree_flatten, tree_unflatten
@@ -841,11 +945,13 @@ def phase_exact(spec, registry, pex, cfg=None, tag="exact",
         flash_launches = cfg.n_layers
     mod = registry.family_module(spec)
     params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    if prepare is not None:
+        params = prepare(params)
     batch = registry.make_train_batch(
         spec, cfg, ShapeSpec(tag, "train", EXACT_S, EXACT_B), rng_seed=0)
     loss_fn = registry.make_loss_fn_v2(spec, cfg)
-    results = {}
-    for flash in (False, True):
+    results, unfused_launches = {}, None
+    for flash in flashes:
         c = with_flash(cfg) if flash else cfg
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -858,6 +964,8 @@ def phase_exact(spec, registry, pex, cfg=None, tag="exact",
             f"Grads]) f32 B={EXACT_B} S={EXACT_S} flash={flash}: "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call); "
             f"launches {n}")
+        if not flash:
+            unfused_launches = n
         want = flash_launches if flash else 0
         if any(n[k] != want for k in FLASH_KERNELS):
             raise AssertionError(f"{tag} flash={flash}: flash launches {n}, "
@@ -875,12 +983,15 @@ def phase_exact(spec, registry, pex, cfg=None, tag="exact",
     oracle = []
     for j in range(EXACT_B):
         ex = {k: v[j:j + 1] for k, v in batch.items()}
-        gs = torch.autograd.grad(loss_fn(p, ex, pex.NULL)[0][0], leaves)
-        oracle.append(sum(torch.sum(torch.square(g.float())) for g in gs))
+        gs = torch.autograd.grad(loss_fn(p, ex, pex.NULL)[0][0], leaves,
+                                 allow_unused=True)
+        oracle.append(sum(torch.sum(torch.square(g.float())) for g in gs
+                          if g is not None))
         del gs
     oracle = torch.stack(oracle)
     log(f"[{tag}] per-example sq norms: plain  {oracle.tolist()}")
-    gs = torch.autograd.grad(loss_fn(p, batch, pex.NULL)[0].sum(), leaves)
+    gs = torch.autograd.grad(loss_fn(p, batch, pex.NULL)[0].sum(), leaves,
+                             allow_unused=True)
     for flash, res in results.items():
         norms = res.sq_norms.sum(-1)
         r = rel_err(norms, oracle)
@@ -891,15 +1002,24 @@ def phase_exact(spec, registry, pex, cfg=None, tag="exact",
         if not r < 1e-3:
             raise AssertionError(f"{tag}: full-width norms disagree (flash="
                                  f"{flash}): {r}")
-        worst = 0.0
+        worst, frozen = 0.0, 0
         for g_eng, g in zip(tree_flatten(res.grads)[0], gs):
+            if g is None:   # no path to the loss: a frozen base
+                if int(torch.count_nonzero(g_eng)):
+                    raise AssertionError(f"{tag}: a frozen leaf of shape "
+                                         f"{tuple(g_eng.shape)} has a "
+                                         f"non-zero engine gradient")
+                frozen += 1
+                continue
             worst = max(worst, ((g_eng - g).norm() / g.norm()).item())
         log(f"[{tag}] flash={flash} summed grads vs plain batch backward: "
-            f"max rel (Frobenius) err over {len(gs)} leaves {worst:.2e} "
-            f"(tol 1e-4: f32)")
+            f"max rel (Frobenius) err over {len(gs) - frozen} leaves "
+            f"{worst:.2e} (tol 1e-4: f32); {frozen} frozen leaves exactly "
+            f"zero")
         if not worst < 1e-4:
             raise AssertionError(f"{tag}: summed gradients disagree (flash="
                                  f"{flash}): {worst}")
+    return unfused_launches
 
 
 def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
@@ -911,8 +1031,10 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     ``Engine(granularity="token")``, ``[Clip(0.5, granularity="token"),
     Grads()]``). ``want`` holds the launches each pass must make
     (forward, norms backward, reweighted backward); ``kernels`` are the
-    counted kernels the path must launch. Returns a dict of what the run
-    read."""
+    counted kernels the path must launch. A LoRA-fied ``cfg`` (phase 24)
+    updates its adapters alone with AdamW (the bases stay frozen). Returns
+    a dict of what the run read, each kernel's launcher host µs a step
+    among it."""
     import torch
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.core import plan as plan_mod
@@ -923,6 +1045,7 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     from repro_torch.kernels import rowsumsq as rs
     from repro_torch.kernels import segmented_norm as sn
     from repro_torch.nn import attention as attn_mod
+    from repro_torch.nn import lora as lora_mod
     from repro_torch.nn import mla as mla_mod
     from repro_torch.optim import adamw
 
@@ -932,7 +1055,11 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     loss_fn = registry.make_loss_fn_v2(spec, cfg)
     opt_cfg = adamw.AdamWConfig()
-    opt = adamw.init(params)
+    # what AdamW trains: the adapters alone on a LoRA path (in place, so
+    # params sees the update)
+    trained = (lora_mod.adapter_tree if cfg.lora is not None
+               else lambda tree: tree)
+    opt = adamw.init(trained(params))
     noise_gen = torch.Generator(device="cuda").manual_seed(1)
     eng = pex.Engine(pex.PexSpec(),
                      granularity="token" if token else "example")
@@ -953,6 +1080,7 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     # function, and the attention core's from events around it
     passes = []
     events = {k: [] for k in kernels}
+    host_us = {k: 0.0 for k in kernels}   # launcher host µs this step
     seg_calls = []        # per step: (seg_ids, n_seg, T, p_in, p_out, dtype)
     row_calls = []        # per step: (rows shape, dtype) of each rowsumsq
     norm_shapes = set()   # (dtype, b, s, p_in, p_out) of each gram/direct
@@ -999,7 +1127,9 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
+            t0 = time.perf_counter()
             out = fn(*a, **kw)
+            host_us[name] += (time.perf_counter() - t0) * 1e6
             e1.record()
             events[name].append((e0, e1))
             return out
@@ -1009,8 +1139,9 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     for k, (m, a) in kfns.items():
         setattr(m, a, timed(k))
     setattr(core_mod, core_name, attn)
-    step_ms, kern_ms, attn_ms, losses = [], [], [], []
+    step_ms, kern_ms, attn_ms, losses, kern_host_us = [], [], [], [], []
     engine_ms, adamw_ms = [], []   # stream ms in Engine.step, in AdamW
+    enqueue_ms = []                # host ms to return from Engine.step
     torch.cuda.reset_peak_memory_stats()
     try:
         ops.reset_launch_counts()
@@ -1024,14 +1155,19 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
             row_calls.append([])
             for v in events.values():
                 v.clear()
+            host_us.update(dict.fromkeys(host_us, 0.0))
             torch.cuda.synchronize()
             at_start = ops.launch_counts()
             marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             t0 = time.perf_counter()
             marks[0].record()
             res = eng.step(loss_fn, params, batch, consumers)
+            # the host's time to queue the step (no sync inside it): near
+            # the stream's time in it, the card waited on the host
+            enqueue_ms.append((time.perf_counter() - t0) * 1e3)
             marks[1].record()
-            params, opt = adamw.update(opt_cfg, opt, params, res.grads)
+            _, opt = adamw.update(opt_cfg, opt, trained(params),
+                                  trained(res.grads))
             marks[2].record()
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1039,6 +1175,7 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
             adamw_ms.append(marks[1].elapsed_time(marks[2]))
             kern_ms.append({k: sum(a.elapsed_time(b) for a, b in v)
                             for k, v in events.items()})
+            kern_host_us.append(dict(host_us))
             attn_ms.append(attn.ms())
             losses.append(res.loss.item())
             cc = res.clip_coef
@@ -1060,7 +1197,8 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
                 finite = (("loss", res.loss), ("norms", norms),
                           ("gns", res.gns))
             log(f"[{tag}] step {i}: {step_ms[-1]:.1f} ms (stream ms in "
-                f"Engine.step {engine_ms[-1]:.1f}, in the AdamW update "
+                f"Engine.step {engine_ms[-1]:.1f}, queued by the host in "
+                f"{enqueue_ms[-1]:.1f}; in the AdamW update "
                 f"{adamw_ms[-1]:.1f}); loss "
                 f"{losses[-1]:.4f}; {seen}; kernel ms "
                 f"{ {k: round(v, 3) for k, v in kern_ms[-1].items()} }; "
@@ -1104,7 +1242,7 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     # every bf16 gram and direct launch of the dense paths and of deepseek's
     # (whose f32 router launches take no copy route) on the TMA route
     routes = {**gn.route_launches, **dn.route_launches}
-    if tag in ("main", "flash", "gemma2", "qwen2-vl", "deepseek"):
+    if tag in ("main", "flash", "gemma2", "qwen2-vl", "deepseek", "lora"):
         want_routes = {(k, "tma"): bf16_norms[f"{k}_norm"]
                        for k in ("gram", "direct") if bf16_norms[f"{k}_norm"]}
         if routes != want_routes:
@@ -1129,7 +1267,8 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
             "attn_ms": attn_ms, "losses": losses, "peak_gib": peak,
             "seg_calls": seg_calls, "row_calls": row_calls,
             "norm_shapes": norm_shapes, "engine_ms": engine_ms,
-            "adamw_ms": adamw_ms}
+            "adamw_ms": adamw_ms, "host_us": kern_host_us,
+            "enqueue_ms": enqueue_ms}
 
 
 def phase_moe_exact(spec, registry, pex, layers=MOE_LAYERS,
@@ -1275,7 +1414,8 @@ def phase_seg_kernels(path, errs, edges=True):
     """``segmented_norm`` against its plain version: at a MoE path's
     gate/up and down shapes with the segment ids of its first step
     (``path``, :func:`seg_path`; random inputs), and with ``edges`` at the
-    edge cases; each twice, for bitwise-equal results."""
+    edge cases and the LoRA tenants' example-id segments (every one on the
+    direct route); each twice, for bitwise-equal results."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops
@@ -1313,53 +1453,68 @@ def phase_seg_kernels(path, errs, edges=True):
     edge.append(("wide rows", 2048, *WIDE, ids(2048, 24, 0.1), 24))
     cases = [(f"path {pi}->{po}", t, pi, po, seg, n)
              for t, pi, po, seg, n in path] + (edge if edges else [])
-    for dt in (torch.float32, torch.bfloat16):
+    checks = [(dt, case) for dt in (torch.float32, torch.bfloat16)
+              for case in cases]
+    if edges:
+        # the LoRA tenants' factor taps: example-id segments (S rows each)
+        # at phase 26's f32 (256 tenants x 2, S=64) and bf16 (llama3.2-1b's
+        # wq width, S=512) shapes, on the direct route
+        for dtn, n_ten, per, d, s_len in TENANT_SEG_CASES:
+            dt = getattr(torch, dtn)
+            n = tenant_owner(n_ten, per, 0).size
+            seg = torch.arange(n, device="cuda").repeat_interleave(s_len)
+            for pi, po in ((d, TENANT_R), (TENANT_R, d)):
+                checks.append((dt, (f"tenants {pi}->{po}", n * s_len, pi,
+                                    po, seg, n)))
+    for dt, (name, t, pi, po, seg, n) in checks:
         tol = TOL[str(dt)]
-        for name, t, pi, po, seg, n in cases:
-            h, z = seg_inputs(t, pi, po, dt, gen, seg, n)
-            copy = "fma" if dt == torch.float32 else (
-                "cp.async" if _build.aligned_rows(h, z) else "synchronous")
-            sn.reset_route_counts()
-            got = ops.segmented_norm(h, z, seg, n)
-            again = ops.segmented_norm(h, z, seg, n)
-            want = segmented_norm_ref(h, z, seg, n)
-            torch.cuda.synchronize()
-            full = want > 0
-            r = rel_err(got[full], want[full]) if bool(full.any()) else 0.0
-            if not (r <= tol and bool((got[~full] == 0).all())):
-                raise AssertionError(
-                    f"segmented_norm disagrees with its plain version at "
-                    f"{name} (T={t}, {pi}->{po}, {n} segments) {dt}: rel err "
-                    f"{r} > {tol}, or an empty segment is not 0")
-            if not torch.equal(got, again):
-                raise AssertionError(f"segmented_norm not bitwise "
-                                     f"reproducible at {name} {dt}")
-            # each launch's segments by route, and its kernels by route
-            sizes = sn.segment_sizes(seg, n).cpu().numpy()
-            gram = sn.takes_gram(sizes, pi, po)
-            want_segs = {"gram": 2 * int(gram.sum()),
-                         "direct": 2 * int(((sizes > 0) & ~gram).sum())}
-            lim = sn.limits(t, n, pi, po)
-            want_launch = {(k, copy): 2 for k, on in
-                           (("gram", lim.gram), ("direct", lim.directs)) if on}
-            segs = sn.route_segments()
-            if segs != want_segs or dict(sn.route_launches) != want_launch:
-                raise AssertionError(
-                    f"segmented routes at {name} {dt}: segments {segs}, "
-                    f"launches {dict(sn.route_launches)}; expected "
-                    f"{want_segs}, {want_launch}")
-            if dt == torch.bfloat16 and name.startswith("path"):
-                errs["segmented_norm"] = max(
-                    errs.get("segmented_norm", 0.0),
-                    (got - want).abs().max().item())
-            log(f"[segmented] {str(dt)[6:]} {name}: T={t} {pi}->{po}, {n} "
-                f"segments ({int(full.sum())} non-empty, "
-                f"{int(((seg >= 0) & (seg < n)).sum())} rows kept): rel "
-                f"{r:.2e} (tol {tol}); empty segments 0; bitwise equal on a "
-                f"second run; segments by route over both runs {segs}, "
-                f"kernel launches {dict(sn.route_launches)}")
-            del h, z, got, again, want
-            torch.cuda.empty_cache()
+        h, z = seg_inputs(t, pi, po, dt, gen, seg, n)
+        copy = "fma" if dt == torch.float32 else (
+            "cp.async" if _build.aligned_rows(h, z) else "synchronous")
+        sn.reset_route_counts()
+        got = ops.segmented_norm(h, z, seg, n)
+        again = ops.segmented_norm(h, z, seg, n)
+        want = segmented_norm_ref(h, z, seg, n)
+        torch.cuda.synchronize()
+        full = want > 0
+        r = rel_err(got[full], want[full]) if bool(full.any()) else 0.0
+        if not (r <= tol and bool((got[~full] == 0).all())):
+            raise AssertionError(
+                f"segmented_norm disagrees with its plain version at "
+                f"{name} (T={t}, {pi}->{po}, {n} segments) {dt}: rel err "
+                f"{r} > {tol}, or an empty segment is not 0")
+        if not torch.equal(got, again):
+            raise AssertionError(f"segmented_norm not bitwise "
+                                 f"reproducible at {name} {dt}")
+        # each launch's segments by route, and its kernels by route
+        sizes = sn.segment_sizes(seg, n).cpu().numpy()
+        gram = sn.takes_gram(sizes, pi, po)
+        want_segs = {"gram": 2 * int(gram.sum()),
+                     "direct": 2 * int(((sizes > 0) & ~gram).sum())}
+        lim = sn.limits(t, n, pi, po)
+        want_launch = {(k, copy): 2 for k, on in
+                       (("gram", lim.gram), ("direct", lim.directs)) if on}
+        segs = sn.route_segments()
+        if segs != want_segs or dict(sn.route_launches) != want_launch:
+            raise AssertionError(
+                f"segmented routes at {name} {dt}: segments {segs}, "
+                f"launches {dict(sn.route_launches)}; expected "
+                f"{want_segs}, {want_launch}")
+        if name.startswith("tenants") and want_segs["gram"]:
+            raise AssertionError(f"{name} {dt}: a tenant segment takes the "
+                                 f"gram route")
+        if dt == torch.bfloat16 and name.startswith("path"):
+            errs["segmented_norm"] = max(
+                errs.get("segmented_norm", 0.0),
+                (got - want).abs().max().item())
+        log(f"[segmented] {str(dt)[6:]} {name}: T={t} {pi}->{po}, {n} "
+            f"segments ({int(full.sum())} non-empty, "
+            f"{int(((seg >= 0) & (seg < n)).sum())} rows kept): rel "
+            f"{r:.2e} (tol {tol}); empty segments 0; bitwise equal on a "
+            f"second run; segments by route over both runs {segs}, "
+            f"kernel launches {dict(sn.route_launches)}")
+        del h, z, got, again, want
+        torch.cuda.empty_cache()
 
 
 def seg_bound_ms(calls):
@@ -1787,6 +1942,7 @@ NORM_SHAPES = [(2048, 512), (2048, 2048), (2048, 8192), (8192, 2048),
                (2048, 128256),
                (3584, 4096), (3584, 2048), (4096, 3584), (3584, 14336),
                (14336, 3584), (3584, 256000),
+               (2048, 8), (8192, 8), (8, 2048), (8, 512), (8, 8192),
                (3584, 512), (3584, 18944), (18944, 3584), (3584, 152064),
                (3072, 1024), (3072, 4096), (4096, 3072), (3072, 9216),
                (9216, 3072), (3072, 256000)]
@@ -2435,6 +2591,473 @@ def flash_table(errs, launches, kern_ms):
     return rows
 
 
+def phase_lora(spec, registry, pex, lora_cfg):
+    """Phases 23 and 24: the LoRA-fied llama3.2-1b at full width (rank 8,
+    α 16, the seven default sites of all 16 layers). Phase 23: in f32 at
+    (EXACT_B, EXACT_S), B factors drawn non-zero (std 0.02) so both
+    factors have gradients, ``Engine.step([Norms(), Grads()])`` over the
+    whole tree against per-example plain backward passes (1e-3) and the
+    plain batch backward, the frozen bases' gradients exactly zero, and
+    the launches by the priced pick at S = EXACT_S. Phase 24: in bf16, B=8,
+    S=512, three steps of phase 5's consumers, each followed by AdamW on
+    the adapters: 224 direct_norm launches (the adapters, rank-thin) and
+    the head's by the priced pick per norms pass, none in the reweighted
+    pass, every launch on the TMA route; the adapters' launches' host µs
+    a step."""
+    import torch
+    from repro_torch.nn import lora as lora_mod
+
+    f32 = dataclasses.replace(spec.full(dtype="float32"), lora=lora_cfg.lora)
+
+    def live_b(params):
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        for pair in lora_mod.adapter_tree(params).values():
+            pair.b.copy_(0.02 * torch.randn(pair.b.shape, generator=gen,
+                                            device="cuda"))
+        return params
+
+    n = phase_exact(spec, registry, pex, f32, "lora-exact", flashes=(False,),
+                    prepare=live_b)
+    want = {k: sum(v.values())
+            for k, v in main_path_launches(f32, EXACT_S).items()}
+    got = {k: n[k] for k in want}
+    if got != want or want["direct_norm"] < 14 * f32.n_layers:
+        raise AssertionError(f"lora-exact: norm launches {got}, expected "
+                             f"{want} (the 224 adapter taps on direct)")
+    log(f"[lora-exact] norm launches {got} (the priced pick at S="
+        f"{EXACT_S}: every adapter tap on direct)")
+    torch.cuda.empty_cache()
+    lora_want = main_path_launches(lora_cfg, S)
+    if sum(lora_want["direct_norm"].values()) != 14 * lora_cfg.n_layers:
+        raise AssertionError(f"lora: the priced pick sends "
+                             f"{lora_want['direct_norm']} to direct, not the "
+                             f"224 adapter taps")
+    kernels = tuple(k for k, v in lora_want.items() if v)
+    run = phase_main(spec, registry, pex, lora_cfg, (B, S), "lora",
+                     pass_launches(lora_want, lora_cfg), kernels)
+    # the adapters' direct launches by shape: device ms against the bound
+    # and a cuBLAS bmm of HᵀZ̄, per step
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    times = norm_times(shapes=sorted(lora_want["direct_norm"]))
+    tot = {"ms": 0.0, "bound_ms": 0.0, "bmm_ms": 0.0}
+    for (pi, po), n_launch in sorted(lora_want["direct_norm"].items()):
+        t_bytes = (2 * B * S * (pi + po) + 4 * B) / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops.flop_estimate(B, S, pi, po) / PEAK_FLOPS[
+            "torch.bfloat16"] * 1e3
+        sets = norm_sets(pi, po, gen)
+        bmm = bmm_ms("direct_norm", sets, 20)
+        del sets
+        ms = times[f"direct_norm {pi}x{po}"]
+        log(f"[lora] direct {pi}->{po} x {n_launch} a norms pass: "
+            f"{ms:.4f} ms a launch (device_ms), bound "
+            f"{max(t_bytes, t_ops):.4f} "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}), cuBLAS bmm "
+            f"of HᵀZ̄ {bmm:.4f}")
+        tot["ms"] += n_launch * ms
+        tot["bound_ms"] += n_launch * max(t_bytes, t_ops)
+        tot["bmm_ms"] += n_launch * bmm
+    run["direct_by_shape"] = tot
+    log(f"[lora] the adapters' direct launches a step, by shape: "
+        f"{tot['ms']:.3f} ms against a bound of {tot['bound_ms']:.3f} ms "
+        f"({tot['bound_ms'] / tot['ms']:.1%}), cuBLAS bmm {tot['bmm_ms']:.3f}")
+    log(f"[lora] launches per norms pass {lora_want}; launcher host µs a "
+        f"step {[{k: round(v) for k, v in h.items()} for h in run['host_us']]}"
+        f" ({14 * lora_cfg.n_layers} adapter launches on direct); steady "
+        f"step ms {run['step_ms'][1:]}, Engine.step stream ms "
+        f"{[round(x, 1) for x in run['engine_ms'][1:]]}, AdamW (adapters) "
+        f"{[round(x, 2) for x in run['adamw_ms'][1:]]}; norm kernel ms "
+        f"{[{k: round(m[k], 3) for k in kernels} for m in run['kern_ms'][1:]]}"
+        f"; peak {run['peak_gib']:.2f} GiB")
+    return run
+
+
+# ---------------------------------------------------------------------------
+# LoRA tenants (phases 25 and 26)
+# ---------------------------------------------------------------------------
+
+TENANT_R = 8                 # adapter rank of the tenant phases
+TENANT_ALPHA = 16.0          # α = 2r, as benchmarks/bench_lora_tenants.py
+TENANT_C, TENANT_SIGMA, TENANT_LR = 1.0, 0.3, 0.1   # tests/test_lora_tenancy
+TENANT_EXACT_S, TENANT_EXACT_D = 64, 256
+#: phase 26's cases: (dtype, tenants, examples each — 0: ragged 1 to 4 —,
+#: width d = o, S): benchmarks/bench_lora_tenants.py's three in f32, then
+#: llama3.2-1b's wq width in bf16
+TENANT_CASES = [("float32", 256, 2, 256, 64), ("float32", 1024, 1, 256, 64),
+                ("float32", 64, 8, 256, 64), ("bfloat16", 128, 0, 2048, 512)]
+#: phase 9's tenant cases: the f32 256 x 2 case and the bf16 one
+TENANT_SEG_CASES = (TENANT_CASES[0], TENANT_CASES[-1])
+TENANT_REPS = 4              # timed steps of each kind, in turns
+
+
+def tenant_owner(n_tenants, per, seed):
+    """(B,) owning tenant (0..n_tenants-1) of each example, shuffled by
+    numpy ``default_rng(seed)``: ``per`` examples each, or with ``per`` 0
+    a ragged 1 to 4."""
+    import numpy as np
+    rs = np.random.default_rng(seed)
+    counts = (rs.integers(1, 5, n_tenants) if per == 0
+              else np.full(n_tenants, per))
+    owner = np.repeat(np.arange(n_tenants), counts)
+    rs.shuffle(owner)
+    return owner
+
+
+def tenant_problem(dt, n_examples, d, s, seed):
+    """A multi-tenant LoRA problem on the card, as the reference's test and
+    benchmark pose it: a frozen base (d, d) of std 0.2, each tenant's pair
+    (rank ``TENANT_R``, α ``TENANT_ALPHA``, B of std 0.3) from the
+    generator it is given, and (B, S, d) inputs and targets. Returns
+    (init_fn, loss over per-example adapters, batch)."""
+    import torch
+    from repro_torch.nn import lora as lora_mod
+    from repro_torch.nn.linear import linear
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = (0.2 * torch.randn(d, d, generator=gen, device="cuda")).to(dt)
+    batch = {k: torch.randn(n_examples, s, d, generator=gen,
+                            device="cuda").to(dt) for k in ("x", "y")}
+
+    def init_fn(g):
+        return {"site": lora_mod.init_pair(g, d, d, TENANT_R, TENANT_ALPHA,
+                                           dtype=dt, device=g.device,
+                                           b_std=0.3)}
+
+    def loss(adapters, data, tap):
+        z = linear({"w": base, "lora": adapters["site"]}, data["x"],
+                   tap=tap)
+        tok = torch.sum(torch.square(z.float() - data["y"].float()), dim=-1)
+        return torch.sum(tap.token_loss(tok), dim=1), {}
+
+    return init_fn, loss, batch
+
+
+def within(got, want, rtol, atol):
+    """The largest |got − want| − (atol + rtol·|want|): ≤ 0 when every
+    element is within the tolerance."""
+    return ((got.float() - want.float()).abs()
+            - (atol + rtol * want.float().abs())).max().item()
+
+
+def phase_tenants_exact(pex):
+    """Phase 25: ``tests/test_lora_tenancy.py``'s per-tenant oracle on the
+    card, in f32 at the reference benchmark's widths (d = o = 256, r = 8,
+    S = 64): 110 tenants of ragged 1 to 4 examples (the test's mix, seed
+    7). One fused ``TenantService.step`` (Clip, per-tenant Noise, SGD)
+    against a loop of single-tenant Engines, each tenant's noise from its
+    own derived generator: norms and clip coefficients (rtol 1e-5, atol
+    1e-6), each tenant's updated store row (the same), at example
+    granularity and at token granularity with an explicit noise scale;
+    then each tenant's noise bit for bit against ``add_grad_noise`` on its
+    tree alone."""
+    import numpy as np
+    import torch
+    from repro_torch.core import passes
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segmented_norm as sn
+    from repro_torch.nn.param import fold_seed, tree_leaves, tree_map
+    from repro_torch.tenancy import AdapterStore, TenantService, assemble
+
+    rs = np.random.RandomState(7)
+    tenants = rs.choice(np.arange(1000, 50_000), size=110, replace=False)
+    owner = np.concatenate([np.full(rs.randint(1, 5), t) for t in tenants])
+    rs.shuffle(owner)
+    init_fn, loss, batch = tenant_problem(
+        torch.float32, owner.size, TENANT_EXACT_D, TENANT_EXACT_S, 7)
+    tb = assemble(batch, owner)
+    c, sigma, lr = TENANT_C, TENANT_SIGMA, TENANT_LR
+    rtol, atol = 1e-5, 1e-6
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    for gran in ("example", "token"):
+        store = AdapterStore(init_fn, capacity=128, seed=7)
+        svc = TenantService(store, loss, clip_norm=c, noise_std=sigma,
+                            noise_scale=c, lr=lr, granularity=gran)
+        seed = passes.step_seed(torch.Generator(device="cuda").manual_seed(99))
+        ops.reset_launch_counts()
+        sn.reset_route_counts()
+        t0 = time.perf_counter()
+        res = svc.step(batch, owner,
+                       rng=torch.Generator(device="cuda").manual_seed(99))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = ops.launch_counts()
+        want_n = ({**zero, "segmented_norm": 2} if gran == "example"
+                  else {**zero, "rowsumsq": 4})
+        if n != want_n:
+            raise AssertionError(f"tenants-exact {gran}: launches {n}, "
+                                 f"expected {want_n}")
+        if gran == "example":
+            segs = sn.route_segments()
+            if segs != {"gram": 0, "direct": 2 * owner.size}:
+                raise AssertionError(f"tenants-exact: segments by route "
+                                     f"{segs}, expected every one of the "
+                                     f"2 x {owner.size} on direct")
+        oracle = pex.Engine(pex.PexSpec(), granularity=gran)
+        worst = dict.fromkeys(("norms", "clip", "rows"), -math.inf)
+        for t in tb.unique_tenants:
+            at = init_fn(torch.Generator(device="cuda").manual_seed(
+                fold_seed(7, int(t))))
+            idx = torch.as_tensor(np.flatnonzero(owner == t), device="cuda")
+            r_t = oracle.step(
+                loss, at, {k: v.index_select(0, idx)
+                           for k, v in batch.items()},
+                [pex.Clip(c, granularity=gran),
+                 pex.Noise(sigma, passes.tenant_generator(seed, int(t),
+                                                          "cuda"),
+                           scale=c)])
+            pos = torch.as_tensor(np.flatnonzero(tb.tenant_ids == t),
+                                  device="cuda")
+            new = tree_map(lambda a, g: a - lr * g, at, r_t.grads)
+            for k, got, want in (
+                    ("norms", res.sq_norms.index_select(0, pos),
+                     r_t.sq_norms),
+                    ("clip", res.clip_coef.index_select(0, pos),
+                     r_t.clip_coef)) + tuple(
+                        ("rows", g[0], w) for g, w in zip(
+                            tree_leaves(store.gather([t])),
+                            tree_leaves(new))):
+                worst[k] = max(worst[k], within(got, want, rtol, atol))
+        log(f"[tenants-exact] {gran}: {len(tenants)} tenants, B="
+            f"{owner.size}, S={TENANT_EXACT_S}, {TENANT_EXACT_D}->"
+            f"{TENANT_R}->{TENANT_EXACT_D} f32; service step {ms:.1f} ms "
+            f"(first call); launches {n}; worst excess over rtol {rtol}, "
+            f"atol {atol} (≤ 0 passes): {worst}")
+        if not all(v <= 0 for v in worst.values()):
+            raise AssertionError(f"tenants-exact {gran}: the fused step "
+                                 f"disagrees with the per-tenant oracle: "
+                                 f"{worst}")
+    # each tenant's noise, bit for bit against its tree alone
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tree = {k: torch.randn(len(tenants), *shape, generator=gen,
+                           device="cuda")
+            for k, shape in (("a", (TENANT_EXACT_D, TENANT_R)),
+                             ("b", (TENANT_R, TENANT_EXACT_D)))}
+    segs = torch.as_tensor(tb.unique_tenants, device="cuda")
+    noised = passes.add_grad_noise_segmented(
+        tree_map(torch.clone, tree), sigma, c,
+        torch.Generator(device="cuda").manual_seed(5), segs)
+    seed = passes.step_seed(torch.Generator(device="cuda").manual_seed(5))
+    for i, t in enumerate(tb.unique_tenants):
+        alone = passes.add_grad_noise(
+            {k: v[i].clone() for k, v in tree.items()}, sigma, c,
+            passes.tenant_generator(seed, int(t), "cuda"))
+        if not all(torch.equal(noised[k][i], alone[k]) for k in tree):
+            raise AssertionError(f"tenant {t}'s segmented noise is not the "
+                                 f"bits of add_grad_noise on its tree alone")
+    log(f"[tenants-exact] per-tenant noise of {len(tenants)} tenants bit for "
+        f"bit add_grad_noise on each tenant's tree alone")
+
+
+def tenant_seg_times(reps=10):
+    """Device time of one segmented launch (ms) at each factor tap of phase
+    26's cases (example-id segments of S rows: d → r and r → d), with
+    ``device_ms`` (card held busy, input copies past the L2). It uses only
+    the wrapper's public signature, so a copy of this file placed in an
+    older checkout times that checkout's kernel on the same ids, in turns:
+    ``python3 -c "import chip_smoke; chip_smoke.tenant_seg_times()"``."""
+    import torch
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for dtn, n_ten, per, d, s in TENANT_CASES:
+        dt = getattr(torch, dtn)
+        n = tenant_owner(n_ten, per, 0).size
+        seg = torch.arange(n, device="cuda").repeat_interleave(s)
+        for pi, po in ((d, TENANT_R), (TENANT_R, d)):
+            sets = []
+            while sum((h.numel() + z.numel()) * h.element_size()
+                      for h, z in sets) < 2 * L2_BYTES:
+                sets.append(tuple(torch.randn(n * s, p, generator=gen,
+                                              device="cuda").to(dt)
+                                  for p in (pi, po)))
+            out[f"{dtn} {n_ten}x{per or 'ragged'} {pi}->{po}"] = device_ms(
+                lambda x: ops.segmented_norm(x[0], x[1], seg, n), sets, reps)
+            del sets
+            torch.cuda.empty_cache()
+    log(f"[tenant-seg-times] device ms a launch: {json.dumps(out)}")
+    return out
+
+
+def seg_bits(out_path):
+    """The segmented launcher's outputs on seeded inputs — phase 26's
+    example-id segments in both types, and mixed lengths on both routes,
+    one long segment, ragged widths and dropped rows — saved with
+    ``torch.save`` to ``out_path``. It uses only the wrapper's public
+    signature, so a copy of this file in an older checkout saves that
+    checkout's outputs, to be compared bit for bit with ``torch.equal``:
+    ``python3 -c "import chip_smoke; chip_smoke.seg_bits('x.pt')"``."""
+    import torch
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for dtn, n_ten, per, d, s in TENANT_SEG_CASES:
+            n = tenant_owner(n_ten, per, 0).size
+            seg = torch.arange(n, device="cuda").repeat_interleave(s)
+            cases += [(dt, n * s, pi, po, seg, n)
+                      for pi, po in ((d, TENANT_R), (TENANT_R, d))]
+        for t, pi, po, n in ((3750, 512, 384, 14), (3000, 512, 384, 1),
+                             (777, 256, 333, 20), (6000, 4096, 6400, 64)):
+            seg = torch.randint(0, n + 2, (t,), generator=gen,
+                                device="cuda")
+            cases.append((dt, t, pi, po, seg, n))
+    out = []
+    for dt, t, pi, po, seg, n in cases:
+        h, z = (torch.randn(t, p, generator=gen, device="cuda").to(dt)
+                for p in (pi, po))
+        out.append(ops.segmented_norm(h, z, seg, n).cpu())
+    torch.save(out, out_path)
+    log(f"[seg-bits] {len(out)} launches' outputs saved to {out_path}")
+
+
+def phase_tenants(pex):
+    """Phase 26: the fused DP step (norms, Clip(1.0), per-tenant
+    Noise(0.2), SGD) against the plain multi-tenant LoRA step through an
+    inert tap (one backward, SGD), as ``bench_lora_tenants.step_pair``
+    times them, at each ``TENANT_CASES`` case, in turns. For each: both
+    steps' host ms, the overhead beside DESIGN.md §14's ≤ 10% target
+    (reported, not asserted), the segmented launches by route (every
+    non-empty segment on direct, asserted), each launch's device ms
+    (``tenant_seg_times``) against its bound and a cuBLAS ``bmm`` of
+    H_jᵀZ̄_j over the segments, and the per-tenant noise add's ms
+    (events)."""
+    import torch
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segmented_norm as sn
+    from repro_torch.nn.param import tree_flatten, tree_map, tree_unflatten
+    from repro_torch.tenancy import AdapterStore, assemble
+
+    seg_ms = tenant_seg_times()
+    eng = pex.Engine(pex.PexSpec())
+    out = {}
+    for dtn, n_ten, per, d, s in TENANT_CASES:
+        dt = getattr(torch, dtn)
+        tag = f"{dtn} {n_ten}x{per or 'ragged'}"
+        owner = tenant_owner(n_ten, per, 0)
+        init_fn, loss, batch = tenant_problem(dt, owner.size, d, s, 0)
+        tb = assemble(batch, owner)
+        store = AdapterStore(init_fn, capacity=n_ten, seed=0)
+        for t in range(n_ten):
+            store.admit(t)
+        active = store.gather(tb.unique_tenants)
+        leaves, treedef = tree_flatten(active)
+
+        def closure(adapters, eb, tap):
+            idx = eb["tenant_index"]
+            return loss(tree_map(lambda v: v.index_select(0, idx), adapters),
+                        eb, tap)
+
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        cons = [pex.Clip(1.0), pex.Noise(0.2, gen, scale=1.0,
+                                         segments=tb.segments())]
+
+        def fused():
+            res = eng.step(closure, active, tb.batch, cons)
+            return tree_map(lambda a, g: a - TENANT_LR * g.to(a.dtype),
+                            active, res.grads)
+
+        def plain():
+            ls = [x.detach().requires_grad_() for x in leaves]
+            lv, _ = closure(tree_unflatten(treedef, ls), tb.batch, pex.NULL)
+            gs = torch.autograd.grad(lv.sum(), ls)
+            return [a - TENANT_LR * g.to(a.dtype) for a, g in zip(leaves, gs)]
+
+        # one observed fused step: the segmented launches (inputs, events)
+        # and the noise add (events)
+        calls, seg_ev, noise_ev = [], [], []
+        orig_seg, orig_noise = sn.segmented_norm, \
+            plan_mod.add_grad_noise_segmented
+
+        def seg_wrap(h, z, seg, n):
+            calls.append((h, z, seg, n))
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            r = orig_seg(h, z, seg, n)
+            e[1].record()
+            seg_ev.append(e)
+            return r
+
+        def noise_wrap(*a, **kw):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            r = orig_noise(*a, **kw)
+            e[1].record()
+            noise_ev.append(e)
+            return r
+
+        fused()
+        plain()
+        torch.cuda.synchronize()
+        sn.segmented_norm = seg_wrap
+        plan_mod.add_grad_noise_segmented = noise_wrap
+        try:
+            ops.reset_launch_counts()
+            sn.reset_route_counts()
+            fused()
+            torch.cuda.synchronize()
+        finally:
+            sn.segmented_norm = orig_seg
+            plan_mod.add_grad_noise_segmented = orig_noise
+        n = ops.launch_counts()
+        segs = sn.route_segments()
+        if n["segmented_norm"] != 2 or segs != {"gram": 0,
+                                                "direct": 2 * owner.size}:
+            raise AssertionError(f"tenants {tag}: segmented launches "
+                                 f"{n['segmented_norm']}, segments by route "
+                                 f"{segs}; expected 2 launches and every "
+                                 f"one of the 2 x {owner.size} segments on "
+                                 f"direct")
+        path_seg_ms = [a.elapsed_time(b) for a, b in seg_ev]
+        noise_ms = sum(a.elapsed_time(b) for a, b in noise_ev)
+        # time the two steps in turns
+        times = {"fused": [], "plain": []}
+        for kind in ("fused", "plain", "plain", "fused") * (TENANT_REPS // 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (fused if kind == "fused" else plain)()
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+        mean = {k: sum(v) / len(v) for k, v in times.items()}
+        over = (mean["fused"] - mean["plain"]) / mean["plain"]
+        # each launch against its bound and a bmm of H_jᵀZ̄_j
+        rows = []
+        for (h, z, seg, n_seg), ev_ms in zip(calls, path_seg_ms):
+            pi, po = h.shape[1], z.shape[1]
+            bound, by, _ = seg_bound_ms([(seg, n_seg, h.shape[0], pi, po,
+                                          h.dtype)])
+            sets = [(h, z)]
+            while sum((x.numel() + y.numel()) * x.element_size()
+                      for x, y in sets) < 2 * L2_BYTES:
+                sets.append((h.clone(), z.clone()))
+            bmm = device_ms(lambda x: torch.bmm(
+                x[0].view(n_seg, s, pi).transpose(1, 2),
+                x[1].view(n_seg, s, po)), sets, 10)
+            del sets
+            ms = seg_ms[f"{tag} {pi}->{po}"]
+            rows.append({"shape": f"{pi}->{po}", "ms": ms, "path_ms": ev_ms,
+                         "bound_ms": bound, "bound_by": by, "bmm_ms": bmm})
+        del calls
+        out[tag] = {"fused_ms": times["fused"], "plain_ms": times["plain"],
+                    "overhead": over, "noise_ms": noise_ms,
+                    "segmented": rows, "segments": segs}
+        log(f"[tenants] {tag}: B={owner.size} S={s} {d}->{TENANT_R}->{d}; "
+            f"fused DP step ms {[round(x, 2) for x in times['fused']]}"
+            f", plain step ms {[round(x, 2) for x in times['plain']]}: "
+            f"overhead {over:+.1%} (DESIGN.md §14's target ≤ +10%, "
+            f"reported); per-tenant noise add {noise_ms:.3f} ms (events); "
+            f"segments by route {segs}; segmented a launch: "
+            + "; ".join(f"{r['shape']} {r['ms']:.4f} ms (path "
+                        f"{r['path_ms']:.4f}), bound {r['bound_ms']:.4f} "
+                        f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%}), "
+                        f"bmm {r['bmm_ms']:.4f}" for r in rows))
+        del active, store, tb, batch, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_token_exact(spec, registry, pex):
     """llama3.2-1b at full width in f32, token granularity: the engine's
     (B, S) map against per-token stats summed in plain f32 from a recorded
@@ -2871,6 +3494,7 @@ def main() -> int:
 
     from repro_torch import pex
     from repro_torch.models import registry
+    from repro_torch.nn.lora import LoraCfg
 
     name, smi = phase_device()
     phase_build()
@@ -2884,10 +3508,13 @@ def main() -> int:
     ds_cfg = cut(ds_spec, DS_LAYERS)
     moe_spec = registry.get("phi3.5-moe")
     moe_cfg = cut(moe_spec, MOE_LAYERS)
+    lora = LoraCfg(rank=TENANT_R, alpha=TENANT_ALPHA)
+    lora_cfg = dataclasses.replace(cfg, lora=lora)
     errs = {}
     checked = phase_kernels(cfg, errs, ((moe_cfg, MOE_B, MOE_S),
                                         (gemma_cfg, B, S), (vl_cfg, B, S),
-                                        (ds_cfg, DS_B, DS_S)))
+                                        (ds_cfg, DS_B, DS_S),
+                                        (lora_cfg, B, S)))
     phase_flash_kernels(errs)
     phase_exact(spec, registry, pex)
     torch.cuda.empty_cache()
@@ -2962,7 +3589,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_dispatch([(c, B, S) for c in (
         cfg, gemma_cfg, vl_cfg, cut(registry.get("qwen2-7b"), VL_LAYERS),
-        cut(registry.get("minitron-4b"), VL_LAYERS))]
+        cut(registry.get("minitron-4b"), VL_LAYERS), lora_cfg)]
         + [(ds_cfg, DS_B, DS_S)])
     torch.cuda.empty_cache()
     train_run = phase_train(spec, registry, cfg)
@@ -3014,13 +3641,19 @@ def main() -> int:
     phase_seg_kernels(ds_path, ds_errs, edges=False)
     ds_seg_ms = seg_times(ds_path, tag="deepseek-seg-times")
     torch.cuda.empty_cache()
+    lora_run = phase_lora(spec, registry, pex, lora_cfg)
+    torch.cuda.empty_cache()
+    phase_tenants_exact(pex)
+    torch.cuda.empty_cache()
+    tenants = phase_tenants(pex)
+    torch.cuda.empty_cache()
     # every gram and direct launch of every path, of either dtype, at a
     # shape, and so on a plan, that phase 3 held against its plain version
     for tag, r in (("main", main_run), ("flash", flash_run),
                    ("moe", moe_run), ("token", token_run),
                    ("moe-token", moe_token_run), ("train", train_run),
                    ("gemma2", gemma_run), ("qwen2-vl", vl_run),
-                   ("deepseek", ds_run)):
+                   ("deepseek", ds_run), ("lora", lora_run)):
         if not r["norm_shapes"] <= checked:
             raise AssertionError(f"{tag}: gram/direct launched at "
                                  f"{sorted(r['norm_shapes'] - checked)}, "
@@ -3028,9 +3661,12 @@ def main() -> int:
         log(f"[kernels] {tag}: every gram/direct launch shape "
             f"{sorted(r['norm_shapes'])} was held in phase 3")
     for tag, r in (("main", main_run), ("gemma2", gemma_run),
-                   ("qwen2-vl", vl_run), ("deepseek", ds_run)):
+                   ("qwen2-vl", vl_run), ("deepseek", ds_run),
+                   ("lora", lora_run)):
         log(f"[compare] {tag}: steady stream ms in Engine.step "
-            f"{[round(x, 1) for x in r['engine_ms'][1:]]}, in the AdamW "
+            f"{[round(x, 1) for x in r['engine_ms'][1:]]} (queued by the "
+            f"host in {[round(x, 1) for x in r['enqueue_ms'][1:]]}), in the "
+            f"AdamW "
             f"update {[round(x, 1) for x in r['adamw_ms'][1:]]} (host step "
             f"ms {[round(x, 1) for x in r['step_ms'][1:]]})")
     for tag, r, kerns in (("gemma2", gemma_run, gemma_kernels),
@@ -3048,6 +3684,9 @@ def main() -> int:
         f"device ms a launch {json.dumps(ds_seg_ms)}; deepseek-exact norms "
         f"max rel err {ds_exact['rel_err']:.2e}, peak memory "
         f"{ds_exact['peak_gib']:.2f} GiB")
+    tenant_means = {k: [round(sum(v[f]) / len(v[f]), 2)
+                        for f in ("fused_ms", "plain_ms")]
+                    for k, v in tenants.items()}
     log(f"[table] kernels: {', '.join(r['name'] for r in rows)}; main step "
         f"ms {main_run['step_ms']}; flash step ms {flash_run['step_ms']}; "
         f"moe step ms {moe_run['step_ms']}; token step ms "
@@ -3055,7 +3694,8 @@ def main() -> int:
         f"{moe_token_run['step_ms']}; train step ms "
         f"{train_run['step_ms']}; gemma2 step ms {gemma_run['step_ms']}; "
         f"qwen2-vl step ms {vl_run['step_ms']}; deepseek step ms "
-        f"{ds_run['step_ms']}; whole run "
+        f"{ds_run['step_ms']}; lora step ms {lora_run['step_ms']}; tenant "
+        f"fused, plain step ms {tenant_means}; whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

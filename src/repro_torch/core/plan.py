@@ -28,9 +28,9 @@ The reference applies its ``vjp_fn`` twice; the port makes two
 ``torch.autograd.grad`` calls over one retained graph: the first over the
 initial accumulator, the second over the parameters.
 
-Not in this slice: user-segmented noise, the mesh path (``dist.pex``,
-with ``execute``'s ``fused_fn`` hook) and the ``core.provenance`` identity
-markers, which only the analysis passes read.
+Not in this slice: the mesh path (``dist.pex``, with ``execute``'s
+``fused_fn`` hook) and the ``core.provenance`` identity markers, which only
+the analysis passes read.
 """
 from __future__ import annotations
 
@@ -42,7 +42,9 @@ import torch
 from repro_torch.core import importance as imp
 from repro_torch.core.clipping import (clip_coefficients,
                                        token_clip_coefficients)
-from repro_torch.core.passes import add_grad_noise, check_noise_args
+from repro_torch.core.passes import (add_grad_noise,
+                                     add_grad_noise_segmented,
+                                     check_noise_args)
 from repro_torch.nn.param import tree_flatten, tree_unflatten
 
 # ---------------------------------------------------------------------------
@@ -81,10 +83,19 @@ class Clip:
 class Noise:
     """Gaussian DP-SGD noise σ·scale added once to the summed gradient.
     ``rng`` is a ``torch.Generator`` on the gradients' device; ``scale``
-    defaults to the plan's Clip threshold C."""
+    defaults to the plan's Clip threshold C.
+
+    ``segments`` (optional, (S,) ints) switches to *per-segment* noise for
+    gradient trees stacked on a leading segment axis — the multi-tenant
+    adapter case: row s of every leaf gets the noise of tenant
+    ``segments[s]`` alone, from a generator derived from this step's seed
+    (drawn from ``rng``) and the tenant id
+    (``passes.add_grad_noise_segmented``). That makes each tenant's DP
+    guarantee independent of co-batched tenants."""
     noise_std: float
     rng: Any = None
     scale: Optional[float] = None
+    segments: Any = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -426,8 +437,13 @@ def execute(plan: Plan, acc_loss: Callable, params, batch,
     if plan.noise is not None and grads is not None:
         scale = plan.noise.scale if plan.noise.scale is not None \
             else plan.clip.clip_norm
-        grads = add_grad_noise(grads, plan.noise.noise_std, scale,
-                               plan.noise.rng)
+        if plan.noise.segments is not None:
+            grads = add_grad_noise_segmented(grads, plan.noise.noise_std,
+                                             scale, plan.noise.rng,
+                                             plan.noise.segments)
+        else:
+            grads = add_grad_noise(grads, plan.noise.noise_std, scale,
+                                   plan.noise.rng)
     return StepResult(torch.sum(lv), lv, aux, sq, grads, w, tw, cc, gns,
                       samp, sub_sq)
 

@@ -31,10 +31,17 @@ estimator over (group, expert, example) composite segments, all groups in
 one launch, and their token stat per capacity slot, scattered to the
 slot's token through the dispatch's slot → token table ``tok``.
 
-Not in this slice: ``dense_batched`` (with LoRA), the provenance table for
-the static analyzer, and ``scan`` / ``checkpoint`` (the port runs layers in
-a Python loop without recompute). ``dist.sharding.shard`` constraints are
-dropped: they are identities off a TPU mesh.
+``dense_batched`` is the per-example-weight matmul of the multi-tenant
+LoRA form (example j multiplies its tenant's gathered adapter factor): its
+example stat is the exact factorized one for (B, p) rows and, for (B, S, p)
+rows, the segmented estimator over example-id segments, every example (and
+so every tenant) in one launch; its token stat is the factorized one per
+token, as for ``dense``.
+
+Not in this slice: the provenance table for the static analyzer, and
+``scan`` / ``checkpoint`` (the port runs layers in a Python loop without
+recompute). ``dist.sharding.shard`` constraints are dropped: they are
+identities off a TPU mesh.
 """
 from __future__ import annotations
 
@@ -159,6 +166,28 @@ class ExampleLayout:
                                              zbar.shape[-1]))
         return self.add_example_stat(acc_bar, stat, group)
 
+    def add_dense_batched(self, acc_bar, h, zbar, group, use_kernels):
+        """Per-example-weight dense stat: h (B,[S,]p_in) against a batched
+        weight (B,p_in,p_out), the multi-tenant LoRA form, where example j
+        owns weight slice j (its tenant's gathered adapter factor). Example
+        j's gradient is h_jᵀ z̄_j, the same outer product as the
+        shared-weight case, so:
+
+          * 2-D h — one row per example ⇒ the paper's §4 factorization is
+            EXACT: s_j = ‖h_j‖²‖z̄_j‖².
+          * 3-D h — the (B·S) rows go to the segmented estimator with
+            example ids as segments (ONE launch across all examples and
+            tenants; the ids repeat(arange(B), S) are sorted runs)."""
+        if h.ndim == 2:
+            return self.add_example_stat(acc_bar,
+                                         N.stat_factorized(h, zbar), group)
+        b, s = h.shape[0], h.shape[1]
+        seg = torch.arange(b, device=h.device).repeat_interleave(s)
+        stat = N.stat_direct_segmented(
+            h.reshape(b * s, h.shape[-1]), zbar.reshape(b * s, -1), seg, b,
+            method="kernel" if use_kernels else "xla")
+        return self.add_example_stat(acc_bar, stat, group)
+
     def add_expert(self, acc_bar, x, zbar, seg, group, use_kernels,
                    tok=None):
         """MoE expert-buffer stat: x (E,C,d), zbar (E,C,f), seg (E,C)
@@ -232,6 +261,18 @@ class TokenLayout:
                 f"TokenLayout dense tap needs (B, S, p) activations, got "
                 f"shape {tuple(h.shape)}; per-token factorization is only "
                 f"exact when each token is one row of the matmul")
+        return acc_bar + (_rowsumsq(h, 2, use_kernels)
+                          * _rowsumsq(zbar, 2, use_kernels))
+
+    def add_dense_batched(self, acc_bar, h, zbar, group, use_kernels):
+        """Batched-weight dense stat at token granularity: token t's
+        contribution to its example's weight slice is still the rank-1
+        outer product h_t z̄_tᵀ — the §4 factorization is exact per token,
+        whichever example owns the weight."""
+        if h.ndim != 3:
+            raise ValueError(
+                f"TokenLayout dense_batched tap needs (B, S, p) "
+                f"activations, got shape {tuple(h.shape)}")
         return acc_bar + (_rowsumsq(h, 2, use_kernels)
                           * _rowsumsq(zbar, 2, use_kernels))
 
@@ -348,6 +389,31 @@ class _Dense(torch.autograd.Function):
             dacc = layout.add_dense(acc_bar, h, zbar, group, method,
                                     use_kernels)
         return dh, dw, dacc, None, None, None, None, None
+
+
+class _DenseBatched(torch.autograd.Function):
+    """z = einsum('b...i,bio->b...o', h, w), h (B,[S,]p_in), w (B, p_in,
+    p_out): per-example weights (the multi-tenant LoRA form)."""
+
+    @staticmethod
+    def forward(ctx, h, w, acc, mode, layout, group, use_kernels):
+        ctx.save_for_backward(h, w)
+        ctx.cfg = (mode, layout, group, use_kernels)
+        return torch.einsum("b...i,bio->b...o", h, w), acc.clone()
+
+    @staticmethod
+    def backward(ctx, zbar, acc_bar):
+        h, w = ctx.saved_tensors
+        mode, layout, group, use_kernels = ctx.cfg
+        dh = dw = dacc = None
+        if ctx.needs_input_grad[0]:
+            dh = torch.einsum("b...o,bio->b...i", zbar, w).to(h.dtype)
+        if mode.grads and ctx.needs_input_grad[1]:
+            dw = torch.einsum("b...i,b...o->bio", h, zbar).to(w.dtype)
+        if mode.norms:
+            dacc = layout.add_dense_batched(acc_bar, h, zbar, group,
+                                            use_kernels)
+        return dh, dw, dacc, None, None, None, None
 
 
 class _Bias(torch.autograd.Function):
@@ -506,6 +572,21 @@ class Tap:
             h, w, self._acc, self.mode, self.layout,
             self.spec.group_index(group), method or self.spec.method,
             self.spec.use_kernels)
+        return z
+
+    def dense_batched(self, h, w, *, group: str = "all",
+                      method: Optional[str] = None) -> torch.Tensor:
+        """Instrumented per-example-weight matmul: h (B,[S,]p_in), w (B,
+        p_in, p_out) — example j multiplies weight slice j (its tenant's
+        gathered LoRA factor). Plain einsum when the tap is inert. The
+        example stat of 3-D h takes the expert taps' segmented route (the
+        kernel under ``spec.use_kernels``); ``method`` is not read, as the
+        segmented estimator has one form per route."""
+        if not self.live:
+            return torch.einsum("b...i,bio->b...o", h, w)
+        z, self._acc = _DenseBatched.apply(
+            h, w, self._acc, self.mode, self.layout,
+            self.spec.group_index(group), self.spec.use_kernels)
         return z
 
     def bias_add(self, x, b, *, group: str = "all") -> torch.Tensor:

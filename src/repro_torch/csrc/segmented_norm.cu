@@ -79,12 +79,16 @@
 //
 // Direct route (segmented_partial_mma for bf16, segmented_partial for f32):
 // the direct form G_j = H_j^T Zbar_j for the segments of the direct list.
-// One block per (128-wide P_in tile, 128-wide P_out tile) walks the list,
-// staging each segment's rows through the permutation into shared memory
-// and accumulating its tile of G_j in f32 registers (bf16: 8 warps, each a
-// 64 x 32 piece as 4 x 4 mma.sync m16n8k16 fragments; f32: 8 x 8 entries a
-// thread on the FMA pipes), then squares and sums the tile into a partial.
-// Its redesign for Hopper waits for a path that sends it rows.
+// The grid is (P_out tiles, P_in tiles, depth): the depth's blocks of one
+// 128 x 128 tile of G stride the list (block z takes entries z, z + depth,
+// ...), each staging a segment's rows through the permutation into shared
+// memory and accumulating its tile of G_j in f32 registers (bf16: 8 warps,
+// each a 64 x 32 piece as 4 x 4 mma.sync m16n8k16 fragments; f32: 8 x 8
+// entries a thread on the FMA pipes), then squaring and summing the tile
+// into the (entry, tile) partial. The launcher sizes the depth from the
+// list's static bound and the SM count, so rank-thin widths, whose G has
+// one or a few tiles (the LoRA tenants' 256 -> 8: 2 tiles), still fill the
+// card. Each partial has one writer whatever the depth: the same bits.
 //
 // Output. Each gram item writes one f32 partial (weight * its fold) and
 // each direct block one partial per listed segment; segment_sums sums each
@@ -153,7 +157,7 @@ segmented_partial(const T* __restrict__ h, const T* __restrict__ z,
   const int o0 = co * kTile;
   const int n_direct = ends[kEndRows * n_seg - 1];
 
-  for (int q = 0; q < n_direct; ++q) {
+  for (int q = blockIdx.z; q < n_direct; q += gridDim.z) {
     const int j = dlist[q];
     const int r0 = offsets[j];
     const int r1 = offsets[j + 1];
@@ -234,7 +238,7 @@ segmented_partial_mma(const bf16* __restrict__ h, const bf16* __restrict__ z,
   const int lr = lane & 7, lj = lane >> 3;
   const int n_direct = ends[kEndRows * n_seg - 1];
 
-  for (int q = 0; q < n_direct; ++q) {
+  for (int q = blockIdx.z; q < n_direct; q += gridDim.z) {
     const int j = dlist[q];
     const int r0 = offsets[j];
     const int r1 = offsets[j + 1];
@@ -639,7 +643,9 @@ struct Launch {
   int n_seg, P_in, P_out;
   long long h_ss, z_ss;
   int gram_blocks;  // the gram kernel's grid; 0: no segment can take it
-  int direct;       // 0: no segment can take the direct route
+  int direct;       // the direct kernel's grid depth, the blocks that
+                    // stride the direct list for each tile of G; 0: no
+                    // segment can take the direct route
   bool vec;         // bf16: the cp.async route
 };
 
@@ -685,8 +691,9 @@ int launch(const Launch& a, cudaStream_t stream) {
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((a.P_out + kTile - 1) / kTile, (a.P_in + kTile - 1) / kTile);
-  if (a.direct) {
+  const dim3 grid((a.P_out + kTile - 1) / kTile, (a.P_in + kTile - 1) / kTile,
+                  a.direct);
+  if (a.direct > 0) {
     if constexpr (kBf16) {
       segmented_partial_mma<<<grid, kThreads, 0, stream>>>(
           h, z, a.rows, a.offsets, a.dlist, a.ends, a.direct_partial,
@@ -721,7 +728,8 @@ extern "C" int segmented_norm_tiles(int P_in, int P_out) {
 // order. gram_partial holds a f32 per item, direct_partial
 // segmented_norm_tiles(P_in, P_out) f32 per direct segment. gram_blocks is
 // the gram kernel's persistent grid (0: no launch, no segment can take the
-// gram route); direct 0 skips the direct kernel. vec 1 (bf16 only): rows
+// gram route); direct is the direct kernel's grid depth, the blocks that
+// stride the direct list for each tile of G (0 skips the direct kernel). vec 1 (bf16 only): rows
 // 16-byte aligned, copied by cp.async; 0: by loads and stores.
 // Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int segmented_norm_launch(
@@ -751,6 +759,7 @@ extern "C" int segmented_norm_launch(
   a.vec = vec != 0;
   if (n_seg < 1 || gram_blocks < 0 ||
       (gram_blocks > 0 && (items == nullptr || gram_partial == nullptr)) ||
+      direct < 0 || direct > 65535 ||
       (direct && (dlist == nullptr || direct_partial == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -6,12 +6,19 @@ shaped like the reference's parameters after ``unbox`` and ``np.asarray``
 the layers of ``blocks`` on a leading (L, ...) axis for ``lax.scan``; the
 port keeps a list of L per-layer dicts. :func:`params_to_numpy` is the
 inverse.
+
+A LoRA site's factors arrive as the reference's ``LoraPair`` (numpy ``a``,
+``b`` and a float ``alpha``), recognized by those three attributes (the
+port does not import the reference's class) and carried into the port's
+``nn.lora.LoraPair``; stacked (L, d, r) factors of ``blocks`` are split
+into per-layer pairs as the weights are.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.nn.lora import LoraPair
 from repro_torch.nn.param import resolve_device, tree_map
 
 
@@ -30,8 +37,23 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _carry_pairs(tree):
+    """``tree`` with every LoRA pair (the reference's, by its attributes)
+    rebuilt as the port's ``LoraPair``."""
+    if isinstance(tree, dict):
+        return {k: _carry_pairs(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_carry_pairs(v) for v in tree]
+    if all(hasattr(tree, k) for k in ("a", "b", "alpha")):
+        return LoraPair(tree.a, tree.b, tree.alpha)
+    return tree
+
+
 def _split_layers(stacked):
     """{..., leaf (L, ...)} → [{..., leaf (...)} for each of the L layers]."""
+    if isinstance(stacked, LoraPair):
+        return [LoraPair(a, b, stacked.alpha)
+                for a, b in zip(stacked.a, stacked.b)]
     if isinstance(stacked, dict):
         parts = {k: _split_layers(v) for k, v in stacked.items()}
         n = {len(v) for v in parts.values()}
@@ -44,6 +66,9 @@ def _split_layers(stacked):
 
 def _stack_layers(layers):
     """Inverse of :func:`_split_layers`."""
+    if isinstance(layers[0], LoraPair):
+        return LoraPair(np.stack([lay.a for lay in layers]),
+                        np.stack([lay.b for lay in layers]), layers[0].alpha)
     if isinstance(layers[0], dict):
         return {k: _stack_layers([lay[k] for lay in layers])
                 for k in layers[0]}
@@ -54,6 +79,7 @@ def params_from_numpy(tree, device=None):
     """Reference-layout numpy tree → port params (torch tensors on
     ``device``, default CUDA)."""
     device = resolve_device(device)
+    tree = _carry_pairs(tree)
     out = {k: v for k, v in tree.items() if k != "blocks"}
     out = tree_map(lambda x: _to_tensor(x, device), out)
     if "blocks" in tree:
@@ -63,7 +89,10 @@ def params_from_numpy(tree, device=None):
 
 
 def params_to_numpy(params):
-    """Port params → reference-layout numpy tree (``blocks`` stacked)."""
+    """Port params → reference-layout numpy tree (``blocks`` stacked). A
+    LoRA pair stays the port's ``LoraPair``, with numpy factors (stacked
+    for ``blocks``): the caller on the JAX side rebuilds it as the
+    reference's from its ``a``, ``b`` and ``alpha``."""
     out = {k: tree_map(_to_numpy, v) for k, v in params.items()
            if k != "blocks"}
     if "blocks" in params:

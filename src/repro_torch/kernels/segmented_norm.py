@@ -39,8 +39,10 @@ operations, and the kernels compute it:
   writes one partial. Each Gram is summed in chains of :data:`CHAIN`
   chunks whose sums are added in f32, so its error does not grow with the
   width. f32 inputs take the same items on the FMA pipes.
-- The direct route: one block per (128-wide p_in tile, 128-wide p_out
-  tile) walks the direct list and keeps its tile of G_j in registers
+- The direct route: the blocks of each (128-wide p_in tile, 128-wide
+  p_out tile) stride the direct list over the grid's third axis
+  (:func:`direct_depth` of them, so that rank-thin widths with one or two
+  tiles still fill the card) and keep their tile of G_j in registers
   (bf16 on ``mma.sync``, f32 on the FMA pipes).
 - A last launch sums each segment's partials in a fixed order: no
   atomics, the same bits on every run. An empty segment reads 0.
@@ -87,7 +89,8 @@ ITEM_COLS = 4
 END_ROWS = 3
 #: resident blocks per SM of the bf16 gram body (``kGramBlocks``): the
 #: persistent grid is this many blocks per SM, or fewer when a launch can
-#: have fewer items
+#: have fewer items; the direct route's grid aims at as many
+#: (:func:`direct_depth`)
 BLOCKS_PER_SM = 4
 
 
@@ -320,6 +323,15 @@ def route_segments() -> dict:
     return {"gram": int(total[0]), "direct": int(total[1])}
 
 
+def direct_depth(directs: int, n_tiles: int, sms: int) -> int:
+    """The direct kernel's grid depth: enough blocks that stride the direct
+    list for each of the ``n_tiles`` tiles of G to give the card
+    :data:`BLOCKS_PER_SM` blocks per SM, never more than the list's static
+    bound ``directs`` (so no host sync), nor the grid's limit of 65,535."""
+    want = -(-BLOCKS_PER_SM * sms // n_tiles)
+    return max(1, min(directs, want, 65535))
+
+
 @functools.lru_cache(maxsize=16)
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -380,12 +392,14 @@ def segmented_norm(h: torch.Tensor, zbar: torch.Tensor,
         device=dev)
     out = torch.empty((n_seg,), dtype=_F32, device=dev)
     blocks = min(lim.items, BLOCKS_PER_SM * _sms(dev))
+    depth = (direct_depth(lim.directs, direct_partial.shape[1], _sms(dev))
+             if lim.directs else 0)
     code = lib.segmented_norm_launch(
         h.data_ptr(), zbar.data_ptr(), order.data_ptr(), offsets.data_ptr(),
         p.items.data_ptr(), p.ends.data_ptr(), p.direct.data_ptr(),
         gram_partial.data_ptr(), direct_partial.data_ptr(), out.data_ptr(),
         dtype, n_seg, p_in, p_out, h.stride(0), zbar.stride(0), blocks,
-        int(lim.directs > 0), int(copy == "cp.async"),
+        depth, int(copy == "cp.async"),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "segmented_norm")
     if lim.gram:

@@ -20,8 +20,10 @@ RMSNorm gains, sandwich norms after attention and the FFN, even layers
 local (windowed; counted over ``blocks`` only, as the reference's scan
 index is), the final logit softcap and embeds × √d. qwen2-vl's merged
 visual embeds replace the token embeds where ``vis_mask`` is set, and its
-(B, 3, S) M-RoPE positions come with the batch. Not in this slice: LoRA,
-``init_caches`` and ``forward_tokens`` (serving).
+(B, 3, S) M-RoPE positions come with the batch. ``cfg.lora`` LoRA-fies
+the linear sites after ``init`` (``nn.lora.attach``): frozen bases and
+tapped factors, each layer's pair its own (``blocks`` is a list). Not in
+this slice: ``init_caches`` and ``forward_tokens`` (serving).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch
 from repro_torch.core.taps import Tap
 from repro_torch.nn import param as pm
 from repro_torch.nn.attention import AttnCfg, attention, init_attention
+from repro_torch.nn import lora as lora_mod
 from repro_torch.nn.embedding import (VocabCfg, embed, init_embedding,
                                       init_lm_head, lm_head, per_example_xent)
 from repro_torch.nn.mla import MlaCfg, init_mla, mla_attention
@@ -60,6 +63,8 @@ class LMConfig:
     logit_softcap: Optional[float] = None
     scale_embeds: bool = False            # gemma ×√d
     vl_inputs: bool = False               # qwen2-vl merged visual embeds
+    lora: Optional[lora_mod.LoraCfg] = None  # LoRA-fy the linear sites:
+                                          # frozen bases + tapped factors
     dtype: str = "float32"
 
     @property
@@ -103,7 +108,8 @@ def init(cfg: LMConfig, generator: torch.Generator, device=None):
     embed/head, fan-in for linear layers, ones for RMSNorm gains, zeros
     for gemma's ``(1+g)`` ones), drawn from ``generator`` on ``device``
     (default CUDA). The ``n_dense_prefix`` prefix layers, when there are
-    any, are drawn first, in ``params["prefix"]``."""
+    any, are drawn first, in ``params["prefix"]``. With ``cfg.lora`` the
+    linear sites then get their adapters (A fan-in normal, B zero)."""
     device = pm.resolve_device(device)
     kw = dict(dtype=cfg.torch_dtype, device=device)
     params = {
@@ -118,6 +124,14 @@ def init(cfg: LMConfig, generator: torch.Generator, device=None):
                             for _ in range(n_pre)]
     params["blocks"] = [_init_block(generator, cfg, device)
                         for _ in range(cfg.n_layers - n_pre)]
+    if cfg.lora is not None:
+        # after the base weights: the adapters' seed is the generator's
+        # next draw, and each site's factors draw from that seed folded
+        # with the site's path
+        seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                 device=generator.device))
+        params = lora_mod.attach(params, cfg.lora, seed,
+                                 dtype=cfg.torch_dtype, device=device)
     return params
 
 

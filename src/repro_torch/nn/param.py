@@ -3,9 +3,11 @@
 Port of ``src/repro/nn/param.py``. The reference boxes every leaf with its
 logical sharding axes (``Boxed``) for the TPU mesh; the port has no mesh
 yet, so a parameter tree is a plain nested dict (and list) of tensors and
-the axes are dropped. Initializers draw from an explicit
-``torch.Generator`` on an explicit device, with the reference's
-distributions (fan-in std for matrices unless given).
+the axes are dropped. The one node of another kind is a LoRA site's
+``nn.lora.LoraPair`` (:func:`is_node`), which the tree helpers walk as the
+reference's pytree registration makes JAX walk it. Initializers draw from
+an explicit ``torch.Generator`` on an explicit device, with the
+reference's distributions (fan-in std for matrices unless given).
 """
 from __future__ import annotations
 
@@ -27,6 +29,22 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A new 63-bit seed from ``seed`` and an integer datum, by a fixed
+    integer mix (splitmix64's finalizer): the port's counterpart of the
+    reference's ``jax.random.fold_in`` for ``torch.Generator`` seeds. The
+    same pair gives the same seed in every process; nearby data give
+    unrelated seeds."""
+    x = (int(seed) * 0x9E3779B97F4A7C15 + int(data)
+         + 0x632BE59BD9B4E019) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (x ^ (x >> 31)) >> 1
 
 
 def pad_to(n: int, multiple: int) -> int:
@@ -60,10 +78,18 @@ def ones(shape, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.ones(tuple(shape), dtype=dtype, device=device)
 
 
-# --- trees: nested dicts (keys visited in sorted order) and lists ----------
+# --- trees: nested dicts (keys visited in sorted order), lists and nodes ---
+
+def is_node(x) -> bool:
+    """A tree node of its own kind: an object whose class defines
+    ``tree_flatten() -> (children, aux)`` and the classmethod
+    ``tree_unflatten(aux, children)``, as a registered JAX pytree class does
+    (``nn.lora.LoraPair``: children ``(a, b)``, ``alpha`` static)."""
+    return hasattr(type(x), "tree_unflatten") and hasattr(x, "tree_flatten")
+
 
 def tree_flatten(tree):
-    """(leaves, treedef) of a nested dict/list/tuple tree of leaves."""
+    """(leaves, treedef) of a nested dict/list/tuple/node tree of leaves."""
     if isinstance(tree, dict):
         keys = sorted(tree)
         leaves, defs = [], []
@@ -79,6 +105,14 @@ def tree_flatten(tree):
             leaves += lv
             defs.append(d)
         return leaves, (type(tree).__name__, None, defs)
+    if is_node(tree):
+        children, aux = tree.tree_flatten()
+        leaves, defs = [], []
+        for x in children:
+            lv, d = tree_flatten(x)
+            leaves += lv
+            defs.append(d)
+        return leaves, ("node", (type(tree), aux), defs)
     return [tree], None
 
 
@@ -89,6 +123,9 @@ def _build(d, it):
     if kind == "dict":
         return {k: _build(sub, it) for k, sub in zip(keys, defs)}
     items = [_build(sub, it) for sub in defs]
+    if kind == "node":
+        cls, aux = keys
+        return cls.tree_unflatten(aux, items)
     return items if kind == "list" else tuple(items)
 
 
