@@ -18,7 +18,13 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               path's, its prefix layer's and MoE layers' included, kv_down's
               5120 → 576 and kv_up's 512 → 32,768 the first path widths
               off the multiples of 128; in f32 also at the f32 MoE routers,
-              phi3.5-moe's 4096 → 16 and deepseek's 5120 → 160; every
+              phi3.5-moe's 4096 → 16 and deepseek's 5120 → 160; the
+              rwkv6, zamba2 and seamless paths' shapes and heads in bf16
+              (zamba2's 3584 → 14,576, off the multiples of 128;
+              seamless's 1024 → 256,208) and in f32 at the exact phases'
+              B=4, S=256, rwkv6's 32 → 2560 on the path's own strided view
+              of tanh(mix_a) (each of its five slices' offsets, TMA
+              asserted), each of these repeated bit for bit; every
               shape at the (B, S), and so on the plan, its path launches:
               B=8, S=512, moe's B=32, S=256, deepseek's B=16, S=256; after
               the paths every gram and direct launch of theirs, of either
@@ -134,8 +140,9 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               ``rowsumsq`` and ``clip_scale`` beside
               ``torch.linalg.vector_norm`` and ``torch.mul`` (each library
               call timed as a yardstick only; the port never calls it);
-16. dispatch — at each bf16 launch shape of the main, gemma2, qwen2-vl and
-              LoRA paths (the LoRA path's five rank-thin adapter shapes)
+16. dispatch — at each bf16 launch shape of the main, gemma2, qwen2-vl,
+              LoRA, rwkv6, zamba2 and seamless paths (the LoRA path's five
+              rank-thin adapter shapes, rwkv6's thin mix and decay LoRAs)
               and of qwen2-7b and minitron-4b (their blocks and heads) at
               B=8, S=512, and of the deepseek path (its prefix
               and MoE layers' dense shapes and head) at B=16, S=256, the
@@ -218,7 +225,36 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               segment on direct, asserted), each launch's ``device_ms``
               (``tenant_seg_times``) against its bound and a cuBLAS
               ``bmm`` of H_jᵀZ̄_j over the segments, and the per-tenant
-              noise add's ms.
+              noise add's ms;
+27. rwkv6-exact — rwkv6-3b at full width, 2 layers (the reference's probe
+              depth), f32, B=4, S=256: phase 4's checks, the norms over
+              the pex scope (the μ's, w0 and u are trained but give no
+              stat; the summed gradient covers them), the gram and direct
+              launches those of the priced pick and nothing else;
+28. rwkv6   — the same in bf16, B=8, S=512, three steps of phase 5's
+              consumers under AdamW: 17 gram (r/k/v/g/o and the channel
+              mix's three, the head) and 16 direct (the thin mix and decay
+              LoRAs, mix_b on strided views) launches a norms pass by the
+              priced pick, asserted, none in the reweighted pass, every
+              launch on TMA; the WKV recurrence (chunked, f32) timed by
+              events; each launch shape's ``device_ms`` against its bound
+              and a cuBLAS ``bmm``;
+29. zamba2-exact — zamba2-7b at full width, 9 layers (the reference's
+              third probe: one group of 6 mamba blocks, the shared block
+              once, 3 tail blocks), f32, B=4, S=256: phase 27's checks;
+              the shared block's leaves (and the SSMs' conv and decay
+              tensors) take the batch backward's gradient and no stat, and
+              no launch comes from the shared block;
+30. zamba2  — the same in bf16, B=8, S=512: 19 gram launches a norms pass
+              (in_proj 3584 → 14,576 and out_proj of 9 blocks, the head),
+              the SSD recurrence and the shared block's attention core
+              timed, peak memory;
+31. seamless-exact — seamless-m4t-medium at full depth (12 + 12 layers,
+              0.88B parameters), f32, B=4, S=S_src=256: phase 27's checks;
+32. seamless — the same in bf16, B=8, S=S_src=512: 144 direct (the
+              1024 ↔ 1024 projections, self and cross) and 49 gram (the
+              MLPs and the 1024 → 256,208 head) launches a norms pass by
+              the priced pick, the unfused attention cores timed.
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -232,8 +268,8 @@ The flash path's step time, peak memory and attention time are logged
 beside the main path's from the same call, the MoE path's step time,
 peak memory and segmented kernel time per step after them, then the token
 paths' step times, peak memory and ``rowsumsq`` time per step, those of
-gemma2, qwen2-vl, deepseek and the LoRA path, the tenant steps, and the
-whole run's seconds.
+gemma2, qwen2-vl, deepseek and the LoRA path, the tenant steps, those of
+rwkv6, zamba2 and seamless, and the whole run's seconds.
 ``update_times()`` (not in a whole run) times one AdamW update and one
 in-place noise add, with the transient memory of each. TF32 is off
 for matmuls and cuDNN throughout, so the f32 plain versions are full f32.
@@ -268,6 +304,13 @@ DS_LAYERS = 2            # deepseek-v2-236b depth cut 60 → 2 (the reference's
 DS_B, DS_S = 16, 256     # deepseek path: 16 dispatch groups of one example,
                          # capacity 16, so 2,560 segments of <= 16 rows
 DS_EXACT_B, DS_EXACT_S = 16, 32
+#: phases 27–32: (arch, depth cut (None: full depth), tag); every depth cut
+#: one of the reference's probe depths, every width as published
+FAMILY_PATHS = (("rwkv6-3b", 2, "rwkv6"),        # 32 → 2
+                ("zamba2-7b", 9, "zamba2"),      # 81 → 9: one group of 6,
+                                                 # the shared block once,
+                                                 # 3 tail blocks
+                ("seamless-m4t-medium", None, "seamless"))   # 12 + 12
 STEPS = 3
 T0 = 0.0                 # perf_counter at the start of main()
 PEAK_BYTES_PER_S = 3.35e12                      # H100 SXM HBM3
@@ -371,7 +414,8 @@ def norm_key(h, z, *_):
 def router_shapes(cfg):
     """(p_in, p_out) of the MoE router: the one dense tap whose weight, and
     so whose gram/direct launch, stays f32 in a bf16 model."""
-    return [(cfg.d_model, cfg.moe.n_experts)] if cfg.moe is not None else []
+    return ([(cfg.d_model, cfg.moe.n_experts)]
+            if getattr(cfg, "moe", None) is not None else [])
 
 
 def layer_shapes(cfg, dense_mlp=False):
@@ -422,9 +466,54 @@ def lora_shapes(cfg, dense_mlp=False):
     return out
 
 
+def family(cfg) -> str:
+    """The model family of a config: transformer, rwkv6, zamba2 or
+    seamless."""
+    if hasattr(cfg, "rwkv_cfg"):
+        return "rwkv6"
+    if hasattr(cfg, "ssm"):
+        return "zamba2"
+    if hasattr(cfg, "n_enc"):
+        return "seamless"
+    return "transformer"
+
+
+def family_shapes(cfg):
+    """[(shapes of one block, blocks of that kind)] of the tapped dense
+    layers of rwkv6 (the time mix's mix_a, its five mix_b slices (32 →
+    d on a strided view), r/k/v/g, the decay LoRA and wo; the channel mix's
+    k, v and r), zamba2 (each mamba block's in_proj and out_proj; the
+    shared block's tap is inert) and seamless (the encoder's attention and
+    MLP, the decoder's self and cross attention and MLP)."""
+    d = cfg.d_model
+    fam = family(cfg)
+    if fam == "rwkv6":
+        r = cfg.rwkv_cfg
+        tmix = ([(d, 5 * r.mix_lora)] + [(r.mix_lora, d)] * 5 + [(d, d)] * 4
+                + [(d, r.decay_lora), (r.decay_lora, d), (d, d)])
+        return [(tmix + [(d, r.d_ff), (r.d_ff, d), (d, d)], cfg.n_layers)]
+    if fam == "zamba2":
+        c = cfg.ssm
+        return [([(d, 2 * c.d_inner + 2 * c.d_state + c.n_heads),
+                  (c.d_inner, d)], cfg.n_layers)]
+    a = cfg.attn_cfg()
+    hq, hkv = a.n_heads_p * a.head_dim, a.n_kv * a.head_dim
+    attn = [(d, hq), (d, hkv), (d, hkv), (hq, d)]
+    mlp = [(d, cfg.d_ff), (cfg.d_ff, d)]
+    return [(attn + mlp, cfg.n_enc), (attn + attn + mlp, cfg.n_dec)]
+
+
+def head_shape(cfg):
+    """(p_in, p_out) of the LM head's launch: the vocab padded to its
+    multiple (seamless's 256,206 → 256,208)."""
+    return (cfg.d_model, cfg.vocab_cfg.vocab_p)
+
+
 def model_shapes(cfg):
     """[(shapes of one block, layers of that kind)]: the dense prefix
-    layers, then the blocks."""
+    layers, then the blocks (the other families: ``family_shapes``)."""
+    if family(cfg) != "transformer":
+        return family_shapes(cfg)
     n_pre = cfg.n_dense_prefix
     out = [(layer_shapes(cfg, dense_mlp=True), n_pre)] if n_pre else []
     return out + [(layer_shapes(cfg), cfg.n_layers - n_pre)]
@@ -439,7 +528,7 @@ def cut(spec, n_layers, **kw):
 def with_flash(cfg):
     """``cfg`` with ``AttnCfg.flash`` set (MLA has no flash route: an MLA
     config is returned as it is)."""
-    if cfg.attn is None:
+    if getattr(cfg, "attn", None) is None:
         return cfg
     return dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn,
                                                              flash=True))
@@ -447,7 +536,9 @@ def with_flash(cfg):
 
 def moe_layers(cfg):
     """Layers with a MoE FFN: all but the dense prefix."""
-    return cfg.n_layers - cfg.n_dense_prefix if cfg.moe is not None else 0
+    if getattr(cfg, "moe", None) is None:
+        return 0
+    return cfg.n_layers - cfg.n_dense_prefix
 
 
 def main_path_launches(cfg, s):
@@ -458,7 +549,7 @@ def main_path_launches(cfg, s):
     from repro_torch.core.norms import pick_method
     out = {"gram_norm": {}, "direct_norm": {}}
     shapes = [(sh, n) for block, n in model_shapes(cfg) for sh in block]
-    for (pi, po), n in shapes + [((cfg.d_model, cfg.vocab), 1)]:
+    for (pi, po), n in shapes + [(head_shape(cfg), 1)]:
         k = pick_method(s, pi, po, use_kernels=True) + "_norm"
         out[k][(pi, po)] = out[k].get((pi, po), 0) + n
     return out
@@ -472,10 +563,10 @@ def pass_launches(expected, cfg):
     layer in the forward and one dQ and one dK/dV launch per layer in each
     backward."""
     from repro_torch.kernels import ops
-    flash = cfg.attn is not None and cfg.attn.flash
+    flash = getattr(cfg, "attn", None) is not None and cfg.attn.flash
     zero = dict.fromkeys(ops.launch_counts(), 0)
     norms = {k: sum(v.values()) for k, v in expected.items()}
-    if cfg.moe is not None:
+    if moe_layers(cfg):
         norms["segmented_norm"] = 3 * moe_layers(cfg)
     bwd = ({"flash_attention_bwd_dq": cfg.n_layers,
             "flash_attention_bwd_dkv": cfg.n_layers} if flash else {})
@@ -670,7 +761,7 @@ def phase_build():
             log(f"[build] {line.strip()}")
 
 
-def phase_kernels(cfg, errs, others=()):
+def phase_kernels(cfg, errs, others=(), f32_others=()):
     """Every kernel against its plain version; ``errs`` collects the max
     abs error of each kernel at the main path's shapes in bf16. The other
     paths ``others``, each (config, B, S) (phi3.5-moe at (MOE_B, MOE_S),
@@ -679,7 +770,13 @@ def phase_kernels(cfg, errs, others=()):
     in bf16 at their own (B, S), the shape its path launches, so on the
     path's plan (gram's feature ranges and scratch follow B); their MoE
     routers, whose weights stay f32, are held in f32 at that (B, S)
-    against both plain versions. The other heads' direct_norm_ref would
+    against both plain versions. ``f32_others``, each (config, B, S) (the
+    exact phases 27, 29 and 31), add their block shapes and heads in f32
+    at their (B, S). rwkv6's 32 → d_model launches take their h as the
+    path does: a (B, S, 32) view at a 160-element row pitch into
+    tanh(mix_a)'s output, at the offset of slice 1 (and in bf16 at each of
+    the five slices' offsets, TMA asserted). The bf16 launches at the other
+    families' shapes repeat bit for bit too. The other heads' direct_norm_ref would
     hold a (B, p_in, p_out) f32 product of 29 GB, so both kernels are held
     against gram_norm_ref there. Each bf16 gram and direct launch's copy
     route is the one its inputs call for (TMA here; the staged route on
@@ -697,27 +794,41 @@ def phase_kernels(cfg, errs, others=()):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     main = [(B, S, pi, po) for pi, po in sorted(set(layer_shapes(cfg)))]
     cases = [(3, 37, 80, 200)] + main + [(B, S, cfg.d_model, cfg.vocab)]
-    heads = sorted({(b, s, c.d_model, c.vocab) for c, b, s in others}
+    def shapes_of(paths):
+        return {(b, s, pi, po) for c, b, s in paths
+                for block, _ in model_shapes(c) for pi, po in block}
+    heads = sorted({(b, s) + head_shape(c) for c, b, s in others}
                    - set(cases))
     routers = sorted({(b, s, pi, po) for c, b, s in others
                       for pi, po in router_shapes(c)})
-    extra = sorted({(b, s, pi, po) for c, b, s in others
-                    for block, _ in model_shapes(c) for pi, po in block}
-                   - set(main) - set(routers)) + heads
-    # the LoRA adapters' rank-thin shapes (one side r): repeated bit for
-    # bit too
-    thin = {c for c in extra if min(c[2:]) <= 16}
+    extra = sorted(shapes_of(others) - set(main) - set(routers)) + heads
+    exact_heads = {(b, s) + head_shape(c) for c, b, s in f32_others}
+    exact = sorted(shapes_of(f32_others) | exact_heads)
+    families = [(c, b, s) for c, b, s in list(others) + list(f32_others)
+                if family(c) != "transformer"]
+    strided = {(b, s, c.rwkv_cfg.mix_lora, c.d_model) for c, b, s in families
+               if family(c) == "rwkv6"}
+    # the LoRA adapters' rank-thin shapes (one side r) and the other
+    # families' shapes: repeated bit for bit too
+    thin = ({c for c in extra if min(c[2:]) <= 16} | shapes_of(families)
+            | {(b, s) + head_shape(c) for c, b, s in families})
     checked = set()
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[str(dt)]
         bf = dt == torch.bfloat16
         # the llama head stays last: the gram-vs-direct check reads it
-        for b, s, pi, po in cases[:-1] + (extra if bf else routers) \
+        for b, s, pi, po in cases[:-1] + (extra if bf else routers + exact) \
                 + cases[-1:]:
-            h = torch.randn(b, s, pi, generator=gen, device="cuda").to(dt)
+            if (b, s, pi, po) in strided:
+                # rwkv6's mix_b input: slice 1 of tanh(mix_a) as a view
+                h = torch.randn(b, s, 5 * pi, generator=gen,
+                                device="cuda").to(dt)[..., pi:2 * pi]
+            else:
+                h = torch.randn(b, s, pi, generator=gen, device="cuda").to(dt)
             z = torch.randn(b, s, po, generator=gen, device="cuda").to(dt)
             want_g = gram_norm_ref(h, z)
             want_d = (want_g if (b, s, pi, po) in heads
+                      or (not bf and (b, s, pi, po) in exact_heads)
                       else direct_norm_ref(h, z))
             gn.route_launches.clear()
             dn.route_launches.clear()
@@ -758,6 +869,9 @@ def phase_kernels(cfg, errs, others=()):
                                              f"at {(b, s, pi, po)}")
                 line.append("gram and direct bitwise equal on a second run")
             how = ", TMA route" if bf else ""
+            if (b, s, pi, po) in strided:
+                how += (f", h a view at row pitch {h.stride(1)} and offset "
+                        f"{h.storage_offset()}")
             if (b, s, pi, po) in routers and not bf:
                 # the least time of the f32 router's launch on the card
                 by = {"bytes": 4 * (h.numel() + z.numel() + b)
@@ -780,6 +894,38 @@ def phase_kernels(cfg, errs, others=()):
             f"rel {r:.2e} (tol {tol})")
         if not r <= tol:
             raise AssertionError(f"gram vs direct disagree: {r}")
+    # rwkv6's mix_b launches at each of the five slices' offsets (0 to 256
+    # bytes into a 320-byte row): TMA, as the path's launches take it
+    for b, s, r, d in sorted(strided):
+        base = torch.randn(b, s, 5, r, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        z = torch.randn(b, s, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        line = []
+        for i in range(5):
+            h = base[:, :, i]
+            gn.route_launches.clear()
+            dn.route_launches.clear()
+            want = gram_norm_ref(h, z)
+            got = {"gram_norm": ops.gram_norm(h, z),
+                   "direct_norm": ops.direct_norm(h, z)}
+            routes = {**gn.route_launches, **dn.route_launches}
+            if routes != {("gram", "tma"): 1, ("direct", "tma"): 1}:
+                raise AssertionError(f"norm routes {routes} at rwkv6's "
+                                     f"mix_b slice {i}, expected TMA")
+            for k, v in got.items():
+                r_err = rel_err(v, want)
+                if not r_err <= TOL["torch.bfloat16"]:
+                    raise AssertionError(f"{k} at rwkv6's mix_b slice {i}: "
+                                         f"rel err {r_err}")
+                if not torch.equal(v, getattr(ops, k)(h, z)):
+                    raise AssertionError(f"{k} not bitwise repeatable at "
+                                         f"rwkv6's mix_b slice {i}")
+            line.append(f"slice {i} (offset {2 * h.storage_offset()} B) "
+                        + ", ".join(f"{k} rel {rel_err(v, want):.2e}"
+                                    for k, v in got.items()))
+        log(f"[kernels] bf16 {(b, s, r, d)} rwkv6 mix_b views, TMA route, "
+            f"bitwise equal on a second run: " + "; ".join(line))
     # rows of an odd pitch from a base off the 16-byte grid: no tensor map
     # describes them, so both bf16 launches take the staged route
     h = torch.randn(3, 40, 25, generator=gen, device="cuda").to(
@@ -921,18 +1067,47 @@ def phase_flash_kernels(errs):
             del q, k, v, do, o, lse, o_ref, lse_ref, grads, again, want
 
 
+class NormShapes:
+    """Records ``norm_key`` of every gram and direct launch while active
+    (``with NormShapes() as shapes:``), through the launchers that
+    ``kernels.ops`` calls."""
+
+    def __enter__(self):
+        from repro_torch.kernels import direct_norm as dn
+        from repro_torch.kernels import gram_norm as gn
+        self.shapes = set()
+        self.orig = [(gn, "gram_norm", gn.gram_norm),
+                     (dn, "direct_norm", dn.direct_norm)]
+        for mod, name, fn in self.orig:
+            def rec(*a, _fn=fn, **kw):
+                self.shapes.add(norm_key(*a))
+                return _fn(*a, **kw)
+            setattr(mod, name, rec)
+        return self.shapes
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
+
+
 def phase_exact(spec, registry, pex, cfg=None, tag="exact",
-                flash_launches=None, flashes=(False, True), prepare=None):
+                flash_launches=None, flashes=(False, True), prepare=None,
+                shapes=None):
     """Full width in f32: Engine norms vs per-example plain backward, for
     llama3.2-1b (phase 4; ``cfg`` None) or another config (gemma2-9b at
-    its cut depth, phase 18; the LoRA-fied llama3.2-1b, phase 23), unfused
-    and (in ``flashes``) with ``AttnCfg.flash``. ``flash_launches`` is the
+    its cut depth, phase 18; the LoRA-fied llama3.2-1b, phase 23; rwkv6-3b,
+    zamba2-7b and seamless-m4t-medium, phases 27, 29 and 31), unfused
+    and (in ``flashes``) with ``AttnCfg.flash``. The norms are held over
+    the arch's pex scope (``registry.scope_mask``: zamba2's shared block
+    and its SSM's conv and decay tensors, rwkv6's μ's, w0 and u are
+    trained but give no stat); the summed gradient over every leaf. ``flash_launches`` is the
     launches of each flash kernel the flash run must make (default: one
     per layer). Where it is 0 (gemma2: its softcap and local layers close
     the reference's gate) the flash run repeats the unfused one, so only
     its launch counts are kept. ``prepare`` edits the parameters after
     ``init``. A leaf the plain loss does not reach (a LoRA site's frozen
-    base) must have an engine gradient of exactly zero. Returns the
+    base) must have an engine gradient of exactly zero. ``shapes`` (a set)
+    collects the ``norm_key`` of every gram and direct launch. Returns the
     launches of the unfused run."""
     import torch
     from repro_torch.configs.common import ShapeSpec
@@ -955,10 +1130,13 @@ def phase_exact(spec, registry, pex, cfg=None, tag="exact",
         c = with_flash(cfg) if flash else cfg
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        res = pex.Engine(pex.PexSpec()).step(
-            registry.make_loss_fn_v2(spec, c), params, batch,
-            [pex.Norms(), pex.Grads()])
-        torch.cuda.synchronize()
+        with NormShapes() as seen:
+            res = pex.Engine(pex.PexSpec()).step(
+                registry.make_loss_fn_v2(spec, c), params, batch,
+                [pex.Norms(), pex.Grads()])
+            torch.cuda.synchronize()
+        if shapes is not None:
+            shapes |= seen
         n = ops.launch_counts()
         log(f"[{tag}] {cfg.name}, {cfg.n_layers} layers: Engine.step([Norms, "
             f"Grads]) f32 B={EXACT_B} S={EXACT_S} flash={flash}: "
@@ -980,16 +1158,19 @@ def phase_exact(spec, registry, pex, cfg=None, tag="exact",
     leaves, treedef = tree_flatten(params)
     leaves = [x.detach().requires_grad_() for x in leaves]
     p = tree_unflatten(treedef, leaves)
+    scope = registry.scope_mask(spec.arch_id, params)
     oracle = []
     for j in range(EXACT_B):
         ex = {k: v[j:j + 1] for k, v in batch.items()}
         gs = torch.autograd.grad(loss_fn(p, ex, pex.NULL)[0][0], leaves,
                                  allow_unused=True)
-        oracle.append(sum(torch.sum(torch.square(g.float())) for g in gs
-                          if g is not None))
+        oracle.append(sum(torch.sum(torch.square(g.float()))
+                          for g, m in zip(gs, scope)
+                          if g is not None and m))
         del gs
     oracle = torch.stack(oracle)
-    log(f"[{tag}] per-example sq norms: plain  {oracle.tolist()}")
+    log(f"[{tag}] per-example sq norms over {sum(scope)} of {len(scope)} "
+        f"leaves (the pex scope): plain  {oracle.tolist()}")
     gs = torch.autograd.grad(loss_fn(p, batch, pex.NULL)[0].sum(), leaves,
                              allow_unused=True)
     for flash, res in results.items():
@@ -1023,7 +1204,7 @@ def phase_exact(spec, registry, pex, cfg=None, tag="exact",
 
 
 def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
-               token=False, steps=STEPS):
+               token=False, steps=STEPS, cores=None):
     """A DP-SGD path: ``steps`` steps of ``cfg`` at ``shape`` = (B, S): the
     main path (phase 5), the flash path (phase 6), the MoE path (phase 8),
     the gemma2, qwen2-vl and deepseek paths (phases 19, 20 and 22) or,
@@ -1032,9 +1213,13 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     Grads()]``). ``want`` holds the launches each pass must make
     (forward, norms backward, reweighted backward); ``kernels`` are the
     counted kernels the path must launch. A LoRA-fied ``cfg`` (phase 24)
-    updates its adapters alone with AdamW (the bases stay frozen). Returns
-    a dict of what the run read, each kernel's launcher host µs a step
-    among it."""
+    updates its adapters alone with AdamW (the bases stay frozen).
+    ``cores`` ({label: (module, function)}) are the spans timed by CUDA
+    events forward and backward (``AttentionEvents``): by default the
+    attention core (``_attend``, MLA's, or the flash route's
+    ``flash_attention_vjp``); rwkv6's WKV and zamba2's SSD recurrence on
+    their paths. Returns a dict of what the run read, each kernel's
+    launcher host µs a step among it (``attn_ms``: the first core's)."""
     import torch
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.core import plan as plan_mod
@@ -1050,15 +1235,15 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     from repro_torch.optim import adamw
 
     b, s = shape
-    flash = cfg.attn is not None and cfg.attn.flash
+    flash = getattr(cfg, "attn", None) is not None and cfg.attn.flash
     mod = registry.family_module(spec)
     params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     loss_fn = registry.make_loss_fn_v2(spec, cfg)
     opt_cfg = adamw.AdamWConfig()
     # what AdamW trains: the adapters alone on a LoRA path (in place, so
     # params sees the update)
-    trained = (lora_mod.adapter_tree if cfg.lora is not None
-               else lambda tree: tree)
+    trained = (lora_mod.adapter_tree if getattr(cfg, "lora", None)
+               is not None else lambda tree: tree)
     opt = adamw.init(trained(params))
     noise_gen = torch.Generator(device="cuda").manual_seed(1)
     eng = pex.Engine(pex.PexSpec(),
@@ -1095,11 +1280,14 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
             "flash_attention_bwd_dkv": (fa, "flash_attention_bwd_dkv")}
     kfns = {k: kfns[k] for k in kernels}
     orig_fns = {k: getattr(m, a) for k, (m, a) in kfns.items()}
-    core_mod, core_name = ((ops, "flash_attention_vjp") if flash
-                           else (mla_mod if cfg.mla is not None
-                                 else attn_mod, "_attend"))
-    orig_core = getattr(core_mod, core_name)
-    attn = AttentionEvents(orig_core)
+    if cores is None:
+        cores = {"attention": (
+            (ops, "flash_attention_vjp") if flash
+            else (mla_mod if getattr(cfg, "mla", None) is not None
+                  else attn_mod, "_attend"))}
+    orig_cores = {k: getattr(m, n) for k, (m, n) in cores.items()}
+    core_events = {k: AttentionEvents(fn) for k, fn in orig_cores.items()}
+    attn = next(iter(core_events.values()))
 
     def counted_grad(out, inputs, seed, **kw):
         before = ops.launch_counts()
@@ -1138,8 +1326,10 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     plan_mod._grad = counted_grad
     for k, (m, a) in kfns.items():
         setattr(m, a, timed(k))
-    setattr(core_mod, core_name, attn)
+    for k, (m, n) in cores.items():
+        setattr(m, n, core_events[k])
     step_ms, kern_ms, attn_ms, losses, kern_host_us = [], [], [], [], []
+    core_ms = {k: [] for k in cores}   # per step: (forward ms, backward ms)
     engine_ms, adamw_ms = [], []   # stream ms in Engine.step, in AdamW
     enqueue_ms = []                # host ms to return from Engine.step
     torch.cuda.reset_peak_memory_stats()
@@ -1150,7 +1340,8 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
         sn.reset_route_counts()
         for i, batch in enumerate(batches):
             passes.clear()
-            attn.clear()
+            for ev in core_events.values():
+                ev.clear()
             seg_calls.append([])
             row_calls.append([])
             for v in events.values():
@@ -1177,6 +1368,8 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
                             for k, v in events.items()})
             kern_host_us.append(dict(host_us))
             attn_ms.append(attn.ms())
+            for k, ev in core_events.items():
+                core_ms[k].append(ev.ms())
             losses.append(res.loss.item())
             cc = res.clip_coef
             if token:
@@ -1202,9 +1395,9 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
                 f"{adamw_ms[-1]:.1f}); loss "
                 f"{losses[-1]:.4f}; {seen}; kernel ms "
                 f"{ {k: round(v, 3) for k, v in kern_ms[-1].items()} }; "
-                f"attention core fwd/bwd ms {attn_ms[-1][0]:.3f}/"
-                f"{attn_ms[-1][1]:.3f}; launches per backward "
-                f"{[p[2] for p in passes]}")
+                + "; ".join(f"{k} core fwd/bwd ms {v[-1][0]:.3f}/"
+                            f"{v[-1][1]:.3f}" for k, v in core_ms.items())
+                + f"; launches per backward {[p[2] for p in passes]}")
             for name, t in finite:
                 if not bool(torch.isfinite(t).all()):
                     raise AssertionError(f"step {i}: {name} not finite")
@@ -1232,7 +1425,8 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
         plan_mod._grad = orig_grad
         for k, (m, a) in kfns.items():
             setattr(m, a, orig_fns[k])
-        setattr(core_mod, core_name, orig_core)
+        for k, (m, n) in cores.items():
+            setattr(m, n, orig_cores[k])
     per_step = {k: want_fwd[k] + want_norms[k] + want_grads[k]
                 for k in launches}
     for k, n in launches.items():
@@ -1242,7 +1436,8 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
     # every bf16 gram and direct launch of the dense paths and of deepseek's
     # (whose f32 router launches take no copy route) on the TMA route
     routes = {**gn.route_launches, **dn.route_launches}
-    if tag in ("main", "flash", "gemma2", "qwen2-vl", "deepseek", "lora"):
+    if tag in ("main", "flash", "gemma2", "qwen2-vl", "deepseek", "lora",
+               "rwkv6", "zamba2", "seamless"):
         want_routes = {(k, "tma"): bf16_norms[f"{k}_norm"]
                        for k in ("gram", "direct") if bf16_norms[f"{k}_norm"]}
         if routes != want_routes:
@@ -1264,7 +1459,8 @@ def phase_main(spec, registry, pex, cfg, shape, tag, want, kernels, *,
         f"launched what it should; gram/direct copy routes {routes}")
     log(f"[{tag}] peak memory {peak:.2f} GiB (since the phase began)")
     return {"launches": launches, "kern_ms": kern_ms, "step_ms": step_ms,
-            "attn_ms": attn_ms, "losses": losses, "peak_gib": peak,
+            "attn_ms": attn_ms, "core_ms": core_ms, "losses": losses,
+            "peak_gib": peak,
             "seg_calls": seg_calls, "row_calls": row_calls,
             "norm_shapes": norm_shapes, "engine_ms": engine_ms,
             "adamw_ms": adamw_ms, "host_us": kern_host_us,
@@ -1937,7 +2133,11 @@ def phase_table(expected, errs, launches, kern_ms):
 #: (p_in, p_out) of every tapped dense layer of a block and of the LM head
 #: of llama3.2-1b (wk/wv, wq/wo, w1/w3, w2, head), gemma2-9b (wq, wk/wv,
 #: wo, w1/w3, w2, head), qwen2-vl-7b and qwen2-7b (wk/wv, w1/w3, w2, head;
-#: their wq/wo are gemma2's) and minitron-4b (wk/wv, wq, wo, w1, w2, head)
+#: their wq/wo are gemma2's), minitron-4b (wk/wv, wq, wo, w1, w2, head),
+#: the LoRA adapters, rwkv6-3b (mix_a, mix_b, r/k/v/g/o and the channel
+#: mix's r, decay_a, decay_b, the channel mix's k and v, head), zamba2-7b
+#: (in_proj, out_proj, head) and seamless-m4t-medium (attention, MLP up and
+#: down, head)
 NORM_SHAPES = [(2048, 512), (2048, 2048), (2048, 8192), (8192, 2048),
                (2048, 128256),
                (3584, 4096), (3584, 2048), (4096, 3584), (3584, 14336),
@@ -1945,7 +2145,11 @@ NORM_SHAPES = [(2048, 512), (2048, 2048), (2048, 8192), (8192, 2048),
                (2048, 8), (8192, 8), (8, 2048), (8, 512), (8, 8192),
                (3584, 512), (3584, 18944), (18944, 3584), (3584, 152064),
                (3072, 1024), (3072, 4096), (4096, 3072), (3072, 9216),
-               (9216, 3072), (3072, 256000)]
+               (9216, 3072), (3072, 256000),
+               (2560, 160), (32, 2560), (2560, 2560), (2560, 64), (64, 2560),
+               (2560, 8960), (8960, 2560), (2560, 65536),
+               (3584, 14576), (7168, 3584), (3584, 32000),
+               (1024, 1024), (1024, 4096), (4096, 1024), (1024, 256208)]
 #: deepseek-v2-236b's (q_down, q_up, kv_down, kv_up, wo, the prefix MLP's
 #: w1/w3 and w2, the shared MLP's, head; its router runs in f32), timed at
 #: its path's (DS_B, DS_S)
@@ -2060,13 +2264,12 @@ def phase_dispatch(cfgs):
 
     paths = {}        # (b, s) → {(p_in, p_out): [path names]}
     for c, b, s in cfgs:
-        router = (c.d_model, c.moe.n_experts) if c.moe is not None else None
+        router = router_shapes(c)
         for block, _ in model_shapes(c):
-            for sh in block + [(c.d_model, c.vocab)]:
-                if sh != router:
+            for sh in block + [head_shape(c)]:
+                if sh not in router:
                     paths.setdefault((b, s), {}).setdefault(sh, []).append(
-                        c.name + (" head" if sh == (c.d_model, c.vocab)
-                                  else ""))
+                        c.name + (" head" if sh == head_shape(c) else ""))
     timed = {(B, S): NORM_SHAPES, (DS_B, DS_S): DS_NORM_SHAPES}
     out = {}
     for (b, s), by_shape in sorted(paths.items()):
@@ -2670,6 +2873,109 @@ def phase_lora(spec, registry, pex, lora_cfg):
         f"{[{k: round(m[k], 3) for k in kernels} for m in run['kern_ms'][1:]]}"
         f"; peak {run['peak_gib']:.2f} GiB")
     return run
+
+
+# ---------------------------------------------------------------------------
+# the other families (phases 27–32)
+# ---------------------------------------------------------------------------
+
+def family_cfg(spec, layers, dtype="bfloat16"):
+    """``spec``'s published config in ``dtype``, cut to ``layers`` (None:
+    full depth)."""
+    cfg = spec.full(dtype=dtype)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def family_cores(cfg):
+    """The spans ``phase_main`` times on a family's path: rwkv6's WKV
+    recurrence, zamba2's SSD recurrence and its shared block's unfused
+    attention core, seamless's unfused attention cores (encoder, decoder
+    self and cross)."""
+    from repro_torch.nn import attention as attn_mod
+    from repro_torch.nn import rwkv as rwkv_mod
+    from repro_torch.nn import ssm as ssm_mod
+    return {"rwkv6": {"wkv": (rwkv_mod, "wkv")},
+            "zamba2": {"ssd": (ssm_mod, "ssd"),
+                       "attention": (attn_mod, "_attend")},
+            "seamless": {"attention": (attn_mod, "_attend")}}[family(cfg)]
+
+
+def phase_family(spec, registry, pex, layers, tag, shapes):
+    """Phases 27–32 for one of rwkv6-3b, zamba2-7b and seamless-m4t-medium.
+    The exact phase (27, 29, 31): the config in f32 at (EXACT_B, EXACT_S),
+    ``phase_exact``'s checks over the arch's pex scope, its gram and direct
+    launches those of the priced pick at S = EXACT_S over the tapped
+    shapes (zamba2's shared block launches none) and nothing else. The
+    path (28, 30, 32): bf16, B=8, S=512, three steps of phase 5's consumers
+    under AdamW, each pass's launches asserted (gram and direct by the
+    priced pick; none in the reweighted pass; every bf16 launch on TMA),
+    the family's cores timed (``family_cores``). ``shapes`` collects the
+    exact phase's launch shapes. Returns the path's ``phase_main`` dict
+    with its expected launches (``want``)."""
+    import torch
+    f32 = family_cfg(spec, layers, "float32")
+    n = phase_exact(spec, registry, pex, f32, f"{tag}-exact",
+                    flashes=(False,), shapes=shapes)
+    want = {k: sum(v.values())
+            for k, v in main_path_launches(f32, EXACT_S).items()}
+    if any(n[k] != want.get(k, 0) for k in n):
+        raise AssertionError(f"{tag}-exact: launches {n}, expected {want} "
+                             f"and nothing else")
+    log(f"[{tag}-exact] norm launches {want} (the priced pick at S="
+        f"{EXACT_S} over the tapped shapes; nothing else launched)")
+    torch.cuda.empty_cache()
+    cfg = family_cfg(spec, layers)
+    path_want = main_path_launches(cfg, S)
+    kernels = tuple(k for k, v in path_want.items() if v)
+    log(f"[{tag}] launches per norms pass by the priced pick: "
+        f"{ {k: sum(v.values()) for k, v in path_want.items()} } "
+        f"({path_want})")
+    run = phase_main(spec, registry, pex, cfg, (B, S), tag,
+                     pass_launches(path_want, cfg), kernels,
+                     cores=family_cores(cfg))
+    run["want"] = path_want
+    return run
+
+
+def family_norm_table(tag, want, dispatch):
+    """A family path's gram and direct launches by shape: ``device_ms`` a
+    launch (phase 16's reading), launches a norms pass, the bound and a
+    cuBLAS ``bmm`` of the kernel's products (a yardstick only). Returns
+    the per-kernel totals a step."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for name, by_shape in want.items():
+        tot = {"ms": 0.0, "bound_ms": 0.0, "bmm_ms": 0.0, "launches": 0}
+        for (pi, po), n in sorted(by_shape.items()):
+            ms = dispatch[f"{pi}x{po} B={B} S={S}"]["measured_ms"][
+                name.split("_")[0]]
+            t_bytes = (2 * B * S * (pi + po) + 4 * B) / PEAK_BYTES_PER_S \
+                * 1e3
+            t_ops = ops.flop_estimate(B, S, pi, po) / PEAK_FLOPS[
+                "torch.bfloat16"] * 1e3
+            sets = norm_sets(pi, po, gen)
+            bmm = bmm_ms(name, sets, 3 if po > 10 * pi else 20)
+            del sets
+            torch.cuda.empty_cache()
+            bound = max(t_bytes, t_ops)
+            log(f"[{tag}] {name} bf16 ({B},{S},{pi})x({B},{S},{po}) x{n} a "
+                f"norms pass: {ms:.4f} ms a launch (device_ms), bound "
+                f"{bound:.4f} ({'bytes' if t_bytes >= t_ops else 'operations'}"
+                f"), {bound / ms:.1%} of bound; cuBLAS bmm {bmm:.4f}")
+            tot["ms"] += n * ms
+            tot["bound_ms"] += n * bound
+            tot["bmm_ms"] += n * bmm
+            tot["launches"] += n
+        if tot["launches"]:
+            out[name] = tot
+            log(f"[{tag}] {name} a norms pass, by shape: {tot['ms']:.3f} ms "
+                f"over {tot['launches']} launches against a bound of "
+                f"{tot['bound_ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.1%}"
+                f"), cuBLAS bmm {tot['bmm_ms']:.3f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3510,11 +3816,15 @@ def main() -> int:
     moe_cfg = cut(moe_spec, MOE_LAYERS)
     lora = LoraCfg(rank=TENANT_R, alpha=TENANT_ALPHA)
     lora_cfg = dataclasses.replace(cfg, lora=lora)
+    fam_specs = [(registry.get(a), n, tag) for a, n, tag in FAMILY_PATHS]
+    fam_cfgs = [family_cfg(sp, n) for sp, n, _ in fam_specs]
     errs = {}
-    checked = phase_kernels(cfg, errs, ((moe_cfg, MOE_B, MOE_S),
-                                        (gemma_cfg, B, S), (vl_cfg, B, S),
-                                        (ds_cfg, DS_B, DS_S),
-                                        (lora_cfg, B, S)))
+    checked = phase_kernels(
+        cfg, errs, ((moe_cfg, MOE_B, MOE_S), (gemma_cfg, B, S),
+                    (vl_cfg, B, S), (ds_cfg, DS_B, DS_S), (lora_cfg, B, S))
+        + tuple((c, B, S) for c in fam_cfgs),
+        tuple((family_cfg(sp, n, "float32"), EXACT_B, EXACT_S)
+              for sp, n, _ in fam_specs))
     phase_flash_kernels(errs)
     phase_exact(spec, registry, pex)
     torch.cuda.empty_cache()
@@ -3587,9 +3897,9 @@ def main() -> int:
     rows += flash_table(errs, flash_run["launches"], flash_run["kern_ms"])
     rows += row_table(errs, token_run, onepass)
     torch.cuda.empty_cache()
-    phase_dispatch([(c, B, S) for c in (
+    dispatch = phase_dispatch([(c, B, S) for c in (
         cfg, gemma_cfg, vl_cfg, cut(registry.get("qwen2-7b"), VL_LAYERS),
-        cut(registry.get("minitron-4b"), VL_LAYERS), lora_cfg)]
+        cut(registry.get("minitron-4b"), VL_LAYERS), lora_cfg, *fam_cfgs)]
         + [(ds_cfg, DS_B, DS_S)])
     torch.cuda.empty_cache()
     train_run = phase_train(spec, registry, cfg)
@@ -3647,13 +3957,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     tenants = phase_tenants(pex)
     torch.cuda.empty_cache()
+    fam_runs, fam_exact_shapes, fam_tables = {}, {}, {}
+    for sp, n, tag in fam_specs:
+        fam_exact_shapes[tag] = set()
+        fam_runs[tag] = phase_family(sp, registry, pex, n, tag,
+                                     fam_exact_shapes[tag])
+        torch.cuda.empty_cache()
+        fam_tables[tag] = family_norm_table(tag, fam_runs[tag]["want"],
+                                            dispatch)
+        torch.cuda.empty_cache()
     # every gram and direct launch of every path, of either dtype, at a
     # shape, and so on a plan, that phase 3 held against its plain version
     for tag, r in (("main", main_run), ("flash", flash_run),
                    ("moe", moe_run), ("token", token_run),
                    ("moe-token", moe_token_run), ("train", train_run),
                    ("gemma2", gemma_run), ("qwen2-vl", vl_run),
-                   ("deepseek", ds_run), ("lora", lora_run)):
+                   ("deepseek", ds_run), ("lora", lora_run),
+                   *fam_runs.items(),
+                   *((f"{t}-exact", {"norm_shapes": v})
+                     for t, v in fam_exact_shapes.items())):
         if not r["norm_shapes"] <= checked:
             raise AssertionError(f"{tag}: gram/direct launched at "
                                  f"{sorted(r['norm_shapes'] - checked)}, "
@@ -3662,7 +3984,7 @@ def main() -> int:
             f"{sorted(r['norm_shapes'])} was held in phase 3")
     for tag, r in (("main", main_run), ("gemma2", gemma_run),
                    ("qwen2-vl", vl_run), ("deepseek", ds_run),
-                   ("lora", lora_run)):
+                   ("lora", lora_run), *fam_runs.items()):
         log(f"[compare] {tag}: steady stream ms in Engine.step "
             f"{[round(x, 1) for x in r['engine_ms'][1:]]} (queued by the "
             f"host in {[round(x, 1) for x in r['enqueue_ms'][1:]]}), in the "
@@ -3678,6 +4000,16 @@ def main() -> int:
             f"; attention core fwd+bwd ms per steady step "
             f"{[round(a + b, 3) for a, b in r['attn_ms'][1:]]}; peak memory "
             f"{r['peak_gib']:.2f} GiB")
+    for tag, r in fam_runs.items():
+        log(f"[compare] {tag}: steady step ms {r['step_ms'][1:]} (step 0 "
+            f"{r['step_ms'][0]:.1f}); launches per norms pass "
+            f"{ {k: sum(v.values()) for k, v in r['want'].items()} }; norm "
+            f"kernel ms per steady step (events) "
+            f"{[{k: round(m[k], 3) for k in r['want'] if k in m} for m in r['kern_ms'][1:]]}"
+            f"; by shape a step {json.dumps(fam_tables[tag])}; cores "
+            f"fwd+bwd ms per steady step "
+            f"{ {k: [round(a + b, 3) for a, b in v[1:]] for k, v in r['core_ms'].items()} }"
+            f"; peak memory {r['peak_gib']:.2f} GiB")
     log(f"[compare] deepseek: launches over {STEPS} steps "
         f"{ {k: v for k, v in ds_run['launches'].items() if v} }; segmented "
         f"bf16 max abs err on its ids {ds_errs['segmented_norm']:.3g}, "
@@ -3695,7 +4027,9 @@ def main() -> int:
         f"{train_run['step_ms']}; gemma2 step ms {gemma_run['step_ms']}; "
         f"qwen2-vl step ms {vl_run['step_ms']}; deepseek step ms "
         f"{ds_run['step_ms']}; lora step ms {lora_run['step_ms']}; tenant "
-        f"fused, plain step ms {tenant_means}; whole run "
+        f"fused, plain step ms {tenant_means}; "
+        + "".join(f"{t} step ms {r['step_ms']}; " for t, r in fam_runs.items())
+        + f"whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -22,6 +22,6 @@ class ShapeSpec:
 class ArchSpec:
     """Registry entry binding a config family to model entry points."""
     arch_id: str
-    family: str                      # transformer (this slice)
+    family: str                      # transformer | rwkv6 | zamba2 | seamless
     full: Callable[..., object]      # exact published config
     smoke: Callable[[], object]      # reduced config for CPU smoke tests

@@ -3,9 +3,14 @@
 The input of :func:`params_from_numpy` is a nested dict of numpy arrays
 shaped like the reference's parameters after ``unbox`` and ``np.asarray``
 (the caller does that conversion on the JAX side). The reference stacks
-the layers of ``blocks`` on a leading (L, ...) axis for ``lax.scan``; the
-port keeps a list of L per-layer dicts. :func:`params_to_numpy` is the
-inverse.
+the layers of its homogeneous stacks (``STACKS``: ``blocks``, zamba2's
+``tail``, seamless's ``enc`` and ``dec``) on a leading (L, ...) axis for
+``lax.scan``; the port keeps a list of L per-layer dicts. zamba2 stacks
+its grouped blocks on two axes, (G, K, ...), which the port keeps as a
+list of G lists of K dicts: a tree with a ``shared`` block is zamba2's.
+Every other subtree (deepseek's ``prefix`` list among them) is carried
+as it is, and no leaf outside a stack is split. :func:`params_to_numpy`
+is the inverse.
 
 A LoRA site's factors arrive as the reference's ``LoraPair`` (numpy ``a``,
 ``b`` and a float ``alpha``), recognized by those three attributes (the
@@ -49,6 +54,16 @@ def _carry_pairs(tree):
     return tree
 
 
+#: the top-level subtrees the reference stacks on leading layer axes
+STACKS = ("blocks", "tail", "enc", "dec")
+
+
+def _depth(tree, key) -> int:
+    """Leading layer axes of ``tree[key]``: two for zamba2's grouped blocks
+    (the tree that has the shared block), one otherwise."""
+    return 2 if key == "blocks" and "shared" in tree else 1
+
+
 def _split_layers(stacked):
     """{..., leaf (L, ...)} → [{..., leaf (...)} for each of the L layers]."""
     if isinstance(stacked, LoraPair):
@@ -75,27 +90,39 @@ def _stack_layers(layers):
     return np.stack(layers)
 
 
+def _split(stacked, depth: int):
+    """``depth`` leading layer axes → nested lists of per-layer trees."""
+    layers = _split_layers(stacked)
+    return layers if depth == 1 else [_split(x, depth - 1) for x in layers]
+
+
+def _stack(layers):
+    """Inverse of :func:`_split`: nested lists stack on as many axes."""
+    if isinstance(layers[0], list):
+        layers = [_stack(x) for x in layers]
+    return _stack_layers(layers)
+
+
 def params_from_numpy(tree, device=None):
     """Reference-layout numpy tree → port params (torch tensors on
     ``device``, default CUDA)."""
     device = resolve_device(device)
     tree = _carry_pairs(tree)
-    out = {k: v for k, v in tree.items() if k != "blocks"}
-    out = tree_map(lambda x: _to_tensor(x, device), out)
-    if "blocks" in tree:
-        out["blocks"] = [tree_map(lambda x: _to_tensor(x, device), layer)
-                         for layer in _split_layers(tree["blocks"])]
+    out = {}
+    for k, v in tree.items():
+        if k in STACKS:
+            v = _split(v, _depth(tree, k))
+        out[k] = tree_map(lambda x: _to_tensor(x, device), v)
     return out
 
 
 def params_to_numpy(params):
-    """Port params → reference-layout numpy tree (``blocks`` stacked). A
-    LoRA pair stays the port's ``LoraPair``, with numpy factors (stacked
-    for ``blocks``): the caller on the JAX side rebuilds it as the
+    """Port params → reference-layout numpy tree (the ``STACKS`` lists
+    stacked). A LoRA pair stays the port's ``LoraPair``, with numpy factors
+    (stacked for ``blocks``): the caller on the JAX side rebuilds it as the
     reference's from its ``a``, ``b`` and ``alpha``."""
-    out = {k: tree_map(_to_numpy, v) for k, v in params.items()
-           if k != "blocks"}
-    if "blocks" in params:
-        out["blocks"] = _stack_layers([tree_map(_to_numpy, layer)
-                                       for layer in params["blocks"]])
+    out = {}
+    for k, v in params.items():
+        v = tree_map(_to_numpy, v)
+        out[k] = _stack(v) if k in STACKS else v
     return out

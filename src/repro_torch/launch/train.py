@@ -5,9 +5,12 @@ Port of ``src/repro/launch/train.py``:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --smoke --mode clip --steps 50 [--device cpu]
 
-``--arch`` is any arch of ``models.registry.ARCHS``. The batches come
-from ``SyntheticLM`` (ids and labels only, as in the reference), so
-qwen2-vl-7b trains there on its text-only M-RoPE fallback. It runs on the
+``--arch`` is any arch of ``models.registry.ARCHS`` but
+seamless-m4t-medium. The batches come from ``SyntheticLM`` (ids and labels
+only, as in the reference), so qwen2-vl-7b trains there on its text-only
+M-RoPE fallback, and seamless-m4t-medium, whose encoder needs the batch's
+``src_frames``, is refused with an error that says so (the reference's
+pipeline has no source frames either). It runs on the
 CUDA device unless ``--device cpu`` is given, and raises when there is
 none. ``--smoke`` runs the reduced config; without it the
 published widths. ``--data-parallel``, ``--ckpt-dir`` and ``--resume`` are
@@ -57,8 +60,14 @@ def main(argv=None) -> list:
         if on:
             raise NotImplementedError(f"{flag} {WAITS}")
 
-    device = resolve_device(args.device)
     aspec = registry.get(args.arch)
+    if aspec.family == "seamless":
+        raise ValueError(
+            f"--arch {args.arch}: the encoder-decoder needs src_frames "
+            f"(B, S, d_model) in every batch, and SyntheticLM gives ids and "
+            f"labels only, as the reference's pipeline does; drive it "
+            f"through Engine.step with registry.make_train_batch instead")
+    device = resolve_device(args.device)
     cfg = aspec.smoke() if args.smoke else aspec.full()
     params = registry.family_module(aspec).init(
         cfg, torch.Generator(device=device).manual_seed(args.seed),
@@ -73,7 +82,9 @@ def main(argv=None) -> list:
                           schedule=linear_warmup_cosine(10, args.steps)),
         TrainConfig(consumers=consumers_for_mode(
             args.mode, args.batch, clip_norm=args.clip_norm,
-            noise_std=args.noise_std), steps=args.steps, seed=args.seed),
+            noise_std=args.noise_std), steps=args.steps, seed=args.seed,
+            # a run shorter than the log period still logs its last step
+            log_every=min(10, args.steps)),
         DataConfig(vocab=cfg.vocab, seq=args.seq, global_batch=args.batch,
                    seed=args.seed),
         device=device)

@@ -141,6 +141,22 @@ def tree_leaves(tree):
     return tree_flatten(tree)[0]
 
 
+def tree_paths(tree, prefix=()):
+    """The key path of each leaf, in :func:`tree_leaves` order: a tuple of
+    dict keys and list indices (a node's children by position)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k],
+                                                            prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, x in enumerate(tree)
+                for p in tree_paths(x, prefix + (i,))]
+    if is_node(tree):
+        children, _ = tree.tree_flatten()
+        return [p for i, x in enumerate(children)
+                for p in tree_paths(x, prefix + (i,))]
+    return [prefix]
+
+
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over trees of one structure."""
     leaves, treedef = tree_flatten(tree)

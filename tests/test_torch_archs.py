@@ -138,8 +138,9 @@ def _close_trees(port_tree, jax_tree, rtol=RTOL):
 # --- the four archs' steps against the reference's ---------------------------
 
 def test_registry_has_the_transformer_archs():
-    assert set(ARCHS) | {"llama3.2-1b", "phi3.5-moe", "deepseek-v2-236b"} \
-        == set(registry.ARCHS)
+    assert set(ARCHS) | {"llama3.2-1b", "phi3.5-moe", "deepseek-v2-236b",
+                         "rwkv6-3b", "zamba2-7b", "seamless-m4t-medium"} \
+        == set(registry.ARCHS) == set(jreg.ARCHS)
     for arch in ARCHS:
         jfull, full = jreg.get(arch).full(), registry.get(arch).full()
         for k in ("n_layers", "d_model", "vocab", "rms_plus_one",

@@ -8,7 +8,8 @@ llama3.2-1b smoke ``Engine(granularity="token").step`` (the (B, S) norm
 map, the token clip coefficients and the token-weighted gradients), and
 the same ``[Norms]`` and ``[Clip(2.0, token), Grads]`` steps of the
 gemma2-9b (window 8 binding at S=12), qwen2-vl-7b (``seq=`` given),
-qwen2-7b, minitron-4b and deepseek-v2-236b smoke configs; the
+qwen2-7b, minitron-4b, deepseek-v2-236b, rwkv6-3b, zamba2-7b and
+seamless-m4t-medium smoke configs; the
 phi3.5-moe smoke token step at ``dispatch_groups`` 1 and 2 (capacity drops
 included); the passes' division of work (``rowsumsq`` calls in the norms
 backward only); and ``analyze``'s token errors. Parameters are carried
@@ -184,7 +185,8 @@ def _setup(arch, edit=lambda cfg: cfg):
     jbatch = jreg.make_train_batch(jspec, jcfg, JShape("t", "train", S, B), 3)
     spec = registry.get(arch)
     cfg = edit(spec.smoke())
-    return dict(jloss=jreg.make_loss_fn_v2(jspec, jcfg), jparams=jparams,
+    return dict(arch=arch, jloss=jreg.make_loss_fn_v2(jspec, jcfg),
+                jparams=jparams,
                 jbatch=jbatch, cfg=cfg,
                 params=interop.params_from_numpy(np_params, device="cpu"),
                 batch=registry.make_train_batch(
@@ -315,7 +317,7 @@ def test_engine_tap_gives_the_token_map(llama):
 # ---------------------------------------------------------------------------
 
 ARCHS = ("gemma2-9b", "qwen2-vl-7b", "qwen2-7b", "minitron-4b",
-         "deepseek-v2-236b")
+         "deepseek-v2-236b", "rwkv6-3b", "zamba2-7b", "seamless-m4t-medium")
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -327,7 +329,7 @@ def _arch_steps(st, consumers, jconsumers):
     """Both packages' token steps, the reference's jitted. qwen2-vl's
     (B, 3, S) M-RoPE positions leave the sequence axis ambiguous, so its
     engines are given ``seq=``, as the reference's needs too."""
-    seq = S if st["cfg"].vl_inputs else None
+    seq = S if getattr(st["cfg"], "vl_inputs", False) else None
     t = pex.Engine(pex.PexSpec(), granularity="token").step(
         st["loss"], st["params"], st["batch"], consumers, seq=seq)
     eng = jpex.Engine(jpex.PexSpec(), granularity="token")
@@ -338,8 +340,12 @@ def _arch_steps(st, consumers, jconsumers):
 
 def test_arch_token_norms_match(arch):
     """[Norms] at token granularity: the (B, S) norm map of gemma2-9b (its
-    window of 8 binding at S=12), qwen2-vl-7b, qwen2-7b, minitron-4b and
-    deepseek-v2-236b (MLA, the dense prefix, shared and routed experts)."""
+    window of 8 binding at S=12), qwen2-vl-7b, qwen2-7b, minitron-4b,
+    deepseek-v2-236b (MLA, the dense prefix, shared and routed experts),
+    rwkv6-3b (the five mix_b slices' rows among the dense taps), zamba2-7b
+    (the dt_bias bias tap; the shared block adds nothing) and
+    seamless-m4t-medium (the encoder's taps see source-frame rows, and
+    frame t's stat lands at token t, as in the reference)."""
     t, j = _arch_steps(arch, [pex.Norms()], [jpex.Norms()])
     assert t.sq_norms.shape == (B, S) and t.grads is None
     _close(t.loss_vec, j.loss_vec, STEP_RTOL)
@@ -357,7 +363,16 @@ def test_arch_token_clip_matches(arch):
     _close(t.clip_coef, j.clip_coef, STEP_RTOL)
     _close(t.token_weights, j.token_weights, STEP_RTOL)
     assert 0 < float(t.clip_coef.min()) < 1.0
-    _close_trees(t.grads, j.grads)
+    _close_trees(t.grads, j.grads, TOKEN_GRAD_RTOL.get(arch["arch"],
+                                                       STEP_RTOL))
+
+
+#: rwkv6-3b's token-clipped gradients: a sum over tokens of c_t-weighted
+#: terms that cancel, whose elements sit up to 1.6e-4 of their leaf's
+#: largest |value| from the reference's in f32 — as far with the port's
+#: plain per-step WKV loop under autograd as with its chunked recurrence,
+#: so the distance is the f32 conditioning of this sum, not the port
+TOKEN_GRAD_RTOL = {"rwkv6-3b": 2e-4}
 
 
 # ---------------------------------------------------------------------------
