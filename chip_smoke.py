@@ -254,7 +254,32 @@ Phases, each of which fails the script (nonzero exit) if it fails:
 32. seamless — the same in bf16, B=8, S=S_src=512: 144 direct (the
               1024 ↔ 1024 projections, self and cross) and 49 gram (the
               MLPs and the 1024 → 256,208 head) launches a norms pass by
-              the priced pick, the unfused attention cores timed.
+              the priced pick, the unfused attention cores timed;
+33. serve-exact — serving (``forward_tokens`` with caches) at full width in
+              f32 for all ten archs, each at its training phases' depth
+              (llama3.2-1b and seamless at full depth), B=2, S=32: prefill
+              31 tokens (qwen2-vl with its visual embeds and (B, 3, S)
+              positions, seamless from ``src_frames``), decode 1, the last
+              logits against the full forward at 2e-3 (MoE archs at
+              ``capacity_factor = n_experts``: no drops); rwkv6 and zamba2
+              also a two-segment prefill (5 + rest) against one shot; each
+              arch's cache bytes a slot; no counted kernel launched;
+34. serve   — the slice's path: ``serve.Engine.generate`` on llama3.2-1b
+              at full depth and width in bf16, 16 slots of 2,048 cache
+              rows, 32 requests (prompts of 64–512 tokens from numpy seed
+              0, 128 new tokens each), greedy: every request gets its 128
+              tokens, a repeat of the first batch gives the same tokens,
+              no counted kernel launches; prefill ms per batch, the median
+              decode step's stream ms (events) against the host's ms to
+              queue it and its kernels' device ms (profiler), its byte bound
+              (weights and the KV rows read at 3.35 TB/s), tokens/s, peak
+              and KV-cache GiB;
+35. serve-families — 8 requests × 32 new tokens through ``Engine.generate``
+              in bf16 for deepseek-v2-236b (2 layers: MLA's latent cache,
+              160 experts), phi3.5-moe (2), gemma2-9b (4), qwen2-vl-7b (2),
+              rwkv6-3b (2) and zamba2-7b (9), prompts of 16–128 tokens;
+              seamless-m4t-medium at full depth through ``forward_tokens``
+              prefilled from source frames; phase 34's numbers for each.
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -269,7 +294,8 @@ beside the main path's from the same call, the MoE path's step time,
 peak memory and segmented kernel time per step after them, then the token
 paths' step times, peak memory and ``rowsumsq`` time per step, those of
 gemma2, qwen2-vl, deepseek and the LoRA path, the tenant steps, those of
-rwkv6, zamba2 and seamless, and the whole run's seconds.
+rwkv6, zamba2 and seamless, the served paths' decode steps and tokens
+per second, and the whole run's seconds.
 ``update_times()`` (not in a whole run) times one AdamW update and one
 in-place noise add, with the transient memory of each. TF32 is off
 for matmuls and cuDNN throughout, so the f32 plain versions are full f32.
@@ -3185,6 +3211,63 @@ def tenant_seg_times(reps=10):
     return out
 
 
+def plain_times(reps=3):
+    """The plain PyTorch versions' ms where the kernel table's rows of PRs
+    22–23 had none: ``gram_norm_ref`` and ``direct_norm_ref`` at every
+    bf16 launch shape of the LoRA, rwkv6, zamba2 and seamless paths (B=8,
+    S=512, the priced pick's kernel, ms a launch × launches a norms
+    pass), and ``segmented_norm_ref`` at each factor tap of phase 26's
+    ``TENANT_SEG_CASES`` (ms a launch). Events around ``reps`` calls after
+    a warm-up (``time_ms``). Not in a whole run: ``python3 -c "import
+    chip_smoke; chip_smoke.plain_times()"``."""
+    import torch
+    from repro_torch.kernels.direct_norm import direct_norm_ref
+    from repro_torch.kernels.ref import gram_norm_ref
+    from repro_torch.kernels.segmented_norm import segmented_norm_ref
+    from repro_torch.models import registry
+    from repro_torch.nn.lora import LoraCfg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    refs = {"gram_norm": gram_norm_ref, "direct_norm": direct_norm_ref}
+    llama = registry.get("llama3.2-1b").full()
+    paths = [("lora", dataclasses.replace(
+        llama, lora=LoraCfg(rank=TENANT_R, alpha=TENANT_ALPHA)))]
+    paths += [(tag, family_cfg(registry.get(a), n))
+              for a, n, tag in FAMILY_PATHS]
+    out = {}
+    for tag, cfg in paths:
+        for name, shapes in main_path_launches(cfg, S).items():
+            if not shapes:
+                continue
+            tot = 0.0
+            for (pi, po), n in sorted(shapes.items()):
+                h, z = norm_sets(pi, po, gen)[0]
+                ms = time_ms(lambda: refs[name](h, z), reps)
+                log(f"[plain-times] {tag} {name} bf16 ({B},{S},{pi})x"
+                    f"({B},{S},{po}) x{n} a norms pass: plain {ms:.4f} ms "
+                    f"a launch")
+                tot += n * ms
+                del h, z
+                torch.cuda.empty_cache()
+            out[f"{tag} {name}"] = tot
+            log(f"[plain-times] {tag} {name}: plain {tot:.3f} ms a norms "
+                f"pass")
+    for dtn, n_ten, per, d, s in TENANT_SEG_CASES:
+        dt = getattr(torch, dtn)
+        n = tenant_owner(n_ten, per, 0).size
+        seg = torch.arange(n, device="cuda").repeat_interleave(s)
+        for pi, po in ((d, TENANT_R), (TENANT_R, d)):
+            h, z = (torch.randn(n * s, p, generator=gen, device="cuda").to(dt)
+                    for p in (pi, po))
+            key = f"tenants {dtn} {n_ten}x{per or 'ragged'} {pi}->{po}"
+            out[key] = time_ms(lambda: segmented_norm_ref(h, z, seg, n), reps)
+            log(f"[plain-times] {key}: segmented plain {out[key]:.4f} ms a "
+                f"launch")
+    log(f"[plain-times] {json.dumps(out)}")
+    return out
+
+
 def seg_bits(out_path):
     """The segmented launcher's outputs on seeded inputs — phase 26's
     example-id segments in both types, and mixed lengths on both routes,
@@ -3787,6 +3870,514 @@ def row_table(errs, token_run, onepass):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Serving (phases 33–35)
+# ---------------------------------------------------------------------------
+
+SERVE_EXACT_B, SERVE_EXACT_S = 2, 32
+SERVE_EXACT_TOL = 2e-3   # tests/test_serve.py's: prefill + decode against
+                         # the full forward, f32 sums in another order
+#: phase 33: (arch, depth cut (None: full depth)), each arch at the depth
+#: its training phases run (qwen2-7b and minitron-4b: phase 16's)
+SERVE_EXACT_ARCHS = (("llama3.2-1b", None), ("qwen2-7b", VL_LAYERS),
+                     ("qwen2-vl-7b", VL_LAYERS), ("minitron-4b", VL_LAYERS),
+                     ("gemma2-9b", GEMMA_LAYERS), ("phi3.5-moe", MOE_LAYERS),
+                     ("deepseek-v2-236b", DS_LAYERS), ("rwkv6-3b", 2),
+                     ("zamba2-7b", 9), ("seamless-m4t-medium", None))
+SERVE_SLOTS, SERVE_CACHE = 16, 2048     # phase 34: slots, cache rows
+SERVE_REQUESTS, SERVE_NEW = 32, 128     # requests, new tokens each
+SERVE_PROMPTS = (64, 512)               # prompt lengths, numpy seed 0
+#: phase 35: (arch, depth cut) served through Engine.generate, bf16
+FAMILY_SERVE = (("deepseek-v2-236b", DS_LAYERS), ("phi3.5-moe", MOE_LAYERS),
+                ("gemma2-9b", GEMMA_LAYERS), ("qwen2-vl-7b", VL_LAYERS),
+                ("rwkv6-3b", 2), ("zamba2-7b", 9))
+FAMILY_SLOTS, FAMILY_CACHE = 8, 256
+FAMILY_REQUESTS, FAMILY_NEW = 8, 32
+FAMILY_PROMPTS = (16, 128)              # zamba2's SSD prefill is host-bound
+DECODE_REPS = 5                         # decode steps profiled
+
+
+def serve_cfg(spec, registry, layers, dtype, seq, slots):
+    """``spec``'s published config in ``dtype`` cut to ``layers`` (None:
+    full depth), with the cache lengths of a serve shape."""
+    from repro_torch.configs.common import ShapeSpec
+    return registry.serving_config(spec, family_cfg(spec, layers, dtype),
+                                   ShapeSpec("serve", "decode", seq, slots))
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.nn.param import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if x is not None)
+
+
+def decode_bound(cfg, params, caches, b, kv_len):
+    """(bytes, operations) the card must at least move and do for one
+    decode step of ``b`` slots at ``kv_len`` cache rows: every weight read
+    once (the embedding table's b rows only; of a MoE layer's routed
+    experts at most b·top_k), the self-attention caches' first ``kv_len``
+    rows (MLA's latent and rope key), the cross caches whole, the
+    recurrent states read and written, the logits written; operations
+    2·b per weight read and 4·b·kv_len per attention head dimension."""
+    from repro_torch.nn.param import tree_flatten, tree_paths
+    leaves, _ = tree_flatten(params)
+    w_bytes, ops_n = 0, 0
+    moe = getattr(cfg, "moe", None)
+    for path, x in zip(tree_paths(params), leaves):
+        n = x.numel()
+        if path[0] == "embed":
+            n = b * x.shape[-1]
+        elif moe is not None and "moe" in path and path[-1] in ("gate", "up",
+                                                                "down"):
+            n = n * min(moe.n_experts, b * moe.top_k) // moe.n_experts
+        w_bytes += n * x.element_size()
+        if path[0] != "embed":
+            ops_n += 2 * b * n
+    c_bytes = 0
+
+    def walk(node, key):
+        nonlocal c_bytes, ops_n
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k if key != "cross" else "cross")
+        elif isinstance(node, list):
+            for v in node:
+                walk(v, key)
+        elif node is not None and key != "memory":
+            if key in ("k", "v", "ckv", "krope"):      # rows [0, kv_len)
+                rows = node[:, :kv_len]
+                c_bytes += rows.numel() * rows.element_size()
+                ops_n += 2 * rows.numel()
+            elif key == "cross":                      # whole
+                c_bytes += node.numel() * node.element_size()
+                ops_n += 2 * node.numel()
+            else:                                     # a state, read+write
+                c_bytes += 2 * node.numel() * node.element_size()
+    walk(caches, None)
+    logits = b * cfg.vocab_cfg.vocab_p * cfg.torch_dtype.itemsize
+    return w_bytes + c_bytes + logits, ops_n
+
+
+class ServeTimer:
+    """Wraps ``forward_tokens``: per call the tokens it took, its cache
+    index, the host's ms to return (to queue the call) and CUDA events
+    around it (its span on the stream, the card's waits on the host
+    included)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+
+    def __call__(self, params, batch, caches, index):
+        import torch
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        out = self.fn(params, batch, caches, index)
+        host = (time.perf_counter() - t0) * 1e3
+        e1.record()
+        self.calls.append((batch["ids"].shape[1], index, host, e0, e1))
+        return out
+
+    def read(self):
+        """{"prefill": [(tokens, stream ms, host ms)], "decode": [(cache
+        index, stream ms, host ms)]}."""
+        import torch
+        torch.cuda.synchronize()
+        out = {"prefill": [], "decode": []}
+        for s, idx, host, e0, e1 in self.calls:
+            ms = e0.elapsed_time(e1)
+            if s > 1 or idx == 0:
+                out["prefill"].append((s, ms, host))
+            else:
+                out["decode"].append((idx, ms, host))
+        return out
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def decode_kernels(fwd, params, caches, tok, index):
+    """(kernel ms, kernels) of one decode step (``tok`` at ``index``,
+    rewriting the same cache row each time): ``torch.profiler`` over
+    ``DECODE_REPS`` steps, every kernel's device time summed a step. The
+    profiler stretches the host's time, not a kernel's, so 1 − kernel ms /
+    stream ms of an unprofiled step is the card's idle share of it. (A
+    card held busy by ``torch.cuda._sleep`` while the host queues cannot
+    time a step of ~1,300 launches: the launch queue fills and the host
+    waits for the card.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fwd(params, {"ids": tok}, caches, index)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(DECODE_REPS):
+            fwd(params, {"ids": tok}, caches, index)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel of a decode "
+                             "step")
+    return (sum(e.time_range.elapsed_us() for e in kernels) / DECODE_REPS
+            / 1e3, len(kernels) / DECODE_REPS)
+
+
+def log_kernels(tag, out):
+    log(f"[{tag}] decode step: {out['kernels']:.0f} kernels, "
+        f"{out['kernel_ms']:.3f} ms of kernel time (profiler) against a "
+        f"stream of {out['decode_ms']:.3f} ms (the host queues it in "
+        f"{out['decode_host_ms']:.3f}): the card idles "
+        f"{1 - out['kernel_ms'] / out['decode_ms']:.0%} of a served step; "
+        f"kernel time {out['kernel_ms'] / out['bound_ms']:.1f}× the bound "
+        f"of {out['bound_ms']:.3f} ms")
+
+
+def serve_requests(vocab, n, lo, hi, max_new):
+    """``n`` requests with prompt lengths in [lo, hi] and tokens from
+    numpy seed 0."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(0)
+    lens = rng.integers(lo, hi + 1, size=n)
+    return [Request(prompt=[int(t) for t in rng.integers(0, vocab, int(m))],
+                    max_new=max_new) for m in lens]
+
+
+def serve_report(tag, cfg, params, timer, caches, b, wall_s, tokens):
+    """Logs and returns a served run's numbers: prefill ms per batch,
+    the median decode step's stream ms and host queue ms, its byte and
+    operation bound at its cache rows, tokens
+    per second, peak and cache GiB."""
+    import torch
+    r = timer.read()
+    dec = r["decode"]
+    mid = sorted(dec, key=lambda d: d[1])[len(dec) // 2]
+    kv_len = mid[0] + 1
+    nbytes, nops = decode_bound(cfg, params, caches, b, kv_len)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_FLOPS[str(cfg.torch_dtype)] * 1e3
+    out = {"prefill_ms": [round(ms, 2) for _, ms, _ in r["prefill"]],
+           "prefill_tokens": [s for s, _, _ in r["prefill"]],
+           "prefill_host_ms": [round(h, 2) for _, _, h in r["prefill"]],
+           "decode_steps": len(dec),
+           "decode_ms": median([ms for _, ms, _ in dec]),
+           "decode_host_ms": median([h for _, _, h in dec]),
+           "decode_kv_len": kv_len,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_gb": nbytes / 1e9,
+           "tokens": tokens, "wall_s": wall_s,
+           "tok_per_s": tokens / wall_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "cache_gib": tree_bytes(caches) / 2**30}
+    log(f"[{tag}] prefill ms per batch {out['prefill_ms']} (tokens a slot "
+        f"{out['prefill_tokens']}; host ms to queue "
+        f"{out['prefill_host_ms']}); {out['decode_steps']} decode steps: "
+        f"median stream ms {out['decode_ms']:.3f}, host ms to queue "
+        f"{out['decode_host_ms']:.3f}; bound at {kv_len} cache rows "
+        f"{out['bound_ms']:.3f} ms ({out['bound_by']}: "
+        f"{out['bound_gb']:.3f} GB at 3.35 TB/s, {nops / 1e9:.1f} GFLOP); "
+        f"{tokens} tokens in {wall_s:.2f} s: {out['tok_per_s']:.1f} tok/s; "
+        f"peak {out['peak_gib']:.2f} GiB, caches {out['cache_gib']:.3f} GiB")
+    return out
+
+
+def serve_profile(rows=533, reps=5, top=25):
+    """Profiles phase 34's decode step (llama3.2-1b, bf16, ``SERVE_SLOTS``
+    slots, the token at cache row ``rows`` - 1, phase 34's median step)
+    with ``torch.profiler`` over ``reps`` steps: the kernels a step, their
+    summed device ms a step against the span from a step's first kernel to
+    its last, the ``top`` kernels by device time, and any host
+    synchronisation or device-to-host copy. Not in a whole run:
+    ``python3 -c "import chip_smoke; chip_smoke.serve_profile()"``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import registry
+    spec = registry.get("llama3.2-1b")
+    cfg = serve_cfg(spec, registry, None, "bfloat16", SERVE_CACHE,
+                    SERVE_SLOTS)
+    mod = registry.family_module(spec)
+    params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    fwd = registry.make_forward_tokens(spec, cfg)
+    caches = mod.init_caches(SERVE_SLOTS, cfg)
+    fwd(params, {"ids": torch.zeros(SERVE_SLOTS, rows - 1, dtype=torch.long,
+                                    device="cuda")}, caches, 0)
+    tok = torch.zeros(SERVE_SLOTS, 1, dtype=torch.long, device="cuda")
+    for _ in range(3):
+        fwd(params, {"ids": tok}, caches, rows - 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fwd(params, {"ids": tok}, caches, rows - 1)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in by_name.values()) / reps / 1e3
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels)) / reps / 1e3
+    syncs = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and (
+                "ynchronize" in e.name or "Memcpy" in e.name
+                or e.name in ("aten::item", "aten::_local_scalar_dense")):
+            syncs[e.name] = syncs.get(e.name, 0) + 1
+    log(f"[serve-profile] llama3.2-1b decode, bf16, {SERVE_SLOTS} slots, "
+        f"cache row {rows - 1}: {len(kernels) / reps:.0f} kernels a step, "
+        f"{busy:.3f} ms of kernel time a step over a span of {span:.3f} ms "
+        f"(the card idles {1 - busy / span:.0%} of it under the profiler); "
+        f"host syncs and copies over {reps} steps {syncs}")
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:top]:
+        log(f"[serve-profile] {us / reps / 1e3:8.3f} ms a step, "
+            f"{n / reps:5.0f} a step: {name[:150]}")
+    return {"kernels": len(kernels) / reps, "busy_ms": busy, "span_ms": span}
+
+
+def phase_serve_exact(registry):
+    """Phase 33: each arch of ``SERVE_EXACT_ARCHS`` at full width in f32,
+    B=2, S=32: prefill S-1 tokens (qwen2-vl with its visual embeds and
+    (B, 3, S) positions, seamless from its ``src_frames``), decode 1, and
+    the last logits against the full forward (``tests/test_serve.py``'s
+    property) at 2e-3; MoE archs with ``capacity_factor = n_experts`` (no
+    drops); rwkv6 and zamba2 also a two-segment prefill (5 + rest) against
+    one shot. No counted kernel launches. Logs each arch's cache bytes a
+    slot."""
+    import torch
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.kernels import ops
+    b, s = SERVE_EXACT_B, SERVE_EXACT_S
+    out = {}
+    for arch, layers in SERVE_EXACT_ARCHS:
+        spec = registry.get(arch)
+        cfg = serve_cfg(spec, registry, layers, "float32", s, b)
+        if getattr(cfg, "moe", None) is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+        mod = registry.family_module(spec)
+        params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+        fwd = registry.make_forward_tokens(spec, cfg)
+        batch = registry.make_train_batch(spec, cfg,
+                                          ShapeSpec("serve", "train", s, b),
+                                          rng_seed=0)
+        batch.pop("labels")
+        v = cfg.vocab
+        ops.reset_launch_counts()
+        tr = spec.family == "transformer"
+        full, _ = fwd(params, batch, None if tr else mod.init_caches(b, cfg),
+                      None if tr else 0)
+        pre = {k: (x if k == "src_frames" else
+                   x[:, :, :s - 1] if k == "positions" else x[:, :s - 1])
+               for k, x in batch.items()}
+        caches = mod.init_caches(b, cfg)
+        _, caches = fwd(params, pre, caches, 0)
+        last, caches = fwd(params, {"ids": batch["ids"][:, s - 1:]}, caches,
+                           s - 1)
+        want, got = full[:, -1, :v].float(), last[:, 0, :v].float()
+        err = (got - want).abs().max().item()
+        ok = bool(torch.allclose(got, want, rtol=SERVE_EXACT_TOL,
+                                 atol=SERVE_EXACT_TOL))
+        msg = (f"[serve-exact] {arch} ({cfg.n_layers} layers, f32, B={b}, "
+               f"S={s}): decode vs full forward max abs err {err:.3e} "
+               f"(max |logit| {want.abs().max().item():.3f})")
+        if arch in ("rwkv6-3b", "zamba2-7b"):
+            c2 = mod.init_caches(b, cfg)
+            _, c2 = fwd(params, {"ids": batch["ids"][:, :5]}, c2, 0)
+            rest, _ = fwd(params, {"ids": batch["ids"][:, 5:]}, c2, 5)
+            seg = (rest[..., :v] - full[:, 5:, :v]).abs().max().item()
+            ok &= bool(torch.allclose(rest[..., :v].float(),
+                                      full[:, 5:, :v].float(),
+                                      rtol=SERVE_EXACT_TOL,
+                                      atol=SERVE_EXACT_TOL))
+            msg += f"; two-segment prefill (5 + {s - 5}) vs one shot {seg:.3e}"
+        n = ops.launch_counts()
+        if any(n.values()):
+            raise AssertionError(f"[serve-exact] {arch}: counted kernels "
+                                 f"launched while serving: {n}")
+        per_slot = tree_bytes(caches) / b
+        grow = (tree_bytes(mod.init_caches(1, dataclasses.replace(
+            cfg, max_cache_len=2 * s))) - tree_bytes(mod.init_caches(
+                1, cfg))) / s
+        msg += (f"; caches {per_slot / 2**20:.3f} MiB a slot at {s} rows, "
+                f"{grow:.0f} B a slot per context row (f32)")
+        log(msg)
+        if not ok:
+            raise AssertionError(f"[serve-exact] {arch}: prefill + decode "
+                                 f"differ from the full forward beyond "
+                                 f"{SERVE_EXACT_TOL}")
+        out[arch] = {"err": err, "cache_mib_per_slot": per_slot / 2**20,
+                     "bytes_per_row": grow}
+        del params, caches, full, last
+        torch.cuda.empty_cache()
+    log(f"[serve-exact] all {len(out)} archs: prefill + decode equals the "
+        f"full forward within {SERVE_EXACT_TOL}; no counted kernel launched")
+    return out
+
+
+def serve_path(tag, arch, registry, layers, seq, slots, requests,
+               check_repeat=False):
+    """Serve ``requests`` through ``Engine.generate`` (greedy) on ``arch``
+    in bf16 at ``layers`` (None: full depth) with ``slots`` slots and
+    ``seq`` cache rows, every ``forward_tokens`` call timed
+    (``ServeTimer``), the counted kernels' launches reset before and read
+    after (none: the serving path runs no tap and no flash route); every
+    request must get its ``max_new`` tokens, and with ``check_repeat`` a
+    second engine on the first batch must give its tokens again. Then one
+    decode step's device ms on a busy card. Returns ``serve_report``'s
+    numbers."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.nn.param import count_params
+    from repro_torch.serve import Engine, Request
+    spec = registry.get(arch)
+    cfg = serve_cfg(spec, registry, layers, "bfloat16", seq, slots)
+    mod = registry.family_module(spec)
+    params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    log(f"[{tag}] {arch}: {cfg.n_layers} layers, bf16, "
+        f"{count_params(params) / 1e9:.2f}B parameters; {len(requests)} requests (prompts of "
+        f"{min(len(r.prompt) for r in requests)}–"
+        f"{max(len(r.prompt) for r in requests)} tokens, "
+        f"{requests[0].max_new} new each), {slots} slots, {seq} cache rows, "
+        f"greedy")
+    eng = Engine(arch, cfg, params, batch_slots=slots)
+    timer = ServeTimer(eng.fwd)
+    eng.fwd = timer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.generate(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = ops.launch_counts()
+    if any(n.values()):
+        raise AssertionError(f"[{tag}] counted kernels launched while "
+                             f"serving: {n}")
+    lens = [len(r.out) for r in done]
+    if lens != [r.max_new for r in done]:
+        raise AssertionError(f"[{tag}] tokens per request {lens}")
+    if any(not 0 <= t < cfg.vocab for r in done for t in r.out):
+        raise AssertionError(f"[{tag}] a token outside the vocab")
+    caches = mod.init_caches(slots, cfg)
+    out = serve_report(tag, cfg, params, timer, caches, slots, wall,
+                       sum(lens))
+    log(f"[{tag}] launches of the counted kernels while serving: none "
+        f"({n})")
+    if check_repeat:
+        first = done[:slots]
+        again = Engine(arch, cfg, params, batch_slots=slots).generate(
+            [Request(r.prompt, r.max_new) for r in first])
+        same = [a.out == r.out for a, r in zip(again, first)]
+        log(f"[{tag}] a repeat of the first batch gives the same tokens in "
+            f"{sum(same)} of {len(same)} requests")
+        if not all(same):
+            raise AssertionError(f"[{tag}] greedy decode not repeatable")
+    # one decode step profiled, at the median step's cache rows
+    kv = out["decode_kv_len"]
+    tok = torch.zeros(slots, 1, dtype=torch.long, device="cuda")
+    fwd = registry.make_forward_tokens(spec, cfg)
+    fwd(params, {"ids": torch.zeros(slots, kv - 1, dtype=torch.long,
+                                    device="cuda")}, caches, 0)
+    out["kernel_ms"], out["kernels"] = decode_kernels(fwd, params, caches,
+                                                      tok, kv - 1)
+    log_kernels(tag, out)
+    del params, caches, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(registry):
+    """Phase 34, the slice's path: llama3.2-1b at full depth and width in
+    bf16 serving ``SERVE_REQUESTS`` requests (prompts of 64–512 tokens,
+    ``SERVE_NEW`` new tokens each) greedily in ``SERVE_SLOTS`` slots of
+    ``SERVE_CACHE`` rows."""
+    spec = registry.get("llama3.2-1b")
+    reqs = serve_requests(spec.full().vocab, SERVE_REQUESTS,
+                          *SERVE_PROMPTS, SERVE_NEW)
+    return serve_path("serve", "llama3.2-1b", registry, None, SERVE_CACHE,
+                      SERVE_SLOTS, reqs, check_repeat=True)
+
+
+def serve_seamless(registry):
+    """seamless-m4t-medium at full depth in bf16 through
+    ``forward_tokens``: ``FAMILY_SLOTS`` slots prefilled with source frames
+    (numpy seed 0, ``FAMILY_PROMPTS[1]`` frames) and 16-token prompts, then
+    ``FAMILY_NEW`` - 1 greedy decode steps against the cross caches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    spec = registry.get("seamless-m4t-medium")
+    b, src = FAMILY_SLOTS, FAMILY_PROMPTS[1]
+    cfg = serve_cfg(spec, registry, None, "bfloat16", FAMILY_CACHE, b)
+    mod = registry.family_module(spec)
+    params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.normal(size=(b, src, cfg.d_model)) * 0.1,
+                             device="cuda").to(cfg.torch_dtype)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab, (b, 16)),
+                          device="cuda")
+    log(f"[serve-families] seamless-m4t-medium: {cfg.n_layers} layers, "
+        f"bf16, {b} slots, {src} source frames, 16-token prompts, "
+        f"{FAMILY_NEW} new tokens, greedy, through forward_tokens")
+    timer = ServeTimer(registry.make_forward_tokens(spec, cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    caches = mod.init_caches(b, cfg)
+    logits, caches = timer(params, {"ids": ids, "src_frames": frames},
+                           caches, 0)
+    tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)
+    outs = [[t] for t in tok.tolist()]
+    for t in range(1, FAMILY_NEW):
+        logits, caches = timer(params, {"ids": tok[:, None]}, caches,
+                               16 + t - 1)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)
+        for o, x in zip(outs, tok.tolist()):
+            o.append(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = ops.launch_counts()
+    if any(n.values()) or any(len(o) != FAMILY_NEW for o in outs):
+        raise AssertionError(f"[serve-families] seamless: launches {n}, "
+                             f"tokens {[len(o) for o in outs]}")
+    out = serve_report("serve-families seamless-m4t-medium", cfg, params,
+                       timer, caches, b, wall, b * FAMILY_NEW)
+    out["kernel_ms"], out["kernels"] = decode_kernels(
+        timer.fn, params, caches, tok[:, None], out["decode_kv_len"] - 1)
+    log_kernels("serve-families seamless-m4t-medium", out)
+    del params, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_families(registry):
+    """Phase 35: ``FAMILY_REQUESTS`` requests of ``FAMILY_NEW`` new tokens
+    through ``Engine.generate`` for each of ``FAMILY_SERVE`` at its probe
+    depth in bf16 (the configs' own MoE capacity, as served), then
+    seamless at full depth through ``forward_tokens`` from source
+    frames."""
+    out = {}
+    for arch, layers in FAMILY_SERVE:
+        spec = registry.get(arch)
+        reqs = serve_requests(spec.full().vocab, FAMILY_REQUESTS,
+                              *FAMILY_PROMPTS, FAMILY_NEW)
+        out[arch] = serve_path(f"serve-families {arch}", arch, registry,
+                               layers, FAMILY_CACHE, FAMILY_SLOTS, reqs)
+    out["seamless-m4t-medium"] = serve_seamless(registry)
+    return out
+
+
 def main() -> int:
     global T0
     T0 = time.perf_counter()
@@ -3966,6 +4557,21 @@ def main() -> int:
         fam_tables[tag] = family_norm_table(tag, fam_runs[tag]["want"],
                                             dispatch)
         torch.cuda.empty_cache()
+    serve_exact = phase_serve_exact(registry)
+    serve_run = phase_serve(registry)
+    serve_fams = phase_serve_families(registry)
+    for tag, r in (("serve llama3.2-1b", serve_run),
+                   *((f"serve-families {a}", r)
+                     for a, r in serve_fams.items())):
+        log(f"[compare] {tag}: prefill ms per batch {r['prefill_ms']}; "
+            f"decode step ms: stream {r['decode_ms']:.3f}, host to queue "
+            f"{r['decode_host_ms']:.3f}, kernels {r['kernel_ms']:.3f} "
+            f"({r['kernels']:.0f} a step), bound {r['bound_ms']:.3f} "
+            f"({r['bound_by']}); {r['tok_per_s']:.1f} tok/s; peak "
+            f"{r['peak_gib']:.2f} GiB, caches {r['cache_gib']:.3f} GiB")
+    errs_by_arch = {a: float(f"{r['err']:.3e}")
+                    for a, r in serve_exact.items()}
+    log(f"[compare] serve-exact max abs err by arch {errs_by_arch}")
     # every gram and direct launch of every path, of either dtype, at a
     # shape, and so on a plan, that phase 3 held against its plain version
     for tag, r in (("main", main_run), ("flash", flash_run),
@@ -4029,7 +4635,8 @@ def main() -> int:
         f"{ds_run['step_ms']}; lora step ms {lora_run['step_ms']}; tenant "
         f"fused, plain step ms {tenant_means}; "
         + "".join(f"{t} step ms {r['step_ms']}; " for t, r in fam_runs.items())
-        + f"whole run "
+        + f"serve decode step ms {serve_run['decode_ms']:.3f}, "
+        f"{serve_run['tok_per_s']:.1f} tok/s; whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -17,6 +17,11 @@ A LoRA site's factors arrive as the reference's ``LoraPair`` (numpy ``a``,
 port does not import the reference's class) and carried into the port's
 ``nn.lora.LoraPair``; stacked (L, d, r) factors of ``blocks`` are split
 into per-layer pairs as the weights are.
+
+:func:`caches_from_numpy` and :func:`caches_to_numpy` carry serving
+caches (a family's ``init_caches`` tree) the same way: the reference stacks
+each layer's cache on the leading axes its stack has (``CACHE_STACKS``),
+the port keeps one dict per layer.
 """
 from __future__ import annotations
 
@@ -126,3 +131,51 @@ def params_to_numpy(params):
         v = tree_map(_to_numpy, v)
         out[k] = _stack(v) if k in STACKS else v
     return out
+
+
+#: per family, the subtrees of the reference's serving caches stacked on
+#: leading layer axes, by key path, with their number of axes (an empty
+#: path: the whole tree); every other leaf (deepseek's ``prefix`` list,
+#: seamless's ``memory``) is carried as it is
+CACHE_STACKS = {"transformer": {("blocks",): 1},
+                "rwkv6": {(): 1},
+                "zamba2": {("states", "blocks"): 2, ("states", "tail"): 1,
+                           ("shared",): 1},
+                "seamless": {("self",): 1, ("cross",): 1}}
+
+
+def _carry_caches(tree, family, stacked, leaf, path=()):
+    """``tree`` with each stacked subtree of ``family`` (``CACHE_STACKS``)
+    passed to ``stacked(subtree, depth)`` and every other leaf to
+    ``leaf``."""
+    depth = CACHE_STACKS[family].get(path)
+    if tree is None:
+        return None
+    if depth is not None:
+        return stacked(tree, depth)
+    if isinstance(tree, dict):
+        return {k: _carry_caches(v, family, stacked, leaf, path + (k,))
+                for k, v in tree.items()}
+    return tree_map(leaf, tree)
+
+
+def caches_from_numpy(tree, family: str, device=None):
+    """The reference's serving caches of a ``family`` (transformer, rwkv6,
+    zamba2 or seamless) as numpy, layers stacked → the port's layout
+    (``models.<family>.init_caches``), tensors on ``device`` (default
+    CUDA)."""
+    device = resolve_device(device)
+
+    def leaf(x):
+        return _to_tensor(x, device)
+    return _carry_caches(tree, family,
+                         lambda t, depth: tree_map(leaf, _split(t, depth)),
+                         leaf)
+
+
+def caches_to_numpy(caches, family: str):
+    """Inverse of :func:`caches_from_numpy`: the port's caches → numpy in
+    the reference's layout, layers stacked."""
+    return _carry_caches(caches, family,
+                         lambda t, depth: _stack(tree_map(_to_numpy, t)),
+                         _to_numpy)

@@ -2,15 +2,16 @@
 
 Port of the subset of ``src/repro/models/registry.py`` the port needs so
 far: ``get``, ``family_module``, ``make_loss_fn_v2``,
-``make_train_batch`` and the declared untapped scope
-(``UNTAPPED_ALLOWLIST``). All ten archs are registered: the transformer
-family's llama3.2-1b, qwen2-7b, qwen2-vl-7b, minitron-4b, gemma2-9b,
-phi3.5-moe and deepseek-v2-236b, and rwkv6-3b, zamba2-7b and
-seamless-m4t-medium. Serving and the input-spec builders of the dry run
-come in later slices.
+``make_forward_tokens``, ``serving_config``, ``make_train_batch`` and the
+declared untapped scope (``UNTAPPED_ALLOWLIST``). All ten archs are
+registered: the transformer family's llama3.2-1b, qwen2-7b, qwen2-vl-7b,
+minitron-4b, gemma2-9b, phi3.5-moe and deepseek-v2-236b, and rwkv6-3b,
+zamba2-7b and seamless-m4t-medium. The input-spec builders of the dry run
+are not ported.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -79,6 +80,27 @@ def make_loss_fn_v2(spec: ArchSpec, cfg):
     def loss_fn(params, batch, tap):
         return mod.loss_fn(params, batch, tap, cfg=cfg)
     return loss_fn
+
+
+def make_forward_tokens(spec: ArchSpec, cfg):
+    """Serving entry point of an arch: ``fwd(params, batch, caches,
+    cache_index) -> (logits, caches)``, the family's ``forward_tokens``
+    (caches written in place)."""
+    mod = family_module(spec)
+
+    def fwd(params, batch, caches, cache_index):
+        return mod.forward_tokens(params, batch, caches, cache_index, cfg=cfg)
+    return fwd
+
+
+def serving_config(spec: ArchSpec, cfg, shape: ShapeSpec):
+    """``cfg`` with the cache lengths of a serve shape: ``max_cache_len``
+    (and seamless's ``max_src_len``) = ``shape.seq``. The port has no
+    remat to turn off."""
+    kw = {"max_cache_len": shape.seq}
+    if spec.family == "seamless":
+        kw["max_src_len"] = shape.seq
+    return dataclasses.replace(cfg, **kw)
 
 
 def make_train_batch(spec: ArchSpec, cfg, shape: ShapeSpec, rng_seed=0,

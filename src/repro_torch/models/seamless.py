@@ -1,6 +1,6 @@
 """SeamlessM4T-medium backbone: transformer encoder–decoder.
 
-Port of ``src/repro/models/seamless.py`` at training time. The audio
+Port of ``src/repro/models/seamless.py``. The audio
 frontend is a stub, as in the reference: the batch's ``src_frames`` are
 precomputed frame embeddings (B, S_src, d_model). The encoder is
 non-causal with a plain gelu MLP; each decoder block runs causal
@@ -11,8 +11,14 @@ them in Python loops without layer recompute.
 
 At token granularity the encoder's taps see source-frame rows, and frame
 t's stat lands at target token t, as in the reference (its batches have
-S_src = S). Decode (``init_caches``, ``precompute_cross``,
-``forward_tokens``: the self and cross KV caches) comes with serving.
+S_src = S).
+
+Serving: ``init_caches`` holds each decoder layer's self-attention KV cache
+(``self``), its cross-attention K and V of the encoder memory (``cross``)
+and the memory itself; ``forward_tokens`` with ``src_frames`` encodes the
+source and fills ``memory`` and ``cross`` (``precompute_cross``), and
+without them decodes against what the prefill left, writing the self caches
+in place.
 """
 from __future__ import annotations
 
@@ -20,11 +26,14 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import taps
 from repro_torch.core.taps import Tap
 from repro_torch.nn import param as pm
-from repro_torch.nn.attention import AttnCfg, attention, init_attention
+from repro_torch.nn.attention import (AttnCfg, attention, init_attention,
+                                      init_kv_cache)
 from repro_torch.nn.embedding import (VocabCfg, embed, init_embedding,
                                       init_lm_head, lm_head, per_example_xent)
+from repro_torch.nn.linear import linear
 from repro_torch.nn.mlp import MlpCfg, init_mlp, mlp
 from repro_torch.nn.norms import init_layernorm, layernorm
 
@@ -40,6 +49,8 @@ class SeamlessConfig:
     d_ff: int = 4096
     vocab: int = 256206
     dtype: str = "float32"
+    max_cache_len: int = 0                # set by serving_config
+    max_src_len: int = 0
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -108,12 +119,14 @@ def _encode(params, frames, tap: Tap, cfg: SeamlessConfig):
     return layernorm(params["ln_enc"], x, tap=tap)
 
 
-def _dec_block(p, x, memory, tap: Tap, cfg: SeamlessConfig):
+def _dec_block(p, x, memory, tap: Tap, cfg: SeamlessConfig, *,
+               self_cache=None, cross_cache=None, cache_index=None):
     h = layernorm(p["ln1"], x, tap=tap)
-    x = x + attention(p["self"], h, tap=tap, cfg=cfg.attn_cfg())
+    x = x + attention(p["self"], h, tap=tap, cfg=cfg.attn_cfg(),
+                      cache=self_cache, cache_index=cache_index)
     h = layernorm(p["ln_x"], x, tap=tap)
     x = x + attention(p["cross"], h, tap=tap, cfg=cfg.attn_cfg(cross=True),
-                      memory=memory)
+                      memory=memory, cache=cross_cache)
     h = layernorm(p["ln2"], x, tap=tap)
     return x + mlp(p["mlp"], h, tap=tap, cfg=cfg.mlp_cfg)
 
@@ -130,3 +143,58 @@ def loss_fn(params, batch, tap: Tap, *, cfg: SeamlessConfig):
     loss_vec = per_example_xent(logits, batch["labels"],
                                 batch.get("label_mask"), tap=tap)
     return loss_vec, {}
+
+
+def init_caches(batch: int, cfg: SeamlessConfig, device=None):
+    """Zero serving caches for ``batch`` slots on ``device`` (default
+    CUDA): per decoder layer a self-attention KV cache of
+    ``max_cache_len`` rows (``self``) and a cross K/V of ``max_src_len``
+    rows (``cross``), and the memory (B, max_src_len, d_model); a prefill
+    with ``src_frames`` replaces ``cross`` and ``memory``."""
+    device = pm.resolve_device(device)
+    kw = dict(dtype=cfg.torch_dtype, device=device)
+    return {"self": [init_kv_cache(batch, cfg.max_cache_len, cfg.attn_cfg(),
+                                   **kw) for _ in range(cfg.n_dec)],
+            "cross": [init_kv_cache(batch, cfg.max_src_len,
+                                    cfg.attn_cfg(cross=True), **kw)
+                      for _ in range(cfg.n_dec)],
+            "memory": torch.zeros(batch, cfg.max_src_len, cfg.d_model,
+                                  **kw)}
+
+
+def precompute_cross(params, memory, *, cfg: SeamlessConfig):
+    """Every decoder layer's cross-attention K and V of the encoder
+    ``memory`` (B, T, d_model): a list of {"k", "v"} (B, T, n_kv,
+    head_dim)."""
+    hd = cfg.d_model // cfg.n_heads
+    out = []
+    for p in params["dec"]:
+        k = linear(p["cross"]["wk"], memory, tap=taps.NULL)
+        v = linear(p["cross"]["wv"], memory, tap=taps.NULL)
+        out.append({"k": k.reshape(*k.shape[:2], cfg.kv_heads, hd),
+                    "v": v.reshape(*v.shape[:2], cfg.kv_heads, hd)})
+    return out
+
+
+def forward_tokens(params, batch, caches, cache_index, *,
+                   cfg: SeamlessConfig):
+    """Prefill or decode, uninstrumented (``taps.NULL``, inference mode):
+    batch["ids"] (B, s) at ``cache_index`` → (logits (B, s, vocab_p),
+    caches). With batch["src_frames"] (prefill) the source is encoded and
+    ``caches["memory"]`` and ``caches["cross"]`` are replaced; the decoder
+    then reads them, and writes its self caches in place."""
+    tap = taps.NULL
+    with torch.inference_mode():
+        if "src_frames" in batch:
+            memory = _encode(params, batch["src_frames"], tap, cfg)
+            caches["memory"] = memory
+            caches["cross"] = precompute_cross(params, memory, cfg=cfg)
+        x = embed(params["embed"], batch["ids"], tap=tap, cfg=cfg.vocab_cfg)
+        for i, p in enumerate(params["dec"]):
+            x = _dec_block(p, x, caches["memory"], tap, cfg,
+                           self_cache=caches["self"][i],
+                           cross_cache=caches["cross"][i],
+                           cache_index=cache_index)
+        x = layernorm(params["ln_dec"], x, tap=tap)
+        logits = lm_head(params["head"], x, tap=tap, cfg=cfg.vocab_cfg)
+    return logits, caches

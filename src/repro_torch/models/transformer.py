@@ -22,8 +22,13 @@ index is), the final logit softcap and embeds × √d. qwen2-vl's merged
 visual embeds replace the token embeds where ``vis_mask`` is set, and its
 (B, 3, S) M-RoPE positions come with the batch. ``cfg.lora`` LoRA-fies
 the linear sites after ``init`` (``nn.lora.attach``): frozen bases and
-tapped factors, each layer's pair its own (``blocks`` is a list). Not in
-this slice: ``init_caches`` and ``forward_tokens`` (serving).
+tapped factors, each layer's pair its own (``blocks`` is a list).
+
+Serving: ``init_caches`` gives one KV (or MLA latent) cache per layer,
+``{"prefix": [...], "blocks": [...]}`` in the layout of ``params``, and
+``forward_tokens`` runs a prefill or a decode step through them,
+uninstrumented. It writes the caches in place (a functional copy would copy
+every layer's whole buffer at every token) and returns the same dict.
 """
 from __future__ import annotations
 
@@ -32,13 +37,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import taps
 from repro_torch.core.taps import Tap
 from repro_torch.nn import param as pm
-from repro_torch.nn.attention import AttnCfg, attention, init_attention
+from repro_torch.nn.attention import (AttnCfg, attention, init_attention,
+                                      init_kv_cache)
 from repro_torch.nn import lora as lora_mod
 from repro_torch.nn.embedding import (VocabCfg, embed, init_embedding,
                                       init_lm_head, lm_head, per_example_xent)
-from repro_torch.nn.mla import MlaCfg, init_mla, mla_attention
+from repro_torch.nn.mla import MlaCfg, init_mla, init_mla_cache, mla_attention
 from repro_torch.nn.mlp import MlpCfg, init_mlp, mlp
 from repro_torch.nn.moe import MoeCfg, init_moe, moe
 from repro_torch.nn.norms import init_rmsnorm, rmsnorm
@@ -66,6 +73,7 @@ class LMConfig:
     lora: Optional[lora_mod.LoraCfg] = None  # LoRA-fy the linear sites:
                                           # frozen bases + tapped factors
     dtype: str = "float32"
+    max_cache_len: int = 0                # set by serving_config
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -136,17 +144,19 @@ def init(cfg: LMConfig, generator: torch.Generator, device=None):
 
 
 def _block(p, x, tap: Tap, cfg: LMConfig, *, positions, local_flag=None,
-           dense_mlp=False):
+           dense_mlp=False, cache=None, cache_index=None):
     def norm(q, y):
         return rmsnorm(q, y, tap=tap, eps=cfg.rms_eps,
                        plus_one=cfg.rms_plus_one)
     h = norm(p["ln_attn"], x)
     if cfg.mla is not None:
         a = mla_attention(p["attn"], h, tap=tap, cfg=cfg.mla,
-                          positions=positions)
+                          positions=positions, cache=cache,
+                          cache_index=cache_index)
     else:
         a = attention(p["attn"], h, tap=tap, cfg=cfg.attn,
-                      positions=positions, local_flag=local_flag)
+                      positions=positions, local_flag=local_flag,
+                      cache=cache, cache_index=cache_index)
     if cfg.post_norms:
         a = norm(p["ln_attn_post"], a)
     x = x + a
@@ -179,18 +189,58 @@ def _positions(batch, cfg: LMConfig):
     return None
 
 
+def _run(params, x, tap: Tap, cfg: LMConfig, *, positions, caches=None,
+         cache_index=None):
+    """The prefix layers, then the blocks (gemma2's even blocks local),
+    each with its cache when ``caches`` is given."""
+    for i, p in enumerate(params.get("prefix", [])):
+        c = None if caches is None else caches["prefix"][i]
+        x = _block(p, x, tap, cfg, positions=positions, dense_mlp=True,
+                   cache=c, cache_index=cache_index)
+    for i, p in enumerate(params["blocks"]):
+        local = (i % 2 == 0) if cfg.alt_local_global else None
+        c = None if caches is None else caches["blocks"][i]
+        x = _block(p, x, tap, cfg, positions=positions, local_flag=local,
+                   cache=c, cache_index=cache_index)
+    x = rmsnorm(params["ln_f"], x, tap=tap, eps=cfg.rms_eps,
+                plus_one=cfg.rms_plus_one)
+    return lm_head(params["head"], x, tap=tap, cfg=cfg.vocab_cfg)
+
+
 def loss_fn(params, batch, tap: Tap, *, cfg: LMConfig):
     """Canonical instrumented loss: (loss_vec, aux)."""
     x = _inputs_to_embeds(params, batch, tap, cfg)
-    positions = _positions(batch, cfg)
-    for p in params.get("prefix", []):
-        x = _block(p, x, tap, cfg, positions=positions, dense_mlp=True)
-    for i, p in enumerate(params["blocks"]):
-        local = (i % 2 == 0) if cfg.alt_local_global else None
-        x = _block(p, x, tap, cfg, positions=positions, local_flag=local)
-    x = rmsnorm(params["ln_f"], x, tap=tap, eps=cfg.rms_eps,
-                plus_one=cfg.rms_plus_one)
-    logits = lm_head(params["head"], x, tap=tap, cfg=cfg.vocab_cfg)
+    logits = _run(params, x, tap, cfg, positions=_positions(batch, cfg))
     loss_vec = per_example_xent(logits, batch["labels"],
                                 batch.get("label_mask"), tap=tap)
     return loss_vec, {}
+
+
+def init_caches(batch: int, cfg: LMConfig, device=None):
+    """Zero decode caches of ``cfg.max_cache_len`` rows for ``batch``
+    slots on ``device`` (default CUDA): one per prefix layer and one per
+    block, MLA's latent caches for an MLA config, else KV caches."""
+    device = pm.resolve_device(device)
+    kw = dict(dtype=cfg.torch_dtype, device=device)
+
+    def one():
+        if cfg.mla is not None:
+            return init_mla_cache(batch, cfg.max_cache_len, cfg.mla, **kw)
+        return init_kv_cache(batch, cfg.max_cache_len, cfg.attn, **kw)
+    n_pre = cfg.n_dense_prefix
+    return {"prefix": [one() for _ in range(n_pre)],
+            "blocks": [one() for _ in range(cfg.n_layers - n_pre)]}
+
+
+def forward_tokens(params, batch, caches, cache_index, *, cfg: LMConfig):
+    """Prefill or decode, uninstrumented (``taps.NULL``, inference mode):
+    batch["ids"] (B, s) at positions ``cache_index + arange(s)`` (qwen2-vl:
+    the batch's (B, 3, s) ``positions`` where given) → (logits (B, s,
+    vocab_p), caches). ``caches`` (``init_caches``) are written in place
+    and returned; with ``caches`` None it is the full forward."""
+    tap = taps.NULL
+    with torch.inference_mode():
+        x = _inputs_to_embeds(params, batch, tap, cfg)
+        logits = _run(params, x, tap, cfg, positions=_positions(batch, cfg),
+                      caches=caches, cache_index=cache_index)
+    return logits, caches

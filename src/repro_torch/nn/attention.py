@@ -11,8 +11,12 @@ k and v from the encoder's ``memory``, no RoPE, no mask), ``causal=False``
 back to d_model). ``AttnCfg.flash`` (default False, as in the reference)
 sends the attention core through the flash kernels
 (``kernels.ops.flash_attention_vjp``) under the reference's own gate;
-otherwise the unfused ``_attend`` runs. Not ported: the decode KV cache
-(``cache``, ``cache_index``), which comes with serving.
+otherwise the unfused ``_attend`` runs.
+
+Serving: ``init_kv_cache`` makes a (B, max_len, n_kv, head_dim) K and V
+buffer, and ``attention(cache=, cache_index=)`` writes the new rows into it
+in place and attends over the rows written so far; a cross-attention
+layer takes its encoder K and V precomputed in ``cache``.
 """
 from __future__ import annotations
 
@@ -77,12 +81,23 @@ def init_attention(gen: torch.Generator, cfg: AttnCfg, *, dtype, device):
     return p
 
 
-def _attend(q, k, v, cfg: AttnCfg, local_flag: Optional[bool] = None):
+def init_kv_cache(batch: int, max_len: int, cfg: AttnCfg, *, dtype,
+                  device):
+    """Zero K and V buffers (B, max_len, n_kv, head_dim) of one layer."""
+    shape = (batch, max_len, cfg.n_kv, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _attend(q, k, v, cfg: AttnCfg, local_flag: Optional[bool] = None, *,
+            q_offset: int = 0, kv_len: Optional[int] = None):
     """q (B,S,Hp,D), k/v (B,T,Hkv,D) → (B, S, Hp·D); logits (then the
-    softcap) and softmax in f32. The causal mask applies when
+    softcap) and softmax in f32. q[:, i] sits at absolute position
+    ``q_offset + i`` and k[:, t] at t. The causal mask applies when
     ``cfg.causal and not cfg.cross``; ``cfg.window`` applies where
     ``local_flag`` is None or True (gemma2's local layers), not where it is
-    False (its global ones)."""
+    False (its global ones); with ``kv_len`` (a cache's valid rows) only
+    rows t < kv_len are seen."""
     b, s, hp, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     rep = hp // hkv
@@ -91,13 +106,15 @@ def _attend(q, k, v, cfg: AttnCfg, local_flag: Optional[bool] = None):
                           k.to(torch.float32)) * cfg.scale
     if cfg.softcap is not None:
         logits = cfg.softcap * torch.tanh(logits / cfg.softcap)
-    qpos = torch.arange(s, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
     if cfg.causal and not cfg.cross:
         mask = mask & (kpos <= qpos)
     if cfg.window is not None and local_flag is not False:
         mask = mask & ((qpos - kpos) < cfg.window)
+    if kv_len is not None:
+        mask = mask & (kpos < kv_len)
     logits = torch.where(mask, logits,
                          torch.full((), NEG_INF, device=q.device))
     attn = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -111,40 +128,54 @@ def attention(p, x, *, tap: Tap, cfg: AttnCfg,
               cache=None, cache_index=None,
               local_flag: Optional[bool] = None,
               group: str = "attn") -> torch.Tensor:
-    """Full-sequence attention. positions: (S,) / (B,S) int, or (3,B,S)
-    for M-RoPE (a 2-D stream is broadcast to all three sections, the
-    text-only fallback). ``memory`` (B, T, d_model): the encoder output
-    that k and v project from under ``cfg.cross`` (no RoPE then, and no
-    mask). ``local_flag``: gemma2's per-layer switch of the window (see
-    ``_attend``), a Python bool. A decode ``cache`` raises.
+    """Full-sequence (train/prefill) or incremental (decode) attention.
+    positions: (S,) / (B,S) int, or (3,B,S) for M-RoPE (a 2-D stream is
+    broadcast to all three sections, the text-only fallback); by default
+    ``cache_index + arange(S)`` (0 without a cache). ``memory`` (B, T,
+    d_model): the encoder output that k and v project from under
+    ``cfg.cross`` (no RoPE then, and no mask). ``local_flag``: gemma2's
+    per-layer switch of the window (see ``_attend``), a Python bool.
+
+    ``cache`` (``init_kv_cache``) with ``cache_index`` (an int): the new k
+    and v rows are written into the cache in place at [cache_index,
+    cache_index + S), and q attends over the rows [0, cache_index + S) at
+    positions from cache_index on. The reference attends over the whole
+    buffer with rows at or past cache_index + S masked; a masked logit of
+    ``NEG_INF`` gets exactly zero weight after the softmax's max
+    subtraction, so attending over the written prefix alone is the same
+    function. Under ``cfg.cross`` a ``cache`` holds the encoder's k and v
+    (``seamless.precompute_cross``) and ``memory`` is not projected.
 
     With ``cfg.flash`` the core runs through the flash kernels on (B, H,
     S, D) views of q, k and v (no copy, ``cfg.window`` passed on) under the
     reference's gate (``attention.py:182-184``): causal self-attention, no
-    softcap, no local flag and S a multiple of 128 (the reference's cache
-    condition holds here, as the cache is not ported). Otherwise
+    softcap, no local flag, no cache and S a multiple of 128. Otherwise
     ``_attend`` runs. The gate is the reference's dispatch, kept so that
     one configuration takes one route in both packages; the kernels
     themselves take a softcap, a window and any S, so it is not a
     fallback."""
-    if cache is not None or cache_index is not None:
-        raise NotImplementedError(
-            "attention's decode KV cache comes with serving: ROADMAP Queue 1 "
-            "item 8")
-    if cfg.cross and memory is None:
+    cross_cache = cfg.cross and cache is not None
+    if cfg.cross and memory is None and not cross_cache:
         raise ValueError("cross-attention needs the encoder's memory")
+    if cache is not None and not cfg.cross and cache_index is None:
+        raise ValueError("a self-attention cache needs its cache_index")
     b, s, _ = x.shape
-    kv_src = memory if cfg.cross else x
-    t = kv_src.shape[1]
     q = linear(p["wq"], x, tap=tap, group=group)
-    k = linear(p["wk"], kv_src, tap=tap, group=group)
-    v = linear(p["wv"], kv_src, tap=tap, group=group)
     q = q.reshape(b, s, cfg.n_heads_p, cfg.head_dim)
-    k = k.reshape(b, t, cfg.n_kv, cfg.head_dim)
-    v = v.reshape(b, t, cfg.n_kv, cfg.head_dim)
+    if cross_cache:
+        k, v = cache["k"], cache["v"]
+    else:
+        kv_src = memory if cfg.cross else x
+        t = kv_src.shape[1]
+        k = linear(p["wk"], kv_src, tap=tap, group=group)
+        v = linear(p["wv"], kv_src, tap=tap, group=group)
+        k = k.reshape(b, t, cfg.n_kv, cfg.head_dim)
+        v = v.reshape(b, t, cfg.n_kv, cfg.head_dim)
     if not cfg.cross:
         if positions is None:
-            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+            start = 0 if cache_index is None else cache_index
+            positions = (start + torch.arange(s, device=x.device))[None] \
+                .expand(b, s)
         rot = cfg.rope_dim or cfg.head_dim
         if cfg.mrope_sections is not None:
             if positions.ndim == 2:   # text-only fallback: t=h=w stream
@@ -157,11 +188,19 @@ def attention(p, x, *, tap: Tap, cfg: AttnCfg,
             ang = rope_angles(positions, rot, cfg.rope_theta)
         q = apply_rope(q, ang, cfg.rope_dim)
         k = apply_rope(k, ang, cfg.rope_dim)
-    if (cfg.flash and cfg.causal and not cfg.cross and cfg.softcap is None
-            and local_flag is None and s % 128 == 0):
+    kv_len, q_offset = None, 0
+    if cache is not None and not cfg.cross:
+        kv_len, q_offset = cache_index + s, cache_index
+        cache["k"][:, cache_index:kv_len] = k
+        cache["v"][:, cache_index:kv_len] = v
+        k, v = cache["k"][:, :kv_len], cache["v"][:, :kv_len]
+    if (cfg.flash and cache is None and cfg.causal and not cfg.cross
+            and cfg.softcap is None and local_flag is None
+            and s % 128 == 0):
         y = ops.flash_attention_vjp(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), cfg.scale, cfg.window)
         y = y.transpose(1, 2).reshape(b, s, -1)
     else:
-        y = _attend(q, k, v, cfg, local_flag)
+        y = _attend(q, k, v, cfg, local_flag, q_offset=q_offset,
+                    kv_len=kv_len)
     return linear(p["wo"], y, tap=tap, group=group)

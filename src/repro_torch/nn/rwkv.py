@@ -1,6 +1,6 @@
 """RWKV6 ("Finch") — attention-free time-mix with data-dependent decay.
 
-Port of ``src/repro/nn/rwkv.py`` at training time. Per head (dim N):
+Port of ``src/repro/nn/rwkv.py``. Per head (dim N):
 state S ∈ ℝ^{N×N};
 
     o_t = r_t · (S_{t-1} + diag(u)·k_t v_tᵀ)
@@ -19,8 +19,14 @@ steps (``wkv``): the forward keeps only each chunk's first state, and the
 backward recomputes a chunk's states from it and runs the reverse
 recurrence by hand, so the saved state is S/CHUNK states and not S. The
 forward gives the bits of the plain per-step loop (``wkv_loop``, which
-autograd differentiates step by step). Decode (``init_rwkv_state``, the
-``state`` argument) comes with serving.
+autograd differentiates step by step).
+
+Decode is the same recurrence from a carried state: ``init_rwkv_state``
+holds each layer's last time-mix and channel-mix rows (the token shift of
+the next segment) and the f32 wkv matrix; with a ``state``, ``rwkv_tmix``
+and ``rwkv_cmix`` read it and write the segment's final rows and matrix
+back into it in place (``wkv_from``: the per-step body of ``wkv_loop``
+from the given matrix).
 """
 from __future__ import annotations
 
@@ -88,11 +94,24 @@ def init_rwkv_cmix(gen: torch.Generator, cfg: RwkvCfg, *, dtype, device):
     }
 
 
-def _token_shift(x: torch.Tensor) -> torch.Tensor:
-    """xx_t = x_{t-1}, zero before the first token (training: no previous
-    segment)."""
-    return torch.cat([x.new_zeros(x.shape[0], 1, x.shape[2]), x[:, :-1]],
-                     dim=1)
+def init_rwkv_state(batch: int, cfg: RwkvCfg, *, dtype, device):
+    """One layer's decode state: the token-shift rows ``tm_shift`` and
+    ``cm_shift`` (B, d) in ``dtype`` and the wkv matrix (B, nh, hd, hd) in
+    f32, all zero."""
+    d = cfg.d_model
+    return {"tm_shift": torch.zeros(batch, d, dtype=dtype, device=device),
+            "cm_shift": torch.zeros(batch, d, dtype=dtype, device=device),
+            "wkv": torch.zeros(batch, cfg.n_heads, cfg.head_dim,
+                               cfg.head_dim, dtype=torch.float32,
+                               device=device)}
+
+
+def _token_shift(x: torch.Tensor, prev=None) -> torch.Tensor:
+    """xx_t = x_{t-1}; before the first token ``prev`` (B, d), the last row
+    of the previous segment, or zero (training: no previous segment)."""
+    first = x.new_zeros(x.shape[0], 1, x.shape[2]) if prev is None \
+        else prev[:, None].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -107,16 +126,21 @@ def _wkv_step(state, r_t, k_t, v_t, w_t, u):
     return w_t[..., :, None] * state + kv, o_t
 
 
+def wkv_from(r, k, v, w, u, state):
+    """The plain per-step loop from ``state`` (B,nh,hd,hd) f32: r, k, v, w
+    (B,S,nh,hd) f32, u (nh,hd) → (o (B,S,nh,hd), the final state)."""
+    outs = []
+    for t in range(r.shape[1]):
+        state, o_t = _wkv_step(state, r[:, t], k[:, t], v[:, t], w[:, t], u)
+        outs.append(o_t)
+    return torch.stack(outs, dim=1), state
+
+
 def wkv_loop(r, k, v, w, u):
     """The plain per-step loop from a zero state: r, k, v, w (B,S,nh,hd)
     f32, u (nh,hd) → o (B,S,nh,hd). Autograd keeps every step's state."""
-    b, s, nh, hd = r.shape
-    state = r.new_zeros(b, nh, hd, hd)
-    outs = []
-    for t in range(s):
-        state, o_t = _wkv_step(state, r[:, t], k[:, t], v[:, t], w[:, t], u)
-        outs.append(o_t)
-    return torch.stack(outs, dim=1)
+    b, _, nh, hd = r.shape
+    return wkv_from(r, k, v, w, u, r.new_zeros(b, nh, hd, hd))[0]
 
 
 class _Wkv(torch.autograd.Function):
@@ -192,19 +216,15 @@ def wkv(r, k, v, w, u):
 # the time mix and the channel mix
 # ---------------------------------------------------------------------------
 
-def _no_state(state):
-    if state is not None:
-        raise NotImplementedError(
-            "RWKV's recurrent decode state comes with serving: ROADMAP "
-            "Queue 1 item 8")
-
-
 def rwkv_tmix(p, x, *, tap: Tap, cfg: RwkvCfg, state=None,
               group: str = "rwkv") -> torch.Tensor:
-    _no_state(state)
+    """The time mix of x (B,S,d). With a ``state`` (``init_rwkv_state``)
+    the token shift and the recurrence start from it, and its
+    ``tm_shift`` and ``wkv`` are overwritten in place with x's last row and
+    the final matrix."""
     b, s, d = x.shape
     nh, hd = cfg.n_heads, cfg.head_dim
-    dx = _token_shift(x) - x
+    dx = _token_shift(x, None if state is None else state["tm_shift"]) - x
 
     # ddlerp: base mix, then per-stream LoRA refinement
     xbase = x + dx * p["mu"][_STREAMS]
@@ -227,7 +247,13 @@ def rwkv_tmix(p, x, *, tap: Tap, cfg: RwkvCfg, state=None,
 
     def heads(a):
         return a.reshape(b, s, nh, hd).to(torch.float32)
-    o = wkv(heads(r), heads(k), heads(v), heads(w), p["u"].reshape(nh, hd))
+    ins = (heads(r), heads(k), heads(v), heads(w), p["u"].reshape(nh, hd))
+    if state is None:
+        o = wkv(*ins)
+    else:
+        o, s_final = wkv_from(*ins, state["wkv"])
+        state["tm_shift"].copy_(x[:, -1])
+        state["wkv"].copy_(s_final)
     o = o.reshape(b, s, d).to(x.dtype)
 
     o = layernorm(p["ln_x"], o, tap=tap)  # group-norm surrogate
@@ -237,8 +263,12 @@ def rwkv_tmix(p, x, *, tap: Tap, cfg: RwkvCfg, state=None,
 
 def rwkv_cmix(p, x, *, tap: Tap, cfg: RwkvCfg, state=None,
               group: str = "rwkv") -> torch.Tensor:
-    _no_state(state)
-    dx = _token_shift(x) - x
+    """The channel mix of x (B,S,d). With a ``state`` the token shift
+    starts from its ``cm_shift``, which is then overwritten in place with
+    x's last row."""
+    dx = _token_shift(x, None if state is None else state["cm_shift"]) - x
+    if state is not None:
+        state["cm_shift"].copy_(x[:, -1])
     xk = x + dx * p["mu"][0]
     xr = x + dx * p["mu"][1]
     k = linear(p["wk"], xk, tap=tap, group=group)

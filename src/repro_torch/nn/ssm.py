@@ -1,7 +1,7 @@
 """Mamba2 (SSD) block for zamba2 — selective state-space with multi-head
 state (headdim × d_state), scalar-per-head decay.
 
-Port of ``src/repro/nn/ssm.py`` at training time:
+Port of ``src/repro/nn/ssm.py``:
 
     h_t = exp(Δ_t·A) h_{t-1} + Δ_t·B_t ⊗ x_t          (per head)
     y_t = C_t·h_t + D ⊙ x_t
@@ -16,8 +16,13 @@ expressions in its order (``_ssd_step``), over chunks of ``CHUNK`` time
 steps (``ssd``): the forward keeps only each chunk's first state, and the
 backward recomputes a chunk's states from it and runs the reverse
 recurrence by hand, so the saved state is S/CHUNK states and not S. The
-forward gives the bits of the plain per-step loop (``ssd_loop``). Decode
-(``init_ssm_state``, the ``state`` argument) comes with serving.
+forward gives the bits of the plain per-step loop (``ssd_loop``).
+
+Decode is the same recurrence from a carried state: ``init_ssm_state``
+holds each layer's f32 SSD state ``h`` and the causal conv's last K-1
+input rows ``conv``; with a ``state``, ``ssm`` reads both and writes the
+segment's final ones back into it in place (``ssd_from``: the per-step
+body of ``ssd_loop`` from the given state).
 """
 from __future__ import annotations
 
@@ -74,13 +79,26 @@ def init_ssm(gen: torch.Generator, cfg: SsmCfg, *, dtype, device):
     }
 
 
-def _causal_conv(x, w, b):
-    """x (B,S,C) depthwise causal conv of width K = w.shape[0] over a zero
-    history (training): the reference's sum of shifted products, in x's
-    dtype."""
+def init_ssm_state(batch: int, cfg: SsmCfg, *, dtype, device):
+    """One layer's decode state: the SSD state ``h`` (B, nh, hd, ds) in f32
+    and the conv history ``conv`` (B, K-1, conv_dim) in ``dtype``, zero."""
+    return {"h": torch.zeros(batch, cfg.n_heads, cfg.head_dim, cfg.d_state,
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros(batch, cfg.conv_width - 1, cfg.conv_dim,
+                                dtype=dtype, device=device)}
+
+
+def _causal_conv(x, w, b, state=None):
+    """x (B,S,C) depthwise causal conv of width K = w.shape[0]: the
+    reference's sum of shifted products, in x's dtype, over the history
+    ``state`` (B, K-1, C) of the previous segment (cast to x's dtype) or a
+    zero one (training). Returns (out, the new (B, K-1, C) history)."""
     kw, s = w.shape[0], x.shape[1]
-    xp = torch.cat([x.new_zeros(x.shape[0], kw - 1, x.shape[2]), x], dim=1)
-    return sum(xp[:, i:i + s] * w[i] for i in range(kw)) + b
+    pad = x.new_zeros(x.shape[0], kw - 1, x.shape[2]) if state is None \
+        else state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    out = sum(xp[:, i:i + s] * w[i] for i in range(kw)) + b
+    return out, xp[:, xp.shape[1] - (kw - 1):]
 
 
 # ---------------------------------------------------------------------------
@@ -95,18 +113,25 @@ def _ssd_step(h, x_t, b_t, c_t, dt_t, dec_t):
     return h, torch.einsum("bhdn,bn->bhd", h, c_t)
 
 
+def ssd_from(x, bm, cm, dt, dec, h):
+    """The plain per-step loop from ``h`` (B,nh,hd,ds) f32: x (B,S,nh,hd),
+    bm, cm (B,S,ds), dt, dec (B,S,nh), all f32 → (y (B,S,nh,hd), the final
+    state)."""
+    ys = []
+    for t in range(x.shape[1]):
+        h, y_t = _ssd_step(h, x[:, t], bm[:, t], cm[:, t], dt[:, t],
+                           dec[:, t])
+        ys.append(y_t)
+    return torch.stack(ys, dim=1), h
+
+
 def ssd_loop(x, bm, cm, dt, dec):
     """The plain per-step loop from a zero state: x (B,S,nh,hd), bm, cm
     (B,S,ds), dt, dec (B,S,nh), all f32 → y (B,S,nh,hd). Autograd keeps
     every step's state."""
-    b, s, nh, hd = x.shape
-    h = x.new_zeros(b, nh, hd, bm.shape[-1])
-    ys = []
-    for t in range(s):
-        h, y_t = _ssd_step(h, x[:, t], bm[:, t], cm[:, t], dt[:, t],
-                           dec[:, t])
-        ys.append(y_t)
-    return torch.stack(ys, dim=1)
+    b, _, nh, hd = x.shape
+    return ssd_from(x, bm, cm, dt, dec, x.new_zeros(b, nh, hd,
+                                                    bm.shape[-1]))[0]
 
 
 class _Ssd(torch.autograd.Function):
@@ -177,11 +202,10 @@ def ssd(x, bm, cm, dt, dec):
 
 def ssm(p, x, *, tap: Tap, cfg: SsmCfg, state=None,
         group: str = "ssm") -> torch.Tensor:
-    """x (B,S,d_model) → y (B,S,d_model). A decode ``state`` raises."""
-    if state is not None:
-        raise NotImplementedError(
-            "the SSM's recurrent decode state comes with serving: ROADMAP "
-            "Queue 1 item 8")
+    """x (B,S,d_model) → y (B,S,d_model). With a ``state``
+    (``init_ssm_state``) the conv and the recurrence start from it, and its
+    ``conv`` and ``h`` are overwritten in place with the segment's final
+    ones."""
     b, s, _ = x.shape
     di, ds, nh, hd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
     f32 = torch.float32
@@ -191,7 +215,9 @@ def ssm(p, x, *, tap: Tap, cfg: SsmCfg, state=None,
     xbc = zxbcdt[..., di:di + di + 2 * ds]
     dt = zxbcdt[..., -nh:]
 
-    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xbc, tail = _causal_conv(xbc, p["conv_w"], p["conv_b"],
+                             None if state is None else state["conv"])
+    xbc = F.silu(xbc)
     xs = xbc[..., :di].reshape(b, s, nh, hd)
     bs = xbc[..., di:di + ds]
     cs = xbc[..., di + ds:]
@@ -201,7 +227,13 @@ def ssm(p, x, *, tap: Tap, cfg: SsmCfg, state=None,
     a = -torch.exp(p["a_log"])                                    # (nh,)
     decay = torch.exp(dt * a)                                     # (B,S,nh)
 
-    y = ssd(xs.to(f32), bs.to(f32), cs.to(f32), dt, decay)        # (B,S,nh,hd)
+    ins = (xs.to(f32), bs.to(f32), cs.to(f32), dt, decay)
+    if state is None:
+        y = ssd(*ins)                                             # (B,S,nh,hd)
+    else:
+        y, h = ssd_from(*ins, state["h"])
+        state["h"].copy_(h)
+        state["conv"].copy_(tail)
 
     # skip connection D ⊙ x
     y = y + xs.to(f32) * p["d"][None, None, :, None]

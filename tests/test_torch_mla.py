@@ -185,12 +185,22 @@ def test_mla_kv_norm_sees_only_the_latent():
 
 
 def test_mla_cache_raises():
+    """A latent cache without its cache_index raises; one from
+    ``init_mla_cache`` is written in place at [cache_index, cache_index +
+    S) (the absorbed form itself is held against the reference in
+    ``tests/test_torch_serve_cache.py``)."""
     _, cfg = _mla_cfgs()
     p = tmla.init_mla(torch.Generator().manual_seed(0), cfg,
                       dtype=torch.float32, device="cpu")
-    x = torch.zeros(1, 3, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmla.mla_attention(p, x, tap=pex.NULL, cfg=cfg, cache={})
+    x = torch.ones(1, 3, cfg.d_model)
+    cache = tmla.init_mla_cache(1, 8, cfg, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="cache_index"):
+        tmla.mla_attention(p, x, tap=pex.NULL, cfg=cfg, cache=cache)
+    tmla.mla_attention(p, x, tap=pex.NULL, cfg=cfg, cache=cache,
+                       cache_index=2)
+    for buf in cache.values():
+        assert bool(buf[:, 2:5].all()) and not buf[:, :2].any() \
+            and not buf[:, 5:].any()
 
 
 # --- the deepseek-v2-236b smoke step ------------------------------------------

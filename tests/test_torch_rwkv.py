@@ -162,12 +162,18 @@ def test_cmix_and_tap_stats_match(dt, monkeypatch):
 
 
 def test_decode_state_raises():
+    """A decode state without its buffers raises; one from
+    ``init_rwkv_state`` is written in place (the decode itself is held
+    against the reference in ``tests/test_torch_serve_cache.py``)."""
     cfg = registry.get(ARCH).smoke().rwkv_cfg
     p = trwkv.init_rwkv_cmix(torch.Generator().manual_seed(0), cfg,
                              dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trwkv.rwkv_cmix(p, torch.zeros(1, 2, cfg.d_model), tap=pex.NULL,
-                        cfg=cfg, state={})
+    x = torch.ones(1, 2, cfg.d_model)
+    with pytest.raises(KeyError, match="cm_shift"):
+        trwkv.rwkv_cmix(p, x, tap=pex.NULL, cfg=cfg, state={})
+    state = trwkv.init_rwkv_state(1, cfg, dtype=torch.float32, device="cpu")
+    trwkv.rwkv_cmix(p, x, tap=pex.NULL, cfg=cfg, state=state)
+    assert torch.equal(state["cm_shift"], x[:, -1])
 
 
 # --- the chunked recurrence ---------------------------------------------

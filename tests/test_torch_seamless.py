@@ -139,7 +139,9 @@ def test_cross_attention_needs_memory_and_cache_raises():
     x = torch.zeros(1, 3, cfg.d_model)
     with pytest.raises(ValueError, match="memory"):
         tattn.attention(p, x, tap=pex.NULL, cfg=cfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a cross cache must hold the encoder's k and v (the decode on one is
+    # held against the reference in tests/test_torch_serve_cache.py)
+    with pytest.raises(KeyError, match="k"):
         tattn.attention(p, x, tap=pex.NULL, cfg=cfg, memory=x, cache={})
 
 

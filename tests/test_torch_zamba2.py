@@ -96,10 +96,11 @@ def test_causal_conv_matches(dt):
     jx, tx = fp.pair(rng, (2, 9, 24), dt)
     jw, tw = fp.pair(rng, (4, 24), dt, 0.5)
     jb, tb = fp.pair(rng, (24,), dt)
-    want, _ = jssm._causal_conv(jx, jw, jb, None)
-    got = tssm._causal_conv(tx, tw, tb)
+    want, jtail = jssm._causal_conv(jx, jw, jb, None)
+    got, tail = tssm._causal_conv(tx, tw, tb)
     assert got.dtype == tx.dtype
     fp.close_dt(got, want, dt)
+    fp.close_dt(tail, jtail, dt)
 
 
 def _stats(dt, monkeypatch, jfn, tfn, jp, tp, d_in, taps, seed):
@@ -177,12 +178,18 @@ def test_shared_attention_d_out_matches(dt, monkeypatch):
 
 
 def test_decode_state_raises():
+    """A decode state without its buffers raises; one from
+    ``init_ssm_state`` is written in place (the decode itself is held
+    against the reference in ``tests/test_torch_serve_cache.py``)."""
     cfg = registry.get(ARCH).smoke().ssm
     p = tssm.init_ssm(torch.Generator().manual_seed(0), cfg,
                       dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tssm.ssm(p, torch.zeros(1, 2, cfg.d_model), tap=pex.NULL, cfg=cfg,
-                 state={})
+    x = torch.ones(1, 2, cfg.d_model)
+    with pytest.raises(KeyError, match="conv"):
+        tssm.ssm(p, x, tap=pex.NULL, cfg=cfg, state={})
+    state = tssm.init_ssm_state(1, cfg, dtype=torch.float32, device="cpu")
+    tssm.ssm(p, x, tap=pex.NULL, cfg=cfg, state=state)
+    assert bool(state["h"].any()) and bool(state["conv"].any())
 
 
 # --- the chunked recurrence ---------------------------------------------
