@@ -279,7 +279,30 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               160 experts), phi3.5-moe (2), gemma2-9b (4), qwen2-vl-7b (2),
               rwkv6-3b (2) and zamba2-7b (9), prompts of 16–128 tokens;
               seamless-m4t-medium at full depth through ``forward_tokens``
-              prefilled from source frames; phase 34's numbers for each.
+              prefilled from source frames; phase 34's numbers for each;
+36. dp-exact — data parallelism (``dist.pex``) at two ranks: both on
+              cuda:0 over gloo (NCCL refuses two ranks on one card; the
+              card's compute mode must be ``Default``), each spawned, a
+              ``make_host_mesh()`` mesh, llama3.2-1b at full width, 2
+              layers, f32, B=4, S=256: ``Engine(mesh=)``'s
+              ``value_grads_and_norms``, ``value_and_norms``,
+              ``clipped_step`` without and with noise and ``step([Clip,
+              GNS])`` against the one-process ``Engine`` on the first rank
+              at the reference selfcheck's tolerances (loss 1e-5, norms
+              1e-4, gradients rtol 1e-4 / atol 1e-5 of each leaf's
+              largest |value|) and bit for bit against the two shards'
+              one-process passes summed (and noised), both ranks' noised
+              gradients bit for bit equal, each rank's gram and direct
+              launches per pass those of one process on its 2 rows;
+37. dp      — the slice's path: phase 17's clip steps (same seeds and
+              schedule) through ``Trainer(mesh=make_host_mesh())`` on a
+              one-rank NCCL group, llama3.2-1b at full depth and width in
+              bf16, B=8, S=512: the parameters after the steps bit for bit
+              phase 17's (a digest of each leaf), the launches of each pass
+              phase 5's, the stream ms of the gradient all-reduce and of the
+              per-example gathers (events), step ms beside phase 17's, peak
+              memory; then ``python -m repro_torch.launch.train --arch
+              llama3.2-1b --smoke --data-parallel --steps 2`` once (exit 0).
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -295,7 +318,8 @@ peak memory and segmented kernel time per step after them, then the token
 paths' step times, peak memory and ``rowsumsq`` time per step, those of
 gemma2, qwen2-vl, deepseek and the LoRA path, the tenant steps, those of
 rwkv6, zamba2 and seamless, the served paths' decode steps and tokens
-per second, and the whole run's seconds.
+per second, the data-parallel phases' seconds, step ms and collective
+stream ms, and the whole run's seconds.
 ``update_times()`` (not in a whole run) times one AdamW update and one
 in-place noise add, with the transient memory of each. TF32 is off
 for matmuls and cuDNN throughout, so the f32 plain versions are full f32.
@@ -306,6 +330,7 @@ line before it is the kernel table as JSON, and the line before that the
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -2422,6 +2447,9 @@ def phase_train(spec, registry, cfg):
                                    seed=seed))
             ms = t.train()
             params = t.params
+            if mode == "clip":
+                # phase 37 reproduces these bits through a one-rank mesh
+                clip_digest = tree_digest(params)
             del t
             k = B if mode == "clip" else B // 4
             for i, m in enumerate(ms):
@@ -2461,7 +2489,491 @@ def phase_train(spec, registry, cfg):
         f"began)")
     return {"metrics": metrics, "launches": launches, "peak_gib": peak,
             "step_ms": [m["time_s"] * 1e3 for m in metrics],
-            "norm_shapes": norm_shapes}
+            "norm_shapes": norm_shapes, "clip_digest": clip_digest,
+            "norms_want": norms_want}
+
+
+def tree_digest(tree) -> list:
+    """(path, sha256 of the bytes) of every leaf of a parameter tree, in
+    its order: two trees are bitwise equal iff their digests are."""
+    import hashlib
+
+    import torch
+    from repro_torch.nn.param import tree_leaves, tree_paths
+
+    out = []
+    for path, x in zip(tree_paths(tree), tree_leaves(tree)):
+        raw = x.detach().contiguous().view(torch.uint8).cpu().numpy()
+        out.append(("/".join(map(str, path)),
+                    hashlib.sha256(raw.tobytes()).hexdigest()))
+    return out
+
+
+DP_WORLD = 2                  # phase 36's ranks, both on cuda:0 over gloo
+DP_EXACT_LAYERS, DP_EXACT_B, DP_EXACT_S = 2, 4, 256
+DP_NOISE_SEED = 7
+DP_TIMEOUT_S = 300            # a collective that waits longer fails
+#: the reference selfcheck's tolerances (src/repro/dist/selfcheck.py):
+#: (rtol, atol) of the loss and per-example losses, the norms, gradients
+DP_TOL = {"loss": (1e-5, 1e-6), "sq_norms": (1e-4, 1e-6),
+          "grads": (1e-4, 1e-5)}
+
+
+def compute_mode() -> str:
+    """The card's compute mode as ``nvidia-smi`` reports it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+
+
+def dp_rank(rank, world, tmp, fn):
+    """One spawned rank of phase 36 on cuda:0: join the gloo group, run
+    ``fn(rank)``, leave the group, write its result to ``tmp``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")   # one host
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        out = fn(rank)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+class PassLaunches:
+    """Counts the gram and direct launches of every backward pass
+    (``plan._grad``), in order, while entered."""
+
+    def __init__(self):
+        self.passes = []
+
+    def __enter__(self):
+        from repro_torch.core import plan as plan_mod
+        from repro_torch.kernels import ops
+
+        self.orig = plan_mod._grad
+
+        def counted(out, inputs, seed, **kw):
+            before = ops.launch_counts()
+            gs = self.orig(out, inputs, seed, **kw)
+            after = ops.launch_counts()
+            self.passes.append({k: after[k] - before[k]
+                                for k in NORM_KERNELS
+                                if after[k] != before[k]})
+            return gs
+
+        plan_mod._grad = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import plan as plan_mod
+        plan_mod._grad = self.orig
+
+
+def dp_exact_work(rank):
+    """Phase 36 on one rank: ``Engine(mesh=make_host_mesh())``'s
+    ``value_grads_and_norms``, ``value_and_norms``, ``clipped_step``
+    (without and with noise) and ``step([Clip, GNS])`` on llama3.2-1b at
+    full width (``DP_EXACT_LAYERS`` layers, f32) on the global batch; the
+    noised gradients checked bitwise against the first rank's. The first
+    rank also runs the one-process ``Engine`` on the whole batch (every
+    output within ``DP_TOL``) and on each shard's rows: their passes
+    summed (and noised) must be the mesh's bit for bit, and the first
+    shard's launches per pass are those each rank must make."""
+    import torch
+    from repro_torch import pex
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.dist import pex as dpex
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.core.passes import add_grad_noise
+    from repro_torch.models import registry
+    from repro_torch.nn.param import tree_leaves, tree_map, tree_paths
+
+    spec = registry.get("llama3.2-1b")
+    cfg = cut(spec, DP_EXACT_LAYERS, dtype="float32")
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = registry.make_train_batch(
+        spec, cfg, ShapeSpec("dp-exact", "train", DP_EXACT_S, DP_EXACT_B),
+        rng_seed=0)
+    loss_fn = registry.make_loss_fn_v2(spec, cfg)
+    mesh = make_host_mesh()
+    dpex.check_replicated(params, mesh)
+
+    def passes(eng, b):
+        """The five calls, in order; their results."""
+        g = eng.value_grads_and_norms(loss_fn, params, b)
+        n = eng.value_and_norms(loss_fn, params, b)
+        c = eng.clipped_step(loss_fn, params, b, clip_norm=clip)
+        cn = eng.clipped_step(
+            loss_fn, params, b, clip_norm=clip, noise_std=0.5,
+            rng=torch.Generator(device="cuda").manual_seed(DP_NOISE_SEED))
+        p = eng.step(loss_fn, params, b, [pex.Clip(clip), pex.GNS()])
+        return {"grads": g, "norms": n, "clipped": c, "noised": cn,
+                "plan": p}
+
+    # the clip threshold of the reference selfcheck: half the median
+    # per-example norm, from a one-process pass (the same on every rank)
+    clip = 0.5 * float(torch.sqrt(torch.median(pex.Engine(
+        pex.PexSpec()).value_and_norms(loss_fn, params, batch)
+        .sq_norms.sum(-1))))
+    ops.reset_launch_counts()
+    with PassLaunches() as counted:
+        got = passes(pex.Engine(pex.PexSpec(), mesh=mesh), batch)
+    launches = ops.launch_counts()
+    dpex.check_replicated(got["noised"].grads, mesh,
+                          what="noised gradients")
+    out = {"launches": counted.passes, "total": launches, "clip": clip,
+           "digest": tree_digest(got["noised"].grads)}
+    if rank:
+        return out
+    local = pex.Engine(pex.PexSpec())
+    # against one process on the whole batch: loss and per-example losses
+    # at 1e-5, norms (and GNS) at 1e-4, gradients at rtol 1e-4 and atol
+    # 1e-5 of each leaf's largest |value| (the reference selfcheck's atol
+    # is absolute: at its smoke widths the same scale); the elements an
+    # absolute atol of 1e-5 would flag are counted
+    want = passes(local, batch)
+    checks, flagged = [], 0
+    for tag in got:
+        g, w = got[tag], want[tag]
+        pairs = [("loss", "loss", g.loss, w.loss),
+                 ("loss", "loss_vec", g.loss_vec, w.loss_vec),
+                 ("sq_norms", "sq_norms", g.sq_norms, w.sq_norms)]
+        if getattr(g, "gns", None) is not None:
+            pairs.append(("sq_norms", "gns", g.gns, w.gns))
+        if g.grads is not None:
+            pairs += [("grads", p, a, b) for p, a, b in zip(
+                tree_paths(g.grads), tree_leaves(g.grads),
+                tree_leaves(w.grads))]
+        for kind, name, a, b in pairs:
+            rtol, atol = DP_TOL[kind]
+            a, b = a.float(), b.float()
+            scale = float(b.abs().max()) if kind == "grads" else 1.0
+            err = float((a - b).abs().max())
+            checks.append((tag, kind, str(name), bool(torch.allclose(
+                a, b, rtol=rtol, atol=atol * scale)), err, scale))
+            if kind == "grads":
+                flagged += int(((a - b).abs()
+                                > atol + rtol * b.abs()).sum())
+    del want
+    # exact: each pass is the two shards' one-process passes, summed
+    rows = DP_EXACT_B // DP_WORLD
+    halves = []
+    for r in range(DP_WORLD):
+        with PassLaunches() as one:
+            h = passes(local, {k: v[r * rows:(r + 1) * rows]
+                               for k, v in batch.items()})
+        if r == 0:
+            out["one_process"] = one.passes
+        for tag in ("norms", "noised"):
+            del h[tag]
+        halves.append(h)
+    exact = {}
+    for tag in ("grads", "clipped", "plan"):
+        exact[tag] = all(torch.equal(g, a + b) for g, a, b in zip(
+            tree_leaves(got[tag].grads),
+            *(tree_leaves(h[tag].grads) for h in halves))) and all(
+            torch.equal(getattr(got[tag], k),
+                        torch.cat([getattr(h[tag], k) for h in halves]))
+            for k in ("loss_vec", "sq_norms"))
+    summed = tree_map(lambda a, b: a + b, halves[0]["clipped"].grads,
+                      halves[1]["clipped"].grads)
+    del halves
+    add_grad_noise(summed, 0.5, clip, torch.Generator(
+        device="cuda").manual_seed(DP_NOISE_SEED))
+    exact["noised"] = all(torch.equal(g, w) for g, w in zip(
+        tree_leaves(got["noised"].grads), tree_leaves(summed)))
+    out.update(checks=checks, flagged=flagged, exact=exact)
+    return out
+
+
+def phase_dp_exact():
+    """Phase 36: two ranks on cuda:0 over gloo (``make_host_mesh()``)
+    against the one-process ``Engine`` on llama3.2-1b at full width, 2
+    layers, f32, B=4, S=256, at the reference selfcheck's tolerances (the
+    gradients' atol scaled by each leaf's largest |value|: its absolute
+    1e-5 was set at smoke widths) and, bit for bit, against the two
+    shards' one-process passes summed; both ranks' noised gradients bit
+    for bit equal; each shard's gram and direct launches per pass those of
+    a one-process pass on its 2 rows."""
+    import pickle
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    mode = compute_mode()
+    log(f"[dp-exact] compute mode {mode!r}; {DP_WORLD} ranks on cuda:0 "
+        f"over gloo; llama3.2-1b, {DP_EXACT_LAYERS} layers, float32, "
+        f"B={DP_EXACT_B}, S={DP_EXACT_S}")
+    if mode != "Default":
+        raise AssertionError(f"compute mode {mode!r}: two processes cannot "
+                             f"share the card")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(dp_rank, args=(DP_WORLD, tmp, dp_exact_work),
+                           nprocs=DP_WORLD, start_method="spawn")
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    first = ranks[0]
+    bad = [c for c in first["checks"] if not c[3]]
+    worst = {}
+    for tag, kind, _, _, err, _ in first["checks"]:
+        worst[(tag, kind)] = max(worst.get((tag, kind), 0.0), err)
+    log(f"[dp-exact] clip {first['clip']:.4g}; max |Δ| against one process "
+        f"by pass and output: "
+        f"{ {f'{t}/{k}': float(f'{e:.3g}') for (t, k), e in worst.items()} }"
+        f" (tolerances {DP_TOL}, gradients' atol of each leaf's max "
+        f"|value|); gradient elements an absolute atol of 1e-5 flags: "
+        f"{first['flagged']}; bit for bit the two shards' one-process "
+        f"passes summed: {first['exact']}")
+    if bad:
+        raise AssertionError(
+            f"dp-exact: {len(bad)} outputs outside the tolerance "
+            f"(pass, kind, output, ok, max |Δ|, max |value|): {bad[:8]}")
+    if not all(first["exact"].values()):
+        raise AssertionError(f"dp-exact: not the shards' passes summed: "
+                             f"{first['exact']}")
+    for r, rank in enumerate(ranks):
+        if rank["digest"] != first["digest"]:
+            raise AssertionError(f"dp-exact: rank {r}'s noised gradients "
+                                 f"differ from rank 0's")
+        if rank["launches"] != first["one_process"]:
+            raise AssertionError(
+                f"dp-exact: rank {r} launched {rank['launches']} per pass, "
+                f"one process on {DP_EXACT_B // DP_WORLD} rows "
+                f"{first['one_process']}")
+        if not any(rank["total"][k] for k in NORM_KERNELS):
+            raise AssertionError(f"dp-exact: rank {r} launched no norm "
+                                 f"kernel: {rank['total']}")
+    log(f"[dp-exact] both ranks' noised gradients bitwise equal "
+        f"({len(first['digest'])} leaves); gram/direct launches per pass "
+        f"on each rank {first['launches']}, as one process on "
+        f"{DP_EXACT_B // DP_WORLD} rows; {time.perf_counter() - t0:.1f} s")
+    return {"worst": worst, "launches": first["launches"],
+            "seconds": time.perf_counter() - t0}
+
+
+def clip_trainer(spec, registry, cfg, mesh=None):
+    """Phase 17's clip trainer on fresh parameters (seed 0):
+    ``TRAIN_CLIP_STEPS`` steps of ``consumers_for_mode("clip", B,
+    noise_std=0.1)`` on ``SyntheticLM`` (seed 0) under AdamW with phase
+    17's warm-up cosine over all its steps; on ``mesh``, or alone."""
+    import torch
+    from repro_torch.core.taps import PexSpec
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import linear_warmup_cosine
+    from repro_torch.train.trainer import (TrainConfig, Trainer,
+                                           consumers_for_mode)
+
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    return Trainer(registry.make_loss_fn_v2(spec, cfg), params, PexSpec(),
+                   adamw.AdamWConfig(schedule=linear_warmup_cosine(
+                       2, TRAIN_CLIP_STEPS + TRAIN_IMPORTANCE_STEPS)),
+                   TrainConfig(consumers=consumers_for_mode(
+                       "clip", B, noise_std=0.1), steps=TRAIN_CLIP_STEPS,
+                       log_every=1, seed=0),
+                   DataConfig(vocab=cfg.vocab, seq=S, global_batch=B,
+                              seed=0), mesh=mesh)
+
+
+class one_rank_nccl:
+    """A one-rank NCCL group on cuda:0 for the body; enters as
+    ``make_host_mesh()`` over it."""
+
+    def __enter__(self):
+        import tempfile
+
+        import torch
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_host_mesh
+
+        torch.cuda.set_device(0)
+        self.tmp = tempfile.TemporaryDirectory()
+        dist.init_process_group(
+            "nccl", init_method=f"file://{self.tmp.name}/store", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+        return make_host_mesh()
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        self.tmp.cleanup()
+
+
+class CollectiveSpans:
+    """CUDA events around ``dist.pex``'s gradient all-reduce and
+    per-example gathers, grouped by the trainer's steps, while entered."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.spans = []
+
+    def _timed(self, kind, fn):
+        import torch
+
+        def wrapper(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            self.spans[-1][kind].append((e0, e1))
+            return out
+        return wrapper
+
+    def __enter__(self):
+        from repro_torch.dist import pex as dpex
+
+        self.orig = dpex._reduce_grads, dpex._gather_rows
+        run_step = self.trainer.run_step
+
+        def marked(batch):
+            self.spans.append({"reduce": [], "gather": []})
+            return run_step(batch)
+
+        self.trainer.run_step = marked
+        dpex._reduce_grads = self._timed("reduce", self.orig[0])
+        dpex._gather_rows = self._timed("gather", self.orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.dist import pex as dpex
+        dpex._reduce_grads, dpex._gather_rows = self.orig
+        del self.trainer.run_step
+
+    def ms(self, kind) -> list:
+        """Stream ms of ``kind`` ("reduce" or "gather") a step (after the
+        card is synchronized)."""
+        return [sum(a.elapsed_time(b) for a, b in sp[kind])
+                for sp in self.spans]
+
+
+def dp_times(pairs=2):
+    """Phase 17's clip steps alone and through a one-rank NCCL mesh
+    (``clip_trainer``), in turns (alone, mesh, mesh, alone, ...): each
+    run's steady step ms (steps 1 to the last) and the mesh runs' gradient
+    all-reduce and gather stream ms a step. Not in a whole run."""
+    import torch
+    from repro_torch.models import registry
+
+    phase_build()
+    spec = registry.get("llama3.2-1b")
+    cfg = spec.full()
+    out = {"alone": [], "mesh": [], "reduce_ms": [], "gather_ms": []}
+    with one_rank_nccl() as mesh:
+        for i in range(2 * pairs):
+            kind = ("alone", "mesh", "mesh", "alone")[i % 4]
+            t = clip_trainer(spec, registry, cfg,
+                             mesh if kind == "mesh" else None)
+            with CollectiveSpans(t) as spans:
+                metrics = t.train()
+            torch.cuda.synchronize()
+            out[kind].append([round(m["time_s"] * 1e3, 1)
+                              for m in metrics[1:]])
+            if kind == "mesh":
+                for k in ("reduce", "gather"):
+                    out[f"{k}_ms"].append([round(x, 3)
+                                           for x in spans.ms(k)[1:]])
+            del t, spans
+            torch.cuda.empty_cache()
+    log(f"[dp-times] in turns (alone, mesh, mesh, alone): {json.dumps(out)}")
+    return out
+
+
+def phase_dp(spec, registry, cfg, train_run):
+    """Phase 37, the slice's path: phase 17's clip steps through
+    ``Trainer(mesh=make_host_mesh())`` on a one-rank NCCL group, llama3.2-1b
+    at full depth and width in bf16, B=8, S=512, the same seeds and
+    schedule; the parameters after the steps bit for bit phase 17's; the
+    stream ms of the gradient all-reduce and of the per-example gathers
+    (CUDA events around ``dist.pex``'s two collectives), step ms beside
+    phase 17's, peak memory, and each pass's gram and direct launches
+    (phase 5's in the norms pass, none in the reweighted pass). Then the
+    launcher's ``--data-parallel`` once in a subprocess."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+
+    norms_want = train_run["norms_want"]
+    log(f"[dp] {cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, B={B}, "
+        f"S={S}: phase 17's {TRAIN_CLIP_STEPS} clip+noise steps through "
+        f"Trainer(mesh=make_host_mesh()) on a one-rank NCCL group")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with one_rank_nccl() as mesh:
+        t = clip_trainer(spec, registry, cfg, mesh)
+        backend = dist.get_backend()
+        ops.reset_launch_counts()
+        with CollectiveSpans(t) as spans, PassLaunches() as counted:
+            metrics = t.train()
+        launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    digest = tree_digest(t.params)
+    del t
+    torch.cuda.synchronize()
+    reduce_ms, gather_ms = spans.ms("reduce"), spans.ms("gather")
+    n_coll = [(len(sp["reduce"]), len(sp["gather"])) for sp in spans.spans]
+    step_ms = [m["time_s"] * 1e3 for m in metrics]
+    want = [norms_want, {}] * TRAIN_CLIP_STEPS
+    log(f"[dp] backend {backend}; step ms {[round(x, 1) for x in step_ms]}"
+        f" (phase 17's clip steps "
+        f"{[round(x, 1) for x in train_run['step_ms'][:TRAIN_CLIP_STEPS]]}"
+        f"); gradient all-reduce stream ms a step "
+        f"{[round(x, 3) for x in reduce_ms]}, per-example gathers "
+        f"{[round(x, 3) for x in gather_ms]} (collectives a step, "
+        f"reduce/gather: {n_coll}); peak memory {peak:.2f} GiB (phase "
+        f"17's {train_run['peak_gib']:.2f}); launches per pass "
+        f"{counted.passes[:2]} (phase 5's norms pass {norms_want})")
+    if counted.passes != want:
+        raise AssertionError(f"dp: launches per pass {counted.passes}, "
+                             f"expected {want}")
+    if {k: launches[k] for k in NORM_KERNELS} != {
+            k: TRAIN_CLIP_STEPS * norms_want.get(k, 0)
+            for k in NORM_KERNELS}:
+        raise AssertionError(f"dp: launches {launches}")
+    if not all(math.isfinite(m[k]) for m in metrics
+               for k in ("loss", "norm_mean", "norm_max")):
+        raise AssertionError(f"dp: {metrics}")
+    differ = [p for (p, a), (_, b) in zip(digest, train_run["clip_digest"])
+              if a != b]
+    if len(digest) != len(train_run["clip_digest"]) or differ:
+        raise AssertionError(f"dp: the parameters after {TRAIN_CLIP_STEPS} "
+                             f"steps differ from phase 17's in "
+                             f"{len(differ)} leaves: {differ[:8]}")
+    log(f"[dp] the parameters after {TRAIN_CLIP_STEPS} steps equal phase "
+        f"17's bit for bit ({len(digest)} leaves)")
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "llama3.2-1b", "--smoke", "--data-parallel", "--steps", "2"]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(
+                           ROOT, "src")))
+    log(f"[dp] {' '.join(cmd[1:])}: exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{' | '.join(r.stdout.strip().splitlines()[-3:])}")
+    if r.returncode or "data-parallel over 1 ranks (nccl, cuda)" \
+            not in r.stdout:
+        raise AssertionError(f"dp launcher: exit {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    return {"step_ms": step_ms, "reduce_ms": reduce_ms,
+            "gather_ms": gather_ms, "peak_gib": peak}
 
 
 def norm_host_us(reps=200):
@@ -4560,6 +5072,10 @@ def main() -> int:
     serve_exact = phase_serve_exact(registry)
     serve_run = phase_serve(registry)
     serve_fams = phase_serve_families(registry)
+    torch.cuda.empty_cache()
+    dp_exact = phase_dp_exact()
+    dp_run = phase_dp(spec, registry, cfg, train_run)
+    torch.cuda.empty_cache()
     for tag, r in (("serve llama3.2-1b", serve_run),
                    *((f"serve-families {a}", r)
                      for a, r in serve_fams.items())):
@@ -4636,7 +5152,10 @@ def main() -> int:
         f"fused, plain step ms {tenant_means}; "
         + "".join(f"{t} step ms {r['step_ms']}; " for t, r in fam_runs.items())
         + f"serve decode step ms {serve_run['decode_ms']:.3f}, "
-        f"{serve_run['tok_per_s']:.1f} tok/s; whole run "
+        f"{serve_run['tok_per_s']:.1f} tok/s; dp-exact "
+        f"{dp_exact['seconds']:.1f} s; dp step ms {dp_run['step_ms']} "
+        f"(all-reduce {dp_run['reduce_ms']}, gathers "
+        f"{dp_run['gather_ms']} stream ms a step); whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -1,6 +1,6 @@
 """``Engine`` — the entry point for per-example-gradient runs.
 
-Port of ``src/repro/core/engine.py`` for one device. Every pass takes a
+Port of ``src/repro/core/engine.py``. Every pass takes a
 **tap-collector loss**
 
     loss_fn(params, batch, tap) -> (loss_vec, aux)
@@ -18,8 +18,11 @@ with a loss that registers its token map (``tap.token_loss``),
 ``Clip(C, granularity="token")`` reweights every token's loss term by its
 own contribution norm in the same fused pass.
 
-The step runs on the device the parameters live on. Not in this slice:
-the ``mesh`` path (``dist.pex``) and ``verify`` (the static analysis).
+The step runs on the device the parameters live on. ``mesh=`` (a
+``DeviceMesh``, ``dist.sharding.make_mesh``) routes every pass through the
+data-parallel pipeline ``dist.pex`` over ``data_axes``: each rank runs its
+rows of the global batch, gradients are all-reduced, and the results are
+global on every rank. Not in this slice: ``verify`` (the static analysis).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from repro_torch.core import plan as plan_mod
 from repro_torch.core.passes import PexResult
 from repro_torch.core.plan import StepResult
 from repro_torch.core.taps import ExampleLayout, PexSpec, Tap, TokenLayout
+from repro_torch.dist import pex as _dpex
 from repro_torch.nn.param import resolve_device, tree_leaves
 
 
@@ -65,19 +69,27 @@ class Engine:
 
     spec:        ``PexSpec`` (default: enabled, method='auto', kernels on).
                  ``taps.DISABLED`` gives a plain engine.
+    mesh:        a ``DeviceMesh`` or None. A mesh routes every pass through
+                 the ``dist.pex`` data-parallel pipeline over
+                 ``data_axes``; None runs on this process alone.
     clip_norm:   default clip threshold C for ``clipped_step``.
-    noise_std:   default DP-SGD noise multiplier σ for ``clipped_step``.
+    noise_std:   default DP-SGD noise multiplier σ for ``clipped_step``
+                 (noise σ·C is added once, after the gradient reduce).
     granularity: 'example' → (B, G) accumulator (per-group columns from
                  ``spec.groups``); 'token' → (B, S) accumulator.
     """
 
     def __init__(self, spec: Optional[PexSpec] = None, *,
+                 mesh=None, data_axes: Sequence[str] = ("data",),
                  clip_norm: Optional[float] = None, noise_std: float = 0.0,
                  granularity: str = "example"):
         if granularity not in ("example", "token"):
             raise ValueError(f"granularity must be 'example' or 'token', "
                              f"got {granularity!r}")
         self.spec = spec if spec is not None else PexSpec()
+        self.mesh = mesh
+        self.data_axes = (data_axes,) if isinstance(data_axes, str) \
+            else tuple(data_axes)
         self.clip_norm = clip_norm
         self.noise_std = noise_std
         self.granularity = granularity
@@ -119,8 +131,9 @@ class Engine:
             layout = ExampleLayout(self.spec.n_groups)
         acc_loss = self._adapt(loss_fn, layout,
                                want_token_map=plan.token_weighted)
-        return plan_mod.execute(plan, acc_loss, params, batch, b, layout,
-                                loss_weights=loss_weights)
+        return _dpex.plan_step(plan, acc_loss, params, batch, b,
+                               mesh=self.mesh, data_axes=self.data_axes,
+                               layout=layout, loss_weights=loss_weights)
 
     # -- fixed-function sugar (one line each over `step`) ---------------
     def value_and_norms(self, loss_fn: Callable, params, batch, *,

@@ -219,6 +219,19 @@ def stat_elementwise(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(prod), dim=-1)
 
 
+def add_rows(out: torch.Tensor, index: torch.Tensor,
+             rows: torch.Tensor) -> torch.Tensor:
+    """``out[index[i]] += rows[i]`` for every i, in place, adding the rows
+    of one index in the same order on every run: on CUDA by ``index_put_``
+    with ``accumulate`` (it sorts the indices; ``index_add_`` adds by
+    atomics, whose order changes from run to run once three rows share an
+    index), on the CPU by ``index_add_`` (serial; there ``index_put_`` is
+    the one that is not)."""
+    if out.is_cuda:
+        return out.index_put_((index,), rows, accumulate=True)
+    return out.index_add_(0, index, rows)
+
+
 def stat_embedding(token_ids: torch.Tensor,
                    zbar: torch.Tensor) -> torch.Tensor:
     """Per-example norm for an embedding table E, z_t = E[x_t]:
@@ -233,6 +246,8 @@ def stat_embedding(token_ids: torch.Tensor,
     new_seg = torch.ones_like(ids_s)
     new_seg[:, 1:] = (ids_s[:, 1:] != ids_s[:, :-1]).to(ids_s.dtype)
     seg = torch.cumsum(new_seg, dim=-1) - 1
-    summed = torch.zeros_like(zbar).scatter_add_(
-        1, seg[..., None].expand(b, s, d), z_s)
-    return torch.sum(torch.square(summed), dim=(1, 2))
+    flat = seg + s * torch.arange(b, device=seg.device)[:, None]
+    summed = add_rows(torch.zeros((b * s, d), dtype=zbar.dtype,
+                                  device=zbar.device),
+                      flat.reshape(-1), z_s.reshape(b * s, d))
+    return torch.sum(torch.square(summed.reshape(b, s, d)), dim=(1, 2))

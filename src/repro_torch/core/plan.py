@@ -28,14 +28,17 @@ The reference applies its ``vjp_fn`` twice; the port makes two
 ``torch.autograd.grad`` calls over one retained graph: the first over the
 initial accumulator, the second over the parameters.
 
-Not in this slice: the mesh path (``dist.pex``, with ``execute``'s
-``fused_fn`` hook) and the ``core.provenance`` identity markers, which only
-the analysis passes read.
+The mesh path (``dist.pex.plan_step``) hands ``execute`` a ``fused_fn``
+that runs the same fused core on each rank's rows and returns global
+arrays, so one driver serves both: the importance sample, GNS and the
+noise act on global arrays between and after the regions. Not in this
+slice: the ``core.provenance`` identity markers, which only the analysis
+passes read.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional, Sequence
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -396,22 +399,33 @@ def _compose_weights(plan: Plan, sq_norms, loss_weights,
 # execute: the importance split, noise, GNS
 # ---------------------------------------------------------------------------
 
+#: a fused_fn: (sub-plan, batch, batch_size, loss_weights) -> the
+#: run_fused tuple. ``execute`` defaults to the local one; dist.pex passes
+#: one that runs each rank's rows and returns global arrays, so the same
+#: driver serves the mesh.
+FusedFn = Callable[[Plan, Any, int, Optional[torch.Tensor]], Tuple]
+
 _NORMS_ONLY = Plan(needs_norms=True)
 _GRADS_ONLY = Plan(needs_grads=True)
 
 
 def execute(plan: Plan, acc_loss: Callable, params, batch,
-            batch_size: int, layout, *, loss_weights=None) -> StepResult:
+            batch_size: int, layout, *, loss_weights=None,
+            fused_fn: Optional[FusedFn] = None) -> StepResult:
     """Run a full plan: the fused region(s), then noise and GNS."""
+    if fused_fn is None:
+        def fused_fn(sub, b, bs, lw):
+            return run_fused(sub, acc_loss, params, b, bs, layout,
+                             loss_weights=lw)
+
     samp = sub_sq = None
     if plan.importance is None:
-        lv, aux, sq, grads, w, tw, cc = run_fused(
-            plan, acc_loss, params, batch, batch_size, layout,
-            loss_weights=loss_weights)
+        lv, aux, sq, grads, w, tw, cc = fused_fn(plan, batch, batch_size,
+                                                 loss_weights)
     else:
         ip = plan.importance
-        lv, aux, sq, _, _, _, _ = run_fused(_NORMS_ONLY, acc_loss, params,
-                                            batch, batch_size, layout)
+        lv, aux, sq, _, _, _, _ = fused_fn(_NORMS_ONLY, batch, batch_size,
+                                           None)
         samp = imp.sample(ip.rng, sq, ip.k, smoothing=ip.smoothing,
                           replace=ip.replace)
         sub_batch = imp.gather_batch(batch, samp.indices,
@@ -424,9 +438,8 @@ def execute(plan: Plan, acc_loss: Callable, params, batch,
             extra_weights=samp.weights)
         grads = None
         if plan.needs_grads:
-            _, _, _, grads, w, _, _ = run_fused(
-                _GRADS_ONLY, acc_loss, params, sub_batch, ip.k, layout,
-                loss_weights=w)
+            _, _, _, grads, w, _, _ = fused_fn(_GRADS_ONLY, sub_batch,
+                                               ip.k, w)
 
     gns = None
     if plan.gns:

@@ -459,7 +459,8 @@ class _Scale(torch.autograd.Function):
 
 
 class _Embed(torch.autograd.Function):
-    """z = table[ids]; dtable by ``index_add_``."""
+    """z = table[ids]; dtable by ``norms.add_rows``: each id's rows add in
+    one fixed order, so the gradient has the same bits on every run."""
 
     @staticmethod
     def forward(ctx, table, ids, acc, mode, layout, group, use_kernels):
@@ -474,9 +475,9 @@ class _Embed(torch.autograd.Function):
         mode, layout, group, use_kernels, shape, dtype = ctx.cfg
         dtable = dacc = None
         if mode.grads and ctx.needs_input_grad[0]:
-            dtable = torch.zeros(shape, dtype=dtype, device=zbar.device)
-            dtable.index_add_(0, ids.reshape(-1),
-                              zbar.reshape(-1, shape[-1]).to(dtype))
+            dtable = N.add_rows(
+                torch.zeros(shape, dtype=dtype, device=zbar.device),
+                ids.reshape(-1), zbar.reshape(-1, shape[-1]).to(dtype))
         if mode.norms:
             dacc = layout.add_embedding(acc_bar, ids, zbar, group,
                                         use_kernels)

@@ -3,7 +3,7 @@
 Port of ``src/repro/launch/train.py``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
-        --smoke --mode clip --steps 50 [--device cpu]
+        --smoke --mode clip --steps 50 [--device cpu] [--data-parallel]
 
 ``--arch`` is any arch of ``models.registry.ARCHS`` but
 seamless-m4t-medium. The batches come from ``SyntheticLM`` (ids and labels
@@ -13,13 +13,24 @@ M-RoPE fallback, and seamless-m4t-medium, whose encoder needs the batch's
 pipeline has no source frames either). It runs on the
 CUDA device unless ``--device cpu`` is given, and raises when there is
 none. ``--smoke`` runs the reduced config; without it the
-published widths. ``--data-parallel``, ``--ckpt-dir`` and ``--resume`` are
-refused: meshes and checkpointing wait for ROADMAP.md Queue 1 items 9 and
-10.
+published widths.
+
+``--data-parallel`` trains on a ``("data", "model")`` host mesh
+(``launch.mesh.make_host_mesh``) through ``dist.pex``, one process per
+rank. Under ``torchrun`` (its ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``)
+each process joins that group; otherwise the launcher spawns one rank per
+visible CUDA device, or a single rank with ``--device cpu``. The backend
+follows the device: NCCL on CUDA (rank r on ``cuda:LOCAL_RANK``), gloo on
+the CPU. The first rank logs, and ``main`` returns its metrics.
+``--ckpt-dir`` and ``--resume`` are refused: checkpointing waits for
+ROADMAP.md Queue 1 item 10.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import tempfile
 
 import torch
 
@@ -32,8 +43,10 @@ from repro_torch.optim.schedule import linear_warmup_cosine
 from repro_torch.train.trainer import (WAITS, TrainConfig, Trainer,
                                        consumers_for_mode)
 
+_TORCHRUN = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 
-def main(argv=None) -> list:
+
+def _parse(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -50,16 +63,20 @@ def main(argv=None) -> list:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--data-parallel", action="store_true")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="split the batch over one process per rank "
+                         "(dist.pex; NCCL on CUDA, gloo on the CPU)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
-    args = ap.parse_args(argv)
-    for flag, on in (("--data-parallel", args.data_parallel),
-                     ("--ckpt-dir", args.ckpt_dir is not None),
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> list:
+    args = _parse(argv)
+    for flag, on in (("--ckpt-dir", args.ckpt_dir is not None),
                      ("--resume", args.resume)):
         if on:
             raise NotImplementedError(f"{flag} {WAITS}")
-
     aspec = registry.get(args.arch)
     if aspec.family == "seamless":
         raise ValueError(
@@ -68,12 +85,64 @@ def main(argv=None) -> list:
             f"labels only, as the reference's pipeline does; drive it "
             f"through Engine.step with registry.make_train_batch instead")
     device = resolve_device(args.device)
+    if not args.data_parallel:
+        return _train(args, device)
+    if all(k in os.environ for k in _TORCHRUN):
+        return _rank(int(os.environ["LOCAL_RANK"]), argv,
+                     int(os.environ["WORLD_SIZE"]), "env://", None)
+    world = torch.cuda.device_count() if device.type == "cuda" else 1
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_rank, args=(argv, world,
+                                        f"file://{tmp}/store", tmp),
+                           nprocs=world, start_method="spawn")
+        with open(os.path.join(tmp, "metrics.json")) as f:
+            return json.load(f)
+
+
+def _rank(local_rank: int, argv, world: int, init_method: str,
+          out_dir) -> list:
+    """One data-parallel rank: join the group, train on the host mesh,
+    leave the group. The first rank logs and, when spawned, writes its
+    metrics to ``out_dir``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    args = _parse(argv)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank)
+        torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(1)
+    rank = int(os.environ.get("RANK", local_rank))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=init_method, rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_host_mesh(device_type=device.type)
+        if rank == 0:
+            print(f"data-parallel over {mesh.size(0)} ranks "
+                  f"({dist.get_backend()}, {device.type})", flush=True)
+        metrics = _train(args, device, mesh=mesh, log=rank == 0)
+    finally:
+        dist.destroy_process_group()
+    if out_dir is not None and rank == 0:
+        with open(os.path.join(out_dir, "metrics.json"), "w") as f:
+            json.dump(metrics, f)
+    return metrics
+
+
+def _train(args, device, mesh=None, log=True) -> list:
+    aspec = registry.get(args.arch)
     cfg = aspec.smoke() if args.smoke else aspec.full()
     params = registry.family_module(aspec).init(
         cfg, torch.Generator(device=device).manual_seed(args.seed),
         device=device)
-    print(f"{args.arch}: {count_params(params) / 1e6:.1f}M params, "
-          f"mode={args.mode}, device={device}")
+    if log:
+        print(f"{args.arch}: {count_params(params) / 1e6:.1f}M params, "
+              f"mode={args.mode}, device={device.type}", flush=True)
     trainer = Trainer(
         registry.make_loss_fn_v2(aspec, cfg),
         params, PexSpec(enabled=args.mode != "plain",
@@ -84,10 +153,10 @@ def main(argv=None) -> list:
             args.mode, args.batch, clip_norm=args.clip_norm,
             noise_std=args.noise_std), steps=args.steps, seed=args.seed,
             # a run shorter than the log period still logs its last step
-            log_every=min(10, args.steps)),
+            log_every=min(10, args.steps) if log else 0),
         DataConfig(vocab=cfg.vocab, seq=args.seq, global_batch=args.batch,
                    seed=args.seed),
-        device=device)
+        mesh=mesh, device=device)
     return trainer.train()
 
 

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.taps import Tap
 from repro_torch.kernels import ops
+from repro_torch.dist.sharding import pad_to
 from repro_torch.nn import param as pm
 from repro_torch.nn.linear import init_linear, linear
 from repro_torch.nn.rotary import apply_rope, mrope_angles, rope_angles
@@ -56,7 +57,7 @@ class AttnCfg:
 
     @property
     def n_heads_p(self) -> int:
-        return pm.pad_to(self.n_heads, self.head_multiple)
+        return pad_to(self.n_heads, self.head_multiple)
 
     @property
     def scale(self) -> float:

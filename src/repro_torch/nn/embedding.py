@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import taps
 from repro_torch.core.taps import Tap
+from repro_torch.dist.sharding import pad_to
 from repro_torch.nn import param as pm
 
 NEG_INF = -1.0e30
@@ -28,7 +29,7 @@ class VocabCfg:
 
     @property
     def vocab_p(self) -> int:
-        return pm.pad_to(self.vocab, self.vocab_multiple)
+        return pad_to(self.vocab, self.vocab_multiple)
 
 
 def init_embedding(gen: torch.Generator, cfg: VocabCfg, *, dtype, device):

@@ -1,9 +1,10 @@
 """Parameters: initializers, the device rule, and tree helpers.
 
 Port of ``src/repro/nn/param.py``. The reference boxes every leaf with its
-logical sharding axes (``Boxed``) for the TPU mesh; the port has no mesh
-yet, so a parameter tree is a plain nested dict (and list) of tensors and
-the axes are dropped. The one node of another kind is a LoRA site's
+logical sharding axes (``Boxed``) for the TPU mesh; the port's mesh path is
+data-parallel only (``dist.pex``: every rank holds every parameter), so a
+parameter tree is a plain nested dict (and list) of tensors and the axes
+are dropped. The one node of another kind is a LoRA site's
 ``nn.lora.LoraPair`` (:func:`is_node`), which the tree helpers walk as the
 reference's pytree registration makes JAX walk it. Initializers draw from
 an explicit ``torch.Generator`` on an explicit device, with the
@@ -45,13 +46,6 @@ def fold_seed(seed: int, data: int) -> int:
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (x ^ (x >> 31)) >> 1
-
-
-def pad_to(n: int, multiple: int) -> int:
-    """Round ``n`` up to the next multiple of ``multiple``."""
-    if multiple <= 0:
-        raise ValueError(f"multiple must be positive, got {multiple}")
-    return ((n + multiple - 1) // multiple) * multiple
 
 
 def torch_dtype(name: str) -> torch.dtype:

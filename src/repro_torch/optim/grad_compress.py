@@ -1,12 +1,17 @@
 """Error-feedback int8 gradient compression.
 
-Port of the single-device part of ``src/repro/optim/grad_compress.py``:
-each gradient tensor, plus the error carried from the last step, is
-quantized to int8 with a per-tensor scale and restored, and what the
-rounding lost is carried to the next step, so the optimizer stays unbiased
-over time (Seide et al., 1-bit SGD lineage). ``TrainConfig.compress_grads``
-runs it before the optimizer. Its use around the data-parallel all-reduce
-waits for the port's distribution layer (ROADMAP.md Queue 1 item 9).
+Port of ``src/repro/optim/grad_compress.py``: each gradient tensor, plus
+the error carried from the last step, is quantized to int8 with a
+per-tensor scale and restored, and what the rounding lost is carried to
+the next step, so the optimizer stays unbiased over time (Seide et al.,
+1-bit SGD lineage). ``TrainConfig.compress_grads`` runs it on the
+*reduced* gradient, after the data-parallel all-reduce and before the
+optimizer, as the reference's trainer does
+(``src/repro/train/trainer.py``, the step calls it on ``eng.step``'s
+gradient). The reference's docstring places it around the reduce so that
+int8 tensors are reduced; its code does not, and neither does the port: a
+sum of int8 tensors overflows. Every rank holds the same reduced gradient
+and error buffer, so the compressed gradients stay bit-identical.
 """
 from __future__ import annotations
 

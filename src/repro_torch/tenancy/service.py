@@ -24,8 +24,14 @@ however many tenants share the batch:
 Between steps the service admits queued tenants into free slots and
 evicts on request (the serve engine's slot-recycling idiom).
 
-Not in this slice: ``mesh=`` (ROADMAP Queue 1 item 9, distribution) and
-checkpointing (``ckpt_manager=``, ``save``, ``restore``: item 10) raise.
+``mesh=`` (a ``DeviceMesh``) runs the step data-parallel through
+``dist.pex`` over ``data_axes``: the sorted batch's rows, its
+``tenant_index`` among them, are split over the ranks with the examples,
+the per-tenant gradient sums are all-reduced, and every rank adds the same
+per-tenant noise and applies the same update to its copy of the store.
+
+Not in this slice: checkpointing (``ckpt_manager=``, ``save``,
+``restore``: ROADMAP Queue 1 item 10) raises.
 """
 from __future__ import annotations
 
@@ -76,18 +82,15 @@ class TenantService:
     noise_scale: explicit sensitivity (required at token granularity,
                where C does not bound an example's total contribution).
     lr:        SGD learning rate applied to the active rows.
+    mesh:      a ``DeviceMesh`` (every rank holds the same store) or None.
     """
 
     def __init__(self, store: AdapterStore, loss_fn: Callable, *,
                  clip_norm: float, noise_std: float = 0.0,
                  noise_scale: Optional[float] = None, lr: float = 0.1,
                  spec: Optional[PexSpec] = None, mesh=None,
+                 data_axes: Sequence[str] = ("data",),
                  granularity: str = "example", ckpt_manager=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TenantService(mesh=...) needs the port's mesh path, which "
-                "it does not have yet (ROADMAP Queue 1 item 9: "
-                "distribution)")
         if ckpt_manager is not None:
             raise NotImplementedError(_NO_CKPT)
         self.store = store
@@ -97,7 +100,8 @@ class TenantService:
         self.noise_scale = noise_scale
         self.lr = float(lr)
         self.granularity = granularity
-        self.engine = Engine(spec, granularity=granularity)
+        self.engine = Engine(spec, mesh=mesh, data_axes=data_axes,
+                             granularity=granularity)
         self.pending: list = []
         self.steps_run = 0
 

@@ -1,6 +1,6 @@
 """Training loop over declarative consumer plans.
 
-Port of ``src/repro/train/trainer.py`` for one device. A step is described
+Port of ``src/repro/train/trainer.py``. A step is described
 by a **consumer list** that ``Engine.step`` runs as one fused pass:
 
     TrainConfig(consumers=(pex.Clip(1.0), pex.Noise(0.1), pex.GNS()))
@@ -19,10 +19,21 @@ changes the parameters in place once the step's loss and norms are known
 to be finite.
 
 Integrates AdamW, optional int8 error-feedback gradient compression and
-quarantine of non-finite examples. Not in this slice, and refused rather
-than ignored: meshes (``mesh=``, ``rebind_mesh``; ROADMAP.md Queue 1 item
-9) and checkpointing (``TrainConfig.ckpt_dir``, ``save_checkpoint``,
-``restore_from``, ``train(resume=True)``; item 10). The reference's
+quarantine of non-finite examples.
+
+``mesh=`` (a ``DeviceMesh``) runs every step data-parallel through
+``dist.pex`` over ``data_axes``, one process per rank. Every rank holds
+the same parameters (the same init seed; checked once by a broadcast from
+the first rank), draws the same ``batch_at(step)`` and the same child
+generators, and runs AdamW on the same reduced gradient, so the replicas
+stay bit-identical. ``compress_grads`` compresses the reduced gradient,
+before the optimizer, as the reference's trainer does. Quarantine reads
+the global per-example losses and norms. ``rebind_mesh`` moves the trainer
+onto another mesh (the elastic primitive of ROADMAP.md Queue 1 item 10).
+
+Not in this slice, and refused rather than ignored: checkpointing
+(``TrainConfig.ckpt_dir``, ``save_checkpoint``, ``restore_from``,
+``train(resume=True)``; ROADMAP.md Queue 1 item 10). The reference's
 ``TrainConfig.microbatches`` (which its trainer never reads) and
 ``ckpt_every`` (which comes with checkpointing) are not carried over.
 """
@@ -40,12 +51,12 @@ from repro_torch.core import plan as plan_mod
 from repro_torch.core.engine import Engine, infer_batch_size
 from repro_torch.core.taps import PexSpec
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.dist import pex as dpex
 from repro_torch.nn.param import resolve_device, tree_leaves, tree_map
 from repro_torch.optim import adamw, grad_compress
 
-WAITS = ("is not ported yet: meshes and the data-parallel all-reduce wait "
-         "for ROADMAP.md Queue 1 item 9, checkpointing and elastic "
-         "rebinding for Queue 1 item 10")
+WAITS = ("is not ported yet: checkpointing and resuming wait for "
+         "ROADMAP.md Queue 1 item 10")
 
 
 @dataclasses.dataclass
@@ -99,14 +110,16 @@ _RNG_CONSUMERS = (plan_mod.Noise, plan_mod.Importance)
 class Trainer:
     def __init__(self, loss_fn: Callable, params, pex_spec: PexSpec,
                  opt_cfg: adamw.AdamWConfig, train_cfg: TrainConfig,
-                 data_cfg: DataConfig, *, mesh=None, data=None, device=None):
+                 data_cfg: DataConfig, *, mesh=None, data_axes=("data",),
+                 data=None, device=None):
         """``loss_fn`` is the tap-collector loss
         (``registry.make_loss_fn_v2``); ``params`` lie on ``device``
-        (default CUDA; the trainer raises without one). ``data`` overrides
-        the default ``SyntheticLM(data_cfg)`` with any source exposing
+        (default CUDA; the trainer raises without one). ``mesh=None`` runs
+        on this process alone; a mesh routes every step through the
+        data-parallel pipeline (``dist.pex``), gradients all-reduced over
+        ``data_axes``. ``data`` overrides the default
+        ``SyntheticLM(data_cfg)`` with any source exposing
         ``batch_at(step)``."""
-        if mesh is not None:
-            raise NotImplementedError(f"Trainer(mesh=...) {WAITS}")
         if train_cfg.ckpt_dir is not None:
             raise NotImplementedError(f"TrainConfig.ckpt_dir {WAITS}")
         self.device = resolve_device(device)
@@ -126,7 +139,11 @@ class Trainer:
             raise ValueError(
                 f"training needs a gradient-producing consumer "
                 f"(Grads/Clip/Noise/GNS); got {self.consumers}")
-        self.engine = Engine(pex_spec)
+        self.pex_spec = pex_spec
+        self.data_axes = data_axes
+        self.engine = Engine(pex_spec, mesh=mesh, data_axes=data_axes)
+        if mesh is not None:
+            dpex.check_replicated(params, mesh, data_axes)
         self.data = data if data is not None \
             else SyntheticLM(data_cfg, device=self.device)
         self.params = params
@@ -248,6 +265,19 @@ class Trainer:
         self.metrics.append(m)
         return m
 
+    # -- elastic rebinding ------------------------------------------------
+    def rebind_mesh(self, mesh, data_axes=None) -> None:
+        """Run the next steps on another mesh (None: this process alone),
+        after a contraction or expansion. The parameters and optimizer
+        state stay where they are; on a mesh, every rank's parameters are
+        checked against the first rank's again."""
+        if data_axes is not None:
+            self.data_axes = data_axes
+        self.engine = Engine(self.pex_spec, mesh=mesh,
+                             data_axes=self.data_axes)
+        if mesh is not None:
+            dpex.check_replicated(self.params, mesh, self.data_axes)
+
     # -- not in this slice ------------------------------------------------
     def save_checkpoint(self, block: bool = False) -> None:
         raise NotImplementedError(f"Trainer.save_checkpoint {WAITS}")
@@ -256,8 +286,6 @@ class Trainer:
                      shardings=None) -> int:
         raise NotImplementedError(f"Trainer.restore_from {WAITS}")
 
-    def rebind_mesh(self, mesh, data_axes=None) -> None:
-        raise NotImplementedError(f"Trainer.rebind_mesh {WAITS}")
 
     # ----------------------------------------------------------------------
     def train(self, resume: bool = False) -> list:

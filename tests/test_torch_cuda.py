@@ -729,3 +729,46 @@ def test_cuda_token_slot_scatter_is_bitwise_repeatable(cuda_device):
         assert torch.equal(
             layout.add_expert_grouped(acc, x, z, seg, 0, bg, True, tok=tok),
             first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_embedding_grad_and_stat_are_bitwise_repeatable(cuda_device,
+                                                             dtype):
+    """Many rows of one id add into one table row (the embedding backward)
+    and into one per-example segment (``stat_embedding``); on CUDA both
+    give the same bits on every run, and the gradient equals a plain
+    per-row sum."""
+    from repro_torch.core import norms
+    from repro_torch.core.taps import ExampleLayout, PexSpec, Tap
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(12)
+    b, s, v, d = 4, 512, 40, 256           # ~51 rows of each id
+    ids = torch.from_numpy(rng.integers(0, v, (b, s))).to(cuda_device)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)
+                             ).to(cuda_device, dt)
+    zbar = torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)
+                            ).to(cuda_device, dt)
+
+    def run():
+        t = table.detach().requires_grad_()
+        acc = ExampleLayout(1).init(b, cuda_device).requires_grad_()
+        tap = Tap(PexSpec(), acc=acc, layout=ExampleLayout(1))
+        tap.set_mode(norms=True, grads=True)
+        z = tap.embedding(t, ids, group="all")
+        out = torch.sum(z.float() * zbar.float()) + torch.sum(
+            tap.carry() * 0.0)
+        gt, gacc = torch.autograd.grad(out, (t, acc))
+        return gt, gacc, norms.stat_embedding(ids, zbar)
+
+    first = run()
+    for _ in range(4):
+        for a, w in zip(run(), first):
+            assert torch.equal(a, w)
+    want = torch.zeros(v, d, dtype=torch.float64, device=cuda_device)
+    want.index_add_(0, ids.reshape(-1), zbar.reshape(-1, d).double())
+    tol = {"float32": 1e-5, "bfloat16": 1e-2}[dtype]   # one rounding
+    torch.testing.assert_close(first[0].double(), want, rtol=tol,
+                               atol=tol * float(want.abs().max()))
+    torch.testing.assert_close(first[1][:, 0], first[2], rtol=0, atol=0)

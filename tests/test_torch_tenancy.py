@@ -19,8 +19,10 @@ the fused service step matches a loop of single-tenant engines (the
 reference test's oracle) with the port's own draws. Store recycling,
 re-admission, the pending queue and the errors follow.
 
-Not ported: the reference test's ``shard_map`` variants (``mesh=`` raises
-until ROADMAP Queue 1 item 9) and checkpoint renumbering (item 10).
+The reference test's ``shard_map`` variants are held at two ranks in
+``tests/test_torch_dist_train.py``; here a one-rank mesh steps as the local
+service does. Not ported: checkpoint renumbering (ROADMAP Queue 1 item
+10).
 """
 import jax
 import jax.numpy as jnp
@@ -28,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dist_parity as tdp
 from repro.nn import lora as jlora
 from repro.nn.linear import linear as jlinear
 from repro.tenancy import AdapterStore as JStore
@@ -36,6 +39,7 @@ from repro.tenancy import assemble as jassemble
 from repro.tenancy import batch as jtb
 from repro_torch import interop, pex
 from repro_torch.core import passes
+from repro_torch.dist import sharding as shd
 from repro_torch.nn import lora as tlora
 from repro_torch.nn import param as pm
 from repro_torch.nn.linear import linear
@@ -215,7 +219,7 @@ def test_service_pending_queue_head_first():
     assert svc.admit_pending() == [12]
 
 
-def test_service_errors():
+def test_service_errors(tmp_path):
     store = AdapterStore(_init_fn, capacity=4, seed=0, device="cpu")
     x, y, owner = _mixed(n_tenants=2, max_per=1)
     svc = TenantService(store, _loss_fn, clip_norm=C, noise_std=SIGMA,
@@ -225,8 +229,23 @@ def test_service_errors():
     svc = TenantService(store, _loss_fn, clip_norm=C, noise_std=SIGMA)
     with pytest.raises(ValueError, match="rng"):
         svc.step(_batch(x, y), owner)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TenantService(store, _loss_fn, clip_norm=C, mesh=object())
+    # a one-rank mesh steps as the local service does, bit for bit
+    # (tests/test_torch_dist_train.py holds two ranks to the reference)
+    local = TenantService(AdapterStore(_init_fn, capacity=4, seed=0,
+                                       device="cpu"), _loss_fn, clip_norm=C)
+    want = local.step(_batch(x, y), owner)
+    with tdp.one_rank(tmp_path):
+        meshed = TenantService(
+            AdapterStore(_init_fn, capacity=4, seed=0, device="cpu"),
+            _loss_fn, clip_norm=C,
+            mesh=shd.make_mesh((1,), ("data",), device_type="cpu"))
+        got = meshed.step(_batch(x, y), owner)
+    for g, w in ((got.loss_vec, want.loss_vec), (got.sq_norms,
+                                                 want.sq_norms)):
+        assert torch.equal(g, w)
+    for g, w in zip(pm.tree_leaves(meshed.store.gather(owner)),
+                    pm.tree_leaves(local.store.gather(owner))):
+        assert torch.equal(g, w)
     with pytest.raises(NotImplementedError, match="item 10"):
         TenantService(store, _loss_fn, clip_norm=C, ckpt_manager=object())
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -12,7 +12,9 @@ off) and with ``[Norms, Clip, GNS]``, and the gemma2-9b smoke config
 (softcaps, local/global layers, (1+g) and sandwich norms, × √d) in mode
 clip: each step's loss, ``norm_mean``, ``norm_max`` and ``gns`` agree at
 1e-4 relative. A loss poisoned for some
-examples is quarantined as the reference does. The launcher runs each mode,
+examples is quarantined as the reference does. A one-rank mesh trains bit
+for bit as the local trainer does, and checkpointing is refused naming
+ROADMAP.md Queue 1 item 10. The launcher runs each mode,
 and each arch of the transformer family (deepseek-v2-236b's MLA, dense
 prefix and MoE among them), on the CPU.
 """
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dist_parity as tdp
 from repro.core import passes as jpasses
 from repro.core import plan as jplan
 from repro.core.taps import PexSpec as JPexSpec
@@ -41,6 +44,7 @@ from repro_torch.core import plan as tplan
 from repro_torch.core.taps import PexSpec
 from repro_torch.data import pipeline as tpipe
 from repro_torch.launch import train as tlaunch
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import registry
 from repro_torch.nn.param import tree_leaves, tree_map
 from repro_torch.optim import adafactor as tada
@@ -445,25 +449,43 @@ def test_trainer_refuses_a_plan_without_a_gradient():
         _port_trainer((tplan.Norms(),))
 
 
-def test_trainer_refuses_meshes_and_checkpoints():
+def test_trainer_refuses_meshes_and_checkpoints(tmp_path):
+    """Meshes are ported: a one-rank mesh trains bit for bit as the local
+    trainer does, and ``rebind_mesh`` moves a trainer on and off it
+    (``tests/test_torch_dist_train.py`` holds two ranks to the reference).
+    Checkpointing is still refused, naming ROADMAP.md Queue 1 item 10."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         _port_trainer(None, ckpt_dir="ck")
-    spec = registry.get(ARCH)
-    cfg = spec.smoke()
-    params = registry.family_module(spec).init(
-        cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ttrainer.Trainer(registry.make_loss_fn_v2(spec, cfg), params,
-                         PexSpec(), adamw.AdamWConfig(),
-                         ttrainer.TrainConfig(), tpipe.DataConfig(
-                             vocab=cfg.vocab, seq=S, global_batch=B),
-                         mesh=object(), device="cpu")
-    t = _port_trainer(None)
-    for call in (t.save_checkpoint, t.restore_from,
-                 lambda: t.rebind_mesh(None),
-                 lambda: t.train(resume=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cons = ttrainer.consumers_for_mode("clip", B, noise_std=0.5)
+    local = _port_trainer(cons)
+    local.train()
+    with tdp.one_rank(tmp_path):
+        mesh = make_host_mesh(device_type="cpu")
+        spec = registry.get(ARCH)
+        cfg = spec.smoke()
+        params = registry.family_module(spec).init(
+            cfg, torch.Generator().manual_seed(0), device="cpu")
+        meshed = ttrainer.Trainer(
+            registry.make_loss_fn_v2(spec, cfg), params, PexSpec(),
+            adamw.AdamWConfig(lr=1e-3),
+            ttrainer.TrainConfig(consumers=cons, steps=3, log_every=0),
+            tpipe.DataConfig(vocab=cfg.vocab, seq=S, global_batch=B),
+            mesh=mesh, device="cpu")
+        assert meshed.engine.mesh is mesh
+        meshed.train()
+        meshed.rebind_mesh(None)
+        assert meshed.engine.mesh is None
+        meshed.rebind_mesh(mesh, data_axes=("data",))
+        assert meshed.engine.mesh is mesh
+    for a, b in zip(tree_leaves(local.params), tree_leaves(meshed.params)):
+        assert torch.equal(a, b)
+    assert [m["loss"] for m in local.metrics] == \
+        [m["loss"] for m in meshed.metrics]
+    for call in (local.save_checkpoint, local.restore_from,
+                 lambda: local.train(resume=True)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             call()
+    assert "item 9" not in ttrainer.WAITS
     assert ttrainer.RESUME_EXTRA_KEYS == jtrainer.RESUME_EXTRA_KEYS
 
 
@@ -517,8 +539,10 @@ def test_launcher_runs_each_arch_on_cpu(arch, capsys):
     assert f"{arch}: " in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--data-parallel"], ["--ckpt-dir", "ck"],
-                                  ["--resume"]])
+@pytest.mark.parametrize("flag", [["--data-parallel", "--ckpt-dir", "ck"],
+                                  ["--ckpt-dir", "ck"], ["--resume"]])
 def test_launcher_refuses_unported_flags(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Checkpointing is refused before any rank is spawned; the launcher's
+    ``--data-parallel`` itself runs (``tests/test_torch_dist_train.py``)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu"] + flag)
