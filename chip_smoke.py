@@ -212,7 +212,12 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               generator), at example granularity (2 segmented launches,
               every segment on direct) and at token granularity with an
               explicit noise scale (4 ``rowsumsq`` launches); each tenant's
-              noise bit for bit ``add_grad_noise`` on its tree alone;
+              noise bit for bit ``add_grad_noise`` on its tree alone; the
+              example service's save and restore (``ckpt_manager=``) into
+              a fresh store, its tenants renumbered into new slots: every
+              row bit for bit its saved value, and one further fused step
+              after the restore bit for bit the step the service takes
+              without the round trip;
 26. tenants — the fused DP step (norms, Clip, per-tenant Noise, SGD)
               against the plain multi-tenant LoRA step through an inert
               tap, in turns, as ``bench_lora_tenants.step_pair`` times
@@ -303,6 +308,30 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               per-example gathers (events), step ms beside phase 17's, peak
               memory; then ``python -m repro_torch.launch.train --arch
               llama3.2-1b --smoke --data-parallel --steps 2`` once (exit 0).
+38. ckpt    — checkpointing: phase 17's trainer (llama3.2-1b at full width
+              in bf16, B=8, S=512, ``SyntheticLM``, AdamW with the warm-up
+              cosine schedule) with ``consumers_for_mode("clip", 8)`` and no
+              noise (nothing is drawn): 4 steps straight; 2 steps with
+              ``ckpt_every=2``; a fresh trainer's ``train(resume=True)`` to
+              4 (saving step 4 too): its parameters, moments and optimizer
+              step bit for bit the straight run's (per-leaf sha256), its
+              last two losses the straight run's; then the newest step
+              corrupted by ``ft.corrupt_newest_checkpoint``:
+              ``restore_from`` warns, falls back to step 2 and gives step
+              2's digest. Full depth when the temporary directory has 3×
+              the state's bytes free (``keep=2``), else 2 layers; it raises
+              with both numbers when even that does not fit. Each norms
+              pass launches gram and direct by the priced pick (phase 5's
+              counts), the reweighted pass none. Logs the state's GiB, the
+              ms ``save()`` blocks the step loop (the device→host copy),
+              the writer's seconds to commit and its GB/s, the restore's
+              seconds (read, sha256, host→device) and peak memory;
+39. soak    — ``python -m repro_torch.launch.soak --hosts 4 --steps 24
+              --storm short --device cuda``: 4 gloo ranks on cuda:0 (compute
+              mode ``Default``), the ``short`` storm with its three
+              invariants; exit 0, and the summary's coverage (≥ 2
+              contractions, ≥ 1 expansion, ≥ 1 fallback, the quarantine of
+              exactly the poisoned rows); its wall time.
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -2976,6 +3005,255 @@ def phase_dp(spec, registry, cfg, train_run):
             "gather_ms": gather_ms, "peak_gib": peak}
 
 
+CKPT_STEPS, CKPT_EVERY = 4, 2     # phase 38: 4 straight; 2 + resume + 2
+CKPT_LAYERS = 2                   # its depth cut when the disk is short
+CKPT_FREE_FACTOR = 3              # free bytes needed, in states
+
+
+class CkptTimes:
+    """While entered: the ms each ``CheckpointManager.save`` blocks its
+    caller (the device→host copy), the seconds each write takes on the
+    writer thread (serialize, sha256, commit) and each ``restore``'s
+    seconds (read, sha256, host→device, synchronized)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.ckpt.checkpoint import CheckpointManager as cm
+
+        self.save_ms, self.write_s, self.restore_s = [], [], []
+        self.orig = cm.save, cm._write_inner, cm.restore
+
+        def save(mgr, *a, **kw):
+            t0 = time.perf_counter()
+            self.orig[0](mgr, *a, **kw)
+            self.save_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def write(mgr, *a, **kw):
+            t0 = time.perf_counter()
+            self.orig[1](mgr, *a, **kw)
+            self.write_s.append(time.perf_counter() - t0)
+
+        def restore(mgr, *a, **kw):
+            t0 = time.perf_counter()
+            out = self.orig[2](mgr, *a, **kw)
+            torch.cuda.synchronize()
+            self.restore_s.append(time.perf_counter() - t0)
+            return out
+
+        cm.save, cm._write_inner, cm.restore = save, write, restore
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.ckpt.checkpoint import CheckpointManager as cm
+        cm.save, cm._write_inner, cm.restore = self.orig
+
+
+def ckpt_trainer(spec, registry, cfg, steps, ckpt_dir=None):
+    """Phase 38's trainer: phase 17's clip trainer without noise (nothing
+    drawn), its schedule over ``CKPT_STEPS``, checkpointing every
+    ``CKPT_EVERY`` steps into ``ckpt_dir`` (``keep=2``) when given."""
+    import torch
+    from repro_torch.core.taps import PexSpec
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import linear_warmup_cosine
+    from repro_torch.train.trainer import (TrainConfig, Trainer,
+                                           consumers_for_mode)
+
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    t = Trainer(registry.make_loss_fn_v2(spec, cfg), params, PexSpec(),
+                adamw.AdamWConfig(schedule=linear_warmup_cosine(
+                    2, CKPT_STEPS)),
+                TrainConfig(consumers=consumers_for_mode("clip", B),
+                            steps=steps, log_every=1, ckpt_every=CKPT_EVERY,
+                            ckpt_dir=ckpt_dir, seed=0),
+                DataConfig(vocab=cfg.vocab, seq=S, global_batch=B, seed=0))
+    if t.ckpt is not None:
+        t.ckpt.keep = 2
+    return t
+
+
+def state_digest(t) -> list:
+    """Per-leaf sha256 of a trainer's parameters and moments, and its
+    optimizer step."""
+    return tree_digest(t._state_tree()) + [("opt_step",
+                                            str(int(t.opt_state.step)))]
+
+
+def phase_ckpt(spec, registry, cfg, train_run):
+    """Phase 38, the slice's path: phase 17's trainer without noise, 4
+    steps straight against 2 + ``train(resume=True)`` + 2 through the
+    port's ``CheckpointManager``, bit for bit; then a corrupted newest
+    step and ``restore_from``'s fall-back to step 2's digest. Full depth
+    when the temporary directory holds ``CKPT_FREE_FACTOR`` states, else
+    ``CKPT_LAYERS`` layers; raises when even that does not fit."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+    from repro_torch import ft
+    from repro_torch.kernels import ops
+    from repro_torch.nn.param import count_params, tree_leaves
+
+    def n_params(c):
+        n = count_params(registry.family_module(spec).init(
+            c, torch.Generator(device="cuda").manual_seed(0)))
+        torch.cuda.empty_cache()
+        return n
+
+    tmp_root = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp_root).free
+    per_param = 2 + 4 + 4        # bf16 parameter, f32 mu and nu
+    n_full = n_params(cfg)
+    need_full = CKPT_FREE_FACTOR * per_param * n_full
+    if free >= need_full:
+        ck_cfg, ck_params = cfg, n_full
+        depth = f"full depth ({cfg.n_layers} layers)"
+    else:
+        ck_cfg = cut(spec, CKPT_LAYERS)
+        ck_params = n_params(ck_cfg)
+        depth = (f"{CKPT_LAYERS} layers (the disk holds {free / 2**30:.1f} "
+                 f"GiB, full depth needs {need_full / 2**30:.1f})")
+    need = CKPT_FREE_FACTOR * per_param * ck_params
+    log(f"[ckpt] {ck_cfg.name}, {depth}, {ck_cfg.dtype}, B={B}, S={S}: "
+        f"{ck_params / 1e9:.3f}B parameters, state "
+        f"{per_param * ck_params / 2**30:.2f} GiB; {tmp_root} has {free / 2**30:.1f} GiB free (need "
+        f"{need / 2**30:.1f}, {CKPT_FREE_FACTOR} states)")
+    if free < need:
+        raise AssertionError(f"ckpt: {tmp_root} has {free} bytes free, a "
+                             f"{CKPT_FREE_FACTOR}-state run needs {need}")
+    norms_want = {k: sum(v.values())
+                  for k, v in main_path_launches(ck_cfg, S).items() if v}
+    d = tempfile.mkdtemp(prefix="ckpt_", dir=tmp_root)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    try:
+        with CkptTimes() as times:
+            for tag, steps, ckpt_dir, resume in (
+                    ("straight", CKPT_STEPS, None, False),
+                    ("first", CKPT_EVERY, d, False),
+                    ("resumed", CKPT_STEPS, d, True)):
+                t = ckpt_trainer(spec, registry, ck_cfg, steps, ckpt_dir)
+                ops.reset_launch_counts()
+                with PassLaunches() as counted:
+                    metrics = t.train(resume=resume)
+                launches = ops.launch_counts()
+                n = len(metrics)
+                if counted.passes != [norms_want, {}] * n:
+                    raise AssertionError(
+                        f"ckpt {tag}: launches per pass {counted.passes}, "
+                        f"expected {[norms_want, {}] * n}")
+                if not all(math.isfinite(m[k]) for m in metrics
+                           for k in ("loss", "norm_mean", "norm_max")):
+                    raise AssertionError(f"ckpt {tag}: {metrics}")
+                if tag == "straight":
+                    state_bytes = sum(x.numel() * x.element_size()
+                                      for x in tree_leaves(t._state_tree()))
+                runs[tag] = {"digest": state_digest(t), "step": t.step,
+                             "losses": [m["loss"] for m in metrics],
+                             "launches": {k: launches[k]
+                                          for k in NORM_KERNELS}}
+                if tag == "resumed":
+                    steps_on_disk = t.ckpt.all_steps()
+                    newest = ft.corrupt_newest_checkpoint(d)
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        back = t.restore_from()
+                    fell = [str(w.message) for w in caught
+                            if "falling back" in str(w.message)]
+                    runs["fallback"] = {"digest": state_digest(t),
+                                        "step": back}
+                del t
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    straight, first, resumed = (runs[k] for k in
+                                ("straight", "first", "resumed"))
+    exact = resumed["digest"] == straight["digest"]
+    losses = resumed["losses"] == straight["losses"][CKPT_EVERY:]
+    fb = runs["fallback"]
+    log(f"[ckpt] losses straight {straight['losses']}, first "
+        f"{first['losses']}, resumed {resumed['losses']}; launches per "
+        f"norms pass {norms_want} in every step; steps on disk "
+        f"{steps_on_disk}, corrupted step {newest}; restore_from fell back "
+        f"to step {fb['step']} ({len(fell)} warning: "
+        f"{fell[0][:90] if fell else None!r})")
+    if not exact or not losses or resumed["step"] != CKPT_STEPS:
+        differ = [p for (p, a), (_, b) in zip(resumed["digest"],
+                                              straight["digest"]) if a != b]
+        raise AssertionError(f"ckpt: 2 + resume + 2 differs from 4 straight "
+                             f"in {len(differ)} leaves {differ[:8]}; losses "
+                             f"equal: {losses}")
+    if steps_on_disk != [CKPT_EVERY, CKPT_STEPS] or newest != CKPT_STEPS \
+            or fb["step"] != CKPT_EVERY or not fell \
+            or fb["digest"] != first["digest"]:
+        raise AssertionError(f"ckpt: the fall-back past corrupted step "
+                             f"{newest} gave step {fb['step']} (warnings "
+                             f"{fell}); step {CKPT_EVERY}'s digest: "
+                             f"{fb['digest'] == first['digest']}")
+    gb = state_bytes / 1e9
+    out = {"state_gib": state_bytes / 2**30, "depth": ck_cfg.n_layers,
+           "save_ms": times.save_ms, "write_s": times.write_s,
+           "write_gb_s": [gb / x for x in times.write_s],
+           "restore_s": times.restore_s, "peak_gib": peak}
+    log(f"[ckpt] resumed bit for bit ({len(straight['digest'])} leaves and "
+        f"the optimizer step); state {out['state_gib']:.2f} GiB; save() "
+        f"blocked the step loop {[round(x, 1) for x in times.save_ms]} ms "
+        f"(device→host copy); writer commit "
+        f"{[round(x, 2) for x in times.write_s]} s "
+        f"({[round(x, 2) for x in out['write_gb_s']]} GB/s); restore "
+        f"{[round(x, 2) for x in times.restore_s]} s (read, sha256, "
+        f"host→device; the resume's, then the fall-back's); peak memory "
+        f"{peak:.2f} GiB (phase 17's {train_run['peak_gib']:.2f})")
+    return out
+
+
+SOAK_ARGS = ("--hosts", "4", "--steps", "24", "--storm", "short",
+             "--device", "cuda")
+
+
+def phase_soak():
+    """Phase 39: the port's soak launcher (4 gloo ranks on cuda:0, the
+    ``short`` storm, its three invariants) in a subprocess; exit 0 and the
+    storm's coverage; its wall time."""
+    mode = compute_mode()
+    log(f"[soak] compute mode {mode!r}; python -m repro_torch.launch.soak "
+        f"{' '.join(SOAK_ARGS)}")
+    if mode != "Default":
+        raise AssertionError(f"compute mode {mode!r}: four processes cannot "
+                             f"share the card")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.soak",
+                        *SOAK_ARGS], capture_output=True, text=True,
+                       timeout=600, cwd=ROOT,
+                       env=dict(os.environ,
+                                PYTHONPATH=os.path.join(ROOT, "src")))
+    wall = time.perf_counter() - t0
+    if r.returncode or "\n{" not in "\n" + r.stdout:
+        raise AssertionError(f"soak: exit {r.returncode}\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-4000:]}")
+    out = ("\n" + r.stdout)
+    summary = json.loads(out[out.rindex("\n{") + 1:])
+    storm = [ln for ln in r.stdout.splitlines() if ln.startswith("[soak]")]
+    cov = {k: summary[k] for k in ("contractions", "expansions", "fallbacks",
+                                   "quarantined_steps",
+                                   "quarantined_examples", "ticks",
+                                   "final_hosts")}
+    log(f"[soak] exit 0 in {wall:.1f} s; invariants {summary['invariants']}; "
+        f"coverage {cov}; recoveries "
+        f"{[(x['reason'], x['restored_step'], x['hosts']) for x in summary['recoveries']]}"
+        f"; storm: {' | '.join(x[7:] for x in storm)}")
+    if summary["invariants"] != "PASS" or summary["contractions"] < 2 \
+            or summary["expansions"] < 1 or summary["fallbacks"] < 1 \
+            or not summary["quarantined_steps"]:
+        raise AssertionError(f"soak: the storm's coverage is short: {cov}")
+    return {"seconds": wall, "summary": summary}
+
+
 def norm_host_us(reps=200):
     """Host time of one call (µs) of the bf16 gram launcher at wq's shape
     and of the direct launcher at wk's (B=8, S=512), with the card held
@@ -3612,10 +3890,16 @@ def phase_tenants_exact(pex):
     c, sigma, lr = TENANT_C, TENANT_SIGMA, TENANT_LR
     rtol, atol = 1e-5, 1e-6
     zero = dict.fromkeys(ops.launch_counts(), 0)
+    services = {}
     for gran in ("example", "token"):
         store = AdapterStore(init_fn, capacity=128, seed=7)
+        # admitted in the draw's order, so the slots are not the tenant-id
+        # order a restore repacks them in
+        for t in tenants:
+            store.admit(int(t))
         svc = TenantService(store, loss, clip_norm=c, noise_std=sigma,
                             noise_scale=c, lr=lr, granularity=gran)
+        services[gran] = svc
         seed = passes.step_seed(torch.Generator(device="cuda").manual_seed(99))
         ops.reset_launch_counts()
         sn.reset_route_counts()
@@ -3690,6 +3974,62 @@ def phase_tenants_exact(pex):
                                  f"bits of add_grad_noise on its tree alone")
     log(f"[tenants-exact] per-tenant noise of {len(tenants)} tenants bit for "
         f"bit add_grad_noise on each tenant's tree alone")
+    tenant_round_trip(services["example"], init_fn, batch, owner)
+
+
+def tenant_round_trip(svc, init_fn, batch, owner):
+    """Phase 25's checkpoint round trip: ``svc`` (trained one step) saves
+    through a ``CheckpointManager``; a fresh store restores it, its tenants
+    repacked into slots [0..n) in id order (not the slots they held); every
+    tenant's rows bit for bit their saved value; then one more fused step
+    (seed 100) on each service: the losses, norms and every tenant's
+    updated rows bit for bit equal."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.nn.param import tree_leaves
+    from repro_torch.tenancy import AdapterStore, TenantService
+
+    store = svc.store
+    tenants = [int(t) for t in store.tenants]
+    moved = sum(int(store.slot_of(t)) != i for i, t in enumerate(tenants))
+    tmp = tempfile.mkdtemp(prefix="tenants_ckpt_")
+    try:
+        svc.ckpt_manager = CheckpointManager(tmp)
+        svc.save(step=1)
+        saved = {t: [x.clone() for x in tree_leaves(store.gather([t]))]
+                 for t in tenants}
+        fresh = AdapterStore(init_fn, capacity=store.capacity,
+                             seed=store.seed)
+        twin = TenantService(fresh, svc.loss_fn, clip_norm=svc.clip_norm,
+                             noise_std=svc.noise_std,
+                             noise_scale=svc.noise_scale, lr=svc.lr,
+                             ckpt_manager=CheckpointManager(tmp))
+        if twin.restore() != tenants:
+            raise AssertionError("tenants-exact: the restore returned other "
+                                 "tenants")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [t for t in tenants if not all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(fresh.gather([t])), saved[t]))]
+    if bad or [fresh.slot_of(t) for t in tenants] != list(range(len(tenants))):
+        raise AssertionError(f"tenants-exact: {len(bad)} tenants' rows "
+                             f"differ after the restore: {bad[:8]}")
+    got, want = (s.step(batch, owner, rng=torch.Generator(
+        device="cuda").manual_seed(100)) for s in (twin, svc))
+    same = torch.equal(got.loss_vec, want.loss_vec) and torch.equal(
+        got.sq_norms, want.sq_norms) and all(
+        torch.equal(a, b) for t in tenants for a, b in zip(
+            tree_leaves(fresh.gather([t])), tree_leaves(store.gather([t]))))
+    log(f"[tenants-exact] save/restore round trip: {len(tenants)} tenants, "
+        f"{moved} of them in another slot than the restore's; every row bit "
+        f"for bit after the restore; the next fused step bit for bit the "
+        f"step without the round trip: {same}")
+    if not same:
+        raise AssertionError("tenants-exact: the step after the restore is "
+                             "not the step without the round trip")
 
 
 def tenant_seg_times(reps=10):
@@ -5076,6 +5416,9 @@ def main() -> int:
     dp_exact = phase_dp_exact()
     dp_run = phase_dp(spec, registry, cfg, train_run)
     torch.cuda.empty_cache()
+    ckpt_run = phase_ckpt(spec, registry, cfg, train_run)
+    torch.cuda.empty_cache()
+    soak_run = phase_soak()
     for tag, r in (("serve llama3.2-1b", serve_run),
                    *((f"serve-families {a}", r)
                      for a, r in serve_fams.items())):
@@ -5155,7 +5498,12 @@ def main() -> int:
         f"{serve_run['tok_per_s']:.1f} tok/s; dp-exact "
         f"{dp_exact['seconds']:.1f} s; dp step ms {dp_run['step_ms']} "
         f"(all-reduce {dp_run['reduce_ms']}, gathers "
-        f"{dp_run['gather_ms']} stream ms a step); whole run "
+        f"{dp_run['gather_ms']} stream ms a step); ckpt "
+        f"{ckpt_run['depth']} layers, state {ckpt_run['state_gib']:.2f} GiB, "
+        f"save blocks {[round(x, 1) for x in ckpt_run['save_ms']]} ms, "
+        f"commit {[round(x, 2) for x in ckpt_run['write_s']]} s, restore "
+        f"{[round(x, 2) for x in ckpt_run['restore_s']]} s; soak "
+        f"{soak_run['seconds']:.1f} s; whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

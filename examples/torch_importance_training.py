@@ -1,13 +1,15 @@
 """Importance-sampled optimization (Zhao & Zhang 2014 — the paper's §1
 motivation) on the PyTorch port: train a ~100M-param llama-family model
 against a uniform baseline at the same number of optimizer steps. The twin
-of ``examples/importance_training.py``, without its checkpointing, which
-waits for the port's checkpoint layer (ROADMAP.md Queue 1 item 10).
+of ``examples/importance_training.py``: each mode checkpoints every 100
+steps into ``<--ckpt>_<mode>`` (default under the temporary directory).
 
     PYTHONPATH=src python examples/torch_importance_training.py \
-        [--steps 200] [--device cpu]
+        [--steps 200] [--device cpu] [--ckpt DIR]
 """
 import argparse
+import os
+import tempfile
 
 import torch
 
@@ -39,6 +41,8 @@ def main():
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_importance_ckpt"))
     args = ap.parse_args()
 
     aspec = registry.get("llama3.2-1b")          # family entry points
@@ -68,7 +72,9 @@ def main():
         # the optimizer updates in place: each mode trains its own copy
         t = Trainer(loss_fn, tree_map(torch.clone, params), spec, ocfg,
                     TrainConfig(consumers=consumers, steps=args.steps,
-                                log_every=25),
+                                log_every=25,
+                                ckpt_dir=f"{args.ckpt}_{mode}",
+                                ckpt_every=100),
                     dcfg, device=args.device)
         how = ("pool=4x, sample ∝ ‖∇L_j‖" if mode == "importance"
                else "uniform")

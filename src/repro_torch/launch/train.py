@@ -3,7 +3,8 @@
 Port of ``src/repro/launch/train.py``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
-        --smoke --mode clip --steps 50 [--device cpu] [--data-parallel]
+        --smoke --mode clip --steps 50 [--device cpu] [--data-parallel] \
+        [--ckpt-dir DIR [--resume]]
 
 ``--arch`` is any arch of ``models.registry.ARCHS`` but
 seamless-m4t-medium. The batches come from ``SyntheticLM`` (ids and labels
@@ -22,8 +23,12 @@ each process joins that group; otherwise the launcher spawns one rank per
 visible CUDA device, or a single rank with ``--device cpu``. The backend
 follows the device: NCCL on CUDA (rank r on ``cuda:LOCAL_RANK``), gloo on
 the CPU. The first rank logs, and ``main`` returns its metrics.
-``--ckpt-dir`` and ``--resume`` are refused: checkpointing waits for
-ROADMAP.md Queue 1 item 10.
+
+``--ckpt-dir DIR`` checkpoints into DIR every ``TrainConfig.ckpt_every``
+(50) steps and at no other step, as the reference's launcher does;
+``--resume`` restores the newest restorable step of DIR first and trains on
+to ``--steps``. With ``--data-parallel`` the first rank writes and every
+rank restores (``train.trainer``).
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from repro_torch.models import registry
 from repro_torch.nn.param import count_params, resolve_device
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import linear_warmup_cosine
-from repro_torch.train.trainer import (WAITS, TrainConfig, Trainer,
+from repro_torch.train.trainer import (TrainConfig, Trainer,
                                        consumers_for_mode)
 
 _TORCHRUN = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
@@ -73,10 +78,6 @@ def _parse(argv):
 
 def main(argv=None) -> list:
     args = _parse(argv)
-    for flag, on in (("--ckpt-dir", args.ckpt_dir is not None),
-                     ("--resume", args.resume)):
-        if on:
-            raise NotImplementedError(f"{flag} {WAITS}")
     aspec = registry.get(args.arch)
     if aspec.family == "seamless":
         raise ValueError(
@@ -152,12 +153,13 @@ def _train(args, device, mesh=None, log=True) -> list:
         TrainConfig(consumers=consumers_for_mode(
             args.mode, args.batch, clip_norm=args.clip_norm,
             noise_std=args.noise_std), steps=args.steps, seed=args.seed,
+            ckpt_dir=args.ckpt_dir,
             # a run shorter than the log period still logs its last step
             log_every=min(10, args.steps) if log else 0),
         DataConfig(vocab=cfg.vocab, seq=args.seq, global_batch=args.batch,
                    seed=args.seed),
         mesh=mesh, device=device)
-    return trainer.train()
+    return trainer.train(resume=args.resume)
 
 
 if __name__ == "__main__":

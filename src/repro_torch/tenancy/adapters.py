@@ -9,24 +9,18 @@ generator seeded with ``fold_seed(seed, tenant_id)``, so a re-admitted
 tenant that was never trained restarts bit for bit), eviction frees and
 zeroes the row, and ``gather``/``scatter`` move the per-batch active set
 in and out as one gather and one indexed write per leaf. Rows are
-written in place.
-
-Not in this slice: ``save`` and ``restore`` need the checkpoint manager
-(ROADMAP Queue 1 item 10) and raise.
+written in place. ``save`` writes the compacted active set through a
+``ckpt.CheckpointManager``; ``restore`` repacks it into slots ``[0..n)``.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.nn.param import (fold_seed, resolve_device, tree_leaves,
                                   tree_map)
-
-_NOT_YET = ("AdapterStore.{} needs the checkpoint manager, which the port "
-            "does not have yet (ROADMAP Queue 1 item 10: checkpointing)")
-
 
 class AdapterStore:
     """Slot-allocated stacked store of per-tenant adapter trees.
@@ -137,7 +131,37 @@ class AdapterStore:
 
     # -- checkpointing ----------------------------------------------------
     def save(self, manager, step: int, *, block: bool = True) -> None:
-        raise NotImplementedError(_NOT_YET.format("save"))
+        """Write the compacted active set (rows in tenant-id order) via
+        ``ckpt.CheckpointManager``; the tenant list rides in the manifest
+        ``extra``."""
+        tenants = self.tenants
+        compact = self.gather(tenants)
+        manager.save(step, compact, extra={
+            "tenancy": {"tenants": [int(t) for t in tenants]}},
+            block=block)
 
-    def restore(self, manager, step=None):
-        raise NotImplementedError(_NOT_YET.format("restore"))
+    def restore(self, manager, step: Optional[int] = None) -> Sequence[int]:
+        """Load a checkpoint and repack its tenants into slots ``[0..n)`` in
+        tenant-id order (renumbering — bit-exact per tenant), in place.
+        Leaf shapes come from the manifest, dtypes from the store. Returns
+        the restored tenant ids."""
+        if step is None:
+            step = manager.latest_step()
+        compact, extra = manager.restore(step, self.stacked,
+                                         device=self.device)
+        tenants = [int(t) for t in extra["tenancy"]["tenants"]]
+        n = len(tenants)
+        if n > self.capacity:
+            raise ValueError(
+                f"checkpoint holds {n} tenants but the store has only "
+                f"{self.capacity} slots; restore into a larger store")
+        self.slots = np.full((self.capacity,), -1, dtype=np.int64)
+        self._slot_of = {}
+        # compact leaves arrive shaped (n, ...) from the manifest
+        for s, c in zip(tree_leaves(self.stacked), tree_leaves(compact)):
+            s.zero_()
+            s[:n] = c
+        for i, t in enumerate(tenants):
+            self.slots[i] = t
+            self._slot_of[t] = i
+        return tenants

@@ -8,9 +8,10 @@ however many tenants share the batch:
      segment; the segmented estimator sees sorted runs);
   2. the per-batch active adapter set is gathered from the
      ``AdapterStore`` — the Engine's *params* are exactly those rows, so
-     autograd's scatter-add over the per-example gather IS the per-tenant
-     gradient reduction (on CUDA an atomic ``index_add_``: a tenant's sum
-     may differ in its last bits from run to run);
+     the scatter-add of the per-example gather's backward IS the
+     per-tenant gradient reduction (``core.norms.add_rows``: the same
+     bits on every run, where ``index_select``'s own backward adds by
+     atomics on CUDA);
   3. the loss closure expands rows to per-example adapter slices (by the
      batch's ``tenant_index``) and calls the user loss; the LoRA factors
      go through ``tap.dense_batched``, so one segmented launch per factor
@@ -30,8 +31,8 @@ evicts on request (the serve engine's slot-recycling idiom).
 the per-tenant gradient sums are all-reduced, and every rank adds the same
 per-tenant noise and applies the same update to its copy of the store.
 
-Not in this slice: checkpointing (``ckpt_manager=``, ``save``,
-``restore``: ROADMAP Queue 1 item 10) raises.
+``ckpt_manager=`` (a ``ckpt.CheckpointManager``) lets ``save`` and
+``restore`` checkpoint the store's resident tenants.
 """
 from __future__ import annotations
 
@@ -43,14 +44,29 @@ import torch
 
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.engine import Engine
+from repro_torch.core.norms import add_rows
 from repro_torch.core.taps import PexSpec
 from repro_torch.nn.param import tree_map
 from repro_torch.tenancy import batch as tbatch
 from repro_torch.tenancy.adapters import AdapterStore
 
-_NO_CKPT = ("TenantService checkpointing needs the checkpoint manager, which "
-            "the port does not have yet (ROADMAP Queue 1 item 10: "
-            "checkpointing)")
+
+class _GatherRows(torch.autograd.Function):
+    """``v.index_select(0, idx)`` whose backward adds each index's rows in
+    the same order on every run (``core.norms.add_rows``; on the CPU the
+    bits of ``index_select``'s own backward)."""
+
+    @staticmethod
+    def forward(ctx, v, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = v.shape[0]
+        return v.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        out = g.new_zeros((ctx.rows,) + tuple(g.shape[1:]))
+        return add_rows(out, idx, g), None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +99,7 @@ class TenantService:
                where C does not bound an example's total contribution).
     lr:        SGD learning rate applied to the active rows.
     mesh:      a ``DeviceMesh`` (every rank holds the same store) or None.
+    ckpt_manager: a ``ckpt.CheckpointManager`` for ``save``/``restore``.
     """
 
     def __init__(self, store: AdapterStore, loss_fn: Callable, *,
@@ -91,8 +108,6 @@ class TenantService:
                  spec: Optional[PexSpec] = None, mesh=None,
                  data_axes: Sequence[str] = ("data",),
                  granularity: str = "example", ckpt_manager=None):
-        if ckpt_manager is not None:
-            raise NotImplementedError(_NO_CKPT)
         self.store = store
         self.loss_fn = loss_fn
         self.clip_norm = float(clip_norm)
@@ -102,6 +117,7 @@ class TenantService:
         self.granularity = granularity
         self.engine = Engine(spec, mesh=mesh, data_axes=data_axes,
                              granularity=granularity)
+        self.ckpt_manager = ckpt_manager
         self.pending: list = []
         self.steps_run = 0
 
@@ -147,7 +163,8 @@ class TenantService:
 
         def loss(adapters, eb, tap):
             idx = eb["tenant_index"]
-            per_ex = tree_map(lambda v: v.index_select(0, idx), adapters)
+            per_ex = tree_map(lambda v: _GatherRows.apply(v, idx),
+                              adapters)
             data = {k: v for k, v in eb.items() if k != "tenant_index"}
             if tuple(data) == ("data",):
                 data = data["data"]
@@ -197,7 +214,15 @@ class TenantService:
 
     # -- checkpointing -----------------------------------------------------
     def save(self, step: Optional[int] = None, *, block: bool = True):
-        raise NotImplementedError(_NO_CKPT)
+        if self.ckpt_manager is None:
+            raise ValueError("construct the service with ckpt_manager= "
+                             "to checkpoint")
+        self.store.save(self.ckpt_manager,
+                        self.steps_run if step is None else step,
+                        block=block)
 
-    def restore(self, step: Optional[int] = None):
-        raise NotImplementedError(_NO_CKPT)
+    def restore(self, step: Optional[int] = None) -> Sequence[int]:
+        if self.ckpt_manager is None:
+            raise ValueError("construct the service with ckpt_manager= "
+                             "to restore")
+        return self.store.restore(self.ckpt_manager, step)

@@ -18,8 +18,15 @@ reference reuses its step key). The step runs eagerly; the optimizer
 changes the parameters in place once the step's loss and norms are known
 to be finite.
 
-Integrates AdamW, optional int8 error-feedback gradient compression and
-quarantine of non-finite examples.
+Integrates AdamW, optional int8 error-feedback gradient compression,
+quarantine of non-finite examples, async checkpointing and deterministic
+resume (``TrainConfig.ckpt_dir`` / ``ckpt_every``, ``save_checkpoint``,
+``restore_from``, ``train(resume=True)``): a checkpoint holds the
+parameters and both AdamW moments, and its ``extra`` the step, the
+optimizer step, the seed and the data cursor (``RESUME_EXTRA_KEYS``). As in
+the reference, the generator behind ``Noise``/``Importance`` slots is not
+saved, so a resumed run with a noise draw forks from the run that did not
+stop; one with no draw resumes bit for bit.
 
 ``mesh=`` (a ``DeviceMesh``) runs every step data-parallel through
 ``dist.pex`` over ``data_axes``, one process per rank. Every rank holds
@@ -29,13 +36,17 @@ generators, and runs AdamW on the same reduced gradient, so the replicas
 stay bit-identical. ``compress_grads`` compresses the reduced gradient,
 before the optimizer, as the reference's trainer does. Quarantine reads
 the global per-example losses and norms. ``rebind_mesh`` moves the trainer
-onto another mesh (the elastic primitive of ROADMAP.md Queue 1 item 10).
+onto another mesh (the elastic primitive the soak harness drives).
 
-Not in this slice, and refused rather than ignored: checkpointing
-(``TrainConfig.ckpt_dir``, ``save_checkpoint``, ``restore_from``,
-``train(resume=True)``; ROADMAP.md Queue 1 item 10). The reference's
-``TrainConfig.microbatches`` (which its trainer never reads) and
-``ckpt_every`` (which comes with checkpointing) are not carried over.
+Checkpoints on a mesh: the checkpoint directory is shared, and only the
+first rank of the data axes writes it (N processes renaming the same
+``step_*.tmp`` would race); it commits before a barrier over the data
+group releases the others. Every rank restores, after a barrier, from the
+same files. The first rank also constructs its ``CheckpointManager``
+(which sweeps stale ``.tmp`` litter) before the others.
+
+The reference's ``TrainConfig.microbatches``, which its trainer never
+reads, is not carried over.
 """
 from __future__ import annotations
 
@@ -46,17 +57,16 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.engine import Engine, infer_batch_size
 from repro_torch.core.taps import PexSpec
-from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.data.pipeline import DataConfig, PipelineState, SyntheticLM
 from repro_torch.dist import pex as dpex
 from repro_torch.nn.param import resolve_device, tree_leaves, tree_map
 from repro_torch.optim import adamw, grad_compress
-
-WAITS = ("is not ported yet: checkpointing and resuming wait for "
-         "ROADMAP.md Queue 1 item 10")
 
 
 @dataclasses.dataclass
@@ -66,6 +76,7 @@ class TrainConfig:
     compress_grads: bool = False
     steps: int = 100
     log_every: int = 10
+    ckpt_every: int = 50
     ckpt_dir: Optional[str] = None
     seed: int = 0
 
@@ -100,8 +111,9 @@ def consumers_for_mode(mode: str, batch_size: int, *,
 
 
 #: checkpoint ``extra`` keys a resume refuses to run without: the step
-#: cursor, the optimizer step, the trainer seed and the data-pipeline
-#: state (checkpointing itself waits for ROADMAP.md Queue 1 item 10)
+#: cursor, the optimizer step, the trainer seed, and the data-pipeline
+#: state (which carries its own step/seed — PipelineState.from_dict
+#: validates those).
 RESUME_EXTRA_KEYS = ("step", "opt_step", "seed", "data")
 
 _RNG_CONSUMERS = (plan_mod.Noise, plan_mod.Importance)
@@ -120,8 +132,6 @@ class Trainer:
         ``data_axes``. ``data`` overrides the default
         ``SyntheticLM(data_cfg)`` with any source exposing
         ``batch_at(step)``."""
-        if train_cfg.ckpt_dir is not None:
-            raise NotImplementedError(f"TrainConfig.ckpt_dir {WAITS}")
         self.device = resolve_device(device)
         on = {x.device.type for x in tree_leaves(params)}
         if on != {self.device.type}:
@@ -130,6 +140,7 @@ class Trainer:
         self.loss_fn = loss_fn
         self.cfg = train_cfg
         self.opt_cfg = opt_cfg
+        self.data_cfg = data_cfg
         self.consumers = tuple(train_cfg.consumers) \
             if train_cfg.consumers is not None \
             else (plan_mod.Norms(), plan_mod.Grads())
@@ -153,6 +164,9 @@ class Trainer:
         self.step = 0
         self.gen = torch.Generator(device=self.device).manual_seed(
             train_cfg.seed)
+        self.ckpt: Optional[CheckpointManager] = None
+        if train_cfg.ckpt_dir:
+            self._make_manager()
         self.metrics: list = []
         #: graceful-degradation log: quarantine / skip events
         self.events: list = []
@@ -278,23 +292,113 @@ class Trainer:
         if mesh is not None:
             dpex.check_replicated(self.params, mesh, self.data_axes)
 
-    # -- not in this slice ------------------------------------------------
+    # -- checkpoint plumbing ----------------------------------------------
+    def _data_shards(self, mesh=None):
+        """This rank's place on the data axes of ``mesh`` (default: the
+        engine's), or None off a mesh."""
+        mesh = self.engine.mesh if mesh is None else mesh
+        return None if mesh is None else dpex.data_shards(mesh,
+                                                          self.data_axes)
+
+    def _make_manager(self) -> None:
+        """The checkpoint manager; on a mesh the first rank constructs (and
+        sweeps stale ``.tmp`` litter) before the others."""
+        shards = self._data_shards()
+        if shards is None or shards.index == 0:
+            self.ckpt = CheckpointManager(self.cfg.ckpt_dir)
+        if shards is not None:
+            dist.barrier(group=shards.group)
+            if shards.index:
+                self.ckpt = CheckpointManager(self.cfg.ckpt_dir)
+
+    def _state_tree(self):
+        return {"params": self.params, "mu": self.opt_state.mu,
+                "nu": self.opt_state.nu}
+
+    def _ckpt_extra(self) -> Dict:
+        return {"step": self.step, "opt_step": int(self.opt_state.step),
+                "seed": self.cfg.seed,
+                "data": PipelineState(step=self.step,
+                                      seed=self.data_cfg.seed).to_dict()}
+
     def save_checkpoint(self, block: bool = False) -> None:
-        raise NotImplementedError(f"Trainer.save_checkpoint {WAITS}")
+        """Save the state at ``self.step``: the device→host copy now, the
+        write on the manager's thread (``block`` waits for the commit). On a
+        mesh the first data rank writes and commits, then a barrier over
+        the data group releases every rank."""
+        assert self.ckpt is not None, "no ckpt_dir configured"
+        shards = self._data_shards()
+        if shards is None:
+            self.ckpt.save(self.step, self._state_tree(),
+                           extra=self._ckpt_extra(), block=block)
+            return
+        try:
+            if shards.index == 0:
+                self.ckpt.save(self.step, self._state_tree(),
+                               extra=self._ckpt_extra(), block=True)
+        finally:
+            dist.barrier(group=shards.group)
+
+    def _validate_extra(self, extra: Dict) -> PipelineState:
+        missing = [k for k in RESUME_EXTRA_KEYS if k not in extra]
+        if missing:
+            raise ValueError(
+                f"checkpoint extra is missing key(s) {missing} (have "
+                f"{sorted(extra)}); refusing to resume — a checkpoint "
+                f"without step/seed/pipeline state cannot be replayed "
+                f"deterministically")
+        if int(extra["seed"]) != self.cfg.seed:
+            raise ValueError(
+                f"checkpoint was written by a run with seed="
+                f"{extra['seed']}, this trainer has seed={self.cfg.seed}; "
+                f"resuming would fork the rng/noise stream")
+        ps = PipelineState.from_dict(extra["data"])
+        if ps.seed != self.data_cfg.seed:
+            raise ValueError(
+                f"checkpoint data stream has seed={ps.seed}, this "
+                f"trainer's pipeline has seed={self.data_cfg.seed}; "
+                f"resuming would replay different batches")
+        return ps
 
     def restore_from(self, step: Optional[int] = None,
                      shardings=None) -> int:
-        raise NotImplementedError(f"Trainer.restore_from {WAITS}")
-
+        """Restore params/opt-state/step from the newest restorable
+        checkpoint (≤ ``step`` if given; CheckpointManager falls back past
+        corrupt ones), after validating the ``extra`` payload. The leaves
+        land on the trainer's device, or with ``shardings`` (a
+        ``dist.sharding.Sharding`` of replicated placements) on its mesh's
+        device, checked equal across its ranks. On a mesh (``shardings``'
+        or the engine's) every rank waits at a barrier over the data group
+        first. Returns the step actually restored."""
+        assert self.ckpt is not None, "no ckpt_dir configured"
+        self.ckpt.wait()        # surface writer-thread failures first
+        shards = self._data_shards(getattr(shardings, "mesh", None))
+        if shards is not None:
+            dist.barrier(group=shards.group)
+        restored, extra = self.ckpt.restore(step, self._state_tree(),
+                                            shardings=shardings,
+                                            device=self.device)
+        ps = self._validate_extra(extra)
+        self.params = restored["params"]
+        self.opt_state = adamw.AdamWState(int(extra["opt_step"]),
+                                          restored["mu"], restored["nu"])
+        self.step = int(extra["step"])
+        assert ps.step == self.step, \
+            f"pipeline cursor {ps.step} != trainer step {self.step}"
+        return self.step
 
     # ----------------------------------------------------------------------
     def train(self, resume: bool = False) -> list:
-        if resume:
-            raise NotImplementedError(f"Trainer.train(resume=True) {WAITS}")
+        if resume and self.ckpt and self.ckpt.latest_step() is not None:
+            self.restore_from(None)
         while self.step < self.cfg.steps:
             m = self.run_step(self.data.batch_at(self.step))
             self.step += 1
             if self.cfg.log_every and self.step % self.cfg.log_every == 0:
                 print(f"[{self.step}] " + " ".join(
                     f"{k}={v:.4g}" for k, v in m.items() if k != "step"))
+            if self.ckpt and self.step % self.cfg.ckpt_every == 0:
+                self.save_checkpoint()
+        if self.ckpt:
+            self.ckpt.wait()
         return self.metrics

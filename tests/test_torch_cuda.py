@@ -772,3 +772,177 @@ def test_cuda_embedding_grad_and_stat_are_bitwise_repeatable(cuda_device,
     torch.testing.assert_close(first[0].double(), want, rtol=tol,
                                atol=tol * float(want.abs().max()))
     torch.testing.assert_close(first[1][:, 0], first[2], rtol=0, atol=0)
+
+
+# --- bit-exact restore and replay: deterministic backward sums --------------
+
+def _tenant_step_rows(device, dtype=torch.float32):
+    """One fused tenant step (Clip, no noise) from a fresh store: the
+    updated rows of 6 tenants with 5 examples each, so the gather's
+    backward adds 5 rows into each tenant's gradient."""
+    from repro_torch.nn import lora as tlora
+    from repro_torch.nn.linear import linear
+    from repro_torch.nn.param import tree_leaves, tree_map
+    from repro_torch.tenancy import AdapterStore, TenantService
+
+    rng = np.random.default_rng(21)
+    d, o, r, s = 64, 48, 8, 16
+    base = torch.from_numpy(0.2 * rng.normal(size=(d, o)).astype(
+        np.float32)).to(device, dtype)
+    owner = rng.permutation(np.repeat(np.arange(100, 106), 5))
+    batch = {k: torch.from_numpy(rng.normal(size=(owner.size, s, n)).astype(
+        np.float32)).to(device, dtype) for k, n in (("x", d), ("y", o))}
+
+    def init_fn(g):
+        # drawn on the CPU from the tenant's seed: a card's generator draws
+        # other numbers than the CPU's, and the CPU's step is the yardstick
+        cpu = torch.Generator().manual_seed(g.initial_seed())
+        return tree_map(lambda x: x.to(device), {"site": tlora.init_pair(
+            cpu, d, o, r, 16.0, dtype=dtype, device="cpu", b_std=0.3)})
+
+    def loss(adapters, data, tap):
+        z = linear({"w": base, "lora": adapters["site"]}, data["x"], tap=tap)
+        tok = torch.sum(torch.square(z.float() - data["y"].float()), dim=-1)
+        return torch.sum(tap.token_loss(tok), dim=1), {}
+
+    store = AdapterStore(init_fn, capacity=8, seed=3, device=device)
+    TenantService(store, loss, clip_norm=1.0, lr=0.1).step(batch, owner)
+    return [x.clone() for x in tree_leaves(store.gather(np.unique(owner)))]
+
+
+@pytest.mark.cuda
+def test_cuda_tenant_adapter_grads_are_bitwise_repeatable(cuda_device):
+    """The tenant gather's backward (``core.norms.add_rows``, not
+    ``index_select``'s atomic ``index_add_``) gives each tenant's updated
+    adapter rows the same bits on 5 runs; they match the CPU's step."""
+    first = _tenant_step_rows(cuda_device)
+    for _ in range(4):
+        assert all(torch.equal(a, w) for a, w in zip(
+            _tenant_step_rows(cuda_device), first))
+    for got, want in zip(first, _tenant_step_rows(torch.device("cpu"))):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def _moe_backward(device):
+    """deepseek-v2's smoke MoE layer at top-6 of 8 experts (each token
+    dispatched 6 times, so its input gradient sums 6 slots): the gradients
+    of x and of every expert weight, and the per-example norms."""
+    import dataclasses
+
+    from repro_torch.configs import deepseek_v2_236b
+    from repro_torch.core.taps import ExampleLayout, PexSpec, Tap
+    from repro_torch.nn import moe as tmoe
+    from repro_torch.nn.param import tree_flatten, tree_unflatten
+
+    # no drops (capacity for every slot), so the card and the CPU route
+    # alike; the weights drawn on the CPU for both
+    cfg = dataclasses.replace(deepseek_v2_236b.smoke().moe, top_k=6,
+                              capacity_factor=8.0)
+    p = tmoe.init_moe(torch.Generator().manual_seed(0), cfg,
+                      dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(13)
+    b, s = 4, 64
+    x0 = torch.from_numpy(rng.normal(size=(b, s, cfg.d_model)).astype(
+        np.float32)).to(device)
+    ybar = torch.from_numpy(rng.normal(size=(b, s, cfg.d_model)).astype(
+        np.float32)).to(device)
+    x = x0.clone().requires_grad_()
+    leaves, treedef = tree_flatten(p)
+    leaves = [w.to(device).requires_grad_() for w in leaves]
+    params = tree_unflatten(treedef, leaves)
+    acc = ExampleLayout(1).init(b, device).requires_grad_()
+    tap = Tap(PexSpec(), acc=acc, layout=ExampleLayout(1))
+    tap.set_mode(norms=True, grads=True)
+    y = tmoe.moe(params, x, tap=tap, cfg=cfg, group="all")
+    out = torch.sum(y * ybar) + torch.sum(tap.carry() * 0.0)
+    return torch.autograd.grad(out, [x, acc] + leaves)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_backward_is_bitwise_repeatable(cuda_device):
+    """The MoE dispatch and combine gather by advanced indexing, whose
+    backward is the sorted ``index_put_`` with ``accumulate``: on the card
+    a top-6 layer's gradients and norms are the same bits on 5 runs, and
+    match the CPU's."""
+    first = _moe_backward(cuda_device)
+    for _ in range(4):
+        assert all(torch.equal(a, w) for a, w in zip(
+            _moe_backward(cuda_device), first))
+    for got, want in zip(first, _moe_backward(torch.device("cpu"))):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+# --- checkpoints on the card ---------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_roundtrip_on_device(cuda_device, tmp_path,
+                                             monkeypatch):
+    """A bf16 and f32 tree on the card saves and restores onto the card
+    bit for bit; the writer thread is handed host numpy bytes only."""
+    import threading
+
+    from repro_torch.ckpt import checkpoint as tck
+    from repro_torch.nn.param import tree_leaves, tree_map
+
+    seen = []
+    write = tck.CheckpointManager._write_inner
+
+    def checked(self, step, host_items, extra):
+        seen.append((threading.current_thread() is not
+                     threading.main_thread(),
+                     all(isinstance(raw, np.ndarray)
+                         for _, raw, _, _ in host_items)))
+        return write(self, step, host_items, extra)
+
+    monkeypatch.setattr(tck.CheckpointManager, "_write_inner", checked)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"w": torch.randn(64, 48, generator=gen, device=cuda_device),
+            "b": [torch.randn(33, generator=gen, device=cuda_device
+                              ).to(torch.bfloat16),
+                  torch.randn(7, 5, generator=gen, device=cuda_device)]}
+    mgr = tck.CheckpointManager(str(tmp_path))
+    mgr.save(1, tree)
+    mgr.wait()
+    assert seen == [(True, True)]
+    got, _ = mgr.restore(None, tree_map(torch.zeros_like, tree))
+    for a, w in zip(tree_leaves(got), tree_leaves(tree)):
+        assert a.device.type == "cuda" and a.dtype == w.dtype
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_resume_is_bit_deterministic(cuda_device, tmp_path):
+    """The smoke llama3.2-1b trainer on the card: 4 steps straight equal 2
+    + resume + 2, parameters and both moments bit for bit."""
+    from repro_torch.core.taps import PexSpec
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import registry
+    from repro_torch.nn.param import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    spec = registry.get("llama3.2-1b")
+    cfg = spec.smoke()
+
+    def trainer(steps, ckpt_dir, every):
+        params = registry.family_module(spec).init(
+            cfg, torch.Generator(device=cuda_device).manual_seed(0),
+            device=cuda_device)
+        return Trainer(registry.make_loss_fn_v2(spec, cfg), params,
+                       PexSpec(), adamw.AdamWConfig(lr=1e-3),
+                       TrainConfig(steps=steps, log_every=0,
+                                   ckpt_every=every, ckpt_dir=ckpt_dir),
+                       DataConfig(vocab=cfg.vocab, seq=32, global_batch=8),
+                       device=cuda_device)
+
+    straight = trainer(4, None, 10 ** 9)
+    straight.train()
+    trainer(2, str(tmp_path), 2).train()
+    resumed = trainer(4, str(tmp_path), 10 ** 9)
+    resumed.train(resume=True)
+    assert resumed.opt_state.step == 4
+    for a, w in zip(tree_leaves(resumed._state_tree()),
+                    tree_leaves(straight._state_tree())):
+        assert a.is_cuda and torch.equal(a, w)

@@ -21,8 +21,9 @@ re-admission, the pending queue and the errors follow.
 
 The reference test's ``shard_map`` variants are held at two ranks in
 ``tests/test_torch_dist_train.py``; here a one-rank mesh steps as the local
-service does. Not ported: checkpoint renumbering (ROADMAP Queue 1 item
-10).
+service does. The store's checkpoint round trip is here too; the
+renumbering restore and the too-small store are in
+``tests/test_torch_ckpt.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,7 @@ from repro.tenancy import TenantService as JService
 from repro.tenancy import assemble as jassemble
 from repro.tenancy import batch as jtb
 from repro_torch import interop, pex
+from repro_torch.ckpt import CheckpointManager
 from repro_torch.core import passes
 from repro_torch.dist import sharding as shd
 from repro_torch.nn import lora as tlora
@@ -195,18 +197,33 @@ def test_store_slot_recycling_and_deterministic_readmission():
     assert not _same(_digest(other.gather([5])), first)
 
 
-def test_store_scatter_roundtrip_and_unported_checkpointing():
+def test_store_scatter_roundtrip_and_checkpointing(tmp_path):
+    """``scatter`` inverts ``gather``; ``save`` writes the active rows in
+    tenant-id order with the tenant list in ``extra``, and ``restore`` puts
+    them back, bit for bit, into slots [0..n) of a store of another seed
+    whose residency differs."""
     store = AdapterStore(_init_fn, capacity=4, seed=3, device="cpu")
-    for t in (4, 8):
+    for t in (8, 4):
         store.admit(t)
     rows = store.gather([8, 4])
     store.scatter([8, 4], pm.tree_map(lambda v: v + 1.0, rows))
     again = store.gather([8, 4])
     for a, b in zip(pm.tree_leaves(again), pm.tree_leaves(rows)):
         torch.testing.assert_close(a, b + 1.0, rtol=0, atol=0)
-    for call in (lambda: store.save(None, 0), lambda: store.restore(None)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    mgr = CheckpointManager(str(tmp_path))
+    store.save(mgr, 3)
+    _, extra = mgr.restore(3, store.gather([4, 8]))
+    assert extra == {"tenancy": {"tenants": [4, 8]}}
+    other = AdapterStore(_init_fn, capacity=4, seed=9, device="cpu")
+    for t in (1, 8, 2):
+        other.admit(t)
+    assert other.restore(mgr) == [4, 8]
+    assert list(other.slots) == [4, 8, -1, -1] and list(other.tenants) == \
+        [4, 8]
+    assert _same(_digest(other.gather([4, 8])),
+                 _digest(store.gather([4, 8])))
+    assert all(torch.count_nonzero(s[2:]) == 0
+               for s in pm.tree_leaves(other.stacked))
 
 
 def test_service_pending_queue_head_first():
@@ -246,12 +263,16 @@ def test_service_errors(tmp_path):
     for g, w in zip(pm.tree_leaves(meshed.store.gather(owner)),
                     pm.tree_leaves(local.store.gather(owner))):
         assert torch.equal(g, w)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TenantService(store, _loss_fn, clip_norm=C, ckpt_manager=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # checkpointing needs a manager, as in the reference
+    with pytest.raises(ValueError, match="ckpt_manager= to checkpoint"):
         svc.save()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="ckpt_manager= to restore"):
         svc.restore()
+    saved = TenantService(local.store, _loss_fn, clip_norm=C,
+                          ckpt_manager=CheckpointManager(str(tmp_path / "ck")))
+    saved.save()
+    assert saved.ckpt_manager.all_steps() == [0]
+    assert saved.restore() == sorted(int(t) for t in set(owner))
 
 
 # ---------------------------------------------------------------------------

@@ -13,12 +13,15 @@ off) and with ``[Norms, Clip, GNS]``, and the gemma2-9b smoke config
 clip: each step's loss, ``norm_mean``, ``norm_max`` and ``gns`` agree at
 1e-4 relative. A loss poisoned for some
 examples is quarantined as the reference does. A one-rank mesh trains bit
-for bit as the local trainer does, and checkpointing is refused naming
-ROADMAP.md Queue 1 item 10. The launcher runs each mode,
+for bit as the local trainer does, and saves and restores its checkpoints
+(``tests/test_torch_ckpt.py`` holds the resume bit for bit). The launcher
+runs each mode, saves with ``--ckpt-dir`` and resumes with ``--resume``,
 and each arch of the transformer family (deepseek-v2-236b's MLA, dense
 prefix and MoE among them), on the CPU.
 """
+import json
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +46,7 @@ from repro_torch.core import passes
 from repro_torch.core import plan as tplan
 from repro_torch.core.taps import PexSpec
 from repro_torch.data import pipeline as tpipe
+from repro_torch.dist import sharding as shd
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import registry
@@ -449,16 +453,19 @@ def test_trainer_refuses_a_plan_without_a_gradient():
         _port_trainer((tplan.Norms(),))
 
 
-def test_trainer_refuses_meshes_and_checkpoints(tmp_path):
-    """Meshes are ported: a one-rank mesh trains bit for bit as the local
-    trainer does, and ``rebind_mesh`` moves a trainer on and off it
+def test_trainer_meshes_and_checkpoints(tmp_path):
+    """A one-rank mesh trains bit for bit as the local trainer does, and
+    ``rebind_mesh`` moves a trainer on and off it
     (``tests/test_torch_dist_train.py`` holds two ranks to the reference).
-    Checkpointing is still refused, naming ROADMAP.md Queue 1 item 10."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        _port_trainer(None, ckpt_dir="ck")
+    Both checkpoint: the local trainer every step (``keep`` 3), the meshed
+    one, whose first rank writes, at its last; each restores its last
+    step's state bit for bit, the meshed one onto the mesh
+    (``shardings=``), and the two step-3 shards hold the same bytes."""
     cons = ttrainer.consumers_for_mode("clip", B, noise_std=0.5)
-    local = _port_trainer(cons)
+    local = _port_trainer(cons, ckpt_dir=str(tmp_path / "local"),
+                          ckpt_every=1)
     local.train()
+    assert local.ckpt.all_steps() == [1, 2, 3]
     with tdp.one_rank(tmp_path):
         mesh = make_host_mesh(device_type="cpu")
         spec = registry.get(ARCH)
@@ -468,7 +475,9 @@ def test_trainer_refuses_meshes_and_checkpoints(tmp_path):
         meshed = ttrainer.Trainer(
             registry.make_loss_fn_v2(spec, cfg), params, PexSpec(),
             adamw.AdamWConfig(lr=1e-3),
-            ttrainer.TrainConfig(consumers=cons, steps=3, log_every=0),
+            ttrainer.TrainConfig(consumers=cons, steps=3, log_every=0,
+                                 ckpt_every=3,
+                                 ckpt_dir=str(tmp_path / "mesh")),
             tpipe.DataConfig(vocab=cfg.vocab, seq=S, global_batch=B),
             mesh=mesh, device="cpu")
         assert meshed.engine.mesh is mesh
@@ -477,15 +486,24 @@ def test_trainer_refuses_meshes_and_checkpoints(tmp_path):
         assert meshed.engine.mesh is None
         meshed.rebind_mesh(mesh, data_axes=("data",))
         assert meshed.engine.mesh is mesh
+        trained = [x.clone() for x in tree_leaves(meshed._state_tree())]
+        assert meshed.restore_from(
+            shardings=shd.sharding_for((), mesh)) == 3
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(meshed._state_tree()), trained))
+        assert meshed.opt_state.step == 3
     for a, b in zip(tree_leaves(local.params), tree_leaves(meshed.params)):
         assert torch.equal(a, b)
     assert [m["loss"] for m in local.metrics] == \
         [m["loss"] for m in meshed.metrics]
-    for call in (local.save_checkpoint, local.restore_from,
-                 lambda: local.train(resume=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            call()
-    assert "item 9" not in ttrainer.WAITS
+    trained = [x.clone() for x in tree_leaves(local._state_tree())]
+    assert local.restore_from() == 3 and local.opt_state.step == 3
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(local._state_tree()), trained))
+    shard = "step_000000003/shard_00000.npz"
+    assert (tmp_path / "local" / shard).read_bytes() == \
+        (tmp_path / "mesh" / shard).read_bytes()
+    assert not hasattr(ttrainer, "WAITS")
     assert ttrainer.RESUME_EXTRA_KEYS == jtrainer.RESUME_EXTRA_KEYS
 
 
@@ -539,10 +557,46 @@ def test_launcher_runs_each_arch_on_cpu(arch, capsys):
     assert f"{arch}: " in capsys.readouterr().out
 
 
+LAUNCH = ["--arch", ARCH, "--smoke", "--mode", "clip", "--batch", "4",
+          "--seq", "16", "--device", "cpu"]
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the smoke runs (as a spawned rank has): many
+    threads a worker only contend under a parallel test run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("flag", [["--data-parallel", "--ckpt-dir", "ck"],
                                   ["--ckpt-dir", "ck"], ["--resume"]])
-def test_launcher_refuses_unported_flags(flag):
-    """Checkpointing is refused before any rank is spawned; the launcher's
-    ``--data-parallel`` itself runs (``tests/test_torch_dist_train.py``)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu"] + flag)
+def test_launcher_checkpoints_and_resumes(flag, tmp_path, one_thread):
+    """``--ckpt-dir`` saves every ``ckpt_every`` (50) steps, as the
+    reference's launcher does: a 52-step run leaves step 50 (with
+    ``--data-parallel`` its one spawned gloo rank writes it). ``--resume``
+    on one process then trains steps 50 and 51 from it, and their losses
+    are the first run's, bit for bit (clip with no noise draws nothing; the
+    schedule spans the same 52 steps). Without a checkpoint, ``--resume``
+    trains from step 0."""
+    ck = str(tmp_path / "ck")
+    flag = [ck if f == "ck" else f for f in flag]
+    if flag == ["--resume"]:
+        ms = tlaunch.main(LAUNCH + ["--steps", "2", "--resume",
+                                    "--ckpt-dir", ck])
+        assert [m["step"] for m in ms] == [0, 1] and not os.listdir(ck)
+        flag = ["--ckpt-dir", ck]
+    first = tlaunch.main(LAUNCH + ["--steps", "52"] + flag)
+    assert len(first) == 52
+    assert sorted(os.listdir(ck)) == ["step_000000050"]
+    with open(os.path.join(ck, "step_000000050", "manifest.json")) as f:
+        manifest = json.load(f)
+    assert manifest["extra"] == {"step": 50, "opt_step": 50, "seed": 0,
+                                 "data": {"step": 50, "seed": 0}}
+    resumed = tlaunch.main(LAUNCH + ["--steps", "52", "--resume",
+                                     "--ckpt-dir", ck])
+    assert [m["step"] for m in resumed] == [50, 51]
+    assert [m["loss"] for m in resumed] == \
+        [m["loss"] for m in first[50:]]
