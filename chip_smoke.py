@@ -331,7 +331,28 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               mode ``Default``), the ``short`` storm with its three
               invariants; exit 0, and the summary's coverage (≥ 2
               contractions, ≥ 1 expansion, ≥ 1 fallback, the quarantine of
-              exactly the poisoned rows); its wall time.
+              exactly the poisoned rows); its wall time;
+40. verify  — the static checks (``repro_torch.analysis``), run against
+              what the card did: ``Engine.verify(deep=True)`` on the main
+              path's model (llama3.2-1b at full width, bf16, B=8, S=512,
+              parameters on the ``meta`` device) with ``[Norms, Clip(1.0),
+              Noise(0.1), GNS]`` and with ``[Norms, Grads]``, each ``ok``,
+              its coverage counts by status, findings, seconds and the
+              device memory it allocated; the kernel sites a trace of one
+              step names on the main, flash, moe and token paths (phases 5,
+              6, 8 and 11: same configs, shapes and consumers), times
+              ``STEPS``, equal to the launches those phases counted on the
+              card, by kernel, by gram/direct launch shape
+              (``main_path_launches``, each ``norm_shapes`` entry) and by
+              segmented / ``rowsumsq`` shape; each bf16 kernel's launch
+              contract (``kernels.ops.*_contract`` at the main and moe
+              paths' shapes) against its ``kernel_info()``: shared memory a
+              block and threads equal, registers within the budget; the
+              collectives pass over phase 37's one-rank NCCL mesh; and
+              ``python -m repro_torch.analysis --json --full`` over all ten
+              archs at the depths the paths above use (B=3, S=8), no
+              finding, each arch's seconds. Any error finding or mismatch
+              fails the run.
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -3254,6 +3275,280 @@ def phase_soak():
     return {"seconds": wall, "summary": summary}
 
 
+# ---------------------------------------------------------------------------
+# phase 40: the static checks against what the card launched
+# ---------------------------------------------------------------------------
+
+#: the CLI's depth cuts: those of the paths above (llama3.2-1b and
+#: seamless-m4t-medium at full depth)
+LINT_DEPTHS = {"phi3.5-moe": MOE_LAYERS, "gemma2-9b": GEMMA_LAYERS,
+               "qwen2-vl-7b": VL_LAYERS, "qwen2-7b": VL_LAYERS,
+               "minitron-4b": VL_LAYERS, "deepseek-v2-236b": DS_LAYERS,
+               **{a: n for a, n, _ in FAMILY_PATHS if n is not None}}
+LINT_TIMEOUT_S = 400
+
+
+def path_consumers(pex, token, gen):
+    """``phase_main``'s consumers."""
+    if token:
+        return [pex.Clip(0.5, granularity="token"), pex.Grads()]
+    return [pex.Norms(), pex.Clip(1.0), pex.Noise(0.1, gen), pex.GNS()]
+
+
+def meta_setup(spec, registry, cfg, shape):
+    """(loss_fn, parameters on the ``meta`` device, a CPU batch of
+    ``shape`` = (B, S)): nothing of the model is allocated."""
+    import torch
+    from repro_torch.configs.common import ShapeSpec
+    b, s = shape
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator().manual_seed(0), device="meta")
+    batch = registry.make_train_batch(spec, cfg,
+                                      ShapeSpec("verify", "train", s, b),
+                                      device="cpu")
+    return registry.make_loss_fn_v2(spec, cfg), params, batch
+
+
+def trace_path(spec, registry, pex, cfg, shape, token=False):
+    """One step of ``phase_main``'s path recorded on ``meta`` tensors
+    (``analysis._trace.trace_step``): the kernel sites the card would
+    launch."""
+    import torch
+    from repro_torch.analysis import _trace
+    loss_fn, params, batch = meta_setup(spec, registry, cfg, shape)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    return _trace.trace_step(
+        loss_fn, params, batch, path_consumers(pex, token, gen),
+        granularity="token" if token else "example")
+
+
+def check_trace_launches(tag, tr, run, cfg, s, token=False):
+    """The trace's kernel sites of one step against what ``run`` (a
+    ``phase_main`` result) counted on the card: per kernel × ``STEPS``,
+    gram/direct by launch shape (``main_path_launches``, none on a token
+    path; the set of ``norm_shapes``), segmented and ``rowsumsq`` by shape
+    (the run's first step). Returns the per-step counts."""
+    from repro_torch.kernels import ops
+    counts = {k: tr.kernel_counts().get(k, 0) for k in ops.launch_counts()}
+    if {k: STEPS * n for k, n in counts.items()} != run["launches"]:
+        raise AssertionError(f"verify {tag}: the trace names {counts} "
+                             f"launches a step, the card counted "
+                             f"{run['launches']} over {STEPS} steps")
+    by_shape = tr.norm_launches()
+    want = ({k: {} for k in NORM_KERNELS} if token
+            else main_path_launches(cfg, s))
+    if by_shape != want:
+        raise AssertionError(f"verify {tag}: trace gram/direct by shape "
+                             f"{by_shape}, expected {want}")
+    shapes = set()
+    for op in tr.of_kind("kernel"):
+        if op.name in NORM_KERNELS:
+            (b, s_, p_in), (_, _, p_out) = op.meta["shapes"]
+            shapes.add((f"torch.{op.meta['dtypes'][0]}", b, s_, p_in, p_out))
+    if shapes != run["norm_shapes"]:
+        raise AssertionError(f"verify {tag}: trace gram/direct shapes "
+                             f"{sorted(shapes)}, the card launched "
+                             f"{sorted(run['norm_shapes'])}")
+    seg = sorted((op.meta["shapes"][0][0], op.meta["shapes"][0][1],
+                  op.meta["shapes"][1][1], op.meta["n_seg"])
+                 for op in tr.of_kind("kernel")
+                 if op.name == "segmented_norm")
+    if seg and seg != sorted((t, pi, po, n) for _, n, t, pi, po, _
+                             in run["seg_calls"][0]):
+        raise AssertionError(f"verify {tag}: trace segmented launches "
+                             f"{seg} differ from the card's first step")
+    rows = sorted(op.meta["shapes"][0] for op in tr.of_kind("kernel")
+                  if op.name == "rowsumsq")
+    if rows and rows != sorted(tuple(sh) for sh, _ in run["row_calls"][0]):
+        raise AssertionError(f"verify {tag}: trace rowsumsq launch shapes "
+                             f"differ from the card's first step")
+    log(f"[verify] {tag}: the trace of one step names "
+        f"{ {k: n for k, n in counts.items() if n} } launches; x{STEPS} "
+        f"= the card's count over {STEPS} steps "
+        f"{ {k: n for k, n in run['launches'].items() if n} }; gram/direct "
+        f"by shape {by_shape}"
+        + (f"; {len(seg)} segmented launches by (T, p_in, p_out, n_seg) "
+           f"as the card's" if seg else "")
+        + (f"; {len(rows)} rowsumsq launch shapes as the card's"
+           if rows else ""))
+    return counts
+
+
+def check_contracts(traces):
+    """Each bf16 body's launch contract, built by ``kernels.ops`` for a
+    launch the traces name (gram and direct on the main path, segmented on
+    the moe path, the three flash kernels on the flash path), against the
+    built kernel's ``kernel_info()``; every contract valid."""
+    import torch
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import direct_norm as dn
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gram_norm as gn
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segmented_norm as sn
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    infos = {"gram_norm": lambda m: gn.kernel_info(),
+             "direct_norm": lambda m: dn.kernel_info(),
+             "segmented_norm": lambda m: sn.kernel_info(),
+             "flash_attention": lambda m: fa.kernel_info(
+                 "fwd", m["shapes"][0][3]),
+             "flash_attention_bwd_dq": lambda m: fa.kernel_info(
+                 "dq", m["shapes"][0][3]),
+             "flash_attention_bwd_dkv": lambda m: fa.kernel_info(
+                 "dkv", m["shapes"][0][3])}
+    rows = []
+    for name, tag in (("gram_norm", "main"), ("direct_norm", "main"),
+                      ("segmented_norm", "moe"), ("flash_attention", "flash"),
+                      ("flash_attention_bwd_dq", "flash"),
+                      ("flash_attention_bwd_dkv", "flash")):
+        site = next(op for op in traces[tag].of_kind("kernel")
+                    if op.name == name and op.meta["dtypes"][0] == "bfloat16")
+        meta = dict(site.meta)
+        c = ops.contract_for_launch(name, sms=sms, **meta)[0]
+        info = infos[name](meta)
+        errs = contract.validate(c) + contract.check_info(c, info)
+        rows.append({"kernel": c.kernel, "shapes": meta["shapes"],
+                     "grid": c.grid, "smem_bytes": c.smem_bytes,
+                     "threads": c.threads, "blocks_per_sm": c.blocks_per_sm,
+                     "tma_maps": len(c.tma), "info": info})
+        if errs:
+            raise AssertionError(f"verify contracts: {errs}")
+    log(f"[verify] contracts against kernel_info(): {json.dumps(rows)}")
+    return rows
+
+
+def verify_report(tag, rep, seconds, alloc):
+    """Log one ``VerifyReport``; fail on anything but ``ok``."""
+    from repro_torch.analysis import coverage as cov
+    c = rep.coverage.counts()
+    launches = [tr.kernel_counts() for tr in rep.traces]
+    log(f"[verify] {tag}: ok={rep.ok} in {seconds:.2f} s, device memory "
+        f"allocated {alloc} B; coverage {c[cov.TAPPED]} tapped, "
+        f"{c['allowlisted']} allowlisted, {c[cov.FROZEN]} frozen, "
+        f"{c[cov.UNTAPPED]} untapped over {len(rep.coverage.sites)} tap "
+        f"sites; {len(rep.launch.contracts)} launch contracts checked; "
+        f"findings {[f.render() for f in rep.findings]}; kernel sites a "
+        f"step {launches}")
+    if not rep.ok:
+        raise AssertionError(f"verify {tag}: {rep.errors}")
+
+
+def phase_verify(spec, registry, pex, cfg, runs):
+    """Phase 40. ``runs``: {tag: (spec, cfg, (B, S), token, phase_main
+    run)} of the main, flash, moe and token paths."""
+    import torch
+    out = {"verify_s": {}, "alloc": {}}
+    loss_fn, params, batch = meta_setup(spec, registry, cfg, (B, S))
+    batch = {k: v.cuda() for k, v in batch.items()}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    eng = pex.Engine(pex.PexSpec())
+    for tag, cons in (("dp", [pex.Norms(), pex.Clip(1.0),
+                               pex.Noise(0.1, gen), pex.GNS()]),
+                      ("norms-grads", [pex.Norms(), pex.Grads()])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        rep = eng.verify(loss_fn, params, batch, [cons], cfg=cfg)
+        seconds = time.perf_counter() - t0
+        alloc = torch.cuda.max_memory_allocated() - m0
+        verify_report(f"Engine.verify {tag}", rep, seconds, alloc)
+        out["verify_s"][tag], out["alloc"][tag] = seconds, alloc
+    out["launches"], traces = {}, {}
+    for tag, (sp, c, shape, token, run) in runs.items():
+        traces[tag] = tr = trace_path(sp, registry, pex, c, shape, token)
+        out["launches"][tag] = check_trace_launches(tag, tr, run, c,
+                                                    shape[1], token)
+    out["contracts"] = check_contracts(traces)
+    with one_rank_nccl() as mesh:
+        t0 = time.perf_counter()
+        rep = pex.Engine(pex.PexSpec(), mesh=mesh).verify(
+            loss_fn, params, batch,
+            [[pex.Norms(), pex.Clip(1.0), pex.Noise(0.1, gen), pex.GNS()]],
+            cfg=cfg, determinism=False)
+        seconds = time.perf_counter() - t0
+    if len(rep.collectives) != 1:
+        raise AssertionError("verify: no collectives report on the mesh")
+    log(f"[verify] collectives on the one-rank NCCL mesh in {seconds:.2f} "
+        f"s: {rep.collectives[0].summary()}")
+    verify_report("Engine(mesh=).verify dp", rep, seconds, 0)
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--json", "--full",
+           *(f"--depth={a}={n}" for a, n in sorted(LINT_DEPTHS.items()))]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True,
+                       timeout=LINT_TIMEOUT_S, cwd=ROOT,
+                       env=dict(os.environ,
+                                PYTHONPATH=os.path.join(ROOT, "src")))
+    wall = time.perf_counter() - t0
+    if r.returncode:
+        raise AssertionError(f"verify CLI: exit {r.returncode}\n"
+                             f"{r.stderr[-4000:]}")
+    lint = json.loads(r.stdout)
+    log(f"[verify] {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s; "
+        f"{len(lint['archs'])} archs, {lint['errors']} errors, "
+        f"{lint['warnings']} warnings; seconds by arch "
+        f"{json.dumps(lint['seconds'])}")
+    if lint["findings"] or len(lint["archs"]) != 10:
+        raise AssertionError(f"verify CLI: findings {lint['findings']}")
+    out["lint_s"] = lint["seconds"]
+    return out
+
+
+def verify_times():
+    """Phase 40 with only what it reads: the build, phases 5, 6, 8 and 11
+    (their counted launches), then ``phase_verify``."""
+    import torch
+    from repro_torch import pex
+    from repro_torch.models import registry
+    phase_build()
+    spec = registry.get("llama3.2-1b")
+    cfg = spec.full()
+    moe_spec = registry.get("phi3.5-moe")
+    moe_cfg = cut(moe_spec, MOE_LAYERS)
+    runs = path_runs(spec, registry, pex, cfg, moe_spec, moe_cfg)
+    torch.cuda.empty_cache()
+    return phase_verify(spec, registry, pex, cfg, runs)
+
+
+def main_step_times(tag="main-times"):
+    """Phase 5 alone, after the build: the main path's steady step ms and
+    ``Engine.step`` stream ms. A copy of this file in another checkout
+    times that checkout's step; run two in turns in one call."""
+    from repro_torch import pex
+    from repro_torch.models import registry
+    phase_build()
+    spec = registry.get("llama3.2-1b")
+    cfg = spec.full()
+    run = phase_main(spec, registry, pex, cfg, (B, S), tag,
+                     pass_launches(main_path_launches(cfg, S), cfg),
+                     NORM_KERNELS)
+    log(f"[{tag}] steady step ms {run['step_ms'][1:]}; Engine.step stream "
+        f"ms {run['engine_ms'][1:]}; queued {run['enqueue_ms'][1:]}")
+    return run
+
+
+def path_runs(spec, registry, pex, cfg, moe_spec, moe_cfg):
+    """Phases 5, 6, 8 and 11 as ``phase_verify`` takes them."""
+    import torch
+    expected = main_path_launches(cfg, S)
+    runs = {}
+    for tag, c, sp, shape, token, kernels in (
+            ("main", cfg, spec, (B, S), False, NORM_KERNELS),
+            ("flash", with_flash(cfg), spec, (B, S), False,
+             NORM_KERNELS + FLASH_KERNELS),
+            ("moe", moe_cfg, moe_spec, (MOE_B, MOE_S), False,
+             NORM_KERNELS + ("segmented_norm",)),
+            ("token", cfg, spec, (B, S), True, ("rowsumsq",))):
+        want = (token_pass_launches(c) if token else pass_launches(
+            main_path_launches(c, shape[1]) if tag == "moe" else expected,
+            c))
+        run = phase_main(sp, registry, pex, c, shape, tag, want, kernels,
+                         token=token)
+        runs[tag] = (sp, c, shape, token, run)
+        torch.cuda.empty_cache()
+    return runs
+
+
 def norm_host_us(reps=200):
     """Host time of one call (µs) of the bf16 gram launcher at wq's shape
     and of the direct launcher at wk's (B=8, S=512), with the card held
@@ -5419,6 +5714,12 @@ def main() -> int:
     ckpt_run = phase_ckpt(spec, registry, cfg, train_run)
     torch.cuda.empty_cache()
     soak_run = phase_soak()
+    torch.cuda.empty_cache()
+    verify_run = phase_verify(spec, registry, pex, cfg, {
+        "main": (spec, cfg, (B, S), False, main_run),
+        "flash": (spec, with_flash(cfg), (B, S), False, flash_run),
+        "moe": (moe_spec, moe_cfg, (MOE_B, MOE_S), False, moe_run),
+        "token": (spec, cfg, (B, S), True, token_run)})
     for tag, r in (("serve llama3.2-1b", serve_run),
                    *((f"serve-families {a}", r)
                      for a, r in serve_fams.items())):
@@ -5503,7 +5804,9 @@ def main() -> int:
         f"save blocks {[round(x, 1) for x in ckpt_run['save_ms']]} ms, "
         f"commit {[round(x, 2) for x in ckpt_run['write_s']]} s, restore "
         f"{[round(x, 2) for x in ckpt_run['restore_s']]} s; soak "
-        f"{soak_run['seconds']:.1f} s; whole run "
+        f"{soak_run['seconds']:.1f} s; verify "
+        f"{ {k: round(v, 2) for k, v in verify_run['verify_s'].items()} } "
+        f"s; whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -1,0 +1,527 @@
+"""Shared trace front end for the pexlint passes (DESIGN.md §10, §12).
+
+The port's counterpart of ``src/repro/analysis/_jaxpr.py``: where the
+reference walks a jaxpr, the port walks a flat record of one run of the
+program — every aten op of the forward and of each backward pass, in the
+order the dispatcher sees them, with the tensors each reads and writes.
+The record is taken on ``meta`` tensors, so nothing is computed and no
+kernel runs; a full-width step records in seconds on any host.
+
+  * ``Recorder`` — a ``TorchDispatchMode`` that records each op, plus what
+    dispatch cannot see: the Tap sites (``core.taps._site``), the
+    provenance marks (``core.provenance``), every kernel launch the
+    wrappers would make (``kernels.ops``: the launchers call their CUDA
+    kernels through ``ctypes``, out of the dispatcher's sight, so under a
+    trace each records its site and returns ``meta`` outputs), every
+    all-reduce of ``dist.pex``, and every random draw with the generator it
+    draws from (the draw itself is not made: a ``meta`` tensor of the
+    output's shape stands for it).
+  * ``Walker`` — forward taint propagation over the record on the union
+    semilattice of frozensets, per tensor, with in-place writes added to
+    every tensor of the written storage. A pass overrides ``hook`` for the
+    records it gives meaning to (coverage: the Tap sites; privacy: the
+    marks and draws; collectives: the all-reduces).
+  * ``trace_step`` — record one full ``Engine.step`` (local or mesh path)
+    and return it with the maps the passes need: which outputs are which
+    result field (gradient leaves keep their parameter paths) and which
+    generators the consumers brought.
+
+The route a trace models is the card's: CUDA with ``PexSpec.use_kernels``,
+so a trace taken on the CPU names the kernel sites the H100 would
+launch. ``trace_train_step`` (the optimizer apply, for the traffic
+and cost passes) comes with those passes.
+
+Random draws under a trace: a ``torch.Generator`` cannot draw into a
+``meta`` tensor, and a ``meta`` generator does not exist, so the recorder
+takes every op tagged ``nondeterministic_seeded`` itself: it records the
+generator and a key for the draw — a digest of the generator's state when
+the trace first met it, and the count of draws from it since — and
+returns an undrawn ``meta`` output. Reading a scalar out of a ``meta``
+tensor (``int(t)``, ``bool(t)``) returns a stand-in: False for a bool, 0.0
+for a float, and for an integer a fresh value per read, remembered as
+keyed when the tensor read derives from a draw (a seed drawn from a
+consumer's generator).
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.core import plan as plan_mod
+from repro_torch.core import provenance as _prov
+from repro_torch.kernels.contract import dtype_name
+from repro_torch.nn.param import tree_leaves, tree_map, tree_paths
+
+EMPTY = frozenset()
+
+#: aten ops through which no gradient flows back
+DETACH_OPS = frozenset({"aten.detach.default"})
+
+
+class AnalysisError(RuntimeError):
+    """A trace could not be taken or walked soundly."""
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorInfo:
+    shape: Tuple[int, ...]
+    dtype: str
+    storage: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Op:
+    """One record of a trace.
+
+    kind: "aten" (a dispatched op), "tap" (a Tap site: its forward's own
+    ops precede it with ``site`` set), "mark", "kernel", "collective",
+    "draw" or "read" (a scalar read). ``ins``/``outs`` are tensor ids,
+    ``writes`` the storages an in-place op mutates."""
+    index: int
+    kind: str
+    name: str
+    ins: Tuple[int, ...]
+    outs: Tuple[int, ...]
+    writes: Tuple[int, ...] = ()
+    meta: Any = None
+    site: int = -1
+
+
+@dataclasses.dataclass
+class GenState:
+    """A generator the trace met: the digest of its state then, the draws
+    from it since, whether a consumer brought it, whether an rng_use mark
+    named it, and whether it was seeded (``mark_rng(seed=)``) from a
+    consumer draw. Keyed in ``Trace.gens`` by the ``id`` of the object
+    the mark received (a draw no mark names gets a key of its own)."""
+    digest: str
+    draws: int = 0
+    consumer: Optional[str] = None
+    keyed_seed: bool = False
+    marked: bool = False
+
+
+def _tensors(v) -> List[torch.Tensor]:
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, (list, tuple)):
+        return [t for x in v for t in _tensors(x)]
+    return []
+
+
+def _schema_arg(func, args, kwargs, i, name):
+    return args[i] if i < len(args) else kwargs.get(name)
+
+
+def _digest(gen: torch.Generator) -> str:
+    state = gen.get_state()
+    return hashlib.sha1(state.numpy().tobytes()).hexdigest()[:16]
+
+
+class Recorder(TorchDispatchMode):
+    """Records one run of the program on ``meta`` tensors (module
+    docstring). Use as a context manager; one trace at a time.
+    ``consumer_gens`` maps ``id(generator)`` → purpose for the generators
+    the step's consumers carry."""
+
+    #: integer stand-ins for scalar reads start here
+    SCALAR_BASE = 0x5EED_0000_0000
+
+    def __init__(self, consumer_gens: Optional[Dict[int, str]] = None):
+        super().__init__()
+        self.ops: List[Op] = []
+        self.tensors: Dict[int, TensorInfo] = {}
+        self.gens: Dict[int, GenState] = {}
+        self.keyed_scalars: set = set()
+        self._refs: list = []
+        self._site_stack: List[int] = []
+        self._n_sites = 0
+        self._draw_outs: set = set()
+        self._next_scalar = self.SCALAR_BASE
+        self._quiet = 0
+        self._consumer_gens = dict(consumer_gens or {})
+        self._pending: Optional[Tuple[int, GenState]] = None
+
+    # -- the active trace --------------------------------------------------
+    def __enter__(self):
+        if _prov.RECORDER is not None:
+            raise AnalysisError("an analysis trace is already recording")
+        _prov.RECORDER = self
+        try:
+            return super().__enter__()
+        except BaseException:
+            _prov.RECORDER = None
+            raise
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            _prov.RECORDER = None
+
+    # -- identities ----------------------------------------------------------
+    def tid(self, t: torch.Tensor) -> int:
+        key = id(t)
+        if key not in self.tensors:
+            self._quiet += 1
+            try:
+                try:
+                    storage = t.untyped_storage()._cdata
+                except (RuntimeError, NotImplementedError):
+                    storage = key
+                self.tensors[key] = TensorInfo(tuple(t.shape),
+                                               dtype_name(t.dtype), storage)
+            finally:
+                self._quiet -= 1
+            self._refs.append(t)
+        return key
+
+    def _append(self, kind, name, ins, outs, writes=(), meta=None) -> Op:
+        op = Op(len(self.ops), kind, name, tuple(ins), tuple(outs),
+                tuple(writes), meta,
+                self._site_stack[-1] if self._site_stack else -1)
+        self.ops.append(op)
+        return op
+
+    def _digest(self, gen) -> str:
+        self._quiet += 1
+        try:
+            return _digest(gen)
+        finally:
+            self._quiet -= 1
+
+    def _gen(self, gen) -> GenState:
+        g = self.gens.get(id(gen))
+        if g is None:
+            g = GenState(self._digest(gen),
+                         consumer=self._consumer_gens.get(id(gen)))
+            self.gens[id(gen)] = g
+            self._refs.append(gen)
+        return g
+
+    # -- dispatch ------------------------------------------------------------
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if self._quiet:
+            return func(*args, **kwargs)
+        if func is torch.ops.aten._local_scalar_dense.default:
+            return self._scalar(args[0])
+        if torch.Tag.nondeterministic_seeded in func.tags:
+            return self._draw(func, args, kwargs)
+        out = func(*args, **kwargs)
+        ins = [self.tid(t) for t in _tensors(list(args))
+               + _tensors(list(kwargs.values()))]
+        outs = [self.tid(t) for t in _tensors(out)]
+        writes = [self.tensors[self.tid(t)].storage
+                  for t in self._written(func, args, kwargs)]
+        if self._draw_outs.intersection(ins):
+            self._draw_outs.update(outs)    # derived from a draw
+        self._append("aten", str(func), ins, outs, writes)
+        return out
+
+    @staticmethod
+    def _written(func, args, kwargs) -> List[torch.Tensor]:
+        out = []
+        for i, a in enumerate(func._schema.arguments):
+            if a.alias_info is not None and a.alias_info.is_write:
+                out += _tensors(_schema_arg(func, args, kwargs, i, a.name))
+        return out
+
+    def _scalar(self, t: torch.Tensor):
+        tid = self.tid(t)
+        if t.dtype == torch.bool:
+            v = False
+        elif t.is_floating_point() or t.is_complex():
+            v = 0.0
+        else:
+            v = self._next_scalar
+            self._next_scalar += 1
+            if tid in self._draw_outs:
+                self.keyed_scalars.add(v)
+        self._append("read", "_local_scalar_dense", [tid], [],
+                     meta={"value": v})
+        return v
+
+    def _draw(self, func, args, kwargs):
+        gen = None
+        for i, a in enumerate(func._schema.arguments):
+            if a.name == "generator":
+                gen = _schema_arg(func, args, kwargs, i, a.name)
+        written = self._written(func, args, kwargs)
+        if written:
+            out = written[0]                   # in place: left undrawn
+        else:
+            kw = dict(kwargs)
+            if "generator" in kw:
+                kw["generator"] = None
+            if kw.get("device") is not None:
+                kw["device"] = torch.device("meta")
+            out = func(*args, **kw)
+        ins = [self.tid(t) for t in _tensors(list(args))
+               + _tensors(list(kwargs.values()))]
+        outs = [self.tid(t) for t in _tensors(out)]
+        self._draw_outs.update(outs)
+        key = gid = None
+        if gen is not None:
+            # the dispatcher hands over another Python object for the same
+            # generator, so a draw is bound to the rng_use mark just before
+            # it when the states agree (draws are never made, so a
+            # generator's state stays the one the trace first met)
+            digest = self._digest(gen)
+            pending = self._pending
+            if pending is not None and pending[1].digest == digest:
+                gid, g = pending
+            else:
+                gid = ("unmarked", len(self.ops))
+                g = self.gens[gid] = GenState(digest)
+            key = (g.digest, g.draws)
+            g.draws += 1
+        self._pending = None
+        self._append("draw", str(func), ins, outs,
+                     [self.tensors[self.tid(t)].storage for t in written],
+                     meta={"gen": gid, "key": key})
+        return out
+
+    # -- what dispatch does not see ----------------------------------------
+    def tap_site(self, info, operands, run):
+        """Run one tapped op (``core.taps._site``) and record it as a site
+        after its forward's ops; a tapped op inside another's forward is
+        part of the outer site."""
+        if self._site_stack:
+            return run()
+        k = self._n_sites
+        self._n_sites += 1
+        self._site_stack.append(k)
+        try:
+            z, acc = run()
+        finally:
+            self._site_stack.pop()
+        ins = [self.tid(t) for t in operands]
+        self._append("tap", info.name, ins, [self.tid(z), self.tid(acc)],
+                     meta={"info": info, "site": k})
+        return z, acc
+
+    def mark(self, x, tag: str, meta: dict) -> None:
+        if isinstance(x, torch.Tensor):
+            t = self.tid(x)
+            self._append("mark", tag, [t], [t], meta=meta)
+        else:
+            self._append("mark", tag, [], [], meta=meta)
+
+    def mark_rng(self, gen, purpose, index, seed) -> None:
+        g = self._gen(gen)
+        g.marked = True
+        self._pending = (id(gen), g)
+        if seed is not None and seed in self.keyed_scalars:
+            g.keyed_seed = True
+        self._append("mark", _prov.TAG_RNG, [], [], meta={
+            "purpose": purpose, "index": index, "seed": seed,
+            "gen": id(gen), "key": (g.digest, g.draws)})
+
+    def kernel(self, name, inputs, outputs, meta) -> None:
+        outs = outputs if isinstance(outputs, tuple) else (outputs,)
+        self._append("kernel", name, [self.tid(t) for t in inputs],
+                     [self.tid(t) for t in outs], meta={
+                         **meta,
+                         "shapes": tuple(tuple(t.shape) for t in inputs),
+                         "dtypes": tuple(dtype_name(t.dtype)
+                                         for t in inputs),
+                         "strides": tuple(tuple(t.stride()) for t in inputs),
+                         "offsets": tuple(t.storage_offset()
+                                          for t in inputs)})
+
+    def collective(self, x, kind: str, count: int) -> None:
+        t = self.tid(x)
+        self._append("collective", "all_reduce", [t], [t],
+                     [self.tensors[t].storage],
+                     meta={"kind": kind, "count": count, "op": "sum",
+                           "shape": tuple(x.shape)})
+
+
+# ---------------------------------------------------------------------------
+# the walk
+# ---------------------------------------------------------------------------
+
+class Walker:
+    """Forward taint propagation over a trace's records.
+
+    Override ``hook(op, in_taints)``: return a list of output taints to
+    take over the record (an empty list claims it with no output), or None
+    for the default — every output and every written storage gets the
+    union of the inputs. ``replace`` sets a tensor's taint outright (a
+    marker's semantics)."""
+
+    def hook(self, op: Op, in_t: List[frozenset]) -> Optional[List[frozenset]]:
+        return None
+
+    def taint(self, tid: int) -> frozenset:
+        s = self._storage(tid)
+        base = self.env.get(tid)
+        if base is None:
+            base = self.senv.get(s, EMPTY)
+        return base | self.wenv.get(s, EMPTY)
+
+    def replace(self, tid: int, t: frozenset) -> None:
+        self.env[tid] = t
+        self.wenv[self._storage(tid)] = EMPTY
+
+    def _storage(self, tid: int) -> int:
+        info = self.tensors.get(tid)
+        return tid if info is None else info.storage
+
+    def _write(self, tid: int, t: frozenset) -> None:
+        self.env[tid] = self.env.get(tid, EMPTY) | t
+        s = self._storage(tid)
+        self.senv[s] = self.senv.get(s, EMPTY) | t
+
+    def run(self, trace, init: Dict[int, frozenset]) -> "Walker":
+        self.tensors = trace.tensors
+        self.env: Dict[int, frozenset] = {}
+        self.wenv: Dict[int, frozenset] = {}
+        self.senv: Dict[int, frozenset] = {}
+        for tid, t in init.items():
+            self._write(tid, t)
+        for op in trace.ops:
+            in_t = [self.taint(t) for t in op.ins]
+            outs = self.hook(op, in_t)
+            if outs is None:
+                u = frozenset().union(*in_t) if in_t else EMPTY
+                outs = [u] * len(op.outs)
+                wt = u
+            else:
+                wt = frozenset().union(*outs) if outs else EMPTY
+            for tid, t in zip(op.outs, outs):
+                self._write(tid, t)
+            for s in op.writes:
+                self.wenv[s] = self.wenv.get(s, EMPTY) | wt
+        return self
+
+
+# ---------------------------------------------------------------------------
+# traces
+# ---------------------------------------------------------------------------
+
+def to_meta(tree):
+    """``tree`` with every tensor leaf replaced by a ``meta`` tensor of its
+    shape, strides and dtype (other leaves as they are)."""
+    def meta(x):
+        if isinstance(x, torch.Tensor):
+            return torch.empty_strided(tuple(x.shape), tuple(x.stride()),
+                                       dtype=x.dtype, device="meta")
+        return x
+    return tree_map(meta, tree)
+
+
+def path_str(path) -> str:
+    """A leaf's key path as ``a/0/b``."""
+    return "/".join(str(k) for k in path)
+
+
+@dataclasses.dataclass
+class Trace:
+    """The records of one trace and the identities they name."""
+    ops: List[Op]
+    tensors: Dict[int, TensorInfo]
+    gens: Dict[int, GenState]
+    keyed_scalars: frozenset
+
+    @classmethod
+    def of(cls, rec: Recorder) -> "Trace":
+        return cls(rec.ops, rec.tensors, rec.gens,
+                   frozenset(rec.keyed_scalars))
+
+    def of_kind(self, kind: str) -> List[Op]:
+        return [op for op in self.ops if op.kind == kind]
+
+    def kernel_counts(self) -> Dict[str, int]:
+        """{kernel: launches} of the trace."""
+        out: Dict[str, int] = {}
+        for op in self.of_kind("kernel"):
+            out[op.name] = out.get(op.name, 0) + 1
+        return out
+
+    def norm_launches(self) -> Dict[str, Dict[Tuple[int, int], int]]:
+        """{"gram_norm" / "direct_norm": {(p_in, p_out): launches}}."""
+        out = {"gram_norm": {}, "direct_norm": {}}
+        for op in self.of_kind("kernel"):
+            if op.name in out:
+                (_, _, p_in), (_, _, p_out) = op.meta["shapes"]
+                d = out[op.name]
+                d[(p_in, p_out)] = d.get((p_in, p_out), 0) + 1
+        return out
+
+
+_KEYED = (plan_mod.Noise, plan_mod.Importance)
+
+
+@dataclasses.dataclass
+class StepTrace(Trace):
+    """One recorded ``Engine.step`` plus the maps the privacy and
+    collectives passes anchor on."""
+    plan: Any = None
+    granularity: str = "example"
+    batch_size: int = 0
+    data_axes: Tuple[str, ...] = ("data",)
+    meshed: bool = False
+    mesh: Any = None
+    outputs: Tuple[Tuple[str, str, int], ...] = ()  # (field, leaf path, tid)
+
+    def grad_outputs(self) -> List[Tuple[str, int]]:
+        """(leaf path, tensor id) of every gradient leaf output."""
+        return [(p, t) for f, p, t in self.outputs if f == "grads"]
+
+
+#: StepResult fields that hold per-example (or per-token) values
+PER_EXAMPLE_FIELDS = ("loss_vec", "sq_norms", "weights", "token_weights",
+                      "clip_coef")
+
+
+def _outputs(rec: Recorder, r) -> Tuple[Tuple[str, str, int], ...]:
+    out = []
+    for field in PER_EXAMPLE_FIELDS + ("gns",):
+        v = getattr(r, field)
+        if isinstance(v, torch.Tensor):
+            out.append((field, "", rec.tid(v)))
+    if r.grads is not None:
+        for path, g in zip(tree_paths(r.grads), tree_leaves(r.grads)):
+            out.append(("grads", path_str(path), rec.tid(g)))
+    return tuple(out)
+
+
+def trace_step(loss_fn: Callable, params, batch, consumers: Sequence, *,
+               spec=None, granularity: str = "example", mesh=None,
+               data_axes: Sequence[str] = ("data",),
+               batch_size: Optional[int] = None, seq: Optional[int] = None,
+               loss_weights=None) -> StepTrace:
+    """Record ``Engine.step`` for one consumer list on ``meta`` copies of
+    ``params`` and ``batch`` (any device; nothing is read from them). The
+    consumers' generators (``Noise.rng`` / ``Importance.rng``) are met as
+    they are: their draws are recorded, not made. With ``mesh`` the mesh
+    path runs (its process group must exist; no collective is sent)."""
+    from repro_torch.core.engine import Engine, infer_batch_size
+
+    eng = Engine(spec, mesh=mesh, data_axes=data_axes,
+                 granularity=granularity)
+    plan = plan_mod.analyze(consumers, engine_granularity=granularity)
+    mparams, mbatch = to_meta(params), to_meta(batch)
+    bs = batch_size if batch_size is not None else infer_batch_size(mbatch)
+    gens = {}
+    for c in consumers:
+        if isinstance(c, _KEYED) and c.rng is not None:
+            gens[id(c.rng)] = ("noise" if isinstance(c, plan_mod.Noise)
+                               else "importance")
+    lw = None if loss_weights is None else to_meta(loss_weights)
+    rec = Recorder(gens)
+    with rec:
+        r = eng.step(loss_fn, mparams, mbatch, consumers, batch_size=bs,
+                     seq=seq, loss_weights=lw)
+        outputs = _outputs(rec, r)
+    base = Trace.of(rec)
+    return StepTrace(base.ops, base.tensors, base.gens, base.keyed_scalars,
+                     plan=plan, granularity=granularity, batch_size=bs,
+                     data_axes=eng.data_axes, meshed=mesh is not None,
+                     mesh=mesh, outputs=outputs)

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core import norms as N
 from repro_torch.core.passes import clip_coefficients
+from repro_torch.core.provenance import mark_clip
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.param import resolve_device, tree_leaves
 
@@ -52,8 +53,9 @@ def token_clip_coefficients(sq_norms: torch.Tensor, clip_norm: float,
     ``TokenLayout`` norm map — the per-token analogue of
     ``clip_coefficients`` (which sums group columns; the token map has
     none to sum)."""
-    return torch.clamp(
+    c = torch.clamp(
         clip_norm / (torch.sqrt(sq_norms.to(torch.float32)) + eps), max=1.0)
+    return mark_clip(c, clip_norm=clip_norm, eps=eps, granularity="token")
 
 
 def zero_taps(shapes: Dict[str, Tuple[int, ...]], dtype=torch.float32,

@@ -22,7 +22,8 @@ The step runs on the device the parameters live on. ``mesh=`` (a
 ``DeviceMesh``, ``dist.sharding.make_mesh``) routes every pass through the
 data-parallel pipeline ``dist.pex`` over ``data_axes``: each rank runs its
 rows of the global batch, gradients are all-reduced, and the results are
-global on every rank. Not in this slice: ``verify`` (the static analysis).
+global on every rank. ``verify`` runs the trace-only static checks
+(``analysis.verify``) against the engine's own spec, mesh and granularity.
 """
 from __future__ import annotations
 
@@ -183,6 +184,28 @@ class Engine:
         grads+norms pass."""
         return self.step(loss_fn, params, batch, [plan_mod.GNS()],
                          batch_size=batch_size).gns
+
+    def verify(self, loss_fn: Callable, params, batch,
+               consumers: Sequence = (), *, allow: Sequence[str] = (),
+               batch_size: Optional[int] = None, seq: Optional[int] = None,
+               cfg=None, backend: str = "cuda", production: bool = True,
+               deep: bool = True, determinism: bool = True):
+        """Static checks of this engine's configuration against a model,
+        without running it: tap coverage, the launch contracts of every
+        kernel the step would launch on the card, and (``deep``) the
+        privacy flow of each consumer set's recorded step, the collective
+        layout on this engine's mesh, and the data pipeline's determinism.
+        ``params`` and ``batch`` may live on any device (``meta`` too);
+        they are recorded on ``meta`` copies. Returns an
+        ``analysis.VerifyReport``; ``.raise_if_errors()`` for a hard
+        gate."""
+        from repro_torch.analysis.verify import verify
+        return verify(loss_fn, params, batch, consumers, spec=self.spec,
+                      granularity=self.granularity, allow=allow,
+                      batch_size=batch_size, seq=seq, cfg=cfg,
+                      backend=backend, production=production,
+                      mesh=self.mesh, data_axes=self.data_axes, deep=deep,
+                      determinism=determinism)
 
     def tap(self, batch_size: int, *, seq: Optional[int] = None,
             device=None) -> Tap:

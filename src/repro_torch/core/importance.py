@@ -14,7 +14,9 @@ This module is the sampling math; the fused execution is the
 Draws: the reference draws from a JAX key, which PyTorch cannot
 reproduce. The port draws from an explicit ``torch.Generator`` through one
 draw site, :func:`_choice`, so that a test can hand both packages the same
-indices; the port's own draws are checked by their frequencies.
+indices; the port's own draws are checked by their frequencies. The draw
+site marks its generator ``rng_use`` and ``sample`` marks the indices
+``sample_idx`` (``core.provenance``), as the reference does.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.provenance import mark_rng, mark_sample
 from repro_torch.nn.param import tree_leaves, tree_map
 
 
@@ -64,8 +67,9 @@ def sampling_distribution(sq_norms: torch.Tensor, smoothing: float = 0.0,
 def _choice(gen: torch.Generator, p: torch.Tensor, k: int,
             replace: bool) -> torch.Tensor:
     """k row indices drawn ∝ p from ``gen`` (on p's device): the one place
-    an importance sample is drawn."""
-    return torch.multinomial(p, k, replacement=replace, generator=gen)
+    an importance sample is drawn (its generator marked ``rng_use``)."""
+    return torch.multinomial(p, k, replacement=replace,
+                             generator=mark_rng(gen, purpose="importance"))
 
 
 def sample(gen: torch.Generator, sq_norms: torch.Tensor, k: int,
@@ -73,7 +77,7 @@ def sample(gen: torch.Generator, sq_norms: torch.Tensor, k: int,
     """Draw k examples ∝ gradient norm; the weights make the estimator of
     the batch sum unbiased: E[Σ_k v/(k·p)] = Σ v."""
     p = sampling_distribution(sq_norms, smoothing)
-    idx = _choice(gen, p, k, replace)
+    idx = mark_sample(_choice(gen, p, k, replace), k=k)
     w = 1.0 / (k * p[idx] + 1e-12)
     return ImportanceSample(idx, w, p)
 

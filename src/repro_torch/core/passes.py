@@ -26,6 +26,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.provenance import (generator_device, mark_clip,
+                                        mark_noise, mark_rng)
 from repro_torch.nn.param import fold_seed, tree_leaves
 
 
@@ -49,8 +51,21 @@ def check_noise_args(noise_std: float, noise_rng) -> None:
 def _standard_normal(shape, generator: torch.Generator,
                      device) -> torch.Tensor:
     """One f32 N(0, 1) sample of ``shape`` from ``generator``."""
-    return torch.randn(shape, generator=generator, device=device,
-                       dtype=torch.float32)
+    return torch.randn(shape, generator=mark_rng(generator, purpose="noise"),
+                       device=device, dtype=torch.float32)
+
+
+def _noise_leaves(leaves, noise_std: float, clip_norm: float,
+                  rng: torch.Generator, segment=None) -> None:
+    """``g += (σ·C·sample).to(g.dtype)`` in place for each leaf, drawn in
+    order from ``rng``; each scaled sample is marked ``noise`` (with
+    ``segment``, the tenant of per-tenant noise)."""
+    for i, g in enumerate(leaves):
+        sample = _standard_normal(g.shape, rng, g.device)
+        g.add_(mark_noise(sample.mul_(noise_std * clip_norm).to(g.dtype),
+                          noise_std=noise_std, scale=clip_norm, leaf=i,
+                          segment=segment))
+        del sample          # before the next leaf's draw
 
 
 def add_grad_noise(grads, noise_std: float, clip_norm: float,
@@ -62,25 +77,24 @@ def add_grad_noise(grads, noise_std: float, clip_norm: float,
     flattening order from one generator, which must live on the gradients'
     device. Each leaf gets the bits of ``g + (σ·C·sample).to(g.dtype)``."""
     check_noise_args(noise_std, rng)
-    for g in tree_leaves(grads):
-        sample = _standard_normal(g.shape, rng, g.device)
-        g.add_(sample.mul_(noise_std * clip_norm).to(g.dtype))
-        del sample          # before the next leaf's draw
+    _noise_leaves(tree_leaves(grads), noise_std, clip_norm, rng)
     return grads
 
 
 def step_seed(rng: torch.Generator) -> int:
     """One 62-bit seed drawn from ``rng`` (on its device; the host reads
     it back): the per-step root of the per-tenant generators."""
-    return int(torch.randint(0, 2**62, (1,), generator=rng,
+    return int(torch.randint(0, 2**62, (1,),
+                             generator=mark_rng(rng, purpose="noise"),
                              device=rng.device))
 
 
 def tenant_generator(seed: int, tenant: int, device) -> torch.Generator:
     """Tenant ``tenant``'s generator of the step whose seed is ``seed``, on
     ``device``: seeded with ``fold_seed(seed, tenant)``."""
-    return torch.Generator(device=device).manual_seed(
+    gen = torch.Generator(device=generator_device(device)).manual_seed(
         fold_seed(seed, tenant))
+    return mark_rng(gen, purpose="noise", index=tenant, seed=seed)
 
 
 def add_grad_noise_segmented(grads, noise_std: float, clip_norm: float,
@@ -107,8 +121,8 @@ def add_grad_noise_segmented(grads, noise_std: float, clip_norm: float,
                 f"row per segment)")
     seed = step_seed(rng)
     for s, t in enumerate(tenants):
-        add_grad_noise([g[s] for g in leaves], noise_std, clip_norm,
-                       tenant_generator(seed, t, leaves[0].device))
+        _noise_leaves([g[s] for g in leaves], noise_std, clip_norm,
+                      tenant_generator(seed, t, leaves[0].device), segment=s)
     return grads
 
 
@@ -117,4 +131,5 @@ def clip_coefficients(sq_norms: torch.Tensor, clip_norm: float,
     """c_j = min(1, C / ||g_j||). sq_norms: (B,) or (B,G) (summed)."""
     if sq_norms.ndim == 2:
         sq_norms = torch.sum(sq_norms, dim=-1)
-    return torch.clamp(clip_norm / (torch.sqrt(sq_norms) + eps), max=1.0)
+    c = torch.clamp(clip_norm / (torch.sqrt(sq_norms) + eps), max=1.0)
+    return mark_clip(c, clip_norm=clip_norm, eps=eps, granularity="example")

@@ -31,9 +31,10 @@ initial accumulator, the second over the parameters.
 The mesh path (``dist.pex.plan_step``) hands ``execute`` a ``fused_fn``
 that runs the same fused core on each rank's rows and returns global
 arrays, so one driver serves both: the importance sample, GNS and the
-noise act on global arrays between and after the regions. Not in this
-slice: the ``core.provenance`` identity markers, which only the analysis
-passes read.
+noise act on global arrays between and after the regions. The ``core.provenance`` markers
+sit where the reference's do: every backward's seed is marked
+``grad_seed`` with its kind, and the summed gradient ``grad_leaf`` at the
+plan/apply boundary; only the analysis passes read them.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from repro_torch.core.clipping import (clip_coefficients,
 from repro_torch.core.passes import (add_grad_noise,
                                      add_grad_noise_segmented,
                                      check_noise_args)
+from repro_torch.core.provenance import mark_grad_tree, mark_seed
 from repro_torch.nn.param import tree_flatten, tree_unflatten
 
 # ---------------------------------------------------------------------------
@@ -328,8 +330,9 @@ def run_fused(plan: Plan, acc_loss: Callable, params, batch,
     if not plan.needs_norms:
         # gradient pass only (possibly user-weighted): no instrumentation
         lv, _, _, aux = acc_loss(params, None, batch)
-        seed = torch.ones_like(lv) if loss_weights is None \
-            else loss_weights.to(lv.dtype)
+        seed = mark_seed(torch.ones_like(lv), kind="plain") \
+            if loss_weights is None \
+            else mark_seed(loss_weights.to(lv.dtype), kind="weighted")
         grads = unflatten(_grad(lv, leaves, seed))
         return lv.detach(), aux, None, grads, loss_weights, None, None
 
@@ -353,12 +356,13 @@ def run_fused(plan: Plan, acc_loss: Callable, params, batch,
     if plan.needs_grads and not plan.weighted and loss_weights is None:
         # norms and gradients fold into ONE backward (paper §4/§5)
         tap.set_mode(norms=True, grads=True)
-        *gs, sq = _grad(lv, leaves + [acc0], ones)
+        *gs, sq = _grad(lv, leaves + [acc0], mark_seed(ones, kind="plain"))
         grads = unflatten(gs)
     else:
         # norms-only backward: no dW
         tap.set_mode(norms=True, grads=False)
-        (sq,) = _grad(lv, [acc0], ones, retain_graph=plan.needs_grads)
+        (sq,) = _grad(lv, [acc0], mark_seed(ones, kind="norms"),
+                      retain_graph=plan.needs_grads)
 
     w, tw, cc = _compose_weights(plan, sq, loss_weights)
     if plan.needs_grads and grads is None:
@@ -368,9 +372,11 @@ def run_fused(plan: Plan, acc_loss: Callable, params, batch,
             # token-weighted: the (B, S) map alone is seeded (loss_vec's
             # seed is zero)
             tok_seed = tw if w is None else tw * w[:, None]
-            grads = unflatten(_grad(tok, leaves, tok_seed.to(tok.dtype)))
+            grads = unflatten(_grad(tok, leaves, mark_seed(
+                tok_seed.to(tok.dtype), kind="weighted")))
         else:
-            seed = ones if w is None else w.to(lv.dtype)
+            seed = mark_seed(ones, kind="plain") if w is None \
+                else mark_seed(w.to(lv.dtype), kind="weighted")
             grads = unflatten(_grad(lv, leaves, seed))
     return lv.detach(), aux, sq, grads, w, tw, cc
 
@@ -447,6 +453,9 @@ def execute(plan: Plan, acc_loss: Callable, params, batch,
             sq if sub_sq is None else sub_sq, grads,
             batch_size=batch_size if samp is None else plan.importance.k,
             weights=w)
+    if grads is not None:
+        # the plan/apply boundary (identity markers; a trace reads them)
+        grads = mark_grad_tree(grads)
     if plan.noise is not None and grads is not None:
         scale = plan.noise.scale if plan.noise.scale is not None \
             else plan.clip.clip_norm

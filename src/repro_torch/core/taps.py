@@ -38,10 +38,14 @@ rows, the segmented estimator over example-id segments, every example (and
 so every tenant) in one launch; its token stat is the factorized one per
 token, as for ``dense``.
 
-Not in this slice: the provenance table for the static analyzer, and
-``scan`` / ``checkpoint`` (the port runs layers in a Python loop without
-recompute). ``dist.sharding.shard`` constraints are dropped: they are
-identities off a TPU mesh.
+Tap-site provenance (``PEX_OPS``): each tapped ``autograd.Function`` maps
+to its op name and the slots of its weight and data operands; inside an
+analysis trace (``analysis._trace``) every tapped call is recorded as one
+site with its operands, which the coverage pass reads. Outside a trace the
+table is not consulted. Not in this slice: ``scan`` / ``checkpoint`` (the
+port runs layers in a Python loop without recompute).
+``dist.sharding.shard`` constraints are dropped: they are identities off
+a TPU mesh.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import norms as N
+from repro_torch.core import provenance as _prov
 from repro_torch.kernels import ops as kops
 
 _ACC_DTYPE = torch.float32
@@ -513,6 +518,66 @@ class _DenseExpert(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# tap-site provenance — the metadata the static analyzer consumes
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PexOpInfo:
+    """Shape of one tapped op as an analysis trace records it.
+
+    Slots index the op's tensor operands (the leading arguments of its
+    ``apply``): ``weight_slots`` hold the parameter whose per-example stat
+    the op registers (the gradient path the tap covers), ``data_slots`` the
+    operands whose gradient flows *through* the op to earlier layers; the
+    last operand is always the accumulator. ``analysis.coverage`` decides
+    from this which taint survives an op: a parameter reaching the loss
+    only through weight slots is tapped, one that also reaches it through
+    any plain op is undercounted."""
+    name: str
+    weight_slots: Tuple[int, ...]
+    data_slots: Tuple[int, ...]
+    n_operands: int
+
+
+#: tapped ``autograd.Function`` → op provenance (the reference's
+#: ``PEX_OPS``, keyed there by the registered backward rule)
+PEX_OPS = {
+    _Dense: PexOpInfo("dense", (1,), (0,), 3),
+    _DenseBatched: PexOpInfo("dense_batched", (1,), (0,), 3),
+    _DenseExpert: PexOpInfo("dense_expert_grouped", (1,), (0, 2, 3), 5),
+    _Bias: PexOpInfo("bias_add", (1,), (0,), 3),
+    _Scale: PexOpInfo("scale", (1,), (0,), 3),
+    _Embed: PexOpInfo("embedding", (0,), (1,), 3),
+}
+#: ``Tap.dense_expert``: the grouped op on one group, recorded as the
+#: reference's ungrouped site on its own (E, C, ...) operands
+DENSE_EXPERT = PexOpInfo("dense_expert", (1,), (0, 2, 3), 5)
+
+
+def identify_pex_op(fn) -> Optional[PexOpInfo]:
+    """The provenance of a tapped ``autograd.Function`` (None for any
+    other, e.g. the flash attention op)."""
+    return PEX_OPS.get(fn)
+
+
+def _site(info: PexOpInfo, operands, run):
+    """``run()`` → (z, acc_out); inside an analysis trace, recorded as one
+    tap site on ``operands``."""
+    rec = _prov.RECORDER
+    if rec is None:
+        return run()
+    return rec.tap_site(info, operands, run)
+
+
+def _apply(fn, *args):
+    """``fn.apply(*args)``, recorded as a tap site inside a trace."""
+    if _prov.RECORDER is None:
+        return fn.apply(*args)
+    info = PEX_OPS[fn]
+    return _site(info, args[:info.n_operands], lambda: fn.apply(*args))
+
+
+# ---------------------------------------------------------------------------
 # the collector
 # ---------------------------------------------------------------------------
 
@@ -569,8 +634,8 @@ class Tap:
         """Instrumented matmul. Plain matmul when the tap is inert."""
         if not self.live:
             return torch.matmul(h, w)
-        z, self._acc = _Dense.apply(
-            h, w, self._acc, self.mode, self.layout,
+        z, self._acc = _apply(
+            _Dense, h, w, self._acc, self.mode, self.layout,
             self.spec.group_index(group), method or self.spec.method,
             self.spec.use_kernels)
         return z
@@ -585,34 +650,33 @@ class Tap:
         segmented estimator has one form per route."""
         if not self.live:
             return torch.einsum("b...i,bio->b...o", h, w)
-        z, self._acc = _DenseBatched.apply(
-            h, w, self._acc, self.mode, self.layout,
+        z, self._acc = _apply(
+            _DenseBatched, h, w, self._acc, self.mode, self.layout,
             self.spec.group_index(group), self.spec.use_kernels)
         return z
 
     def bias_add(self, x, b, *, group: str = "all") -> torch.Tensor:
         if not self.live:
             return x + b
-        z, self._acc = _Bias.apply(x, b, self._acc, self.mode, self.layout,
-                                   self.spec.group_index(group),
-                                   self.spec.use_kernels)
+        z, self._acc = _apply(_Bias, x, b, self._acc, self.mode, self.layout,
+                              self.spec.group_index(group),
+                              self.spec.use_kernels)
         return z
 
     def scale(self, h, g, *, group: str = "all") -> torch.Tensor:
         if not self.live:
             return h * g
-        z, self._acc = _Scale.apply(h, g, self._acc, self.mode, self.layout,
-                                    self.spec.group_index(group),
-                                    self.spec.use_kernels)
+        z, self._acc = _apply(_Scale, h, g, self._acc, self.mode, self.layout,
+                              self.spec.group_index(group),
+                              self.spec.use_kernels)
         return z
 
     def embedding(self, table, ids, *, group: str = "embed") -> torch.Tensor:
         if not (self.live and self.spec.tap_embeddings):
             return table[ids]
-        z, self._acc = _Embed.apply(table, ids, self._acc, self.mode,
-                                    self.layout,
-                                    self.spec.group_index(group),
-                                    self.spec.use_kernels)
+        z, self._acc = _apply(_Embed, table, ids, self._acc, self.mode,
+                              self.layout, self.spec.group_index(group),
+                              self.spec.use_kernels)
         return z
 
     def _expert_tok(self, seg, tok):
@@ -639,8 +703,8 @@ class Tap:
         if not self.live:
             return torch.einsum("gecd,edf->gecf", x, w)
         tok = self._expert_tok(seg, tok)
-        z, self._acc = _DenseExpert.apply(
-            x, w, seg, tok, self._acc, self.mode, self.layout,
+        z, self._acc = _apply(
+            _DenseExpert, x, w, seg, tok, self._acc, self.mode, self.layout,
             self.spec.group_index(group), bg, self.spec.use_kernels)
         return z
 
@@ -653,9 +717,14 @@ class Tap:
         if not self.live:
             return torch.einsum("ecd,edf->ecf", x, w)
         tok = self._expert_tok(seg, tok)
-        return self.dense_expert_grouped(x[None], w, seg[None],
-                                         self._acc.shape[0], tok[None],
-                                         group=group)[0]
+
+        def run():
+            z = self.dense_expert_grouped(x[None], w, seg[None],
+                                          self._acc.shape[0], tok[None],
+                                          group=group)[0]
+            return z, self._acc
+        z, self._acc = _site(DENSE_EXPERT, (x, w, seg, tok, self._acc), run)
+        return z
 
 
 #: Shared inert tap: every op is its plain counterpart.

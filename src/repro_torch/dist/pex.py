@@ -46,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import plan as plan_mod
+from repro_torch.core import provenance as _prov
 from repro_torch.core.passes import PexResult, check_noise_args
 from repro_torch.core.taps import ExampleLayout, PexSpec, TokenLayout
 from repro_torch.dist import sharding as shd
@@ -141,13 +142,23 @@ def _rows(tree, lo: int, n: int):
                     if isinstance(x, torch.Tensor) and x.ndim else x, tree)
 
 
+def _all_reduce(x: torch.Tensor, shards: DataShards, kind: str) -> None:
+    """``all_reduce(SUM)`` of ``x`` in place over the data shards. Inside an
+    analysis trace (``meta`` tensors) the call is recorded instead, with
+    its ``kind`` ("gather" or "reduce"), and nothing is sent."""
+    if x.is_meta:
+        _prov.collective_site(x, kind=kind, count=shards.count)
+        return
+    dist.all_reduce(x, group=shards.group)
+
+
 def _gather_rows(x: torch.Tensor, shards: DataShards) -> torch.Tensor:
     """This rank's rows of a per-example tensor → the global tensor on
     every rank: the rows written into a zero-filled buffer, all-reduced."""
     n = x.shape[0]
     full = x.new_zeros((shards.count * n,) + tuple(x.shape[1:]))
     full.narrow(0, shards.index * n, n).copy_(x)
-    dist.all_reduce(full, group=shards.group)
+    _all_reduce(full, shards, "gather")
     return full
 
 
@@ -158,7 +169,7 @@ def _reduce_grads(grads, shards: DataShards):
     out = []
     for g in leaves:
         g = g.contiguous()
-        dist.all_reduce(g, group=shards.group)
+        _all_reduce(g, shards, "reduce")
         out.append(g)
     return tree_unflatten(treedef, out)
 

@@ -946,3 +946,95 @@ def test_cuda_trainer_resume_is_bit_deterministic(cuda_device, tmp_path):
     for a, w in zip(tree_leaves(resumed._state_tree()),
                     tree_leaves(straight._state_tree())):
         assert a.is_cuda and torch.equal(a, w)
+
+
+def _contract_cases():
+    """(kernel_info of the built kernel, the contract ``kernels.ops``
+    states for a launch of the main path's shapes): llama3.2-1b at full
+    width, B=8, S=512, and phi3.5-moe's gate/up experts."""
+    from repro_torch.kernels import segmented_norm as tsn
+    bf = torch.bfloat16
+    return {
+        "gram_norm": (tgn.kernel_info, lambda sms: tops.gram_contract(
+            8, 512, 2048, 512, dtype=bf, sms=sms)),
+        "direct_norm": (tdn.kernel_info, lambda sms: tops.direct_contract(
+            8, 512, 2048, 8192, dtype=bf)),
+        "segmented_norm": (tsn.kernel_info,
+                           lambda sms: tops.segmented_contract(
+                               16 * 16 * 88, 16 * 16 * 2, 4096, 6400,
+                               dtype=bf, sms=sms)[0]),
+        **{name: ((lambda k=kind: tfa.kernel_info(k, 64)),
+                  (lambda sms, k=kind: tops.attention_contracts(
+                      8, 32, 8, 512, 512, 64, dtype=bf, kinds=(k,))[0]))
+           for name, kind in (("flash_attention", "fwd"),
+                              ("flash_attention_bwd_dq", "dq"),
+                              ("flash_attention_bwd_dkv", "dkv"))},
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gram_norm", "direct_norm",
+                                  "segmented_norm", "flash_attention",
+                                  "flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv"])
+def test_cuda_contract_matches_kernel_info(cuda_device, name):
+    """Each bf16 body's contract against the built kernel: shared memory a
+    block and threads equal, registers within the budget, the resident
+    blocks its launch bounds ask for."""
+    from repro_torch.kernels import contract
+    info_fn, build = _contract_cases()[name]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    c = build(sms)
+    assert contract.validate(c) == []
+    assert contract.check_info(c, info_fn()) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,arch,flash,token", [
+    ("main", "llama3.2-1b", False, False),
+    ("flash", "llama3.2-1b", True, False),
+    ("moe", "phi3.5-moe", False, False),
+    ("token", "llama3.2-1b", False, True),
+])
+def test_cuda_trace_sites_equal_counted_launches(cuda_device, tag, arch,
+                                                 flash, token):
+    """One step on the card (smoke widths; the flash path one layer at full
+    width), its kernel launches counted, against the kernel sites the
+    analysis trace of the same step names (on ``meta`` tensors): equal by
+    kernel, and gram/direct by shape."""
+    import chip_smoke
+    from repro_torch import pex
+    from repro_torch.analysis import _trace
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.models import registry
+
+    spec = registry.get(arch)
+    # the flash kernels take head dims 32, 64 and 128: one layer at full
+    # width (64) for the flash path, the smoke config (16) otherwise
+    cfg = (chip_smoke.cut(spec, 1, dtype="bfloat16") if flash
+           else spec.smoke())
+    cfg = chip_smoke.with_flash(cfg) if flash else cfg
+    b, s = 4, 128
+    gran = "token" if token else "example"
+    loss_fn = registry.make_loss_fn_v2(spec, cfg)
+    batch = registry.make_train_batch(spec, cfg,
+                                      ShapeSpec("t", "train", s, b),
+                                      device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    meta = registry.family_module(spec).init(
+        cfg, torch.Generator().manual_seed(0), device="meta")
+    tr = _trace.trace_step(loss_fn, meta, batch,
+                           chip_smoke.path_consumers(pex, token, gen),
+                           granularity=gran)
+    params = registry.family_module(spec).init(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    tops.reset_launch_counts()
+    pex.Engine(pex.PexSpec(), granularity=gran).step(
+        loss_fn, params, batch, chip_smoke.path_consumers(pex, token, gen))
+    torch.cuda.synchronize()
+    launches = tops.launch_counts()
+    assert tr.kernel_counts() == {k: n for k, n in launches.items() if n}
+    assert tr.norm_launches() == ({"gram_norm": {}, "direct_norm": {}}
+                                  if token else
+                                  chip_smoke.main_path_launches(cfg, s))
