@@ -347,12 +347,35 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               segmented / ``rowsumsq`` shape; each bf16 kernel's launch
               contract (``kernels.ops.*_contract`` at the main and moe
               paths' shapes) against its ``kernel_info()``: shared memory a
-              block and threads equal, registers within the budget; the
+              block and threads equal, registers within the budget (also
+              ``rowsumsq`` at the token path's row widths, both bodies,
+              and ``clip_scale`` at the one-pass widths, f32 and bf16); the
               collectives pass over phase 37's one-rank NCCL mesh; and
               ``python -m repro_torch.analysis --json --full`` over all ten
               archs at the depths the paths above use (B=3, S=8), no
               finding, each arch's seconds. Any error finding or mismatch
-              fails the run.
+              fails the run;
+41. cost    — the cost side of the static analysis against the card's own
+              step: (a) ``Engine.verify(cost=True)`` on phase 5's model and
+              consumers under AdamW (profile ``h100-sxm-80gb``), ok, its
+              seconds and device memory (0 B), the CostReport's ``t_step``,
+              three terms and bottleneck beside phase 5's steady step and
+              stream ms (``t_step`` ≤ the stream ms of ``Engine.step`` and
+              the AdamW update), the apply phase's bytes at 3.35 TB/s beside
+              AdamW's stream ms, the predicted gradient streams; (b) each
+              kernel's launch-contract roofline summed over one step's sites
+              (gram and direct on the main path, the three flash kernels on
+              the flash path, ``rowsumsq`` on the token path; segmented on
+              the moe path's own segment ids) against the kernel table's
+              bound from this run (within ``COST_TOL``) and its device ms
+              (≤); (c) ``launch.dryrun``'s liveness peak of one phase-5 step
+              on one rank against phase 5's ``max_memory_allocated``
+              (within ``PEAK_TOL``), then ``train_4k`` of llama3.2-1b and
+              deepseek-v2-236b at ``DRYRUN_RANKS`` data ranks (a subprocess:
+              per-device bytes, ``fits``); (d) ``python -m
+              repro_torch.analysis --cost --json --fast --full`` at the lint
+              depths of phase 40, its wall seconds, no error and every plan
+              at its expected streams.
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -3286,6 +3309,17 @@ LINT_DEPTHS = {"phi3.5-moe": MOE_LAYERS, "gemma2-9b": GEMMA_LAYERS,
                "minitron-4b": VL_LAYERS, "deepseek-v2-236b": DS_LAYERS,
                **{a: n for a, n, _ in FAMILY_PATHS if n is not None}}
 LINT_TIMEOUT_S = 400
+#: phase 41: a launch contract's roofline against the kernel table's bound
+#: (the same count, so only float summation order may differ), the
+#: dry-run's predicted peak against phase 5's measured peak (one step's
+#: liveness; the card's allocator, cuBLAS's workspace and the previous
+#: step's result still held are outside it), the data ranks of the
+#: ``train_4k`` dry-run cells and that subprocess's time limit
+COST_TOL = 0.01
+PEAK_TOL = 0.25
+DRYRUN_RANKS = (256, 512)
+DRYRUN_ARCHS = ("llama3.2-1b", "deepseek-v2-236b")
+DRYRUN_TIMEOUT_S = 600
 
 
 def path_consumers(pex, token, gen):
@@ -3380,11 +3414,13 @@ def check_contracts(traces):
     the moe path, the three flash kernels on the flash path), against the
     built kernel's ``kernel_info()``; every contract valid."""
     import torch
+    from repro_torch.kernels import clip_scale as cs
     from repro_torch.kernels import contract
     from repro_torch.kernels import direct_norm as dn
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gram_norm as gn
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rowsumsq as rs
     from repro_torch.kernels import segmented_norm as sn
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     infos = {"gram_norm": lambda m: gn.kernel_info(),
@@ -3411,6 +3447,33 @@ def check_contracts(traces):
                      "grid": c.grid, "smem_bytes": c.smem_bytes,
                      "threads": c.threads, "blocks_per_sm": c.blocks_per_sm,
                      "tma_maps": len(c.tma), "info": info})
+        if errs:
+            raise AssertionError(f"verify contracts: {errs}")
+    # rowsumsq: each body (a warp or a block a row) the token path launches
+    bodies = {}
+    for op in traces["token"].of_kind("kernel"):
+        if op.name == "rowsumsq":
+            n = op.meta["shapes"][0][2]
+            bodies.setdefault((op.meta["dtypes"][0], n >= rs.WIDE_ROW), op)
+    # clip_scale: the one-pass sequence form's widths (phase 13), both types
+    scale = [((B, S, w), dt) for w in (2048, 8192)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases = [(ops.contract_for_launch("rowsumsq", sms=sms, **op.meta)[0],
+              rs.kernel_info(getattr(torch, op.meta["dtypes"][0]),
+                             op.meta["shapes"][0][2]), op.meta["shapes"])
+             for op in bodies.values()]
+    cases += [(ops.clip_scale_contract(*sh, dtype=dt), cs.kernel_info(dt),
+               (sh, str(dt)))
+              for sh, dt in scale]
+    if len(bodies) < 2:
+        raise AssertionError(f"verify contracts: the token path launched "
+                             f"{len(bodies)} rowsumsq bodies, expected both")
+    for c, info, shapes in cases:
+        errs = contract.validate(c) + contract.check_info(c, info)
+        rows.append({"kernel": c.kernel, "shapes": shapes, "grid": c.grid,
+                     "smem_bytes": c.smem_bytes, "threads": c.threads,
+                     "blocks_per_sm": c.blocks_per_sm, "tma_maps": 0,
+                     "info": info})
         if errs:
             raise AssertionError(f"verify contracts: {errs}")
     log(f"[verify] contracts against kernel_info(): {json.dumps(rows)}")
@@ -3460,6 +3523,7 @@ def phase_verify(spec, registry, pex, cfg, runs):
         out["launches"][tag] = check_trace_launches(tag, tr, run, c,
                                                     shape[1], token)
     out["contracts"] = check_contracts(traces)
+    out["traces"] = traces
     with one_rank_nccl() as mesh:
         t0 = time.perf_counter()
         rep = pex.Engine(pex.PexSpec(), mesh=mesh).verify(
@@ -3491,6 +3555,233 @@ def phase_verify(spec, registry, pex, cfg, runs):
     if lint["findings"] or len(lint["archs"]) != 10:
         raise AssertionError(f"verify CLI: findings {lint['findings']}")
     out["lint_s"] = lint["seconds"]
+    return out
+
+
+def cost_step(spec, registry, pex, cfg, run):
+    """Phase 41 (a): ``Engine.verify(cost=True)`` on phase 5's model and
+    consumers under AdamW, against ``run`` (phase 5's result)."""
+    import torch
+    loss_fn, params, batch = meta_setup(spec, registry, cfg, (B, S))
+    batch = {k: v.cuda() for k, v in batch.items()}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    eng = pex.Engine(pex.PexSpec())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rep = eng.verify(loss_fn, params, batch,
+                     [path_consumers(pex, False, gen)], cfg=cfg, deep=False,
+                     cost=True, model=spec.arch_id)
+    seconds = time.perf_counter() - t0
+    alloc = torch.cuda.max_memory_allocated() - m0
+    if not rep.ok:
+        raise AssertionError(f"cost: Engine.verify(cost=True): {rep.errors}")
+    if alloc:
+        raise AssertionError(f"cost: Engine.verify(cost=True) allocated "
+                             f"{alloc} B of device memory")
+    (tr,), (cr,) = rep.traffic, rep.cost
+    step = median(run["step_ms"][1:])
+    engine = median(run["engine_ms"][1:])
+    adamw = median(run["adamw_ms"][1:])
+    phases = dict(tr.phase_bytes)
+    apply_ms = phases["apply"] / PEAK_BYTES_PER_S * 1e3
+    known = tr.allowlisted[0].message if tr.allowlisted else "none"
+    log(f"[cost] Engine.verify(cost=True) ok in {seconds:.2f} s, device "
+        f"memory allocated {alloc} B; {cr.summary()}")
+    log(f"[cost] the step on {cr.profile}: t_step {cr.t_step * 1e3:.3f} ms "
+        f"({cr.bottleneck}-bound; compute {cr.t_compute * 1e3:.3f}, memory "
+        f"{cr.t_memory * 1e3:.3f}, collective {cr.t_collective * 1e3:.3f} "
+        f"ms; {cr.flops:.4g} flops, {cr.hbm_bytes:.4g} B, of which the "
+        f"kernel launches' contracts {cr.kernel_flops:.4g} flops, "
+        f"{cr.kernel_hbm_bytes:.4g} B); phase 5 measured: steady step "
+        f"{step:.1f} ms, stream {engine:.1f} ms in Engine.step + "
+        f"{adamw:.1f} ms in AdamW = {engine + adamw:.1f} ms: t_step is "
+        f"{cr.t_step * 1e3 / (engine + adamw):.1%} of it")
+    log(f"[cost] bytes by phase {json.dumps(phases)}; flops by phase "
+        f"{json.dumps(dict(tr.phase_flops))}; the apply phase's "
+        f"{phases['apply']:.4g} B at 3.35 TB/s = {apply_ms:.2f} ms beside "
+        f"AdamW's measured {adamw:.1f} ms (the noise add's part of the "
+        f"apply runs in Engine.step); gradient streams {tr.n_streams} "
+        f"(expected {tr.expected_streams}); allowlisted: {known}")
+    if not cr.t_step * 1e3 <= engine + adamw:
+        raise AssertionError(f"cost: the roofline t_step "
+                             f"{cr.t_step * 1e3:.3f} ms exceeds the "
+                             f"measured stream ms {engine + adamw:.1f}: the "
+                             f"count is wrong")
+    return {"verify_s": seconds, "alloc": alloc, "report": cr.to_json(),
+            "apply_ms": apply_ms, "step_ms": step, "engine_ms": engine,
+            "adamw_ms": adamw, "phase_bytes": phases,
+            "n_streams": tr.n_streams}
+
+
+def cost_kernels(runs, rows, traces):
+    """Phase 41 (b): each kernel's contract roofline over one step's sites
+    of its path against the kernel table's bound (``rows``, this run's)
+    and device ms. Segmented on the moe path's own ids of its steady
+    steps, as its row's bound (the trace's ids are ``meta``: its static
+    contract keeps every row and is logged beside)."""
+    import torch
+    from repro_torch.analysis.cost import contract_seconds
+    from repro_torch.kernels import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    by_name = {r["name"]: r for r in rows}
+    out = {}
+
+    def sites_ms(tag, name):
+        return 1e3 * sum(
+            contract_seconds(c) for op in traces[tag].of_kind("kernel")
+            if op.name == name
+            for c in ops.contract_for_launch(name, sms=sms, **op.meta))
+
+    moe = runs["moe"][4]
+    steady = moe["seg_calls"][1:] or moe["seg_calls"][:1]
+    seg_ms = sum(1e3 * sum(contract_seconds(c) for seg, n, t, pi, po, dt
+                           in calls
+                           for c in ops.segmented_contract(
+                               t, n, pi, po, dtype=dt, sms=sms,
+                               seg_ids=seg))
+                 for calls in steady) / len(steady)
+    cases = [(name, tag, sites_ms(tag, name)) for name, tag in (
+        ("gram_norm", "main"), ("direct_norm", "main"),
+        ("flash_attention", "flash"), ("flash_attention_bwd_dq", "flash"),
+        ("flash_attention_bwd_dkv", "flash"), ("rowsumsq", "token"))]
+    cases.append(("segmented_norm", "moe", seg_ms))
+    for name, tag, bound in cases:
+        row = by_name[name]
+        rel = abs(bound - row["bound_ms"]) / row["bound_ms"]
+        extra = (f"; the trace's static contract (every row kept) "
+                 f"{sites_ms('moe', name):.4f} ms"
+                 if name == "segmented_norm" else "")
+        log(f"[cost] {name} on the {tag} path: contract roofline "
+            f"{bound:.4f} ms a step, kernel table bound "
+            f"{row['bound_ms']:.4f} ms (rel diff {rel:.2e}), device "
+            f"{row['ms']:.4f} ms ({bound / row['ms']:.1%} of it){extra}")
+        if not rel <= COST_TOL:
+            raise AssertionError(f"cost: {name}'s contract bound {bound} "
+                                 f"ms differs from the table's "
+                                 f"{row['bound_ms']} ms by {rel:.2%}")
+        if not bound <= row["ms"]:
+            raise AssertionError(f"cost: {name}'s contract bound {bound} "
+                                 f"ms exceeds its device ms {row['ms']}")
+        out[name] = {"path": tag, "contract_ms": bound,
+                     "table_bound_ms": row["bound_ms"],
+                     "device_ms": row["ms"]}
+    return out
+
+
+def cost_dryrun(spec, registry, pex, cfg, run):
+    """Phase 41 (c): the dry-run's liveness peak of one phase-5 step on
+    one rank against phase 5's measured peak, then the ``train_4k`` cells
+    of ``DRYRUN_ARCHS`` at ``DRYRUN_RANKS`` ranks in a subprocess."""
+    import tempfile
+    import torch
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    tt, _ = dryrun.record_train(
+        spec, cfg, B, S, consumers=path_consumers(
+            pex, False, torch.Generator().manual_seed(1)))
+    live = dryrun.train_liveness(tt)
+    seconds = time.perf_counter() - t0
+    pred = live.total / 2**30
+    meas = run["peak_gib"]
+    rel = (pred - meas) / meas
+    resident = {k: round(v / 2**30, 3) for k, v in live.resident.items()}
+    at = tt.ops[live.at].name if live.at >= 0 else "-"
+    log(f"[cost] dryrun of phase 5's step on one rank in {seconds:.1f} s "
+        f"({len(tt.ops)} records): predicted peak {pred:.2f} GiB = "
+        f"resident {json.dumps(resident)} GiB + made "
+        f"{live.peak / 2**30:.2f} GiB at record {live.at} ({at}); phase 5 "
+        f"measured {meas:.2f} GiB: {rel:+.1%}")
+    if not abs(rel) <= PEAK_TOL:
+        raise AssertionError(f"cost: the dry-run's peak {pred:.2f} GiB is "
+                             f"{rel:+.1%} off phase 5's {meas:.2f} GiB")
+    del tt
+    cells = {}
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--shape", "train_4k", *(f"--arch={a}" for a in DRYRUN_ARCHS),
+           *(f"--ranks={n}" for n in DRYRUN_RANKS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        r = subprocess.run(cmd + ["--out", tmp], capture_output=True,
+                           text=True, timeout=DRYRUN_TIMEOUT_S, cwd=ROOT,
+                           env=dict(os.environ,
+                                    PYTHONPATH=os.path.join(ROOT, "src")))
+        wall = time.perf_counter() - t1
+        if r.returncode:
+            raise AssertionError(f"cost: dryrun exit {r.returncode}\n"
+                                 f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+        for name in sorted(os.listdir(tmp)):
+            with open(os.path.join(tmp, name)) as f:
+                cells[name[:-5]] = json.load(f)
+    for d in cells.values():
+        if not d["ok"]:
+            log(f"[cost] dryrun {d['arch']} × {d['shape']} × {d['ranks']} "
+                f"ranks: {d['reason']}")
+            continue
+        log(f"[cost] dryrun {d['arch']} × {d['shape']} × {d['ranks']} "
+            f"ranks: local batch {d['local_batch']}, {d['n_ops']} records "
+            f"in {d['record_s']:.1f} s; per device params "
+            f"{d['param_bytes_per_dev'] / 1e9:.2f} GB, AdamW state "
+            f"{d['state_bytes_per_dev'] / 1e9:.2f} GB, made at the peak "
+            f"{d['transient_peak_bytes'] / 1e9:.2f} GB, peak "
+            f"{d['peak_bytes_per_dev'] / 1e9:.2f} GB of 80: fits "
+            f"{d['fits']}; all-reduce "
+            f"{d['coll_bytes'].get('total', 0) / 1e9:.3f} GB, "
+            f"{d['flops']:.4g} flops a rank")
+    log(f"[cost] dryrun subprocess ({' '.join(cmd[3:])}): {wall:.1f} s")
+    return {"pred_gib": pred, "meas_gib": meas, "rel": rel,
+            "seconds": seconds, "cells": cells, "subprocess_s": wall}
+
+
+def cost_cli():
+    """Phase 41 (d): the cost CLI at phase 40's lint depths, full width,
+    its reports written to a scratch baseline (the committed one is the
+    smoke widths')."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.analysis", "--json",
+               "--fast", "--full", "--cost", "--write-cost-baseline",
+               "--cost-baseline", os.path.join(tmp, "full.json"),
+               *(f"--depth={a}={n}" for a, n in sorted(LINT_DEPTHS.items()))]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=LINT_TIMEOUT_S, cwd=ROOT,
+                           env=dict(os.environ,
+                                    PYTHONPATH=os.path.join(ROOT, "src")))
+        wall = time.perf_counter() - t0
+    if r.returncode:
+        raise AssertionError(f"cost CLI: exit {r.returncode}\n"
+                             f"{r.stderr[-4000:]}")
+    lint = json.loads(r.stdout)
+    bad = [c for c in lint["cost"]
+           if c["n_streams"] != c["expected_streams"]]
+    t_step = {f"{c['model']}/{c['granularity']}/"
+              f"{'dp' if 'backwards=2' in c['plan'] else 'norms'}":
+              round(c["t_step_s"] * 1e3, 4) for c in lint["cost"]}
+    log(f"[cost] python -m repro_torch.analysis --json --fast --full --cost "
+        f"at the lint depths: exit 0 in {wall:.1f} s; "
+        f"{len(lint['archs'])} archs, {lint['errors']} errors, "
+        f"{len(lint['cost'])} CostReports; seconds by arch "
+        f"{json.dumps(lint['seconds'])}; t_step ms {json.dumps(t_step)}")
+    if lint["errors"] or bad or len(lint["archs"]) != 10:
+        raise AssertionError(f"cost CLI: findings {lint['findings']}, "
+                             f"streams off {bad}")
+    return {"wall_s": wall, "seconds": lint["seconds"]}
+
+
+def phase_cost(spec, registry, pex, cfg, runs, rows, traces):
+    """Phase 41. ``runs``: phase 40's {tag: (spec, cfg, (B, S), token,
+    phase_main run)}; ``rows``: the kernel table; ``traces``: phase 40's
+    recorded steps."""
+    t0 = time.perf_counter()
+    out = {"step": cost_step(spec, registry, pex, cfg, runs["main"][4]),
+           "kernels": cost_kernels(runs, rows, traces),
+           "dryrun": cost_dryrun(spec, registry, pex, cfg,
+                                 runs["main"][4]),
+           "cli": cost_cli()}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[cost] phase 41 in {out['seconds']:.1f} s")
     return out
 
 
@@ -5715,11 +6006,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     soak_run = phase_soak()
     torch.cuda.empty_cache()
-    verify_run = phase_verify(spec, registry, pex, cfg, {
-        "main": (spec, cfg, (B, S), False, main_run),
-        "flash": (spec, with_flash(cfg), (B, S), False, flash_run),
-        "moe": (moe_spec, moe_cfg, (MOE_B, MOE_S), False, moe_run),
-        "token": (spec, cfg, (B, S), True, token_run)})
+    paths = {"main": (spec, cfg, (B, S), False, main_run),
+             "flash": (spec, with_flash(cfg), (B, S), False, flash_run),
+             "moe": (moe_spec, moe_cfg, (MOE_B, MOE_S), False, moe_run),
+             "token": (spec, cfg, (B, S), True, token_run)}
+    verify_run = phase_verify(spec, registry, pex, cfg, paths)
+    cost_run = phase_cost(spec, registry, pex, cfg, paths, rows,
+                          verify_run.pop("traces"))
     for tag, r in (("serve llama3.2-1b", serve_run),
                    *((f"serve-families {a}", r)
                      for a, r in serve_fams.items())):
@@ -5806,7 +6099,11 @@ def main() -> int:
         f"{[round(x, 2) for x in ckpt_run['restore_s']]} s; soak "
         f"{soak_run['seconds']:.1f} s; verify "
         f"{ {k: round(v, 2) for k, v in verify_run['verify_s'].items()} } "
-        f"s; whole run "
+        f"s; cost {cost_run['seconds']:.1f} s (t_step "
+        f"{cost_run['step']['report']['t_step_s'] * 1e3:.2f} ms, dry-run "
+        f"peak {cost_run['dryrun']['pred_gib']:.2f} GiB against "
+        f"{cost_run['dryrun']['meas_gib']:.2f}, CLI "
+        f"{cost_run['cli']['wall_s']:.1f} s); whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -24,14 +24,26 @@ record.
   * ``determinism`` — AST verification that the data pipeline and the
     soak replay path are pure in (seed, step).
 
+The cost side records a whole training step (``_trace.trace_train_step``:
+the plan and the optimizer apply) on ``meta`` tensors:
+
+  * ``traffic`` — flops and HBM bytes by phase (forward / activation-bwd /
+    weight-bwd / stats / apply), gradient streams, and the redundant
+    stream, duplicate forward, dead residual and upcast findings;
+  * ``cost`` — a ``CostReport`` on the H100 profile
+    (``roofline.constants``) and the gate against the port's committed
+    ``cost_baseline.json``;
+  * ``plan_invariants`` — the zero-overhead and one-forward-budget claims,
+    on recorded programs.
+
 ``verify.verify`` (surfaced as ``Engine.verify``) composes them;
-``python -m repro_torch.analysis`` lints every registered model. The
-traffic and cost passes (``traffic``, ``cost``, ``plan_invariants``, the
-``COST_BASELINE.json`` gate) are not in this package yet.
+``python -m repro_torch.analysis`` lints every registered model
+(``--cost`` for the cost side and its gate).
 """
 from repro_torch.analysis.collectives import (CollectivesReport,
                                               ScheduleEntry,
                                               expected_schedule)
+from repro_torch.analysis.cost import CostReport, build_cost, check_baseline
 from repro_torch.analysis.coverage import (AnalysisError, CoverageReport,
                                            LeafReport, TapSite,
                                            trace_coverage)
@@ -42,6 +54,7 @@ from repro_torch.analysis.launch import (LaunchReport, contracts_for_sites,
                                          production_cases,
                                          validate_contracts, validate_sites)
 from repro_torch.analysis.privacy import PrivacyReport
+from repro_torch.analysis.traffic import TrafficReport
 from repro_torch.analysis.verify import VerifyReport, verify
 
 __all__ = [
@@ -52,4 +65,5 @@ __all__ = [
     "Finding", "ERROR", "WARNING", "INFO",
     "PrivacyReport", "CollectivesReport", "ScheduleEntry",
     "expected_schedule", "DeterminismReport", "check_source",
+    "TrafficReport", "CostReport", "build_cost", "check_baseline",
 ]

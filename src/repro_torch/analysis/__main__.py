@@ -1,7 +1,7 @@
 """``python -m repro_torch.analysis`` — lint every registered model.
 
-Port of ``src/repro/analysis/__main__.py`` without the cost passes. For
-each arch × granularity {example, token} × consumer-set combination, run
+Port of ``src/repro/analysis/__main__.py``. For each arch × granularity
+{example, token} × consumer-set combination, run
 plan analysis, tap-coverage verification, kernel-launch validation, and
 the flow passes — privacy (DP dataflow over a full recorded step),
 collectives (the all-reduce layout on a one-rank data mesh), determinism
@@ -18,7 +18,15 @@ flow passes (coverage + plan + launch only). Launch contracts are checked
 against the H100's budgets (the reference's ``--backend`` has no other
 value here). ``--json`` emits the findings machine-readably on
 stdout (status lines move to stderr), with each arch's seconds.
-``--cost`` is refused: the traffic and cost passes are not ported yet.
+
+``--cost`` (independent of ``--fast``) also records each non-empty
+consumer set as a full training step under AdamW and runs the traffic and
+cost passes on it (``--profile``, default ``h100-sxm-80gb``), then gates
+the CostReports against the port's committed baseline
+(``src/repro_torch/analysis/cost_baseline.json``, or ``--cost-baseline
+PATH``): growth past 25% is an error. ``--write-cost-baseline`` rewrites
+the baseline from the run instead, ``--cost-report PATH`` writes every
+CostReport as JSON.
 
 Exit status (``resolve_exit``): errors fail the run only under
 ``--fail-on-error``; warnings only under ``--fail-on-warn``.
@@ -93,8 +101,9 @@ def lint_config(arch_id: str, *, full: bool = False, depth=None,
 
 def lint_arch(arch_id: str, *, production: bool = True, gen=None,
               mesh=None, deep: bool = True, full: bool = False,
-              depth=None) -> List:
-    """Findings for one arch across every lint combination."""
+              depth=None, cost: bool = False, profile=None):
+    """(findings, CostReports) for one arch across every lint
+    combination."""
     import torch
     from repro_torch.analysis import findings as F
     from repro_torch.analysis.verify import verify as _verify
@@ -107,6 +116,7 @@ def lint_arch(arch_id: str, *, production: bool = True, gen=None,
     prod_cfg = aspec.full()
 
     found: List = []
+    costs: List = []
     for gran in ("example", "token"):
         try:
             rep = _verify(
@@ -114,13 +124,15 @@ def lint_arch(arch_id: str, *, production: bool = True, gen=None,
                 granularity=gran, allow=allow, seq=SEQ, cfg=prod_cfg,
                 production=production and gran == "example",
                 mesh=mesh if gran == "example" else None,
-                deep=deep, determinism=False)
+                deep=deep, determinism=False, cost=cost, profile=profile,
+                model=arch_id)
         except Exception as e:  # a trace failure is itself a lint error
             found.append(F.Finding(
                 "trace", F.ERROR, "trace-failure",
                 f"{type(e).__name__}: {e}", model=arch_id,
                 granularity=gran))
             continue
+        costs.extend(rep.cost)
         per_gran: List = [
             F.Finding("coverage", F.ERROR, "untapped-leaf",
                       f"{l.path} is {l.status}", leaf=str(l.path))
@@ -133,7 +145,40 @@ def lint_arch(arch_id: str, *, production: bool = True, gen=None,
                      for a in rep.coverage.stale_allow]
         per_gran += list(rep.findings)
         found.extend(F.tag(per_gran, model=arch_id, granularity=gran))
-    return found
+    return found, costs
+
+
+def _cost_gate(args, costs, say) -> List:
+    """Baseline-gate findings for this run's CostReports; also writes the
+    baseline / report files when asked."""
+    import os
+    from repro_torch.analysis import cost as C
+    from repro_torch.analysis import findings as F
+
+    path = args.cost_baseline or C.BASELINE_PATH
+    if args.cost_report:
+        with open(args.cost_report, "w") as f:
+            json.dump({"profile": costs[0].profile if costs else None,
+                       "reports": [c.to_json() for c in costs]}, f,
+                      indent=2, sort_keys=True)
+        say(f"pexcost: wrote {len(costs)} CostReport(s) to "
+            f"{args.cost_report}")
+    if args.write_cost_baseline:
+        with open(path, "w") as f:
+            json.dump(C.baseline_payload(costs), f, indent=2)
+            f.write("\n")
+        say(f"pexcost: wrote baseline {path}")
+        return []
+    if not os.path.exists(path):
+        return [F.Finding(C.PASS, F.WARNING, "cost-baseline-missing",
+                          f"no baseline at {path}; create it with "
+                          f"--write-cost-baseline")]
+    with open(path) as f:
+        baseline = json.load(f)
+    out = C.check_baseline(costs, baseline, full_matrix=args.all_models)
+    say(f"pexcost: {len(costs)} report(s) vs {os.path.basename(path)}, "
+        f"{sum(f.severity == 'error' for f in out)} regression(s)")
+    return out
 
 
 def registry_findings() -> List:
@@ -178,17 +223,20 @@ def _depths(specs) -> dict:
     return out
 
 
-def _lint(args, arch_ids, depths, gen, mesh, seconds, say) -> List:
+def _lint(args, arch_ids, depths, gen, mesh, seconds, say, costs) -> List:
     """The run's findings: determinism once (unless ``--fast``), then
-    every arch; each arch's seconds into ``seconds``."""
+    every arch; each arch's seconds into ``seconds``, its CostReports
+    into ``costs``."""
     from repro_torch.analysis import determinism as det
     found: List = [] if args.fast else list(det.analyze().findings)
     for aid in arch_ids:
         t1 = time.time()
-        fs = lint_arch(aid, production=not args.no_production, gen=gen,
-                       mesh=mesh, deep=not args.fast, full=args.full,
-                       depth=depths.get(aid))
+        fs, cs = lint_arch(aid, production=not args.no_production, gen=gen,
+                           mesh=mesh, deep=not args.fast, full=args.full,
+                           depth=depths.get(aid), cost=args.cost,
+                           profile=args.profile)
         found.extend(fs)
+        costs.extend(cs)
         seconds[aid] = round(time.time() - t1, 2)
         n_e = sum(f.severity == "error" for f in fs)
         status = "ok" if not n_e else f"{n_e} ERROR"
@@ -219,16 +267,26 @@ def main(argv=None) -> int:
     ap.add_argument("--fast", action="store_true",
                     help="coverage/plan/launch only — skip the flow passes")
     ap.add_argument("--cost", action="store_true",
-                    help="the traffic/cost passes (not ported yet: refused)")
+                    help="run the traffic/cost passes over a full recorded "
+                         "training step per consumer set (independent of "
+                         "--fast)")
+    ap.add_argument("--profile", default=None,
+                    help="hardware profile for CostReports "
+                         "(roofline.constants.PROFILES; default "
+                         "h100-sxm-80gb)")
+    ap.add_argument("--cost-baseline", default=None,
+                    help="committed prediction baseline to gate against "
+                         "(default: src/repro_torch/analysis/"
+                         "cost_baseline.json)")
+    ap.add_argument("--write-cost-baseline", action="store_true",
+                    help="rewrite the baseline from this run instead of "
+                         "gating against it")
+    ap.add_argument("--cost-report", default=None,
+                    help="write the full CostReport JSON artifact here")
     ap.add_argument("--no-production", action="store_true",
                     help="skip the config-derived production-shape "
                          "launch cases")
     args = ap.parse_args(argv)
-    if args.cost:
-        print("python -m repro_torch.analysis: --cost needs the traffic and "
-              "cost passes, which the port does not have yet",
-              file=sys.stderr)
-        return 2
     say = (lambda m: print(m, file=sys.stderr)) if args.json else print
 
     import torch
@@ -239,18 +297,20 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     findings: List = list(registry_findings())
-    seconds = {}
+    seconds, costs = {}, []
     gen = torch.Generator().manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
         mesh = None if args.fast else _one_rank_mesh(tmp)
         try:
             with _TraceOnlyGuard():
                 findings.extend(_lint(args, arch_ids, depths, gen, mesh,
-                                      seconds, say))
+                                      seconds, say, costs))
         finally:
             if mesh is not None:
                 import torch.distributed as dist
                 dist.destroy_process_group()
+    if args.cost:
+        findings.extend(_cost_gate(args, costs, say))
 
     n_err = sum(f.severity == "error" for f in findings)
     n_warn = sum(f.severity == "warning" for f in findings)
@@ -259,12 +319,15 @@ def main(argv=None) -> int:
     say(f"pexlint: {len(arch_ids)} arch(s), {n_err} error(s), "
         f"{n_warn} warning(s), {time.time() - t0:.1f}s")
     if args.json:
-        print(json.dumps({
+        payload = {
             "archs": arch_ids, "errors": n_err, "warnings": n_warn,
             "elapsed_s": round(time.time() - t0, 2), "seconds": seconds,
             "full": args.full, "depths": depths, "shape": [BATCH, SEQ],
             "findings": [f.to_json() for f in findings],
-        }, indent=2))
+        }
+        if args.cost:
+            payload["cost"] = [c.to_json() for c in costs]
+        print(json.dumps(payload, indent=2))
     return resolve_exit(n_err, n_warn, args.fail_on_error,
                         args.fail_on_warn)
 

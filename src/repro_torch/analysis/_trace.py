@@ -26,10 +26,16 @@ kernel runs; a full-width step records in seconds on any host.
     result field (gradient leaves keep their parameter paths) and which
     generators the consumers brought.
 
+  * ``trace_train_step`` — record one whole *training* step: the same
+    ``Engine.step`` and then the optimizer apply (``optim.adamw.update`` or
+    ``optim.adafactor.update`` on ``meta`` optimizer state), with the plain
+    forward of the same model recorded apart, for the traffic and cost
+    passes. The ``grad_leaf`` marks ``plan.execute`` plants are the
+    boundary between the plan and the apply.
+
 The route a trace models is the card's: CUDA with ``PexSpec.use_kernels``,
 so a trace taken on the CPU names the kernel sites the H100 would
-launch. ``trace_train_step`` (the optimizer apply, for the traffic
-and cost passes) comes with those passes.
+launch.
 
 Random draws under a trace: a ``torch.Generator`` cannot draw into a
 ``meta`` tensor, and a ``meta`` generator does not exist, so the recorder
@@ -68,9 +74,15 @@ class AnalysisError(RuntimeError):
 
 @dataclasses.dataclass(frozen=True)
 class TensorInfo:
+    """A recorded tensor: its shape and dtype, the identity of its storage
+    (views share it), the bytes an op touches reading or writing it (its
+    distinct elements: a broadcast axis of stride 0 is read once) and the
+    bytes of its storage."""
     shape: Tuple[int, ...]
     dtype: str
     storage: int
+    nbytes: int = 0
+    storage_bytes: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +127,14 @@ def _tensors(v) -> List[torch.Tensor]:
 
 def _schema_arg(func, args, kwargs, i, name):
     return args[i] if i < len(args) else kwargs.get(name)
+
+
+def _flop_registry():
+    """``torch.utils.flop_counter``'s registry of contraction ops (mm,
+    bmm, addmm, baddbmm, convolutions, fused attention), whose functions
+    give an op's flops from its arguments."""
+    from torch.utils.flop_counter import flop_registry
+    return flop_registry
 
 
 def _digest(gen: torch.Generator) -> str:
@@ -170,11 +190,17 @@ class Recorder(TorchDispatchMode):
             self._quiet += 1
             try:
                 try:
-                    storage = t.untyped_storage()._cdata
+                    st = t.untyped_storage()
+                    storage, sbytes = st._cdata, st.nbytes()
                 except (RuntimeError, NotImplementedError):
-                    storage = key
-                self.tensors[key] = TensorInfo(tuple(t.shape),
-                                               dtype_name(t.dtype), storage)
+                    storage, sbytes = key, 0
+                elems = 1
+                for d, stride in zip(t.shape, t.stride()):
+                    if stride:
+                        elems *= d
+                self.tensors[key] = TensorInfo(
+                    tuple(t.shape), dtype_name(t.dtype), storage,
+                    elems * t.element_size(), sbytes)
             finally:
                 self._quiet -= 1
             self._refs.append(t)
@@ -220,7 +246,12 @@ class Recorder(TorchDispatchMode):
                   for t in self._written(func, args, kwargs)]
         if self._draw_outs.intersection(ins):
             self._draw_outs.update(outs)    # derived from a draw
-        self._append("aten", str(func), ins, outs, writes)
+        meta = None
+        if func.overloadpacket in _flop_registry():
+            # a contraction: its 2·M·N·K from torch's own flop counter
+            meta = {"flops": float(_flop_registry()[func.overloadpacket](
+                *args, **kwargs, out_val=out))}
+        self._append("aten", str(func), ins, outs, writes, meta)
         return out
 
     @staticmethod
@@ -525,3 +556,126 @@ def trace_step(loss_fn: Callable, params, batch, consumers: Sequence, *,
                      plan=plan, granularity=granularity, batch_size=bs,
                      data_axes=eng.data_axes, meshed=mesh is not None,
                      mesh=mesh, outputs=outputs)
+
+
+@dataclasses.dataclass
+class TrainTrace(StepTrace):
+    """One recorded training step: ``Engine.step`` and the optimizer
+    apply, with the identities the traffic and cost passes anchor on — the
+    tensor ids of the parameter, optimizer-state and batch leaves as they
+    entered the record, each parameter leaf's path, and ``reference``, the
+    plain forward (``loss_fn`` with the inert tap) of the same model and
+    batch, recorded apart: the duplicate-forward baseline must not share
+    the plan's path, or a mutant that doubles the plan's forward would
+    double it too. The apply updates the ``meta`` parameters and moments
+    in place, so its outputs (``new_params``, ``opt_state``) are the very
+    tensors the step read."""
+    optimizer: str = "none"              # 'adamw' | 'adafactor' | 'none'
+    global_clip: Optional[float] = None  # the optimizer's global-norm clip
+    seq: Optional[int] = None
+    param_ids: Tuple[int, ...] = ()
+    param_labels: Tuple[str, ...] = ()
+    opt_ids: Tuple[int, ...] = ()
+    batch_ids: Tuple[int, ...] = ()
+    reference: Optional[Trace] = None
+
+
+def _optimizer(optimizer: str):
+    """(module, default config, global clip) of an optimizer name; ``none``
+    gives Nones."""
+    if optimizer == "adamw":
+        from repro_torch.optim import adamw as mod
+        cfg = mod.AdamWConfig()
+        return mod, cfg, cfg.global_clip
+    if optimizer == "adafactor":
+        from repro_torch.optim import adafactor as mod
+        cfg = mod.AdafactorConfig()
+        return mod, cfg, getattr(cfg, "global_clip", None)
+    if optimizer == "none":
+        return None, None, None
+    raise ValueError(f"unknown optimizer {optimizer!r}; expected 'adamw', "
+                     f"'adafactor', or 'none'")
+
+
+def record_program(fn: Callable, *args) -> Trace:
+    """The record of ``fn(*args)`` on ``meta`` copies of its arguments."""
+    margs = [to_meta(a) for a in args]
+    rec = Recorder()
+    with rec:
+        fn(*margs)
+    return Trace.of(rec)
+
+
+def record_forward(loss_fn: Callable, params, batch) -> Trace:
+    """The plain forward of ``loss_fn`` (the inert tap, no gradient) on
+    ``meta`` copies of ``params`` and ``batch``."""
+    from repro_torch.core.taps import NULL
+
+    def forward(p, b):
+        with torch.no_grad():
+            loss_fn(p, b, NULL)
+    return record_program(forward, params, batch)
+
+
+def trace_train_step(loss_fn: Callable, params, batch, consumers: Sequence,
+                     *, optimizer: str = "adamw", spec=None,
+                     granularity: str = "example", mesh=None,
+                     data_axes: Sequence[str] = ("data",),
+                     batch_size: Optional[int] = None,
+                     seq: Optional[int] = None,
+                     with_reference: bool = True) -> TrainTrace:
+    """Record one whole training step on ``meta`` copies of ``params`` and
+    ``batch``: ``Engine.step`` (local or mesh path, as ``trace_step``) and,
+    when the plan yields gradients, the ``optimizer`` update of them (its
+    default config) with its state made by its ``init`` on the ``meta``
+    parameters — the clip-scale, the moments and the parameter write, which
+    no other pass covers."""
+    from repro_torch.core.engine import Engine, infer_batch_size
+
+    eng = Engine(spec, mesh=mesh, data_axes=data_axes,
+                 granularity=granularity)
+    plan = plan_mod.analyze(consumers, engine_granularity=granularity)
+    mod, cfg, global_clip = _optimizer(optimizer)
+    apply = mod is not None and plan.needs_grads
+    mparams, mbatch = to_meta(params), to_meta(batch)
+    bs = batch_size if batch_size is not None else infer_batch_size(mbatch)
+    state = mod.init(mparams) if apply else None
+    gens = {}
+    for c in consumers:
+        if isinstance(c, _KEYED) and c.rng is not None:
+            gens[id(c.rng)] = ("noise" if isinstance(c, plan_mod.Noise)
+                               else "importance")
+    p_leaves = tree_leaves(mparams)
+    o_leaves = [x for x in tree_leaves(state)
+                if isinstance(x, torch.Tensor)] if apply else []
+    rec = Recorder(gens)
+    with rec:
+        pids = tuple(rec.tid(x) for x in p_leaves)
+        oids = tuple(rec.tid(x) for x in o_leaves)
+        bids = tuple(rec.tid(x) for x in tree_leaves(mbatch))
+        r = eng.step(loss_fn, mparams, mbatch, consumers, batch_size=bs,
+                     seq=seq)
+        outputs = _outputs(rec, r)
+        if apply:
+            mod.update(cfg, state, mparams, r.grads)
+            paths = [path_str(p) for p in tree_paths(mparams)]
+            outputs += tuple(("new_params", p, t)
+                             for p, t in zip(paths, pids))
+            outputs += tuple(("opt_state", "", t) for t in oids)
+    base = Trace.of(rec)
+    ref = record_forward(loss_fn, params, batch) if with_reference else None
+    if seq is None:
+        from repro_torch.core.engine import infer_seq_len
+        try:
+            seq = infer_seq_len(mbatch)
+        except ValueError:
+            seq = None
+    return TrainTrace(
+        base.ops, base.tensors, base.gens, base.keyed_scalars, plan=plan,
+        granularity=granularity, batch_size=bs, data_axes=eng.data_axes,
+        meshed=mesh is not None, mesh=mesh, outputs=outputs,
+        optimizer=optimizer if apply else "none",
+        global_clip=global_clip if apply else None, seq=seq,
+        param_ids=pids,
+        param_labels=tuple(path_str(p) for p in tree_paths(mparams)),
+        opt_ids=oids, batch_ids=bids, reference=ref)

@@ -1,9 +1,7 @@
 """``Engine.verify`` backend — one call that runs every trace-only pexlint
 pass against a model (DESIGN.md §10, §12).
 
-Port of ``src/repro/analysis/verify.py`` without the traffic and cost
-passes (``cost=``, ``optimizer=``, ``profile=``, ``chips=``, ``model=``
-arrive with them). Composes the analyzers:
+Port of ``src/repro/analysis/verify.py``. Composes the analyzers:
 
   * plan analysis (``core.plan.analyze``) validates the consumer list and
     yields the static cost shape (``Plan.describe()``);
@@ -19,7 +17,10 @@ arrive with them). Composes the analyzers:
   * collective layout (``analysis.collectives``) checks a mesh trace's
     all-reduces against the per-example / replicated contract;
   * determinism (``analysis.determinism``) statically verifies the data
-    pipeline and soak replay path are (seed, step)-pure.
+    pipeline and soak replay path are (seed, step)-pure;
+  * with ``cost``, traffic (``analysis.traffic``) over a recorded training
+    step — the plan and the optimizer apply — and its cost
+    (``analysis.cost``) on a hardware profile.
 
 Everything here records on ``meta`` tensors — no kernel runs, nothing is
 computed, no collective is sent — so it takes parameters and batches on
@@ -32,10 +33,12 @@ from typing import Optional, Sequence, Tuple
 
 from repro_torch.analysis import _trace as _T
 from repro_torch.analysis import collectives as _col
+from repro_torch.analysis import cost as _cost
 from repro_torch.analysis import coverage as _cov
 from repro_torch.analysis import determinism as _det
 from repro_torch.analysis import launch as _launch
 from repro_torch.analysis import privacy as _priv
+from repro_torch.analysis import traffic as _traf
 from repro_torch.analysis.findings import ERROR, Finding
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.taps import ExampleLayout, PexSpec, TokenLayout
@@ -53,16 +56,22 @@ class VerifyReport:
     collectives: Tuple[_col.CollectivesReport, ...] = ()
     determinism: Optional[_det.DeterminismReport] = None
     traces: Tuple[_T.StepTrace, ...] = ()
+    traffic: Tuple[_traf.TrafficReport, ...] = ()
+    cost: Tuple[_cost.CostReport, ...] = ()
 
     @property
     def findings(self) -> Tuple[Finding, ...]:
         """Every Finding from the flow passes (privacy, collectives,
-        determinism); coverage/launch keep their own report shapes."""
+        determinism, traffic); coverage/launch keep their own report
+        shapes, and allowlisted traffic findings stay on the
+        TrafficReport."""
         out: Tuple[Finding, ...] = ()
         for r in self.privacy + self.collectives:
             out += r.findings
         if self.determinism is not None:
             out += self.determinism.findings
+        for t in self.traffic:
+            out += t.findings
         return out
 
     @property
@@ -70,6 +79,7 @@ class VerifyReport:
         return (self.coverage.ok and self.launch.ok
                 and all(r.ok for r in self.privacy)
                 and all(r.ok for r in self.collectives)
+                and all(t.ok for t in self.traffic)
                 and (self.determinism is None or self.determinism.ok))
 
     @property
@@ -92,6 +102,10 @@ class VerifyReport:
             lines.append(r.summary())
         if self.determinism is not None:
             lines.append(self.determinism.summary())
+        for t in self.traffic:
+            lines.append(t.summary())
+        for c in self.cost:
+            lines.append(c.summary())
         return "\n".join(lines)
 
     def raise_if_errors(self) -> "VerifyReport":
@@ -110,7 +124,10 @@ def verify(loss_fn, params, batch, consumers: Sequence = (), *,
            seq: Optional[int] = None, cfg=None, backend: str = "cuda",
            production: bool = True, mesh=None,
            data_axes: Sequence[str] = ("data",),
-           deep: bool = True, determinism: bool = True) -> VerifyReport:
+           deep: bool = True, determinism: bool = True,
+           cost: bool = False, optimizer: str = "adamw",
+           profile: Optional[str] = None, chips: int = 1,
+           model: Optional[str] = None) -> VerifyReport:
     """Run all trace-only static checks for one model.
 
     ``consumers`` may be one consumer list or a sequence of lists — each
@@ -123,7 +140,15 @@ def verify(loss_fn, params, batch, consumers: Sequence = (), *,
     on its all-reduces) — its kernel sites join the launch validation, and
     the data pipeline's determinism contract is checked once. ``backend``
     names the launch budgets: the card's (``"cuda"``), the one the port
-    has."""
+    has.
+
+    With ``cost`` (independent of ``deep``), each non-empty consumer set
+    is recorded as a full *training* step — plan execution plus the
+    ``optimizer`` apply — and run through the traffic pass; each
+    TrafficReport is composed into a ``CostReport`` on the named hardware
+    ``profile`` (default ``h100-sxm-80gb``) for ``chips`` cards, named
+    ``model``. Traffic findings gate ``.ok`` like every flow pass;
+    allowlisted ones (the eager apply's known streams) do not."""
     _launch._check_backend(backend)
     spec = spec if spec is not None else PexSpec(enabled=True)
     if consumers and not isinstance(consumers[0], (list, tuple)):
@@ -169,4 +194,22 @@ def verify(loss_fn, params, batch, consumers: Sequence = (), *,
         sites += tr.of_kind("kernel")
     lr = _launch.validate_sites(sites, cfg, backend=backend,
                                 production=production)
-    return VerifyReport(plans, cov, lr, privacy, collectives, det, traces)
+
+    traffic: Tuple[_traf.TrafficReport, ...] = ()
+    cost_reps: Tuple[_cost.CostReport, ...] = ()
+    if cost:
+        for cs in consumer_sets:
+            if not cs:
+                continue
+            tt = _T.trace_train_step(
+                loss_fn, params, batch, cs, optimizer=optimizer,
+                spec=spec, granularity=granularity, mesh=mesh,
+                data_axes=data_axes, batch_size=batch_size, seq=seq)
+            tr = _traf.analyze_trace(tt)
+            traffic += (tr,)
+            cost_reps += (_cost.build_cost(
+                tr, model=model if model is not None else "model",
+                profile=profile if profile is not None
+                else _cost.DEFAULT_PROFILE, chips=chips),)
+    return VerifyReport(plans, cov, lr, privacy, collectives, det, traces,
+                        traffic, cost_reps)

@@ -189,12 +189,18 @@ class Engine:
                consumers: Sequence = (), *, allow: Sequence[str] = (),
                batch_size: Optional[int] = None, seq: Optional[int] = None,
                cfg=None, backend: str = "cuda", production: bool = True,
-               deep: bool = True, determinism: bool = True):
+               deep: bool = True, determinism: bool = True,
+               cost: bool = False, optimizer: str = "adamw",
+               profile: Optional[str] = None, chips: int = 1,
+               model: Optional[str] = None):
         """Static checks of this engine's configuration against a model,
         without running it: tap coverage, the launch contracts of every
         kernel the step would launch on the card, and (``deep``) the
         privacy flow of each consumer set's recorded step, the collective
-        layout on this engine's mesh, and the data pipeline's determinism.
+        layout on this engine's mesh, and the data pipeline's determinism;
+        with ``cost``, the traffic and cost of each consumer set's
+        recorded training step under ``optimizer`` on the hardware
+        ``profile`` for ``chips`` cards (``model`` names the reports).
         ``params`` and ``batch`` may live on any device (``meta`` too);
         they are recorded on ``meta`` copies. Returns an
         ``analysis.VerifyReport``; ``.raise_if_errors()`` for a hard
@@ -205,7 +211,9 @@ class Engine:
                       batch_size=batch_size, seq=seq, cfg=cfg,
                       backend=backend, production=production,
                       mesh=self.mesh, data_axes=self.data_axes, deep=deep,
-                      determinism=determinism)
+                      determinism=determinism, cost=cost,
+                      optimizer=optimizer, profile=profile, chips=chips,
+                      model=model)
 
     def tap(self, batch_size: int, *, seq: Optional[int] = None,
             device=None) -> Tap:

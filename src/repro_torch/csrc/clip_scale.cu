@@ -98,7 +98,33 @@ int launch(const void* z, const float* c, void* out, int B, int S, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int info(int* out) {
+  const void* f = reinterpret_cast<const void*>(clip_scale_kernel<T>);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, f);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, kThreads,
+                                                        0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = 0;  // no shared memory
+  out[3] = kThreads;
+  out[4] = blocks;
+  return 0;
+}
+
 }  // namespace
+
+// Registers, local memory bytes a thread, dynamic shared memory bytes,
+// threads and resident blocks per SM (out[0..4]) of the body of `dtype`.
+extern "C" int clip_scale_kernel_info(int dtype, int* out) {
+  if (dtype == repro::kFloat32) return info<float>(out);
+  if (dtype == repro::kBFloat16) return info<__nv_bfloat16>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // Returns cudaGetLastError() after the launch (0 on success). B, S, n >= 1.
 extern "C" int clip_scale_launch(const void* z, const void* c, void* out,

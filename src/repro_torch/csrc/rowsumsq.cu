@@ -126,7 +126,36 @@ int launch(const void* x, float* out, int B, int S, int n, long long sb,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int info(bool wide, int* out) {
+  const void* f = wide ? reinterpret_cast<const void*>(rowsumsq_block<T>)
+                       : reinterpret_cast<const void*>(rowsumsq_warp<T>);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, f);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, kThreads,
+                                                        0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = 0;  // no dynamic shared memory (the block body's 8-float
+               // reduction scratch is static)
+  out[3] = kThreads;
+  out[4] = blocks;
+  return 0;
+}
+
 }  // namespace
+
+// Registers, local memory bytes a thread, dynamic shared memory bytes,
+// threads and resident blocks per SM (out[0..4]) of the body of `dtype` that
+// owns a row by a warp (wide 0) or by a block (wide 1).
+extern "C" int rowsumsq_kernel_info(int dtype, int wide, int* out) {
+  if (dtype == repro::kFloat32) return info<float>(wide != 0, out);
+  if (dtype == repro::kBFloat16) return info<__nv_bfloat16>(wide != 0, out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // Returns cudaGetLastError() after the launch (0 on success). B, S, n >= 1.
 extern "C" int rowsumsq_launch(const void* x, void* out, int dtype, int B,

@@ -66,7 +66,9 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _L, _L, _I, _I, _I, _P),
     "segmented_norm_kernel_info": (_IP,),
     "rowsumsq_launch": (_P, _P, _I, _I, _I, _I, _L, _L, _P),
+    "rowsumsq_kernel_info": (_I, _I, _IP),
     "clip_scale_launch": (_P, _P, _P, _I, _I, _I, _I, _L, _L, _P),
+    "clip_scale_kernel_info": (_I, _IP),
     "flash_attention_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _F, _I, _LP, _I, _P),
     "flash_attention_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -19,6 +19,8 @@ The plain version is :func:`repro_torch.kernels.ref.clip_scale_ref`;
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
@@ -34,6 +36,17 @@ def flop_estimate(numel: int) -> float:
 def bytes_estimate(numel: int, b: int, itemsize: int) -> float:
     """z read once, z' written once, c (b f32) read once."""
     return float(2 * numel * itemsize + 4 * b)
+
+
+def kernel_info(dtype) -> dict:
+    """Registers, local memory bytes per thread, dynamic shared memory,
+    threads and resident blocks per SM of the body of ``dtype``, as the
+    CUDA runtime reports them."""
+    out = (ctypes.c_int * 5)()
+    code = _build.load().clip_scale_kernel_info(
+        _build.DTYPE_CODES[str(dtype)], out)
+    _build.check(code, "clip_scale_kernel_info")
+    return dict(zip(_build.INFO_KEYS, out))
 
 
 def clip_scale(z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

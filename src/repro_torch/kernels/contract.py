@@ -132,7 +132,16 @@ class LaunchContract:
     ``__shared__`` scratch of a few words is not counted);
     ``blocks_per_sm`` the resident blocks its launch bounds ask for (1
     where it names none); ``registers`` the registers a thread, where known.
-    ``flops`` is the launch's useful work, for the cost passes."""
+
+    ``flops`` and ``bytes`` are what the cost passes read (``hbm_bytes()``):
+    the fewest operations the wrapper's function needs on the launch's
+    operands and the bytes it must move, each input read once and each
+    output written once — the rows a launch keeps, counted as the bounds
+    of PERF.md §6 and ``kernels.ops.gram_cost`` / ``direct_cost`` count
+    them, not the traffic of the kernel's own tiles. The launch's roofline
+    time is then max(flops / peak, bytes / HBM rate). Where one wrapper
+    call launches two kernels (the segmented routes), the call's work and
+    bytes ride on its first contract."""
     kernel: str
     grid: Tuple[int, ...]
     threads: int
@@ -144,6 +153,11 @@ class LaunchContract:
     wgmma: Tuple[Wgmma, ...] = ()
     divisibility: Tuple[Divisibility, ...] = ()
     flops: float = 0.0
+    bytes: float = 0.0
+
+    def hbm_bytes(self) -> float:
+        """Bytes the launch must move through HBM (see the class note)."""
+        return float(self.bytes)
 
 
 def validate(contract: LaunchContract) -> list:

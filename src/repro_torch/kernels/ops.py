@@ -41,6 +41,7 @@ Not carried over: the TPU wrappers' 128-lane padding (``_launch_tiles``,
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -73,6 +74,12 @@ def _empty(h: torch.Tensor, zbar: torch.Tensor) -> bool:
 
 def _zeros(h: torch.Tensor) -> torch.Tensor:
     return torch.zeros((h.shape[0],), dtype=torch.float32, device=h.device)
+
+
+def _norms_out(h: torch.Tensor) -> torch.Tensor:
+    """A trace's stand-in for a norm kernel's (B,) output: allocated, not
+    written (the launch's bytes are its contract's)."""
+    return torch.empty((h.shape[0],), dtype=torch.float32, device=h.device)
 
 
 def flop_estimate(b: int, s: int, p_in: int, p_out: int) -> float:
@@ -146,7 +153,7 @@ def gram_norm(h: torch.Tensor, zbar: torch.Tensor, *,
     if _empty(h, zbar):
         return _zeros(h)
     if h.is_meta:
-        return _prov.kernel_site("gram_norm", (h, zbar), _zeros(h),
+        return _prov.kernel_site("gram_norm", (h, zbar), _norms_out(h),
                                  triangular=triangular)
     out = _gn.gram_norm(h, zbar, triangular=triangular)
     gram_norm.launches += 1
@@ -163,7 +170,7 @@ def direct_norm(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
     if _empty(h, zbar):
         return _zeros(h)
     if h.is_meta:
-        return _prov.kernel_site("direct_norm", (h, zbar), _zeros(h))
+        return _prov.kernel_site("direct_norm", (h, zbar), _norms_out(h))
     out = _dn.direct_norm(h, zbar)
     direct_norm.launches += 1
     return out
@@ -381,7 +388,7 @@ DIRECT_ROWS = 64
 SEG_SLOTS = 6
 #: rowsumsq: from this row width on a block owns a row (``kWideRow``),
 #: below it a warp does (8 a block)
-ROWSUMSQ_WIDE_ROW = 16384
+ROWSUMSQ_WIDE_ROW = _rs.WIDE_ROW
 #: clip_scale's rows of the grid's y axis at most (``kMaxRowBlocks``)
 CLIP_SCALE_MAX_ROW_BLOCKS = 65535
 #: flash: q rows of a forward / dQ block (``kRows``), the rings' stages
@@ -424,6 +431,12 @@ def _tma_maps(names, shapes, strides, offsets, isz, boxes):
                  for n, o, s, box in zip(names, offs, st, boxes))
 
 
+def norm_bytes(b: int, s: int, p_in: int, p_out: int, dtype) -> float:
+    """Bytes a gram or direct launch must move: each example's rows of h
+    and z̄ read once and its f32 norm written once (``_read_s``'s count)."""
+    return float(b) * (s * (p_in + p_out) * _c.itemsize(dtype) + 4)
+
+
 def gram_smem_bytes() -> int:
     """The bf16 gram body's dynamic shared memory: the ring of GRAM_STAGES
     stages of a 128 × 64 chunk of each tile of a pair, and a full and an
@@ -453,15 +466,16 @@ def gram_contract(b: int, s: int, p_in: int, p_out: int, *,
             "gram_norm", (len(p.work),), _WIDE_THREADS, gram_smem_bytes(),
             GRAM_BLOCKS_PER_SM, buffers=(ring, acc), tma=tma,
             wgmma=(_c.Wgmma(64, _gn.TILE_S, 16, torch.bfloat16),),
-            flops=_gn.flop_estimate(b, s, p_in, p_out,
-                                    triangular=triangular))
+            flops=flop_estimate(b, s, p_in, p_out),
+            bytes=norm_bytes(b, s, p_in, p_out, dtype))
     n = -(-s // GRAM_F32_TILE)
     pairs = n * (n + 1) // 2 if triangular else n * n
     return _c.LaunchContract(
         "gram_norm", (pairs, b), _THREADS,
         buffers=(_c.Buffer("gram_tile", (GRAM_F32_TILE, GRAM_F32_TILE),
                            torch.float32, where="regs", accumulator=True),),
-        flops=_gn.flop_estimate(b, s, p_in, p_out, triangular=triangular))
+        flops=flop_estimate(b, s, p_in, p_out),
+        bytes=norm_bytes(b, s, p_in, p_out, dtype))
 
 
 def direct_smem_bytes() -> int:
@@ -492,10 +506,12 @@ def direct_contract(b: int, s: int, p_in: int, p_out: int, *,
             "direct_norm", (n_in, n_out, b), _WIDE_THREADS,
             direct_smem_bytes(), 1, buffers=(ring, acc), tma=tma,
             wgmma=(_c.Wgmma(64, t_out, 16, torch.bfloat16),),
-            flops=_dn.flop_estimate(b, s, p_in, p_out))
+            flops=flop_estimate(b, s, p_in, p_out),
+            bytes=norm_bytes(b, s, p_in, p_out, dtype))
     return _c.LaunchContract("direct_norm", (n_out, n_in, b), _THREADS,
                              buffers=(acc,),
-                             flops=_dn.flop_estimate(b, s, p_in, p_out))
+                             flops=flop_estimate(b, s, p_in, p_out),
+                             bytes=norm_bytes(b, s, p_in, p_out, dtype))
 
 
 def segmented_smem_bytes() -> int:
@@ -504,14 +520,37 @@ def segmented_smem_bytes() -> int:
     return _SMEM_SLACK + SEG_SLOTS * _sn.TILE_ROWS * _sn.CHUNK * 2
 
 
+def segmented_work(t: int, n_seg: int, p_in: int, p_out: int, dtype,
+                   seg_ids=None, id_itemsize: int = 4):
+    """(flops, bytes) of one ``segmented_norm`` call, as the bound counts
+    them: with the call's own ``seg_ids`` (a tensor holding values), the
+    fewest operations this data needs (``segmented_flop_estimate``) and the
+    kept rows read once (``segmented_norm.bytes_estimate``); without them
+    (a trace, whose ids are ``meta``), every row kept and the rows spread
+    evenly over the segments, which puts the gram form's work at its
+    least."""
+    isz = _c.itemsize(dtype)
+    if seg_ids is not None and not seg_ids.is_meta:
+        return (segmented_flop_estimate(seg_ids, n_seg, p_in, p_out),
+                _sn.bytes_estimate(seg_ids, n_seg, p_in, p_out, isz))
+    per, extra = divmod(t, max(n_seg, 1))
+    flops = (extra * flop_estimate(1, per + 1, p_in, p_out)
+             + (n_seg - extra) * flop_estimate(1, per, p_in, p_out)
+             if per or extra else 0.0)
+    return (float(flops), float(t * (p_in + p_out) * isz
+                                + t * id_itemsize + 4 * n_seg))
+
+
 def segmented_contract(t: int, n_seg: int, p_in: int, p_out: int, *,
-                       dtype=torch.bfloat16, sms: int = _gn.SMS) -> list:
+                       dtype=torch.bfloat16, sms: int = _gn.SMS,
+                       seg_ids=None, id_itemsize: int = 4) -> list:
     """The launches of ``segmented_norm`` on T = ``t`` rows and ``n_seg``
     segments, from the launcher's static bounds (``segmented_norm.limits``,
     the plan's list lengths): the gram route's persistent grid (at most
     BLOCKS_PER_SM blocks per SM) where a segment can take it, and the
     direct route's (128-wide tiles of G × ``direct_depth``) where one can
-    take that."""
+    take that. The call's work and bytes (:func:`segmented_work`) ride on
+    the first."""
     lim = _sn.limits(t, n_seg, p_in, p_out)
     out = []
     bf16 = _c.dtype_name(dtype) == "bfloat16"
@@ -540,6 +579,10 @@ def segmented_contract(t: int, n_seg: int, p_in: int, p_out: int, *,
             buffers=(_c.Buffer("g_tile", (_sn.DIRECT_TILE, _sn.DIRECT_TILE),
                                torch.float32, where="regs",
                                accumulator=True),)))
+    if out:
+        flops, nbytes = segmented_work(t, n_seg, p_in, p_out, dtype,
+                                       seg_ids, id_itemsize)
+        out[0] = dataclasses.replace(out[0], flops=flops, bytes=nbytes)
     return out
 
 
@@ -553,7 +596,8 @@ def rowsumsq_contract(b: int, s: int, n: int, *, dtype=torch.bfloat16):
         "rowsumsq", (grid,), _THREADS,
         buffers=(_c.Buffer("sum", (1,), torch.float32, where="regs",
                            accumulator=True),),
-        flops=_rs.flop_estimate(rows, n))
+        flops=_rs.flop_estimate(rows, n),
+        bytes=_rs.bytes_estimate(rows, n, _c.itemsize(dtype)))
 
 
 def clip_scale_contract(b: int, s: int, n: int, *, dtype=torch.bfloat16):
@@ -566,7 +610,8 @@ def clip_scale_contract(b: int, s: int, n: int, *, dtype=torch.bfloat16):
     return _c.LaunchContract(
         "clip_scale", (-(-slots // _THREADS),
                        min(b * s, CLIP_SCALE_MAX_ROW_BLOCKS)), _THREADS,
-        flops=_cs.flop_estimate(b * s * n))
+        flops=_cs.flop_estimate(b * s * n),
+        bytes=_cs.bytes_estimate(b * s * n, b, _c.itemsize(dtype)))
 
 
 def flash_smem_bytes(kind: str, d: int, bf16: bool = True) -> int:
@@ -625,12 +670,15 @@ def attention_contracts(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
                 buffers=(_c.Buffer("acc", (64, d), torch.float32,
                                    where="regs", accumulator=True),),
                 tma=tma, wgmma=mma,
-                flops=_fa.flop_estimate(kind, b, hq, sq, sk, d, window)))
+                flops=_fa.flop_estimate(kind, b, hq, sq, sk, d, window),
+                bytes=_fa.byte_estimate(kind, b, hq, hkv, sq, sk, d, 2)))
         else:
             n = -(-(sk if kind == "dkv" else sq) // key)
             out.append(_c.LaunchContract(
                 names[kind], (n, hkv if kind == "dkv" else hq, b), _THREADS,
-                flash_smem_bytes(kind, d, bf16=False)))
+                flash_smem_bytes(kind, d, bf16=False),
+                flops=_fa.flop_estimate(kind, b, hq, sq, sk, d, window),
+                bytes=_fa.byte_estimate(kind, b, hq, hkv, sq, sk, d, 4)))
     return out
 
 
@@ -652,8 +700,10 @@ def contract_for_launch(name: str, shapes, dtypes, strides=None,
         return [direct_contract(b, s, p_in, p_out, **kw)]
     if name == "segmented_norm":
         (t, p_in), (_, p_out) = shapes[0], shapes[1]
+        ids = _c.itemsize(getattr(torch, dtypes[2])) if len(dtypes) > 2 \
+            else 4
         return segmented_contract(t, meta["n_seg"], p_in, p_out, dtype=dt,
-                                  sms=sms)
+                                  sms=sms, id_itemsize=ids)
     if name == "rowsumsq":
         return [rowsumsq_contract(*shapes[0], dtype=dt)]
     if name == "clip_scale":

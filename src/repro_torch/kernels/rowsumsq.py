@@ -20,11 +20,15 @@ The plain version is :func:`repro_torch.kernels.ref.rowsumsq_ref`;
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 
 _INT_MAX = 2**31 - 1
+#: row width from which a 256-thread block owns a row (``kWideRow``)
+WIDE_ROW = 16384
 
 
 def flop_estimate(rows: int, n: int) -> float:
@@ -35,6 +39,18 @@ def flop_estimate(rows: int, n: int) -> float:
 def bytes_estimate(rows: int, n: int, itemsize: int) -> float:
     """Every element read once and one f32 written per row."""
     return float(rows) * (n * itemsize + 4)
+
+
+def kernel_info(dtype, n: int) -> dict:
+    """Registers, local memory bytes per thread, dynamic shared memory,
+    threads and resident blocks per SM of the body that takes rows of
+    ``n`` elements of ``dtype`` (a warp a row below :data:`WIDE_ROW`, a
+    block a row from it on), as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 5)()
+    code = _build.load().rowsumsq_kernel_info(
+        _build.DTYPE_CODES[str(dtype)], int(n >= WIDE_ROW), out)
+    _build.check(code, "rowsumsq_kernel_info")
+    return dict(zip(_build.INFO_KEYS, out))
 
 
 def rowsumsq(x: torch.Tensor) -> torch.Tensor:

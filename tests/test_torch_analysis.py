@@ -371,7 +371,20 @@ def test_cli_json_single_arch(capsys):
 
 
 def test_cli_and_verify_refuse_what_the_port_lacks():
-    assert lint_main(["--arch", "llama3.2-1b", "--fast", "--cost"]) == 2
     _, _, loss_fn, params, batch = lint_config("llama3.2-1b")
     with pytest.raises(ValueError, match="no meaning in the port"):
         verify(loss_fn, params, batch, backend="tpu")
+
+
+def test_cli_cost_runs_the_gate_and_writes_a_report(tmp_path, capsys):
+    """``--cost`` (once refused) runs the traffic and cost passes and the
+    gate against the port's committed baseline, and writes the reports."""
+    path = tmp_path / "cost.json"
+    assert lint_main(["--arch", "llama3.2-1b", "--fast", "--cost",
+                      "--cost-report", str(path), "--fail-on-error"]) == 0
+    out = json.loads(path.read_text())
+    assert out["profile"] == "h100-sxm-80gb"
+    assert {(r["granularity"], r["n_streams"] == r["expected_streams"])
+            for r in out["reports"]} == {("example", True), ("token", True)}
+    assert len(out["reports"]) == 4
+    assert "0 regression(s)" in capsys.readouterr().out

@@ -952,6 +952,8 @@ def _contract_cases():
     """(kernel_info of the built kernel, the contract ``kernels.ops``
     states for a launch of the main path's shapes): llama3.2-1b at full
     width, B=8, S=512, and phi3.5-moe's gate/up experts."""
+    from repro_torch.kernels import clip_scale as tcs
+    from repro_torch.kernels import rowsumsq as trs
     from repro_torch.kernels import segmented_norm as tsn
     bf = torch.bfloat16
     return {
@@ -969,6 +971,16 @@ def _contract_cases():
            for name, kind in (("flash_attention", "fwd"),
                               ("flash_attention_bwd_dq", "dq"),
                               ("flash_attention_bwd_dkv", "dkv"))},
+        # the token path's rows: wk/wv's 512 (a warp a row) and the LM
+        # head's 128,256 (a block a row); §6 one pass at 8192, both types
+        **{f"rowsumsq_{n}": ((lambda n=n: trs.kernel_info(bf, n)),
+                             (lambda sms, n=n: tops.rowsumsq_contract(
+                                 8, 512, n, dtype=bf)))
+           for n in (512, 128256)},
+        **{f"clip_scale_{dt}": ((lambda dt=dt: tcs.kernel_info(dt)),
+                                (lambda sms, dt=dt: tops.clip_scale_contract(
+                                    8, 512, 8192, dtype=dt)))
+           for dt in (torch.float32, bf)},
     }
 
 
@@ -976,7 +988,10 @@ def _contract_cases():
 @pytest.mark.parametrize("name", ["gram_norm", "direct_norm",
                                   "segmented_norm", "flash_attention",
                                   "flash_attention_bwd_dq",
-                                  "flash_attention_bwd_dkv"])
+                                  "flash_attention_bwd_dkv", "rowsumsq_512",
+                                  "rowsumsq_128256",
+                                  "clip_scale_torch.float32",
+                                  "clip_scale_torch.bfloat16"])
 def test_cuda_contract_matches_kernel_info(cuda_device, name):
     """Each bf16 body's contract against the built kernel: shared memory a
     block and threads equal, registers within the budget, the resident
