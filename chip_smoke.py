@@ -375,7 +375,27 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               per-device bytes, ``fits``); (d) ``python -m
               repro_torch.analysis --cost --json --fast --full`` at the lint
               depths of phase 40, its wall seconds, no error and every plan
-              at its expected streams.
+              at its expected streams;
+42. sharded — model-axis sharding (DTensor): (a) two ranks on cuda:0 over
+              gloo, spawned as phase 36's, on a (data=1, model=2) mesh
+              under the reference's rules (``registry.rules_for``): the
+              parameters of llama3.2-1b at full width and full depth (f32,
+              B=4, S=256) laid out by their logical axes, ``Engine().step``
+              with ``[Norms, Grads]`` and ``[Norms, Clip, Grads]`` on them
+              against the one-process ``Engine`` at the reference
+              selfcheck's tolerances (loss 1e-5, norms 1e-4, each rank's
+              gradient shards against the same slices of the one-process
+              gradient at rtol 1e-4 / atol 1e-5 of each leaf's largest
+              |value|), each rank's gram, direct and ``add_rows`` calls a
+              step (norm kernels on its local shards, each rank launching
+              some), its parameter bytes beside the one-process figure,
+              its peak memory and the step's ms; (b) meanwhile, in a
+              subprocess, ``launch.dryrun``'s sharded mode records
+              ``train_4k`` of llama3.2-1b, phi3.5-moe and deepseek-v2-236b
+              (two microbatches) at full depth on 16×16 and llama3.2-1b on
+              2×16×16: each device's parameter and state bytes equal to the
+              analytic figures, the peak, ``fits`` and the collective bytes
+              by kind; the phase's seconds (within ``SHARD_PHASE_S``).
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -402,6 +422,7 @@ line before it is the kernel table as JSON, and the line before that the
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
 import json
@@ -2841,6 +2862,288 @@ def phase_dp_exact():
             "seconds": time.perf_counter() - t0}
 
 
+#: phase 42: two ranks on cuda:0 on a (data=1, model=2) mesh;
+#: llama3.2-1b at full width and full depth (None: the published 16
+#: layers), f32, phase 36's batch; timed steps a consumer set
+SHARD_MESH = ((1, 2), ("data", "model"))
+SHARD_LAYERS, SHARD_B, SHARD_S = None, 4, 256
+SHARD_STEPS = 2
+#: the dry-run's sharded cells: train_4k on 16×16 and on 2×16×16
+SHARD_DRYRUN = {False: ("llama3.2-1b", "phi3.5-moe", "deepseek-v2-236b"),
+                True: ("llama3.2-1b",)}
+SHARD_DRYRUN_TIMEOUT_S = 600
+SHARD_PHASE_S = 120           # the phase's own budget, asserted
+
+
+def sharded_work(rank):
+    """Phase 42 (a) on one rank (``dp_rank``'s ``fn``): the sharded steps
+    first (their peak memory read alone), then the one-process ``Engine``
+    on the same parameters (drawn again from the same seed) and the
+    comparison of this rank's shards with the same slices of its
+    results."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch import pex
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.core import norms as N
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.nn.param import axes_of, tree_leaves, tree_paths
+
+    spec = registry.get("llama3.2-1b")
+    # the two ranks share cuda:0 over gloo: DTensor's collectives go
+    # through host copies
+    shd.stage_collectives_on_host()
+    cfg = spec.full(dtype="float32") if SHARD_LAYERS is None \
+        else cut(spec, SHARD_LAYERS, dtype="float32")
+    mod = registry.family_module(spec)
+
+    def init():
+        return mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = registry.make_train_batch(
+        spec, cfg, ShapeSpec("sharded", "train", SHARD_S, SHARD_B),
+        rng_seed=0)
+    loss_fn = registry.make_loss_fn_v2(spec, cfg)
+    mesh = shd.make_mesh(*SHARD_MESH)
+    extent = dict(zip(SHARD_MESH[1], SHARD_MESH[0]))
+    rules = registry.rules_for(spec, cfg, ShapeSpec(
+        "sharded", "train", SHARD_S, SHARD_B), False,
+        model_size=extent["model"], data_size=extent["data"])
+    params = init()
+    one_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    with shd.use_rules(mesh, rules):
+        dp = shd.distribute_tree(params, axes_of(params))
+    del params
+    torch.cuda.empty_cache()
+    local_bytes = sum(x.to_local().numel() * x.element_size()
+                      for x in tree_leaves(dp))
+    sharded_leaves = sum(any(type(p).__name__ == "Shard"
+                             for p in x.placements) for x in tree_leaves(dp))
+    rows = {"n": 0}
+    add_rows = N.add_rows
+
+    def counted(*a, **kw):
+        rows["n"] += 1
+        return add_rows(*a, **kw)
+    N.add_rows = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got, ms, launches = {}, {}, {}
+    clip = None
+    for name in ("norms_grads", "clip"):
+        ms[name] = []
+        for i in range(SHARD_STEPS):
+            if name == "clip" and clip is None:
+                # the reference selfcheck's threshold: half the median
+                # per-example norm (whole on every rank)
+                clip = 0.5 * float(torch.sqrt(torch.median(
+                    got["norms_grads"].sq_norms.sum(-1))))
+            cons = [pex.Norms(), pex.Grads()] if name == "norms_grads" \
+                else [pex.Norms(), pex.Clip(clip), pex.Grads()]
+            ops.reset_launch_counts()
+            rows["n"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = pex.Engine(pex.PexSpec()).step(loss_fn, dp, batch, cons)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            counts = ops.launch_counts()
+            launches[name] = {**{k: counts[k] for k in NORM_KERNELS},
+                              "add_rows": rows["n"]}
+            got[name] = r
+    peak = torch.cuda.max_memory_allocated()
+    N.add_rows = add_rows
+    placements_ok = all(
+        tuple(g.placements) == tuple(p.placements)
+        for name in got for g, p in zip(tree_leaves(got[name].grads),
+                                        tree_leaves(dp)))
+    del dp
+    torch.cuda.empty_cache()
+    params = init()
+    local = pex.Engine(pex.PexSpec())
+    checks = []
+    for name in got:
+        cons = [pex.Norms(), pex.Grads()] if name == "norms_grads" \
+            else [pex.Norms(), pex.Clip(clip), pex.Grads()]
+        w = local.step(loss_fn, params, batch, cons)
+        g = got[name]
+        pairs = [("loss", "loss", g.loss, w.loss),
+                 ("loss", "loss_vec", g.loss_vec, w.loss_vec),
+                 ("sq_norms", "sq_norms", g.sq_norms, w.sq_norms)]
+        for path, a, b in zip(tree_paths(w.grads), tree_leaves(g.grads),
+                              tree_leaves(w.grads)):
+            # this rank's shard against the same slice of the whole
+            piece = distribute_tensor(b, a.device_mesh, a.placements,
+                                      src_data_rank=None).to_local()
+            pairs.append(("grads", "/".join(map(str, path)), a.to_local(),
+                          piece))
+        for kind, leaf, a, b in pairs:
+            rtol, atol = DP_TOL[kind]
+            a, b = a.float(), b.float()
+            scale = float(b.abs().max()) if kind == "grads" else 1.0
+            checks.append((name, kind, leaf, bool(torch.allclose(
+                a, b, rtol=rtol, atol=atol * scale)),
+                float((a - b).abs().max()), scale))
+        del w
+    return {"checks": checks, "ms": ms, "launches": launches,
+            "param_bytes": local_bytes, "one_process_bytes": one_bytes,
+            "sharded_leaves": sharded_leaves, "peak": peak,
+            "placements_ok": placements_ok, "clip": clip,
+            "layers": cfg.n_layers}
+
+
+def start_sharded_dryrun():
+    """Phase 42 (b), started: one CPU-only subprocess per ``SHARD_DRYRUN``
+    cell (one thread each; a full-depth deepseek-v2-236b record takes
+    minutes of the host), writing into a temporary directory. Returns
+    (the directory, [(cmd, process)], the start time)."""
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    dry = []
+    for multi, archs in SHARD_DRYRUN.items():
+        for arch in archs:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--shape", "train_4k", f"--arch={arch}", "--out",
+                   os.path.join(tmp.name, "dryrun")] \
+                + (["--multi-pod"] if multi else [])
+            dry.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, cwd=ROOT, env=env)))
+    log(f"[sharded] the dry-run's {len(dry)} sharded cells started in "
+        f"subprocesses")
+
+    def stop():
+        for _, proc in dry:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)        # should the script fail before phase 42
+    return tmp, dry, time.perf_counter()
+
+
+def phase_sharded(started=None):
+    """Phase 42: (a) ``sharded_work`` on ``DP_WORLD`` ranks on cuda:0 over
+    gloo and (b) the subprocesses of ``start_sharded_dryrun`` (``started``:
+    begun earlier, so that they run beside the other phases; else begun
+    here), both checked; the phase's seconds, its wait for (b) among them,
+    within ``SHARD_PHASE_S``."""
+    import pickle
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mode = compute_mode()
+    if mode != "Default":
+        raise AssertionError(f"compute mode {mode!r}: two processes cannot "
+                             f"share the card")
+    torch.cuda.empty_cache()
+    holder, dry, t_dry = started if started is not None \
+        else start_sharded_dryrun()
+    with holder as tmp:
+        log(f"[sharded] {DP_WORLD} ranks on cuda:0 over gloo, mesh "
+            f"{SHARD_MESH}; llama3.2-1b full width, "
+            f"{SHARD_LAYERS or 'all'} layers, float32, B={SHARD_B}, "
+            f"S={SHARD_S}")
+        try:
+            mp.start_processes(dp_rank, args=(DP_WORLD, tmp, sharded_work),
+                               nprocs=DP_WORLD, start_method="spawn")
+            ranks = []
+            for r in range(DP_WORLD):
+                with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                    ranks.append(pickle.load(f))
+            t_ranks = time.perf_counter() - t0
+            outs = []
+            for cmd, proc in dry:
+                text, _ = proc.communicate(timeout=max(
+                    1.0, SHARD_DRYRUN_TIMEOUT_S - (time.perf_counter()
+                                                  - t_dry)))
+                outs.append((cmd, proc.returncode, text))
+            t_wall = time.perf_counter() - t_dry
+        finally:
+            for _, proc in dry:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        cells = {}
+        out_dir = os.path.join(tmp, "dryrun")
+        for name in sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) \
+                else []:
+            with open(os.path.join(out_dir, name)) as f:
+                cells[name[:-5]] = json.load(f)
+    worst = {}
+    for r, rank in enumerate(ranks):
+        for tag, kind, _, _, err, _ in rank["checks"]:
+            worst[(r, tag, kind)] = max(worst.get((r, tag, kind), 0.0), err)
+    for r, rank in enumerate(ranks):
+        bad = [c for c in rank["checks"] if not c[3]]
+        log(f"[sharded] rank {r}: {rank['layers']} layers; max |Δ| against "
+            f"one process by pass and output "
+            f"{ {f'{t}/{k}': float(f'{e:.3g}') for (q, t, k), e in worst.items() if q == r} }"
+            f" (tolerances {DP_TOL}, gradients' atol of each leaf's max "
+            f"|value|); launches a step {rank['launches']}; parameter "
+            f"bytes {rank['param_bytes'] / 2**30:.3f} GiB against "
+            f"{rank['one_process_bytes'] / 2**30:.3f} GiB in one process "
+            f"({rank['sharded_leaves']} leaves sharded); peak memory "
+            f"{rank['peak'] / 2**30:.2f} GiB; step ms "
+            f"{ {k: [round(x, 1) for x in v] for k, v in rank['ms'].items()} }"
+            f"; clip {rank['clip']:.4g}")
+        if bad:
+            raise AssertionError(
+                f"sharded: rank {r}: {len(bad)} outputs outside the "
+                f"tolerance (pass, kind, output, ok, max |Δ|, max |value|): "
+                f"{bad[:8]}")
+        if not rank["placements_ok"]:
+            raise AssertionError(f"sharded: rank {r}'s gradients are not "
+                                 f"laid out as their parameters")
+        for name, n in rank["launches"].items():
+            if not any(n[k] for k in NORM_KERNELS):
+                raise AssertionError(f"sharded: rank {r} launched no norm "
+                                     f"kernel in a {name} step: {n}")
+        if not rank["param_bytes"] < rank["one_process_bytes"]:
+            raise AssertionError(f"sharded: rank {r} holds "
+                                 f"{rank['param_bytes']} parameter bytes, "
+                                 f"not fewer than one process's")
+    for cmd, rc, text in outs:
+        shown = [c for c in cmd[3:] if not c.startswith(tmp)]
+        log(f"[sharded] dryrun ({' '.join(shown)}): exit {rc}")
+        if rc:
+            raise AssertionError(f"sharded: dryrun exit {rc}\n"
+                                 f"{text[-4000:]}")
+    for key, d in cells.items():
+        if not d["ok"] or d["param_bytes_per_dev"] != \
+                d["param_bytes_analytic"] or d["state_bytes_per_dev"] != \
+                d["state_bytes_analytic"]:
+            raise AssertionError(f"sharded: dryrun cell {key}: {d}")
+        log(f"[sharded] dryrun {d['arch']} × {d['shape']} × {d['mesh']} "
+            f"({d['microbatches']} microbatch(es), local batch "
+            f"{d['local_batch']}, {d['n_ops']} records in "
+            f"{d['record_s']:.1f} s): per device params "
+            f"{d['param_bytes_per_dev'] / 1e9:.3f} GB, AdamW state "
+            f"{d['state_bytes_per_dev'] / 1e9:.3f} GB (both the analytic "
+            f"figures), made at the peak "
+            f"{d['transient_peak_bytes'] / 1e9:.2f} GB, peak "
+            f"{d['peak_bytes_per_dev'] / 1e9:.2f} GB of 80: fits "
+            f"{d['fits']}; collective bytes "
+            f"{ {k: float(f'{v:.4g}') for k, v in d['coll_bytes'].items()} }")
+    want = {(a, m) for m, archs in SHARD_DRYRUN.items() for a in archs}
+    have = {(d["arch"], d["mesh"] == "2x16x16") for d in cells.values()}
+    if have != want:
+        raise AssertionError(f"sharded: dryrun cells {sorted(have)}, "
+                             f"expected {sorted(want)}")
+    seconds = time.perf_counter() - t0
+    log(f"[sharded] phase 42 in {seconds:.1f} s (ranks {t_ranks:.1f} s; "
+        f"the dry-run's subprocesses {t_wall:.1f} s from their start)")
+    if seconds > SHARD_PHASE_S:
+        raise AssertionError(f"sharded: phase 42 took {seconds:.1f} s, over "
+                             f"its {SHARD_PHASE_S} s")
+    return {"ranks": ranks, "cells": cells, "worst": worst,
+            "seconds": seconds}
+
+
 def clip_trainer(spec, registry, cfg, mesh=None):
     """Phase 17's clip trainer on fresh parameters (seed 0):
     ``TRAIN_CLIP_STEPS`` steps of ``consumers_for_mode("clip", B,
@@ -3698,7 +4001,7 @@ def cost_dryrun(spec, registry, pex, cfg, run):
                              f"{rel:+.1%} off phase 5's {meas:.2f} GiB")
     del tt
     cells = {}
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--pex-spmd",
            "--shape", "train_4k", *(f"--arch={a}" for a in DRYRUN_ARCHS),
            *(f"--ranks={n}" for n in DRYRUN_RANKS)]
     with tempfile.TemporaryDirectory() as tmp:
@@ -5999,6 +6302,8 @@ def main() -> int:
     serve_run = phase_serve(registry)
     serve_fams = phase_serve_families(registry)
     torch.cuda.empty_cache()
+    # phase 42 (b) runs on the host beside phases 36-41
+    sharded_dry = start_sharded_dryrun()
     dp_exact = phase_dp_exact()
     dp_run = phase_dp(spec, registry, cfg, train_run)
     torch.cuda.empty_cache()
@@ -6013,6 +6318,8 @@ def main() -> int:
     verify_run = phase_verify(spec, registry, pex, cfg, paths)
     cost_run = phase_cost(spec, registry, pex, cfg, paths, rows,
                           verify_run.pop("traces"))
+    torch.cuda.empty_cache()
+    sharded_run = phase_sharded(sharded_dry)
     for tag, r in (("serve llama3.2-1b", serve_run),
                    *((f"serve-families {a}", r)
                      for a, r in serve_fams.items())):
@@ -6103,7 +6410,8 @@ def main() -> int:
         f"{cost_run['step']['report']['t_step_s'] * 1e3:.2f} ms, dry-run "
         f"peak {cost_run['dryrun']['pred_gib']:.2f} GiB against "
         f"{cost_run['dryrun']['meas_gib']:.2f}, CLI "
-        f"{cost_run['cli']['wall_s']:.1f} s); whole run "
+        f"{cost_run['cli']['wall_s']:.1f} s); sharded "
+        f"{sharded_run['seconds']:.1f} s; whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -33,6 +33,17 @@ kernel runs; a full-width step records in seconds on any host.
     passes. The ``grad_leaf`` marks ``plan.execute`` plants are the
     boundary between the plan and the apply.
 
+Sharded (DTensor) programs: the recorder records each rank's own work.
+An op on DTensors is handed on to DTensor (the mode returns
+``NotImplemented``), whose dispatch then runs the local ops on the rank's
+shards — and the functional collectives (``all_reduce``,
+``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_to_all``) of
+every redistribution — through the recorder, which records those; the
+fake tensors DTensor propagates shapes with are not recorded. A DTensor
+is known by its local tensor (``tid``). Each recorded functional
+collective carries its kind and the mesh axes of its group
+(:func:`collective_meta`) when the recorder was given the mesh.
+
 The route a trace models is the card's: CUDA with ``PexSpec.use_kernels``,
 so a trace taken on the CPU names the kernel sites the H100 would
 launch.
@@ -117,6 +128,39 @@ class GenState:
     marked: bool = False
 
 
+#: the functional collectives a DTensor redistribution issues, by op name
+#: → kind
+FUNCTIONAL_COLLECTIVES = {
+    "_c10d_functional.all_reduce.default": "all_reduce",
+    "_c10d_functional.all_reduce_.default": "all_reduce",
+    "_c10d_functional.all_gather_into_tensor.default": "all_gather",
+    "_c10d_functional.reduce_scatter_tensor.default": "reduce_scatter",
+    "_c10d_functional.all_to_all_single.default": "all_to_all",
+}
+
+
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor" and hasattr(x, "_local_tensor")
+
+
+def _is_fake(x) -> bool:
+    return type(x).__name__ == "FakeTensor"
+
+
+def mesh_groups(mesh) -> Dict[str, Tuple[str, ...]]:
+    """{process-group name: mesh axes} of a ``DeviceMesh``'s one-dim
+    groups."""
+    out = {}
+    if mesh is None:
+        return out
+    for i, name in enumerate(mesh.mesh_dim_names or ()):
+        try:
+            out[mesh.get_group(i).group_name] = (name,)
+        except (RuntimeError, AttributeError):
+            continue
+    return out
+
+
 def _tensors(v) -> List[torch.Tensor]:
     if isinstance(v, torch.Tensor):
         return [v]
@@ -151,8 +195,10 @@ class Recorder(TorchDispatchMode):
     #: integer stand-ins for scalar reads start here
     SCALAR_BASE = 0x5EED_0000_0000
 
-    def __init__(self, consumer_gens: Optional[Dict[int, str]] = None):
+    def __init__(self, consumer_gens: Optional[Dict[int, str]] = None,
+                 mesh=None):
         super().__init__()
+        self.groups = mesh_groups(mesh)
         self.ops: List[Op] = []
         self.tensors: Dict[int, TensorInfo] = {}
         self.gens: Dict[int, GenState] = {}
@@ -185,6 +231,8 @@ class Recorder(TorchDispatchMode):
 
     # -- identities ----------------------------------------------------------
     def tid(self, t: torch.Tensor) -> int:
+        if _is_dtensor(t):
+            t = t._local_tensor       # a rank's own piece
         key = id(t)
         if key not in self.tensors:
             self._quiet += 1
@@ -234,11 +282,18 @@ class Recorder(TorchDispatchMode):
         kwargs = kwargs or {}
         if self._quiet:
             return func(*args, **kwargs)
+        flat = _tensors(list(args)) + _tensors(list(kwargs.values()))
+        if any(_is_dtensor(t) for t in flat):
+            return NotImplemented   # DTensor runs the rank's local ops
+        if any(_is_fake(t) for t in flat):
+            return func(*args, **kwargs)   # DTensor's shape propagation
         if func is torch.ops.aten._local_scalar_dense.default:
             return self._scalar(args[0])
         if torch.Tag.nondeterministic_seeded in func.tags:
             return self._draw(func, args, kwargs)
         out = func(*args, **kwargs)
+        if any(_is_fake(t) for t in _tensors(out)):
+            return out
         ins = [self.tid(t) for t in _tensors(list(args))
                + _tensors(list(kwargs.values()))]
         outs = [self.tid(t) for t in _tensors(out)]
@@ -247,6 +302,13 @@ class Recorder(TorchDispatchMode):
         if self._draw_outs.intersection(ins):
             self._draw_outs.update(outs)    # derived from a draw
         meta = None
+        kind = FUNCTIONAL_COLLECTIVES.get(str(func))
+        if kind is not None:
+            group = next((_schema_arg(func, args, kwargs, i, a.name)
+                          for i, a in enumerate(func._schema.arguments)
+                          if a.name == "group_name"), None)
+            meta = {"collective": kind, "group": group,
+                    "axes": self.groups.get(group, ())}
         if func.overloadpacket in _flop_registry():
             # a contraction: its 2·M·N·K from torch's own flop counter
             meta = {"flops": float(_flop_registry()[func.overloadpacket](

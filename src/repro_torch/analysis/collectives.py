@@ -30,8 +30,11 @@ count; any other all-reduce is a *sum*. Then:
     (``missing-region``).
 
 ``expected_schedule`` states the same contract as data, with the
-reference's 2-D DP×TP form (model axes of extent > 1, which the port's
-mesh path refuses today).
+reference's 2-D DP×TP form (model axes of extent > 1, which ``dist.pex``
+refuses). The model-axis route (DTensor parameters, ``core.plan``'s
+sharded route) records DTensor's functional collectives with their mesh
+axes; :func:`analyze_sharded` holds such a step to the schedule's
+model-axis entries.
 """
 from __future__ import annotations
 
@@ -255,3 +258,91 @@ def check_step(loss_fn, params, batch, consumers, **trace_kw):
     """Convenience: trace ``Engine.step`` and analyze its collectives."""
     return analyze_trace(_T.trace_step(loss_fn, params, batch, consumers,
                                        **trace_kw))
+
+
+# ---------------------------------------------------------------------------
+# the sharded route: DTensor's functional collectives
+# ---------------------------------------------------------------------------
+
+class _FunctionalWalker(_T.Walker):
+    """Lineage of the functional collectives a DTensor step records: each
+    adds a token ``kind@axes:index`` to its output's taint."""
+
+    def __init__(self):
+        self.noise_in_collective = False
+
+    def hook(self, op, in_t):
+        if op.kind == "mark" and op.name == "noise":
+            for tid in op.outs:
+                self.replace(tid, frozenset({f"noise:{op.index}"}))
+            return []
+        if op.kind != "aten" or not op.meta or "collective" not in op.meta:
+            return None
+        if any(t.startswith("noise:") for ts in in_t for t in ts):
+            self.noise_in_collective = True
+        axes = "+".join(op.meta.get("axes") or ("?",))
+        tok = f"{op.meta['collective']}@{axes}:{op.index}"
+        merged = frozenset().union(*in_t) if in_t else _EMPTY
+        return [merged | {tok} for _ in op.outs]
+
+
+def analyze_sharded(trace, outputs, plan, mesh_extents: Dict[str, int],
+                    data_axes: Sequence[str] = ("data",)
+                    ) -> Tuple[Finding, ...]:
+    """Hold one recorded sharded step (``Engine`` on DTensor parameters;
+    ``outputs`` the ``(field, leaf, tensor id)`` of its results) to
+    ``expected_schedule``'s model-axis entries: every per-example output
+    it owes a sum over a model axis carries an ``all_reduce`` or a
+    ``reduce_scatter`` over that axis in its lineage
+    (``missing-model-sum``); every gradient leaf, where the data axes
+    have extent > 1, carries a collective over each of them
+    (``grad-unreduced``): the other ranks' rows reach it, summed into it
+    or gathered before it (a leaf computed from a gathered cotangent
+    needs no sum after); no noise reaches a
+    collective's input (``noise-before-psum``). The gradient's model-axis
+    entry does not apply: a leaf sharded over the model axis is each
+    rank's own block, and a replicated one is computed whole on every
+    rank."""
+    class _Mesh:
+        axis_names = tuple(mesh_extents)
+        shape = dict(mesh_extents)
+    schedule = {e.output: e for e in expected_schedule(plan, _Mesh(),
+                                                       data_axes)}
+    walker = _FunctionalWalker()
+    walker.run(trace, {})
+    findings: List[Finding] = []
+    data = [a for a in data_axes if mesh_extents.get(a, 1) > 1]
+
+    def reduced_over(taint, axis, kinds=("all_reduce", "reduce_scatter")):
+        for t in taint:
+            kind, _, axes = t.split(":")[0].partition("@")
+            if kind in kinds and axis in axes.split("+"):
+                return True
+        return False
+    for field, leaf, tid in outputs:
+        entry = schedule.get(field)
+        taint = walker.taint(tid)
+        if field in ("loss_vec", "sq_norms") and entry is not None:
+            for axis in entry.psum_axes:
+                if not reduced_over(taint, axis):
+                    findings.append(Finding(
+                        PASS, ERROR, "missing-model-sum",
+                        f"output {field} is owed a sum over the model axis "
+                        f"{axis!r} (each shard holds a slice of every "
+                        f"example's value), and its lineage holds none"))
+        if field == "grads":
+            for axis in data:
+                if not reduced_over(taint, axis, ("all_reduce",
+                                                  "reduce_scatter",
+                                                  "all_gather")):
+                    findings.append(Finding(
+                        PASS, ERROR, "grad-unreduced",
+                        f"gradient {leaf} crosses no collective over the "
+                        f"data axis {axis!r}: each rank would keep its own "
+                        f"rows' gradient", leaf=leaf))
+    if walker.noise_in_collective:
+        findings.append(Finding(
+            PASS, ERROR, "noise-before-psum",
+            "noise reaches the input of a collective: it is added per rank "
+            "before the gradient sum, not once after it"))
+    return tuple(findings)

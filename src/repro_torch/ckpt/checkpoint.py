@@ -23,7 +23,14 @@ tree holds one leaf per layer where the reference stacks its layers, so a
             numpy arrays, serializes, hashes and commits.
 * atomic  — readers only ever see fully committed step directories.
 * elastic — ``restore(shardings=)`` places the leaves on a mesh's device
-            and checks that every rank of it holds the same bits.
+            and checks that every rank of it holds the same bits; a leaf
+            whose placements shard it (``Shard(d)`` over a model or data
+            axis) is laid out as a DTensor, each rank keeping its piece.
+* sharded — a tree with DTensor leaves is saved in the same layout as a
+            replicated one (each leaf whole), so a file restores in either
+            package and onto any placements; every rank of the leaves'
+            mesh calls ``save`` (the leaves are gathered, a collective)
+            and the world's rank 0 writes.
 * self-validating — a hash-mismatched, truncated or unreadable step is
             skipped with a warning; ``restore`` falls back to the newest
             earlier committed step.
@@ -92,6 +99,11 @@ def to_host(x) -> Tuple[np.ndarray, List[int], str]:
     return np.frombuffer(a.tobytes(), np.uint8), list(a.shape), str(a.dtype)
 
 
+def _is_dtensor(x) -> bool:
+    from repro_torch.dist.sharding import is_dtensor
+    return is_dtensor(x)
+
+
 def _sha256(path: str) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -149,9 +161,11 @@ def _sharding_leaves(shardings, n: int) -> list:
 
 
 def _place_on_mesh(leaves: list, shardings, device) -> list:
-    """Leaves on the mesh's device, each replicated (the port's mesh path
-    is data-parallel only), checked to be the same bits on every rank."""
-    from torch.distributed.tensor import Replicate
+    """Leaves on the mesh's device, checked to be the same bits on every
+    rank; a leaf whose placements are all ``Replicate`` stays a plain
+    tensor, any other is laid out as a DTensor of its placements (each rank
+    keeps its piece of the whole leaf it read, no collective)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
 
     from repro_torch.dist import pex as dpex
 
@@ -160,17 +174,15 @@ def _place_on_mesh(leaves: list, shardings, device) -> list:
     for s in specs:
         if s.mesh is not mesh:
             raise ValueError("shardings name more than one mesh")
-        if not all(isinstance(p, Replicate) for p in s.placements):
-            raise NotImplementedError(
-                f"placements {s.placements}: the port's mesh path is "
-                f"data-parallel only, so every leaf is replicated")
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device()) \
             if mesh.device_type == "cuda" else torch.device(mesh.device_type)
     out = [x.to(device) for x in leaves]
     dpex.check_replicated(out, mesh, tuple(mesh.mesh_dim_names),
                           what="restored checkpoint leaves")
-    return out
+    return [x if all(isinstance(p, Replicate) for p in s.placements)
+            else distribute_tensor(x, mesh, s.placements, src_data_rank=None)
+            for x, s in zip(out, specs)]
 
 
 class CheckpointManager:
@@ -230,6 +242,13 @@ class CheckpointManager:
         # one host copy of the tree exists
         self.wait()
         items, _ = _flatten(tree)
+        if any(_is_dtensor(v) for _, v in items):
+            # whole leaves, gathered on every rank; the world's rank 0
+            # writes them
+            items = [(k, v.full_tensor() if _is_dtensor(v) else v)
+                     for k, v in items]
+            if torch.distributed.get_rank() != 0:
+                return
         host_items = [(k,) + to_host(v) for k, v in items]
         self._thread = threading.Thread(
             target=self._write, args=(step, host_items, extra or {}))
@@ -348,8 +367,10 @@ class CheckpointManager:
                 x = _from_bytes(data[f"leaf_{i}"], manifest["dtypes"][i],
                                 manifest["shapes"][i])
                 if isinstance(like, torch.Tensor):
-                    x = x.to(device=like.device if device is None
-                             else device, dtype=like.dtype)
+                    here = like.to_local().device if _is_dtensor(like) \
+                        else like.device
+                    x = x.to(device=here if device is None else device,
+                             dtype=like.dtype)
                 elif device is not None:
                     x = x.to(device)
                 out.append(x)

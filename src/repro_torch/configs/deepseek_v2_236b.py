@@ -40,4 +40,6 @@ def smoke() -> LMConfig:
 
 
 SPEC = ArchSpec(arch_id="deepseek-v2-236b", family="transformer",
-                full=full, smoke=smoke)
+                full=full, smoke=smoke,
+                # the reference's: two microbatches halve the activations
+                train_microbatches=2)

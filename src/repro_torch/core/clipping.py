@@ -39,6 +39,7 @@ import torch
 from repro_torch.core import norms as N
 from repro_torch.core.passes import clip_coefficients
 from repro_torch.core.provenance import mark_clip
+from repro_torch.dist.sharding import shard
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.param import resolve_device, tree_leaves
 
@@ -61,9 +62,12 @@ def token_clip_coefficients(sq_norms: torch.Tensor, clip_norm: float,
 def zero_taps(shapes: Dict[str, Tuple[int, ...]], dtype=torch.float32,
               device=None) -> Dict[str, torch.Tensor]:
     """Zero perturbation taps, one per layer name, on ``device`` (default
-    CUDA). Each tap (and its cotangent Z̄) leads with the example axis."""
+    CUDA). Each tap (and its cotangent Z̄) leads with the example axis,
+    under the reference's ``shard(..., "batch", ...)`` constraint (the
+    identity on these plain tensors)."""
     device = resolve_device(device)
-    return {k: torch.zeros(s, dtype=dtype, device=device)
+    return {k: shard(torch.zeros(s, dtype=dtype, device=device), "batch",
+                     *([None] * (len(s) - 1)))
             for k, s in shapes.items()}
 
 

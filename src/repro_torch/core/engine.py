@@ -18,7 +18,12 @@ with a loss that registers its token map (``tap.token_loss``),
 ``Clip(C, granularity="token")`` reweights every token's loss term by its
 own contribution norm in the same fused pass.
 
-The step runs on the device the parameters live on. ``mesh=`` (a
+The step runs on the device the parameters live on. Parameters that are
+DTensors (``dist.sharding.distribute_tree`` under ``use_rules(mesh,
+rules)``: the reference's model-axis sharding, ``mesh=None`` here) run the
+sharded route of ``core.plan``: each rank computes on its shards, the
+norms and losses come back whole, the gradients laid out as their
+parameters. ``mesh=`` (a
 ``DeviceMesh``, ``dist.sharding.make_mesh``) routes every pass through the
 data-parallel pipeline ``dist.pex`` over ``data_axes``: each rank runs its
 rows of the global batch, gradients are all-reduced, and the results are

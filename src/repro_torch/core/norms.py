@@ -39,6 +39,19 @@ side by a TPU VPU factor (``XLA_SEGMENTED_VPU_WEIGHT``) and priced the
 kernel at padded TPU tiles, and neither describes the H100.
 ``segmented_flops``, ``segmented_cost``, ``pick_segmented`` and
 ``crossover_t`` wait for a Hopper-priced model.
+
+Sharded operands (the model-axis route, ``dist.sharding``): when ``h`` and
+``zbar`` are DTensors, ``stat_dense``, ``stat_bias`` and
+``stat_elementwise`` run on each rank's local shards (the gram or direct
+kernel through ``kernels.ops`` on CUDA shards) and return a (B,) DTensor:
+``Shard(0)`` over the mesh dims that shard the examples, ``Partial`` over
+those that shard a feature dim (each shard's stat is the squared norm of
+its block of the gradient, and the blocks' norms add), ``Replicate``
+otherwise (``dist.sharding.local_operands`` says which operand is
+gathered where both would be sharded). The expert taps' segmented stat
+and the embedding's (:func:`embedding_shards`) do the same on a rank's
+own experts and vocabulary rows. CPU shards take the plain versions, as
+on the local path.
 """
 from __future__ import annotations
 
@@ -46,6 +59,7 @@ from typing import Literal
 
 import torch
 
+from repro_torch.dist import sharding as _sh
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.direct_norm import direct_norm_ref
 from repro_torch.kernels.ref import gram_norm_ref
@@ -54,6 +68,27 @@ from repro_torch.kernels.segmented_norm import drop_bucket
 Method = Literal["factorized", "gram", "direct", "auto"]
 
 _ACC_DTYPE = torch.float32
+
+
+def _dtensors(*ops):
+    """The operands as DTensors on the mesh of the first one that is one
+    (a plain operand is taken as replicated), or None when none is."""
+    mesh = next((x.device_mesh for x in ops if _sh.is_dtensor(x)), None)
+    if mesh is None:
+        return None
+    from torch.distributed.tensor import DTensor, Replicate
+    return [x if _sh.is_dtensor(x) else DTensor.from_local(
+        x, mesh, [Replicate()] * mesh.ndim, run_check=False) for x in ops]
+
+
+def _sharded(fn, *ops, elementwise: bool = False):
+    """``fn`` (a per-example stat) of DTensor operands, run on each rank's
+    local shards (``dist.sharding.local_operands``); the result a (B,)
+    DTensor."""
+    ops = _dtensors(*ops)
+    local, placements = _sh.local_operands(ops, elementwise=elementwise)
+    return _sh.wrap_stat(fn(*local), ops[0].device_mesh, placements,
+                         ops[0].shape[0])
 
 
 def rowsumsq(x: torch.Tensor) -> torch.Tensor:
@@ -143,7 +178,11 @@ def stat_dense(h: torch.Tensor, zbar: torch.Tensor, method: Method = "auto",
     ``kernels.ops`` (the CUDA kernels for CUDA tensors, their plain
     versions for CPU tensors) and ``method="auto"`` picks by the kernels'
     prices; without it they run the plain estimators above on any device,
-    picked by the logical flop model."""
+    picked by the logical flop model. DTensor operands: each rank's local
+    shards (the module docstring), the pick made at the local shapes."""
+    if _sh.is_dtensor(h) or _sh.is_dtensor(zbar):
+        return _sharded(lambda a, b: stat_dense(a, b, method, use_kernels),
+                        h, zbar)
     if h.ndim == 2:
         return stat_factorized(h, zbar)
     if method == "auto":
@@ -204,6 +243,8 @@ def stat_direct_segmented(h: torch.Tensor, zbar: torch.Tensor,
 
 def stat_bias(zbar: torch.Tensor) -> torch.Tensor:
     """Per-example ||∂L/∂b||²: b's gradient is Σ_t z̄_t."""
+    if _sh.is_dtensor(zbar):
+        return _sharded(stat_bias, zbar)
     if zbar.ndim == 2:
         return rowsumsq(zbar)
     v = torch.sum(zbar.to(_ACC_DTYPE), dim=tuple(range(1, zbar.ndim - 1)))
@@ -213,6 +254,8 @@ def stat_bias(zbar: torch.Tensor) -> torch.Tensor:
 def stat_elementwise(h: torch.Tensor, zbar: torch.Tensor) -> torch.Tensor:
     """Per-example norm for an elementwise parameter z = g ⊙ h:
     grad_g L^(j) = Σ_t z̄_{jt} ⊙ h_{jt}; exact, O(S·p)."""
+    if _sh.is_dtensor(h) or _sh.is_dtensor(zbar):
+        return _sharded(stat_elementwise, h, zbar, elementwise=True)
     prod = zbar.to(_ACC_DTYPE) * h.to(_ACC_DTYPE)
     if prod.ndim > 2:
         prod = torch.sum(prod, dim=tuple(range(1, prod.ndim - 1)))
@@ -251,3 +294,88 @@ def stat_embedding(token_ids: torch.Tensor,
                                   device=zbar.device),
                       flat.reshape(-1), z_s.reshape(b * s, d))
     return torch.sum(torch.square(summed.reshape(b, s, d)), dim=(1, 2))
+
+
+def embedding_lookup(table, ids):
+    """``table[ids]`` of a DTensor table (V, d) without gathering the
+    batch or the vocabulary: each rank looks its rows of ``ids`` up in its
+    vocabulary rows (the table's ``Shard(0)`` mesh dims; the features
+    gathered, as FSDP gathers a weight), zeros where an id falls outside
+    them, and the pieces are summed over the vocabulary shards (one
+    all-reduce of the (B, S, d) rows): the output is laid out as the ids'
+    rows, whole elsewhere."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    table, ids = _dtensors(table, ids)
+    mesh = table.device_mesh
+    rows = [isinstance(_sh._canonical(p, ids.ndim), Shard)
+            and _sh._canonical(p, ids.ndim).dim == 0 for p in ids.placements]
+    vocab = [not r and isinstance(p, Shard) and p.dim % 2 == 0
+             for r, p in zip(rows, table.placements)]
+    t_pl = [Shard(0) if v else Replicate() for v in vocab]
+    r_pl = [Shard(0) if r else Replicate() for r in rows]
+    tl = table.redistribute(mesh, t_pl).to_local()
+    il = ids.redistribute(mesh, r_pl).to_local()
+    (v_loc, d), (v0, _) = compute_local_shape_and_global_offset(
+        tuple(table.shape), mesh, t_pl)
+    inside = (il >= v0) & (il < v0 + v_loc)
+    z = tl[torch.where(inside, il - v0, 0)] * inside[..., None]
+    shape = tuple(ids.shape) + (d,)
+    return DTensor.from_local(
+        z, mesh, [Shard(0) if r else Partial() if v else Replicate()
+                  for r, v in zip(rows, vocab)], run_check=False,
+        shape=shape, stride=torch.empty(shape, device="meta").stride()
+    ).redistribute(mesh, r_pl)
+
+
+def embedding_shards(ids, zbar, table_shape, table_placements,
+                     grads: bool, norms: bool):
+    """The embedding tap's backward on a DTensor ``zbar`` (B, S, d) for a
+    DTensor table of ``table_shape`` and ``table_placements``: ``(dtable,
+    stat)``, each None where not asked for. Each rank works on its rows of
+    the batch (``zbar`` and ``ids`` brought to the batch's placements,
+    features whole) and on its own vocabulary rows (the table's
+    ``Shard(0)`` mesh dims): the gradient of those rows by ``add_rows``
+    from the tokens whose ids fall in them, and the stat over them, so the
+    stat is a ``Partial`` sum over the vocabulary's mesh dims and the
+    gradient a ``Partial`` sum over the batch's, then laid out as the
+    table is."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard)
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    zbar, ids = _dtensors(zbar, ids)
+    mesh = zbar.device_mesh
+    rows = [isinstance(_sh._canonical(p, zbar.ndim), Shard)
+            and _sh._canonical(p, zbar.ndim).dim == 0
+            for p in zbar.placements]
+    z_pl = [Shard(0) if r else Replicate() for r in rows]
+    zb = zbar.redistribute(mesh, z_pl).to_local()
+    ii = ids.redistribute(mesh, z_pl).to_local()
+    vocab = [not r and isinstance(p, Shard) and p.dim == 0
+             for r, p in zip(rows, table_placements)]
+    v_pl = [Shard(0) if v else Replicate() for v in vocab]
+    (v_loc, d), (v0, _) = compute_local_shape_and_global_offset(
+        tuple(table_shape), mesh, v_pl)
+    keep = (ii >= v0) & (ii < v0 + v_loc)
+    dtable = stat = None
+    if grads:
+        g = add_rows(torch.zeros((v_loc + 1, d), dtype=zbar.dtype,
+                                 device=zb.device),
+                     torch.where(keep, ii - v0, v_loc).reshape(-1),
+                     zb.reshape(-1, d))[:v_loc]
+        pl = [Partial() if r else (Shard(0) if v else Replicate())
+              for r, v in zip(rows, vocab)]
+        dtable = DTensor.from_local(g, mesh, pl, run_check=False,
+                                    shape=tuple(table_shape),
+                                    stride=(table_shape[1], 1)
+                                    ).redistribute(mesh, table_placements)
+    if norms:
+        local = stat_embedding(
+            ii.reshape(ii.shape[0], -1),
+            (zb * keep[..., None]).reshape(zb.shape[0], -1, d))
+        pl = [Shard(0) if r else (Partial() if v else Replicate())
+              for r, v in zip(rows, vocab)]
+        stat = _sh.wrap_stat(local, mesh, pl, zbar.shape[0])
+    return dtable, stat

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core.provenance import (generator_device, mark_clip,
                                         mark_noise, mark_rng)
+from repro_torch.dist.sharding import is_dtensor, like
 from repro_torch.nn.param import fold_seed, tree_leaves
 
 
@@ -59,12 +60,19 @@ def _noise_leaves(leaves, noise_std: float, clip_norm: float,
                   rng: torch.Generator, segment=None) -> None:
     """``g += (σ·C·sample).to(g.dtype)`` in place for each leaf, drawn in
     order from ``rng``; each scaled sample is marked ``noise`` (with
-    ``segment``, the tenant of per-tenant noise)."""
+    ``segment``, the tenant of per-tenant noise). A DTensor leaf (the
+    sharded route) draws the whole leaf's sample, as an unsharded step
+    does, and adds the rank's shard of it: every rank draws the same
+    numbers from its own copy of ``rng``, so the sharded step's noise is
+    the unsharded step's."""
     for i, g in enumerate(leaves):
-        sample = _standard_normal(g.shape, rng, g.device)
-        g.add_(mark_noise(sample.mul_(noise_std * clip_norm).to(g.dtype),
-                          noise_std=noise_std, scale=clip_norm, leaf=i,
-                          segment=segment))
+        local = g.to_local() if is_dtensor(g) else g
+        sample = _standard_normal(g.shape, rng, local.device)
+        if is_dtensor(g):
+            sample = like(g, sample).to_local()
+        local.add_(mark_noise(sample.mul_(noise_std * clip_norm)
+                              .to(g.dtype), noise_std=noise_std,
+                              scale=clip_norm, leaf=i, segment=segment))
         del sample          # before the next leaf's draw
 
 

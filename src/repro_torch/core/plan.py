@@ -28,6 +28,17 @@ The reference applies its ``vjp_fn`` twice; the port makes two
 ``torch.autograd.grad`` calls over one retained graph: the first over the
 initial accumulator, the second over the parameters.
 
+Sharded parameters (the model-axis route): when the parameters are
+DTensors (``dist.sharding.distribute_tree`` under ``use_rules(mesh,
+rules)``), ``run_fused`` runs the same passes inside a
+``dist.sharding.sharded_step``: the batch is laid out by the rules'
+``batch`` axis, the accumulator is this rank's rows (a plain tensor, a
+partial sum over the mesh dims that do not shard the batch), the per-example
+stats are summed over those dims once per backward (``reduce_acc``), and
+``loss_vec``, the norms and the weights come back whole on every rank;
+every backward is seeded with the rank's piece of the whole weights, and
+each gradient is laid out as its parameter is.
+
 The mesh path (``dist.pex.plan_step``) hands ``execute`` a ``fused_fn``
 that runs the same fused core on each rank's rows and returns global
 arrays, so one driver serves both: the importance sample, GNS and the
@@ -50,6 +61,7 @@ from repro_torch.core.passes import (add_grad_noise,
                                      add_grad_noise_segmented,
                                      check_noise_args)
 from repro_torch.core.provenance import mark_grad_tree, mark_seed
+from repro_torch.dist import sharding as _sh
 from repro_torch.nn.param import tree_flatten, tree_unflatten
 
 # ---------------------------------------------------------------------------
@@ -313,8 +325,41 @@ def run_fused(plan: Plan, acc_loss: Callable, params, batch,
     entries None.
 
     ``acc_loss(params, acc, batch) -> (loss_vec, token_map | None, tap,
-    aux)``; acc=None runs the model with an inert tap."""
+    aux)``; acc=None runs the model with an inert tap. DTensor parameters
+    run the sharded route (module docstring)."""
+    leaves = tree_flatten(params)[0]
+    mesh = next((x.device_mesh for x in leaves if _sh.is_dtensor(x)), None)
+    if mesh is None:
+        return _fused(plan, acc_loss, params, batch, batch_size, layout,
+                      loss_weights)
+    if plan.token_norms or plan.token_weighted:
+        raise NotImplementedError(
+            "token granularity does not take sharded parameters: the "
+            "sharded route keeps the (B, G) per-example accumulator")
+    batch = _sh.distribute_batch(batch, mesh)
+    with _sh.sharded_step(mesh, _sh.batch_mesh_dims(mesh)):
+        lv, aux, sq, grads, w, tw, cc = _fused(
+            plan, acc_loss, params, batch, batch_size, layout, loss_weights,
+            mesh=mesh)
+    return lv.full_tensor(), aux, sq, grads, w, tw, cc
+
+
+def _fused(plan: Plan, acc_loss: Callable, params, batch, batch_size: int,
+           layout, loss_weights, mesh=None):
+    """``run_fused``'s passes; ``mesh`` (the parameters' DTensor mesh)
+    inside a ``dist.sharding.sharded_step``."""
     leaves, treedef = tree_flatten(params)
+
+    def seed_as(lv, w):
+        # the whole weights as the loss vector is laid out
+        return w if mesh is None else _sh.like(lv, w)
+
+    def unflatten(gs):
+        if mesh is not None:
+            gs = [g.redistribute(x.device_mesh, x.placements)
+                  if _sh.is_dtensor(g) else g for g, x in zip(gs, leaves)]
+        return tree_unflatten(treedef, gs)
+
     if not plan.needs_norms and not plan.needs_grads:
         with torch.no_grad():
             lv, _, _, aux = acc_loss(params, None, batch)
@@ -324,19 +369,23 @@ def run_fused(plan: Plan, acc_loss: Callable, params, batch,
     leaves = [x.detach().requires_grad_(plan.needs_grads) for x in leaves]
     params = tree_unflatten(treedef, leaves)
 
-    def unflatten(gs):
-        return tree_unflatten(treedef, gs)
-
     if not plan.needs_norms:
         # gradient pass only (possibly user-weighted): no instrumentation
         lv, _, _, aux = acc_loss(params, None, batch)
         seed = mark_seed(torch.ones_like(lv), kind="plain") \
             if loss_weights is None \
-            else mark_seed(loss_weights.to(lv.dtype), kind="weighted")
+            else mark_seed(seed_as(lv, loss_weights.to(lv.dtype)),
+                           kind="weighted")
         grads = unflatten(_grad(lv, leaves, seed))
         return lv.detach(), aux, None, grads, loss_weights, None, None
 
-    acc0 = layout.init(batch_size, leaves[0].device).requires_grad_()
+    if mesh is None:
+        acc0 = layout.init(batch_size, leaves[0].device)
+    else:
+        # this rank's rows of the examples
+        acc0 = layout.init(batch_size // _sh.axis_size(
+            _sh.spec("batch")[0], mesh), leaves[0].to_local().device)
+    acc0.requires_grad_()
     lv, tok, tap, aux = acc_loss(params, acc0, batch)
     if plan.token_weighted:
         if tok is None:
@@ -363,6 +412,8 @@ def run_fused(plan: Plan, acc_loss: Callable, params, batch,
         tap.set_mode(norms=True, grads=False)
         (sq,) = _grad(lv, [acc0], mark_seed(ones, kind="norms"),
                       retain_graph=plan.needs_grads)
+    if mesh is not None:
+        sq = _sh.reduce_acc(sq)       # summed over the model axes, whole
 
     w, tw, cc = _compose_weights(plan, sq, loss_weights)
     if plan.needs_grads and grads is None:
@@ -376,7 +427,7 @@ def run_fused(plan: Plan, acc_loss: Callable, params, batch,
                 tok_seed.to(tok.dtype), kind="weighted")))
         else:
             seed = mark_seed(ones, kind="plain") if w is None \
-                else mark_seed(w.to(lv.dtype), kind="weighted")
+                else mark_seed(seed_as(lv, w.to(lv.dtype)), kind="weighted")
             grads = unflatten(_grad(lv, leaves, seed))
     return lv.detach(), aux, sq, grads, w, tw, cc
 

@@ -44,8 +44,24 @@ analysis trace (``analysis._trace``) every tapped call is recorded as one
 site with its operands, which the coverage pass reads. Outside a trace the
 table is not consulted. Not in this slice: ``scan`` / ``checkpoint`` (the
 port runs layers in a Python loop without recompute).
-``dist.sharding.shard`` constraints are dropped: they are identities off
-a TPU mesh.
+The accumulators' ``init`` carries the reference's ``shard(...,
+"batch", None)`` constraint; the accumulator is a plain tensor, on which
+it is the identity.
+
+Sharded operands (the model-axis route): under a ``dist.sharding``
+``sharded_step`` the layers' operands are DTensors and the ops above run
+on them as they are — the forward and the ``dh``/``dW`` products through
+DTensor's own sharding rules, ``dW`` then laid out as its parameter by the
+plan layer. Only the stats unwrap: ``core.norms`` computes each from the
+rank's local shards (the kernels on local shards) and returns a DTensor,
+which ``dist.sharding.stat_to_acc`` turns into this rank's piece of the
+accumulator; the accumulator itself stays a plain tensor of the rank's
+rows, a partial sum over the mesh dims that do not shard the batch, and
+the plan layer sums it over those once per backward. The embedding's
+table gradient and stat are computed on the rank's rows of the batch and
+of the vocabulary (``norms.embedding_shards``); the expert taps' stat on
+the rank's own experts (:func:`_expert_stat_sharded`). The token layout
+does not take sharded operands.
 """
 from __future__ import annotations
 
@@ -56,6 +72,7 @@ import torch
 
 from repro_torch.core import norms as N
 from repro_torch.core import provenance as _prov
+from repro_torch.dist import sharding as _sh
 from repro_torch.kernels import ops as kops
 
 _ACC_DTYPE = torch.float32
@@ -142,11 +159,15 @@ class ExampleLayout:
     n_groups: int = 1
 
     def init(self, batch: int, device) -> torch.Tensor:
-        return torch.zeros((batch, self.n_groups), dtype=_ACC_DTYPE,
-                           device=device)
+        return _sh.shard(torch.zeros((batch, self.n_groups),
+                                     dtype=_ACC_DTYPE, device=device),
+                         "batch", None)
 
     def add_example_stat(self, acc_bar, stat, group):
-        """acc_bar with a (B,) stat added to one group column."""
+        """acc_bar with a (B,) stat added to one group column (a DTensor
+        stat as this rank's accumulator piece)."""
+        if _sh.is_dtensor(stat):
+            stat = _sh.stat_to_acc(stat)
         out = acc_bar.clone()
         out[:, group] += stat.to(out.dtype)
         return out
@@ -217,18 +238,68 @@ class ExampleLayout:
         launch). Padding rows go to the drop bucket: the reference's
         (bg+1)-th composite per (group, expert), which only collected them
         to be thrown away, is not formed."""
-        ng, e, c, d = x.shape
-        n_seg = ng * e * bg
-        ge = (torch.arange(ng, device=seg.device)[:, None, None] * e
-              + torch.arange(e, device=seg.device)[None, :, None])
-        composite = torch.where((seg >= 0) & (seg < bg), ge * bg + seg,
-                                n_seg)
-        stat = N.stat_direct_segmented(
-            x.reshape(ng * e * c, d), zbar.reshape(ng * e * c, -1),
-            composite.reshape(-1), n_seg,
-            method="kernel" if use_kernels else "xla")
-        stat = stat.reshape(ng, e, bg).sum(dim=1).reshape(ng * bg)
+        if _sh.is_dtensor(x) or _sh.is_dtensor(zbar):
+            stat = _expert_stat_sharded(x, zbar, seg, bg, use_kernels)
+        else:
+            stat = _expert_stat(x, zbar, seg, bg, use_kernels)
         return self.add_example_stat(acc_bar, stat, group)
+
+
+def _expert_stat(x, zbar, seg, bg: int, use_kernels: bool) -> torch.Tensor:
+    """The grouped expert stat (``ExampleLayout.add_expert_grouped``) of
+    plain operands: (G·bg,) f32."""
+    ng, e, c, d = x.shape
+    n_seg = ng * e * bg
+    ge = (torch.arange(ng, device=seg.device)[:, None, None] * e
+          + torch.arange(e, device=seg.device)[None, :, None])
+    composite = torch.where((seg >= 0) & (seg < bg), ge * bg + seg, n_seg)
+    stat = N.stat_direct_segmented(
+        x.reshape(ng * e * c, d), zbar.reshape(ng * e * c, -1),
+        composite.reshape(-1), n_seg,
+        method="kernel" if use_kernels else "xla")
+    return stat.reshape(ng, e, bg).sum(dim=1).reshape(ng * bg)
+
+
+def _expert_stat_sharded(x, zbar, seg, bg: int, use_kernels: bool):
+    """The grouped expert stat of DTensor buffers x (G,E,C,d), zbar
+    (G,E,C,f) on each rank's local block (``seg`` cut alike): per mesh
+    dim, ``Shard(0)`` where the groups are sharded (an example's rows live
+    in one group), ``Partial`` where the experts are (each rank's experts
+    are its own blocks of the gradient) or one feature dim is (where both
+    are, x is gathered first), ``Replicate`` otherwise; a shard of the
+    capacity axis is gathered (the rows of a segment add)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x, zbar, seg = N._dtensors(x, zbar, seg)
+    mesh = x.device_mesh
+    want = [list(t.placements) for t in (x, zbar, seg)]
+    out = []
+    for i in range(mesh.ndim):
+        pl = []
+        for t in (x, zbar):
+            p = t.placements[i]
+            if isinstance(p, Partial) or (isinstance(p, Shard)
+                                          and p.dim % 4 == 2):
+                p = Replicate()
+            pl.append(p if not isinstance(p, Shard) else Shard(p.dim % 4))
+        dims = [p.dim if isinstance(p, Shard) else -1 for p in pl]
+        if 0 in dims or 1 in dims:
+            dim = 0 if 0 in dims else 1
+            pl = [Shard(dim)] * 3
+            out.append(Shard(0) if dim == 0 else Partial())
+        elif 3 in dims:
+            pl = [Replicate() if dims[1] == 3 else pl[0], pl[1],
+                  Replicate()]
+            out.append(Partial())
+        else:
+            pl = [Replicate()] * 3
+            out.append(Replicate())
+        for w, p in zip(want, pl):
+            w[i] = p
+    local = [t.redistribute(mesh, w).to_local()
+             if tuple(w) != tuple(t.placements) else t.to_local()
+             for t, w in zip((x, zbar, seg), want)]
+    stat = _expert_stat(*local, bg, use_kernels)
+    return _sh.wrap_stat(stat, mesh, tuple(out), x.shape[0] * bg)
 
 
 def _sumsq_tail(x: torch.Tensor, keep: int = 2) -> torch.Tensor:
@@ -257,8 +328,8 @@ class TokenLayout:
     seq: int
 
     def init(self, batch: int, device) -> torch.Tensor:
-        return torch.zeros((batch, self.seq), dtype=_ACC_DTYPE,
-                           device=device)
+        return _sh.shard(torch.zeros((batch, self.seq), dtype=_ACC_DTYPE,
+                                     device=device), "batch", None)
 
     def add_dense(self, acc_bar, h, zbar, group, method, use_kernels):
         if h.ndim != 3:
@@ -471,14 +542,27 @@ class _Embed(torch.autograd.Function):
     def forward(ctx, table, ids, acc, mode, layout, group, use_kernels):
         ctx.save_for_backward(ids)
         ctx.cfg = (mode, layout, group, use_kernels, table.shape,
-                   table.dtype)
+                   table.dtype, getattr(table, "placements", None))
+        if _sh.is_dtensor(table):
+            # the rank's rows and vocabulary (norms.embedding_lookup)
+            return N.embedding_lookup(table, ids), acc.clone()
         return table[ids], acc.clone()
 
     @staticmethod
     def backward(ctx, zbar, acc_bar):
         (ids,) = ctx.saved_tensors
-        mode, layout, group, use_kernels, shape, dtype = ctx.cfg
+        mode, layout, group, use_kernels, shape, dtype, placements = ctx.cfg
         dtable = dacc = None
+        if placements is not None:
+            # a DTensor table: the rank's rows of the batch and of the
+            # vocabulary (norms.embedding_shards)
+            dtable, stat = N.embedding_shards(
+                ids, zbar.to(dtype), shape, placements,
+                grads=mode.grads and ctx.needs_input_grad[0],
+                norms=mode.norms)
+            if stat is not None:
+                dacc = layout.add_example_stat(acc_bar, stat, group)
+            return dtable, None, dacc, None, None, None, None
         if mode.grads and ctx.needs_input_grad[0]:
             dtable = N.add_rows(
                 torch.zeros(shape, dtype=dtype, device=zbar.device),
@@ -487,6 +571,52 @@ class _Embed(torch.autograd.Function):
             dacc = layout.add_embedding(acc_bar, ids, zbar, group,
                                         use_kernels)
         return dtable, None, dacc, None, None, None, None
+
+
+def _expert_einsum(eq: str, a, b):
+    """``torch.einsum(eq, a, b)`` for the three expert products over the
+    (G, E, C, ·) capacity buffer — ``gecd,edf->gecf`` (the forward),
+    ``gecf,edf->gecd`` (dx) and ``gecd,gecf->edf`` (dW) — on each rank's
+    local blocks where either operand is a DTensor: per mesh dim, the
+    buffer's groups (dim 0) or experts (dim 1) where it shards them, the
+    rest whole; dW is then a ``Partial`` sum over the group shards and
+    the rank's experts' block over the expert shards. (DTensor's own
+    einsum rule flattens a sharded dim on some PyTorch releases.)"""
+    if not (_sh.is_dtensor(a) or _sh.is_dtensor(b)):
+        return torch.einsum(eq, a, b)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    buf = a if _sh.is_dtensor(a) else b
+    mesh = buf.device_mesh
+    wgrad = eq.endswith("->edf")
+    pa, pb, po = [], [], []
+    for p in buf.placements:
+        d = p.dim % 4 if isinstance(p, Shard) else None
+        if d == 0:
+            pa.append(Shard(0))
+            pb.append(Shard(0) if wgrad else Replicate())
+            po.append(Partial() if wgrad else Shard(0))
+        elif d == 1:
+            pa.append(Shard(1))
+            pb.append(Shard(1) if wgrad else Shard(0))
+            po.append(Shard(0) if wgrad else Shard(1))
+        else:
+            pa.append(Replicate()), pb.append(Replicate())
+            po.append(Replicate())
+
+    def local(x, pl):
+        if not _sh.is_dtensor(x):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(mesh, pl).to_local(grad_placements=pl)
+    out = torch.einsum(eq, local(a, pa), local(b, pb))
+    if wgrad:
+        shape = (a.shape[1], a.shape[3], b.shape[3])
+    else:
+        shape = tuple(a.shape[:3]) + (b.shape[2] if eq.endswith("gecf")
+                                      else b.shape[1],)
+    return DTensor.from_local(out, mesh, po, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 class _DenseExpert(torch.autograd.Function):
@@ -500,7 +630,7 @@ class _DenseExpert(torch.autograd.Function):
                 use_kernels):
         ctx.save_for_backward(x, w, seg, tok)
         ctx.cfg = (mode, layout, group, bg, use_kernels)
-        return torch.einsum("gecd,edf->gecf", x, w), acc.clone()
+        return _expert_einsum("gecd,edf->gecf", x, w), acc.clone()
 
     @staticmethod
     def backward(ctx, zbar, acc_bar):
@@ -508,9 +638,9 @@ class _DenseExpert(torch.autograd.Function):
         mode, layout, group, bg, use_kernels = ctx.cfg
         dx = dw = dacc = None
         if ctx.needs_input_grad[0]:
-            dx = torch.einsum("gecf,edf->gecd", zbar, w).to(x.dtype)
+            dx = _expert_einsum("gecf,edf->gecd", zbar, w).to(x.dtype)
         if mode.grads and ctx.needs_input_grad[1]:
-            dw = torch.einsum("gecd,gecf->edf", x, zbar).to(w.dtype)
+            dw = _expert_einsum("gecd,gecf->edf", x, zbar).to(w.dtype)
         if mode.norms:
             dacc = layout.add_expert_grouped(acc_bar, x, zbar, seg, group,
                                              bg, use_kernels, tok=tok)
@@ -631,14 +761,17 @@ class Tap:
 
     def dense(self, h, w, *, group: str = "all",
               method: Optional[str] = None) -> torch.Tensor:
-        """Instrumented matmul. Plain matmul when the tap is inert."""
+        """Instrumented matmul. Plain matmul when the tap is inert. A
+        DTensor product is laid out as its operands say
+        (``dist.sharding.dense_layout``)."""
+        w = _sh.gathered(w, h)
         if not self.live:
-            return torch.matmul(h, w)
+            return _sh.dense_layout(torch.matmul(h, w), h, w)
         z, self._acc = _apply(
             _Dense, h, w, self._acc, self.mode, self.layout,
             self.spec.group_index(group), method or self.spec.method,
             self.spec.use_kernels)
-        return z
+        return _sh.dense_layout(z, h, w)
 
     def dense_batched(self, h, w, *, group: str = "all",
                       method: Optional[str] = None) -> torch.Tensor:
@@ -656,6 +789,7 @@ class Tap:
         return z
 
     def bias_add(self, x, b, *, group: str = "all") -> torch.Tensor:
+        b = _sh.gathered(b, x)
         if not self.live:
             return x + b
         z, self._acc = _apply(_Bias, x, b, self._acc, self.mode, self.layout,
@@ -664,6 +798,7 @@ class Tap:
         return z
 
     def scale(self, h, g, *, group: str = "all") -> torch.Tensor:
+        g = _sh.gathered(g, h)
         if not self.live:
             return h * g
         z, self._acc = _apply(_Scale, h, g, self._acc, self.mode, self.layout,

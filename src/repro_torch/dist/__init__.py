@@ -2,15 +2,16 @@
 per-example-norm pipeline on ``torch.distributed``.
 
 Port of ``src/repro/dist/__init__.py``. ``repro_torch.dist.sharding`` is
-the logical-axis layer and builds the meshes; ``repro_torch.dist.pex``
-runs the ``core.plan`` passes data-parallel over a mesh, one process per
-rank. See DESIGN.md §4.
+the logical-axis layer, builds the meshes and lays DTensor parameters out
+by their logical axes (the model-axis route: ``Engine`` with ``mesh=None``
+under ``use_rules(mesh, rules)``); ``repro_torch.dist.pex`` runs the
+``core.plan`` passes data-parallel over a mesh, one process per rank. See
+DESIGN.md §4.
 
-``pex`` loads lazily, as in the reference: ``nn/`` imports
-``dist.sharding`` (``pad_to``), and a model import need not load the plan
-layer and ``torch.distributed``'s collectives with it. (The reference
-breaks an import cycle this way; the port's imports have none, since its
-taps do not call ``sharding.shard``.)
+``pex`` loads lazily, as in the reference: ``nn/`` and ``core/taps``
+import ``dist.sharding`` (``pad_to``, ``shard``), and ``dist.pex`` imports
+the plan layer, which imports the taps: a model import need not load the
+plan layer and ``torch.distributed``'s collectives with it.
 """
 from repro_torch.dist import sharding
 

@@ -1,13 +1,13 @@
 """Arch registry: ``get(arch_id)`` resolves here.
 
-Port of the subset of ``src/repro/models/registry.py`` the port needs so
-far: ``get``, ``family_module``, ``make_loss_fn_v2``,
-``make_forward_tokens``, ``serving_config``, ``make_train_batch`` and the
-declared untapped scope (``UNTAPPED_ALLOWLIST``). All ten archs are
-registered: the transformer family's llama3.2-1b, qwen2-7b, qwen2-vl-7b,
-minitron-4b, gemma2-9b, phi3.5-moe and deepseek-v2-236b, and rwkv6-3b,
-zamba2-7b and seamless-m4t-medium. The input-spec builders of the dry run
-are not ported.
+Port of ``src/repro/models/registry.py``: ``get``, ``family_module``,
+``make_loss_fn_v2``, ``make_forward_tokens``, ``serving_config``,
+``make_train_batch``, the declared untapped scope (``UNTAPPED_ALLOWLIST``)
+and ``rules_for``, the logical→mesh rules of one (arch × shape × mesh)
+cell. All ten archs are registered: the transformer family's llama3.2-1b,
+qwen2-7b, qwen2-vl-7b, minitron-4b, gemma2-9b, phi3.5-moe and
+deepseek-v2-236b, and rwkv6-3b, zamba2-7b and seamless-m4t-medium. The
+dry run's input specs are ``launch.dryrun``'s (on ``meta`` tensors).
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from repro_torch.configs import (deepseek_v2_236b, gemma2_9b, llama3_2_1b,
                                  minitron_4b, phi35_moe, qwen2_7b,
                                  qwen2_vl_7b, rwkv6_3b, seamless_m4t_medium,
                                  zamba2_7b)
-from repro_torch.configs.common import ArchSpec, ShapeSpec
+from repro_torch.configs.common import ArchSpec, ShapeSpec, base_rules
 from repro_torch.models import rwkv6, seamless, transformer, zamba2
 from repro_torch.nn.param import resolve_device, tree_paths
 
@@ -134,3 +134,22 @@ def make_train_batch(spec: ArchSpec, cfg, shape: ShapeSpec, rng_seed=0,
         batch["positions"] = torch.as_tensor(pos.copy(), dtype=torch.long,
                                              device=device)
     return batch
+
+
+def rules_for(spec: ArchSpec, cfg, shape: ShapeSpec, multi_pod: bool,
+              model_size: int = 16, data_size: int = 16) -> dict:
+    """Logical→mesh rules for one cell, as the reference's: KV heads go
+    over the model axis only where they divide it (the transformer
+    family's GQA heads, zamba2's shared attention), the batch over the
+    data axes only where it divides them, and a 500k-token decode puts
+    the KV sequence over data."""
+    kv_shardable = True
+    if spec.family == "transformer" and cfg.attn is not None:
+        kv_shardable = cfg.attn.n_kv % model_size == 0
+    if spec.family == "zamba2":
+        kv_shardable = cfg.kv_heads % model_size == 0
+    dp = data_size * (2 if multi_pod else 1)
+    batch_shard = shape.batch % dp == 0
+    return base_rules(multi_pod, kv_shardable=kv_shardable,
+                      batch_shard=batch_shard,
+                      seq_to_data=(shape.name == "long_500k"))

@@ -20,6 +20,7 @@ import torch
 from repro_torch.core import taps
 from repro_torch.core.taps import Tap
 from repro_torch.nn import param as pm
+from repro_torch.dist.sharding import inference
 from repro_torch.nn.embedding import (VocabCfg, embed, init_embedding,
                                       init_lm_head, lm_head, per_example_xent)
 from repro_torch.nn.norms import init_layernorm, layernorm
@@ -115,6 +116,6 @@ def forward_tokens(params, batch, caches, cache_index, *, cfg: Rwkv6Config):
     (``taps.NULL``, inference mode): batch["ids"] (B, s) → (logits (B, s,
     vocab), caches), the states written in place. ``cache_index`` is
     unused: the state carries the position."""
-    with torch.inference_mode():
+    with inference(params):
         logits = _run(params, batch["ids"], taps.NULL, cfg, states=caches)
     return logits, caches

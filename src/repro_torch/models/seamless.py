@@ -29,6 +29,7 @@ import torch
 from repro_torch.core import taps
 from repro_torch.core.taps import Tap
 from repro_torch.nn import param as pm
+from repro_torch.dist.sharding import inference
 from repro_torch.nn.attention import (AttnCfg, attention, init_attention,
                                       init_kv_cache)
 from repro_torch.nn.embedding import (VocabCfg, embed, init_embedding,
@@ -184,7 +185,7 @@ def forward_tokens(params, batch, caches, cache_index, *,
     ``caches["memory"]`` and ``caches["cross"]`` are replaced; the decoder
     then reads them, and writes its self caches in place."""
     tap = taps.NULL
-    with torch.inference_mode():
+    with inference(params):
         if "src_frames" in batch:
             memory = _encode(params, batch["src_frames"], tap, cfg)
             caches["memory"] = memory

@@ -40,6 +40,7 @@ import torch
 from repro_torch.core import taps
 from repro_torch.core.taps import Tap
 from repro_torch.nn import param as pm
+from repro_torch.dist.sharding import inference
 from repro_torch.nn.attention import (AttnCfg, attention, init_attention,
                                       init_kv_cache)
 from repro_torch.nn import lora as lora_mod
@@ -239,7 +240,7 @@ def forward_tokens(params, batch, caches, cache_index, *, cfg: LMConfig):
     vocab_p), caches). ``caches`` (``init_caches``) are written in place
     and returned; with ``caches`` None it is the full forward."""
     tap = taps.NULL
-    with torch.inference_mode():
+    with inference(params):
         x = _inputs_to_embeds(params, batch, tap, cfg)
         logits = _run(params, x, tap, cfg, positions=_positions(batch, cfg),
                       caches=caches, cache_index=cache_index)

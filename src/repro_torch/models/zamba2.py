@@ -31,6 +31,7 @@ import torch
 from repro_torch.core import taps
 from repro_torch.core.taps import Tap
 from repro_torch.nn import param as pm
+from repro_torch.dist.sharding import inference
 from repro_torch.nn.attention import (AttnCfg, attention, init_attention,
                                       init_kv_cache)
 from repro_torch.nn.embedding import (VocabCfg, embed, init_embedding,
@@ -186,7 +187,7 @@ def forward_tokens(params, batch, caches, cache_index, *,
     ``cache_index``, uninstrumented (``taps.NULL``, inference mode):
     batch["ids"] (B, s) → (logits (B, s, vocab), caches), written in
     place."""
-    with torch.inference_mode():
+    with inference(params):
         logits = _run(params, batch["ids"], taps.NULL, cfg, caches,
                       cache_index)
     return logits, caches

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core.taps import Tap
 from repro_torch.kernels import ops
-from repro_torch.dist.sharding import pad_to
+from repro_torch.dist.sharding import is_dtensor, on_heads, pad_to, shard
 from repro_torch.nn import param as pm
 from repro_torch.nn.linear import init_linear, linear
 from repro_torch.nn.rotary import apply_rope, mrope_angles, rope_angles
@@ -70,11 +70,14 @@ def init_attention(gen: torch.Generator, cfg: AttnCfg, *, dtype, device):
     hkv = cfg.n_kv * cfg.head_dim
     kw = dict(dtype=dtype, device=device)
     p = {
-        "wq": init_linear(gen, cfg.d_model, hq, bias=cfg.bias, **kw),
-        "wk": init_linear(gen, cfg.d_model, hkv, bias=cfg.bias, **kw),
-        "wv": init_linear(gen, cfg.d_model, hkv, bias=cfg.bias, **kw),
+        "wq": init_linear(gen, cfg.d_model, hq, bias=cfg.bias,
+                          axes=("embed", "heads"), **kw),
+        "wk": init_linear(gen, cfg.d_model, hkv, bias=cfg.bias,
+                          axes=("embed", "kv_heads"), **kw),
+        "wv": init_linear(gen, cfg.d_model, hkv, bias=cfg.bias,
+                          axes=("embed", "kv_heads"), **kw),
         "wo": init_linear(gen, hq, cfg.d_out or cfg.d_model, bias=False,
-                          **kw),
+                          axes=("heads", "embed"), **kw),
     }
     hreal = cfg.n_heads * cfg.head_dim
     p["wq"]["w"][:, hreal:] = 0     # padded heads → exact
@@ -99,6 +102,11 @@ def _attend(q, k, v, cfg: AttnCfg, local_flag: Optional[bool] = None, *,
     ``local_flag`` is None or True (gemma2's local layers), not where it is
     False (its global ones); with ``kv_len`` (a cache's valid rows) only
     rows t < kv_len are seen."""
+    if is_dtensor(q):
+        # on each rank's examples and heads (dist.sharding.on_heads)
+        return on_heads(lambda q, k, v: _attend(
+            q, k, v, cfg, local_flag, q_offset=q_offset, kv_len=kv_len),
+            q, k, v)
     b, s, hp, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     rep = hp // hkv
@@ -162,7 +170,11 @@ def attention(p, x, *, tap: Tap, cfg: AttnCfg,
         raise ValueError("a self-attention cache needs its cache_index")
     b, s, _ = x.shape
     q = linear(p["wq"], x, tap=tap, group=group)
-    q = q.reshape(b, s, cfg.n_heads_p, cfg.head_dim)
+    # each projection is constrained before its heads are split off: the
+    # heads of a shard must be whole (a DTensor cannot split a dim whose
+    # shards would cut a head)
+    q = shard(q, "batch", None, "heads_act").reshape(
+        b, s, cfg.n_heads_p, cfg.head_dim)
     if cross_cache:
         k, v = cache["k"], cache["v"]
     else:
@@ -170,8 +182,10 @@ def attention(p, x, *, tap: Tap, cfg: AttnCfg,
         t = kv_src.shape[1]
         k = linear(p["wk"], kv_src, tap=tap, group=group)
         v = linear(p["wv"], kv_src, tap=tap, group=group)
-        k = k.reshape(b, t, cfg.n_kv, cfg.head_dim)
-        v = v.reshape(b, t, cfg.n_kv, cfg.head_dim)
+        k = shard(k, "batch", None, "kv_heads_act").reshape(
+            b, t, cfg.n_kv, cfg.head_dim)
+        v = shard(v, "batch", None, "kv_heads_act").reshape(
+            b, t, cfg.n_kv, cfg.head_dim)
     if not cfg.cross:
         if positions is None:
             start = 0 if cache_index is None else cache_index
@@ -198,10 +212,15 @@ def attention(p, x, *, tap: Tap, cfg: AttnCfg,
     if (cfg.flash and cache is None and cfg.causal and not cfg.cross
             and cfg.softcap is None and local_flag is None
             and s % 128 == 0):
-        y = ops.flash_attention_vjp(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), cfg.scale, cfg.window)
-        y = y.transpose(1, 2).reshape(b, s, -1)
+        def flash(q, k, v):
+            y = ops.flash_attention_vjp(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2), cfg.scale,
+                                        cfg.window)
+            return y.transpose(1, 2).reshape(q.shape[0], q.shape[1], -1)
+        # DTensor operands: the kernels on each rank's examples and heads
+        y = on_heads(flash, q, k, v)
     else:
         y = _attend(q, k, v, cfg, local_flag, q_offset=q_offset,
                     kv_len=kv_len)
-    return linear(p["wo"], y, tap=tap, group=group)
+    return shard(linear(p["wo"], y, tap=tap, group=group),
+                 "batch", None, "embed_act")

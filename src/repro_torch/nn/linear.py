@@ -14,10 +14,11 @@ from repro_torch.nn import param as pm
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, *, dtype,
-                device, bias: bool = False, std: Optional[float] = None):
-    p = {"w": pm.normal(gen, (d_in, d_out), dtype, device, std)}
+                device, axes=(None, None), bias: bool = False,
+                std: Optional[float] = None):
+    p = {"w": pm.normal(gen, (d_in, d_out), dtype, device, std, axes=axes)}
     if bias:
-        p["b"] = pm.zeros((d_out,), dtype, device)
+        p["b"] = pm.zeros((d_out,), dtype, device, axes=(axes[-1],))
     return p
 
 

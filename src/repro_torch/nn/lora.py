@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.provenance import generator_device
 from repro_torch.core.taps import Tap
 from repro_torch.nn import param as pm
 
@@ -88,20 +89,26 @@ class LoraPair:
 
 def init_pair(gen: torch.Generator, d_in: int, d_out: int, rank: int,
               alpha: float, *, dtype=torch.float32, device=None,
-              lead: Tuple[int, ...] = (),
+              lead: Tuple[int, ...] = (), w_axes: Optional[Tuple] = None,
               b_std: Optional[float] = None) -> LoraPair:
     """Standard LoRA init from ``gen``: A ~ N(0, 1/√d_in), B = 0 (the
     delta starts at zero), or B ~ N(0, ``b_std``) when ``b_std`` > 0 (tests
     that need non-zero adapter gradients from step 0). ``lead`` prepends
-    shared axes."""
+    shared axes. The factors take the site weight's logical axes
+    ``w_axes`` as the reference's do: A its input axis, B its output axis,
+    the rank and the leading axes replicated."""
     device = pm.resolve_device(device)
     lead = tuple(lead)
+    ax = w_axes if w_axes is not None else (None,) * (len(lead) + 2)
     a = pm.normal(gen, lead + (d_in, rank), dtype, device,
-                  std=1.0 / math.sqrt(max(1, d_in)))
+                  std=1.0 / math.sqrt(max(1, d_in)),
+                  axes=(None,) * len(lead) + (ax[-2], None))
+    b_axes = (None,) * len(lead) + (None, ax[-1])
     if b_std and b_std > 0.0:
-        b = pm.normal(gen, lead + (rank, d_out), dtype, device, std=b_std)
+        b = pm.normal(gen, lead + (rank, d_out), dtype, device, std=b_std,
+                      axes=b_axes)
     else:
-        b = pm.zeros(lead + (rank, d_out), dtype, device)
+        b = pm.zeros(lead + (rank, d_out), dtype, device, axes=b_axes)
     return LoraPair(a, b, alpha)
 
 
@@ -156,13 +163,15 @@ def attach(params, cfg: LoraCfg, seed: int, *, dtype=torch.float32,
                 if (name in cfg.sites and isinstance(child, dict)
                         and "w" in child):
                     w = child["w"]
-                    gen = torch.Generator(device=device).manual_seed(
+                    gen = torch.Generator(
+                        device=generator_device(device)).manual_seed(
                         _site_seed(seed, path + (name,)))
                     out[name] = dict(child)
                     out[name]["lora"] = init_pair(
                         gen, w.shape[-2], w.shape[-1], cfg.rank_for(name),
                         cfg.alpha, dtype=dtype, device=device,
-                        lead=tuple(w.shape[:-2]))
+                        lead=tuple(w.shape[:-2]),
+                        w_axes=getattr(w, pm.AXES_ATTR, None))
                 else:
                     out[name] = rec(child, path + (name,))
             return out

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.taps import Tap
+from repro_torch.dist.sharding import is_dtensor, on_heads, shard
 from repro_torch.nn.attention import NEG_INF
 from repro_torch.nn.linear import init_linear, linear
 from repro_torch.nn.norms import init_rmsnorm, rmsnorm
@@ -57,16 +58,18 @@ def init_mla(gen: torch.Generator, cfg: MlaCfg, *, dtype, device):
     h = cfg.n_heads
     kw = dict(dtype=dtype, device=device)
     return {
-        "q_down": init_linear(gen, cfg.d_model, cfg.q_lora, **kw),
+        "q_down": init_linear(gen, cfg.d_model, cfg.q_lora,
+                              axes=("embed", "qlora"), **kw),
         "q_norm": init_rmsnorm(cfg.q_lora, **kw),
         "q_up": init_linear(gen, cfg.q_lora, h * (cfg.qk_nope + cfg.qk_rope),
-                            **kw),
+                            axes=("qlora", "heads"), **kw),
         "kv_down": init_linear(gen, cfg.d_model, cfg.kv_lora + cfg.qk_rope,
-                               **kw),
+                               axes=("embed", "kvlora"), **kw),
         "kv_norm": init_rmsnorm(cfg.kv_lora, **kw),
         "kv_up": init_linear(gen, cfg.kv_lora, h * (cfg.qk_nope + cfg.v_dim),
-                             **kw),
-        "wo": init_linear(gen, h * cfg.v_dim, cfg.d_model, **kw),
+                             axes=("kvlora", "heads"), **kw),
+        "wo": init_linear(gen, h * cfg.v_dim, cfg.d_model,
+                          axes=("heads", "embed"), **kw),
     }
 
 
@@ -100,7 +103,10 @@ def _attend(q, k, v, scale: float) -> torch.Tensor:
     """q, k (B, S, H, D_qk), v (B, S, H, D_v) → (B, S, H·D_v): causal, the
     scores (taken in f32 from the input-dtype operands, as
     ``attention._attend`` takes them: no rounding before the scale) and the
-    softmax in f32, the probabilities cast to v's dtype."""
+    softmax in f32, the probabilities cast to v's dtype. DTensor operands
+    attend on each rank's examples and heads (``dist.sharding.on_heads``)."""
+    if is_dtensor(q):
+        return on_heads(lambda q, k, v: _attend(q, k, v, scale), q, k, v)
     b, s = q.shape[:2]
     scores = torch.einsum("bshd,bthd->bhst", q.to(torch.float32),
                           k.to(torch.float32)) * scale
@@ -175,6 +181,9 @@ def mla_attention(p, x, *, tap: Tap, cfg: MlaCfg,
     k_nope, v = kv[..., :cfg.qk_nope], kv[..., cfg.qk_nope:]
     k = torch.cat([k_nope, krope[:, :, None, :].expand(
         b, s, cfg.n_heads, cfg.qk_rope)], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
+    q = shard(torch.cat([q_nope, q_rope], dim=-1),
+              "batch", None, "heads_act", None)
+    k = shard(k, "batch", None, "heads_act", None)
     o = _attend(q, k, v, cfg.scale)
-    return linear(p["wo"], o, tap=tap, group=group)
+    return shard(linear(p["wo"], o, tap=tap, group=group),
+                 "batch", None, "embed_act")

@@ -7,6 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.taps import Tap
+from repro_torch.dist.sharding import shard
 from repro_torch.nn.linear import init_linear, linear
 
 
@@ -30,12 +31,12 @@ def _act(name: str):
 
 def init_mlp(gen: torch.Generator, cfg: MlpCfg, *, dtype, device):
     p = {"up": init_linear(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
-                           device=device)}
+                           device=device, axes=("embed", "mlp"))}
     if cfg.gated:
         p["gate"] = init_linear(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
-                                device=device)
+                                device=device, axes=("embed", "mlp"))
     p["down"] = init_linear(gen, cfg.d_ff, cfg.d_model, dtype=dtype,
-                            device=device)
+                            device=device, axes=("mlp", "embed"))
     return p
 
 
@@ -46,4 +47,6 @@ def mlp(p, x, *, tap: Tap, cfg: MlpCfg, group: str = "mlp"):
         h = _act(cfg.act)(g) * up
     else:
         h = _act(cfg.act)(up)
-    return linear(p["down"], h, tap=tap, group=group)
+    h = shard(h, "batch", None, "mlp_act")
+    return shard(linear(p["down"], h, tap=tap, group=group),
+                 "batch", None, "embed_act")

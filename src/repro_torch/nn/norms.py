@@ -13,7 +13,7 @@ from repro_torch.nn import param as pm
 def init_rmsnorm(d: int, *, dtype, device, plus_one: bool = False):
     # gemma parameterizes as (1 + g) with g init 0; others as g init 1
     init = pm.zeros if plus_one else pm.ones
-    return {"g": init((d,), dtype, device)}
+    return {"g": init((d,), dtype, device, axes=("embed",))}
 
 
 def rmsnorm(p, x, *, tap: Tap, eps: float = 1e-6, plus_one: bool = False,
@@ -29,8 +29,8 @@ def rmsnorm(p, x, *, tap: Tap, eps: float = 1e-6, plus_one: bool = False,
 
 
 def init_layernorm(d: int, *, dtype, device):
-    return {"g": pm.ones((d,), dtype, device),
-            "b": pm.zeros((d,), dtype, device)}
+    return {"g": pm.ones((d,), dtype, device, axes=("embed",)),
+            "b": pm.zeros((d,), dtype, device, axes=("embed",))}
 
 
 def layernorm(p, x, *, tap: Tap, eps: float = 1e-5,

@@ -1,14 +1,24 @@
 """Parameters: initializers, the device rule, and tree helpers.
 
 Port of ``src/repro/nn/param.py``. The reference boxes every leaf with its
-logical sharding axes (``Boxed``) for the TPU mesh; the port's mesh path is
-data-parallel only (``dist.pex``: every rank holds every parameter), so a
-parameter tree is a plain nested dict (and list) of tensors and the axes
-are dropped. The one node of another kind is a LoRA site's
-``nn.lora.LoraPair`` (:func:`is_node`), which the tree helpers walk as the
-reference's pytree registration makes JAX walk it. Initializers draw from
-an explicit ``torch.Generator`` on an explicit device, with the
-reference's distributions (fan-in std for matrices unless given).
+logical sharding axes (``Boxed``); the port keeps parameters plain tensors
+in a nested dict (and list) and carries the axes beside them: every
+initializer takes the leaf's logical axes (``("embed", "heads")``, one
+name or None per dim) and stamps them on the tensor it returns
+(:func:`box`), and :func:`axes_of` reads them back as a tree parallel to
+the parameter tree, the reference's ``axes_of`` after ``unbox``. The
+reference stacks its layers on a leading axis; the port keeps one leaf per
+layer, so a per-layer leaf's axes are the reference's without that axis.
+``dist.sharding.distribute_tree`` turns the axes tree into DTensor
+placements under a rules context. A tensor made by another op than an
+initializer carries no axes; :func:`param_axes` re-runs an ``init`` on
+``meta`` for a tree that lost them (one converted by ``interop``).
+
+The one node of another kind is a LoRA site's ``nn.lora.LoraPair``
+(:func:`is_node`), which the tree helpers walk as the reference's pytree
+registration makes JAX walk it. Initializers draw from an explicit
+``torch.Generator`` on an explicit device, with the reference's
+distributions (fan-in std for matrices unless given).
 """
 from __future__ import annotations
 
@@ -54,22 +64,43 @@ def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+#: the attribute :func:`box` stamps a leaf's logical axes under
+AXES_ATTR = "logical_axes"
+
+
+def box(t: torch.Tensor, axes=None) -> torch.Tensor:
+    """Stamp ``t`` with its logical axes (one name or None per dim; None ⇒
+    every dim replicated) and return it: the port's ``Boxed``."""
+    axes = (None,) * t.ndim if axes is None else tuple(axes)
+    if len(axes) != t.ndim:
+        raise ValueError(f"logical axes {axes} do not match a "
+                         f"{t.ndim}-d parameter of shape {tuple(t.shape)}")
+    setattr(t, AXES_ATTR, axes)
+    return t
+
+
 def normal(gen: torch.Generator, shape, dtype: torch.dtype, device,
-           std: Optional[float] = None) -> torch.Tensor:
+           std: Optional[float] = None, axes=None) -> torch.Tensor:
     if std is None:  # fan-in scaling
         fan_in = shape[0] if len(shape) >= 2 else shape[-1]
         std = 1.0 / math.sqrt(max(1, fan_in))
     x = torch.randn(tuple(shape), generator=gen, device=device,
                     dtype=torch.float32)
-    return (std * x).to(dtype)
+    return box((std * x).to(dtype), axes)
 
 
-def zeros(shape, dtype: torch.dtype, device) -> torch.Tensor:
-    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+def zeros(shape, dtype: torch.dtype, device, axes=None) -> torch.Tensor:
+    return box(torch.zeros(tuple(shape), dtype=dtype, device=device), axes)
 
 
-def ones(shape, dtype: torch.dtype, device) -> torch.Tensor:
-    return torch.ones(tuple(shape), dtype=dtype, device=device)
+def ones(shape, dtype: torch.dtype, device, axes=None) -> torch.Tensor:
+    return box(torch.ones(tuple(shape), dtype=dtype, device=device), axes)
+
+
+def constant(val, shape, dtype: torch.dtype, device,
+             axes=None) -> torch.Tensor:
+    return box(torch.full(tuple(shape), val, dtype=dtype, device=device),
+               axes)
 
 
 # --- trees: nested dicts (keys visited in sorted order), lists and nodes ---
@@ -161,3 +192,48 @@ def tree_map(fn, tree, *rest):
 def count_params(tree) -> int:
     """Elements over every leaf of a parameter tree."""
     return sum(x.numel() for x in tree_leaves(tree))
+
+
+def axes_of(tree):
+    """The logical-axes tree of a parameter tree (tuples as leaves, the
+    tree's structure otherwise): what :func:`box` stamped on each leaf.
+    Raises for a leaf with none, naming its path."""
+    leaves, treedef = tree_flatten(tree)
+    out = []
+    for path, x in zip(tree_paths(tree), leaves):
+        axes = getattr(x, AXES_ATTR, None)
+        if axes is None:
+            raise ValueError(
+                f"parameter {'/'.join(map(str, path))} carries no logical "
+                f"axes (made outside an initializer, or converted); use "
+                f"param_axes(init, cfg) to rebuild them")
+        out.append(axes)
+    return tree_unflatten(treedef, out)
+
+
+def param_axes(init, cfg):
+    """The axes tree of ``init(cfg, generator, device="meta")``: a family's
+    initializer run on ``meta``, nothing allocated."""
+    return axes_of(init(cfg, torch.Generator(), device="meta"))
+
+
+def is_axes(x) -> bool:
+    """A logical-axes leaf: a tuple of axis names and Nones."""
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def axes_leaves(axes_tree):
+    """The leaves of an axes tree in :func:`tree_leaves` order (each a
+    tuple, which :func:`tree_flatten` would walk into)."""
+    if is_axes(axes_tree):
+        return [axes_tree]
+    if isinstance(axes_tree, dict):
+        return [a for k in sorted(axes_tree)
+                for a in axes_leaves(axes_tree[k])]
+    if isinstance(axes_tree, (list, tuple)):
+        return [a for x in axes_tree for a in axes_leaves(x)]
+    if is_node(axes_tree):
+        return [a for x in axes_tree.tree_flatten()[0]
+                for a in axes_leaves(x)]
+    raise TypeError(f"not an axes tree: {axes_tree!r}")

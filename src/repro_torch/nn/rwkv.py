@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.taps import Tap
+from repro_torch.dist.sharding import on_rows, shard
 from repro_torch.nn import param as pm
 from repro_torch.nn.linear import init_linear, linear
 from repro_torch.nn.norms import init_layernorm, layernorm
@@ -65,20 +66,23 @@ def init_rwkv_tmix(gen: torch.Generator, cfg: RwkvCfg, *, dtype, device):
     d = cfg.d_model
     kw = dict(dtype=dtype, device=device)
     return {
-        "mu": pm.zeros((_STREAMS + 1, d), dtype, device),
+        "mu": pm.zeros((_STREAMS + 1, d), dtype, device,
+                       axes=(None, "embed")),
         "mix_a": init_linear(gen, d, _STREAMS * cfg.mix_lora, std=0.02,
-                             **kw),
+                             axes=("embed", None), **kw),
         "mix_b": pm.normal(gen, (_STREAMS, cfg.mix_lora, d), dtype, device,
-                           std=0.02),
-        "wr": init_linear(gen, d, d, **kw),
-        "wk": init_linear(gen, d, d, **kw),
-        "wv": init_linear(gen, d, d, **kw),
-        "wg": init_linear(gen, d, d, **kw),
-        "wo": init_linear(gen, d, d, **kw),
-        "w0": torch.full((d,), -6.0, dtype=torch.float32, device=device),
-        "decay_a": init_linear(gen, d, cfg.decay_lora, std=0.02, **kw),
-        "decay_b": init_linear(gen, cfg.decay_lora, d, std=0.02, **kw),
-        "u": pm.zeros((d,), torch.float32, device),
+                           std=0.02, axes=(None, None, "embed")),
+        "wr": init_linear(gen, d, d, axes=("embed", "heads"), **kw),
+        "wk": init_linear(gen, d, d, axes=("embed", "heads"), **kw),
+        "wv": init_linear(gen, d, d, axes=("embed", "heads"), **kw),
+        "wg": init_linear(gen, d, d, axes=("embed", "heads"), **kw),
+        "wo": init_linear(gen, d, d, axes=("heads", "embed"), **kw),
+        "w0": pm.constant(-6.0, (d,), torch.float32, device, axes=(None,)),
+        "decay_a": init_linear(gen, d, cfg.decay_lora, std=0.02,
+                               axes=("embed", None), **kw),
+        "decay_b": init_linear(gen, cfg.decay_lora, d, std=0.02,
+                               axes=(None, "embed"), **kw),
+        "u": pm.zeros((d,), torch.float32, device, axes=(None,)),
         "ln_x": init_layernorm(d, **kw),
     }
 
@@ -87,10 +91,10 @@ def init_rwkv_cmix(gen: torch.Generator, cfg: RwkvCfg, *, dtype, device):
     d = cfg.d_model
     kw = dict(dtype=dtype, device=device)
     return {
-        "mu": pm.zeros((2, d), dtype, device),
-        "wk": init_linear(gen, d, cfg.d_ff, **kw),
-        "wr": init_linear(gen, d, d, **kw),
-        "wv": init_linear(gen, cfg.d_ff, d, **kw),
+        "mu": pm.zeros((2, d), dtype, device, axes=(None, "embed")),
+        "wk": init_linear(gen, d, cfg.d_ff, axes=("embed", "mlp"), **kw),
+        "wr": init_linear(gen, d, d, axes=("embed", "embed2"), **kw),
+        "wv": init_linear(gen, cfg.d_ff, d, axes=("mlp", "embed"), **kw),
     }
 
 
@@ -208,8 +212,9 @@ class _Wkv(torch.autograd.Function):
 def wkv(r, k, v, w, u):
     """The WKV recurrence from a zero state over chunks of ``CHUNK`` steps
     (see ``_Wkv``): the bits of :func:`wkv_loop`, with S/CHUNK saved states
-    instead of S."""
-    return _Wkv.apply(r, k, v, w, u, CHUNK)[0]
+    instead of S. DTensor operands run on each rank's rows
+    (``dist.sharding.on_rows``): the recurrence is per example."""
+    return on_rows(lambda *a: _Wkv.apply(*a, CHUNK)[0], (r, k, v, w), (u,))
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +263,8 @@ def rwkv_tmix(p, x, *, tap: Tap, cfg: RwkvCfg, state=None,
 
     o = layernorm(p["ln_x"], o, tap=tap)  # group-norm surrogate
     o = o * F.silu(g)
-    return linear(p["wo"], o, tap=tap, group=group)
+    return shard(linear(p["wo"], o, tap=tap, group=group),
+                 "batch", None, "embed_act")
 
 
 def rwkv_cmix(p, x, *, tap: Tap, cfg: RwkvCfg, state=None,
@@ -275,4 +281,4 @@ def rwkv_cmix(p, x, *, tap: Tap, cfg: RwkvCfg, state=None,
     k = torch.square(F.relu(k))
     kv = linear(p["wv"], k, tap=tap, group=group)
     r = linear(p["wr"], xr, tap=tap, group=group)
-    return torch.sigmoid(r) * kv
+    return shard(torch.sigmoid(r) * kv, "batch", None, "embed_act")

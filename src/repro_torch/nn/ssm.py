@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.taps import Tap
+from repro_torch.dist.sharding import on_rows, shard
 from repro_torch.nn import param as pm
 from repro_torch.nn.linear import init_linear, linear
 
@@ -66,16 +67,20 @@ def init_ssm(gen: torch.Generator, cfg: SsmCfg, *, dtype, device):
     kw = dict(dtype=dtype, device=device)
     # in_proj → [z(di), x(di), B(ds), C(ds), dt(nh)]
     return {
-        "in_proj": init_linear(gen, cfg.d_model, 2 * di + 2 * ds + nh, **kw),
+        "in_proj": init_linear(gen, cfg.d_model, 2 * di + 2 * ds + nh,
+                               axes=("embed", "mlp"), **kw),
         "conv_w": pm.normal(gen, (cfg.conv_width, cfg.conv_dim), dtype,
-                            device, std=cfg.conv_width ** -0.5),
-        "conv_b": pm.zeros((cfg.conv_dim,), dtype, device),
-        "a_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
-                                        device=device)),
-        "d": pm.ones((nh,), torch.float32, device),
-        "dt_bias": pm.zeros((nh,), torch.float32, device),
-        "norm_g": pm.ones((di,), dtype, device),
-        "out_proj": init_linear(gen, di, cfg.d_model, **kw),
+                            device, std=cfg.conv_width ** -0.5,
+                            axes=(None, "mlp")),
+        "conv_b": pm.zeros((cfg.conv_dim,), dtype, device, axes=("mlp",)),
+        "a_log": pm.box(torch.log(torch.arange(1, nh + 1,
+                                               dtype=torch.float32,
+                                               device=device)), (None,)),
+        "d": pm.ones((nh,), torch.float32, device, axes=(None,)),
+        "dt_bias": pm.zeros((nh,), torch.float32, device, axes=(None,)),
+        "norm_g": pm.ones((di,), dtype, device, axes=("mlp",)),
+        "out_proj": init_linear(gen, di, cfg.d_model, axes=("mlp", "embed"),
+                                **kw),
     }
 
 
@@ -196,8 +201,10 @@ class _Ssd(torch.autograd.Function):
 def ssd(x, bm, cm, dt, dec):
     """The SSD recurrence from a zero state over chunks of ``CHUNK`` steps
     (see ``_Ssd``): the bits of :func:`ssd_loop`, with S/CHUNK saved
-    states instead of S."""
-    return _Ssd.apply(x, bm, cm, dt, dec, CHUNK)[0]
+    states instead of S. DTensor operands run on each rank's rows
+    (``dist.sharding.on_rows``): the recurrence is per example."""
+    return on_rows(lambda *a: _Ssd.apply(*a, CHUNK)[0],
+                   (x, bm, cm, dt, dec))
 
 
 def ssm(p, x, *, tap: Tap, cfg: SsmCfg, state=None,
@@ -244,4 +251,5 @@ def ssm(p, x, *, tap: Tap, cfg: SsmCfg, state=None,
     yf = yf * torch.rsqrt(torch.mean(torch.square(yf), dim=-1, keepdim=True)
                           + 1e-6)
     y = tap.scale(yf.to(x.dtype), p["norm_g"], group=group)
-    return linear(p["out_proj"], y, tap=tap, group=group)
+    return shard(linear(p["out_proj"], y, tap=tap, group=group),
+                 "batch", None, "embed_act")

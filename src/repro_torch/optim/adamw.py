@@ -9,6 +9,11 @@ over flat chunks of ``CHUNK`` elements of each leaf, so its f32
 temporaries are bounded by a chunk and not by the largest leaf (a
 160 × 5120 × 1536 expert leaf would make each 5 GB). The arithmetic is
 elementwise, so a chunk gives the same bits as the whole leaf.
+
+DTensor leaves (the model-axis route): the moments are laid out as their
+parameters, the update runs on each rank's local shards (the chunks taken
+over the local shard), and the global norm sums each rank's local squares
+once over the mesh (a replicated leaf counted on one coordinate).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.nn.param import tree_leaves, tree_map
 
 #: elements of each flat slice the update runs over (256 MiB of f32)
@@ -42,13 +48,30 @@ class AdamWState(NamedTuple):
 
 def init(params) -> AdamWState:
     def zeros(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params))
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+    leaves = tree_leaves(tree)
+    mesh = next((x.device_mesh for x in leaves if is_dtensor(x)), None)
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in leaves))
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    coord = mesh.get_coordinate()
+    total = 0.0
+    for x in leaves:
+        sq = torch.sum(torch.square(x.to_local().to(torch.float32)))
+        # a leaf replicated over a mesh dim counts on its first coordinate
+        if any(isinstance(p, Replicate) and c != 0
+               for p, c in zip(x.placements, coord)):
+            sq = torch.zeros_like(sq)
+        total = total + sq
+    return torch.sqrt(DTensor.from_local(
+        total, mesh, [Partial()] * mesh.ndim, run_check=False).full_tensor())
 
 
 @torch.no_grad()
@@ -59,6 +82,7 @@ def update(cfg: AdamWConfig, state: AdamWState, params, grads):
     ``(params, new_state)``."""
     for p, m, v in zip(tree_leaves(params), tree_leaves(state.mu),
                        tree_leaves(state.nu)):
+        p, m, v = (x.to_local() if is_dtensor(x) else x for x in (p, m, v))
         if not (p.is_contiguous() and m.is_contiguous()
                 and v.is_contiguous()):
             raise ValueError(f"adamw.update: a parameter leaf of shape "
@@ -75,6 +99,11 @@ def update(cfg: AdamWConfig, state: AdamWState, params, grads):
     b2c = 1.0 - cfg.b2 ** step
     for p_, g_, m_, v_ in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state.mu), tree_leaves(state.nu)):
+        if is_dtensor(p_):
+            # the local shards, the gradient laid out as its parameter
+            if tuple(g_.placements) != tuple(p_.placements):
+                g_ = g_.redistribute(p_.device_mesh, p_.placements)
+            p_, g_, m_, v_ = (x.to_local() for x in (p_, g_, m_, v_))
         # p, m and v change in place, so they must be flat views; g is read
         p_, m_, v_, g_ = p_.view(-1), m_.view(-1), v_.view(-1), g_.reshape(-1)
         for i in range(0, p_.numel(), CHUNK):

@@ -19,8 +19,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.nn.param import (fold_seed, resolve_device, tree_leaves,
-                                  tree_map)
+from repro_torch.nn.param import (AXES_ATTR, box, fold_seed,
+                                  resolve_device, tree_leaves, tree_map)
 
 class AdapterStore:
     """Slot-allocated stacked store of per-tenant adapter trees.
@@ -43,9 +43,13 @@ class AdapterStore:
         self.seed = int(seed)
         self.device = resolve_device(device)
         template = init_fn(self._generator(self.seed))
+        # each row's leaf keeps its template's logical axes, the tenant
+        # axis replicated
         self.stacked = tree_map(
-            lambda l: torch.zeros((self.capacity,) + tuple(l.shape),
-                                  dtype=l.dtype, device=self.device),
+            lambda l: box(torch.zeros((self.capacity,) + tuple(l.shape),
+                                      dtype=l.dtype, device=self.device),
+                          (None,) + getattr(l, AXES_ATTR,
+                                            (None,) * l.ndim)),
             template)
         self.slots = np.full((self.capacity,), -1, dtype=np.int64)
         self._slot_of: dict = {}

@@ -171,8 +171,8 @@ def test_checkpoint_sweeps_stale_tmp_on_construction(tmp_path):
 def test_checkpoint_restore_onto_a_mesh(tmp_path):
     """``shardings=`` takes what ``dist.sharding.sharding_for`` returns: a
     replicated placement puts every leaf on the mesh's device and checks
-    the ranks hold the same bits; a sharded placement is refused (the
-    port's mesh path is data-parallel only)."""
+    the ranks hold the same bits; a sharded placement lays each leaf out
+    as a DTensor of it (the model-axis route), holding the same bits."""
     from torch.distributed.tensor import Shard
 
     mgr = CheckpointManager(str(tmp_path / "ck"))
@@ -187,8 +187,11 @@ def test_checkpoint_restore_onto_a_mesh(tmp_path):
                     "b": {"c": shd.sharding_for((None,), mesh)}}
         got, _ = mgr.restore(1, like, shardings=per_leaf)
         assert _same(got, tree)
-        with pytest.raises(NotImplementedError, match="data-parallel"):
-            mgr.restore(1, like, shardings=shd.Sharding(mesh, (Shard(0),)))
+        got, _ = mgr.restore(1, like, shardings=shd.Sharding(mesh,
+                                                            (Shard(0),)))
+        assert all(shd.is_dtensor(x) and x.placements == (Shard(0),)
+                   for x in pm.tree_leaves(got))
+        assert _same(pm.tree_map(lambda x: x.full_tensor(), got), tree)
 
 
 # ---------------------------------------------------------------------------

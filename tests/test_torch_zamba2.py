@@ -321,3 +321,103 @@ def test_launcher_trains_zamba2(capsys):
                        "--device", "cpu"])
     assert len(ms) == 1 and np.isfinite(ms[0]["loss"])
     assert "[1] loss=" in capsys.readouterr().out
+
+
+# --- batch-size rounding: where the norm error of the open check grows ----
+
+def _block_cotangents_port(params, batch, cfg):
+    """∂L/∂x at each block's input (mamba blocks and the shared block's
+    uses, in order) of example 0, L = Σ loss_vec, the port's blocks run as
+    ``zamba2._run`` runs them."""
+    from repro_torch.models import zamba2 as tz
+    from repro_torch.nn.embedding import embed, lm_head, per_example_xent
+    from repro_torch.nn.norms import rmsnorm
+    n = cfg.n_groups * (cfg.share_every + 1) + cfg.n_tail
+    eps = [torch.zeros(batch["ids"].shape + (cfg.d_model,),
+                       requires_grad=True) for _ in range(n)]
+    it = iter(eps)
+    x = embed(params["embed"], batch["ids"], tap=tT.NULL, cfg=cfg.vocab_cfg)
+    x0 = x
+    for group in params["blocks"]:
+        for p in group:
+            x = tz._mamba_block(p, x + next(it), tT.NULL, cfg)
+        x = tz._shared_block(params["shared"], x + next(it), x0, cfg)
+    for p in params.get("tail", []):
+        x = tz._mamba_block(p, x + next(it), tT.NULL, cfg)
+    x = rmsnorm(params["ln_f"], x, tap=tT.NULL, eps=cfg.rms_eps)
+    logits = lm_head(params["head"], x, tap=tT.NULL, cfg=cfg.vocab_cfg)
+    loss = per_example_xent(logits, batch["labels"]).sum()
+    return [g[0].numpy() for g in torch.autograd.grad(loss, eps)]
+
+
+def _block_cotangents_ref(params, batch, cfg):
+    """The same cotangents of the reference's blocks (its ``_run``'s
+    order, the stacked parameters sliced per block), jitted."""
+    from repro.core import taps as jT
+    from repro.models import zamba2 as jz
+    from repro.nn import embedding as jE
+    from repro.nn import norms as jN
+    n = cfg.n_groups * (cfg.share_every + 1) + cfg.n_tail
+
+    def loss(eps):
+        it = iter(eps)
+        x = jE.embed(params["embed"], batch["ids"], tap=jT.NULL,
+                     cfg=cfg.vocab_cfg)
+        x0 = x
+        for g in range(cfg.n_groups):
+            for i in range(cfg.share_every):
+                p = jax.tree_util.tree_map(lambda v: v[g][i],
+                                           params["blocks"])
+                x, _ = jz._mamba_block(p, x + next(it), jT.NULL, cfg)
+            x, _ = jz._shared_block(params["shared"], x + next(it), x0, cfg)
+        for i in range(cfg.n_tail):
+            p = jax.tree_util.tree_map(lambda v: v[i], params["tail"])
+            x, _ = jz._mamba_block(p, x + next(it), jT.NULL, cfg)
+        x = jN.rmsnorm(params["ln_f"], x, tap=jT.NULL, eps=cfg.rms_eps)
+        logits = jE.lm_head(params["head"], x, tap=jT.NULL,
+                            cfg=cfg.vocab_cfg)
+        return jnp.sum(jE.per_example_xent(logits, batch["labels"]))
+    eps = [jnp.zeros(batch["ids"].shape + (cfg.d_model,)) for _ in range(n)]
+    return [np.asarray(g[0]) for g in jax.jit(jax.grad(loss))(eps)]
+
+
+def test_batch_size_rounding_no_larger_than_reference():
+    """The open check on zamba2's f32 norm error (smoke config, f32, B=4,
+    S=32): example 0's fused norms move between B=4 and B=1 — in the
+    reference 1.7e-5, in the port 4.3e-6 — and so does Z̄ at each block's
+    input, in both packages from the first block on, the port's never past
+    the reference's. The port's norms at B=1 are its ``vmap(grad)``
+    oracle's (2.5e-7), which computes each example alone; the reference's
+    ``vmap`` oracle runs batched and shares the batch's rounding, which is
+    why it reads closer to its fused norms. So the error is f32 rounding
+    that depends on the batch size, not a change of form in the port:
+    held here at no more than 2× the reference's at every block and in
+    the norms."""
+    st = fp.setup(ARCH, 4, 32)
+    cfg = st["cfg"]
+    jcfg = jreg.get(ARCH).smoke()
+    b1 = {k: v[:1] for k, v in st["batch"].items()}
+    jb1 = {k: v[:1] for k, v in st["jbatch"].items()}
+
+    def move(a4, a1):
+        return float(np.abs(a4 - a1).max() / np.abs(a1).max())
+    port = [move(a, b) for a, b in zip(
+        _block_cotangents_port(st["params"], st["batch"], cfg),
+        _block_cotangents_port(st["params"], b1, cfg))]
+    ref = [move(a, b) for a, b in zip(
+        _block_cotangents_ref(st["jparams"], st["jbatch"], jcfg),
+        _block_cotangents_ref(st["jparams"], jb1, jcfg))]
+    assert len(port) == len(ref) == 7
+    for i, (p, r) in enumerate(zip(port, ref)):
+        assert p <= 2 * r, (i, port, ref)
+
+    def norms(eng_step, batch):
+        return np.asarray(eng_step(batch).sq_norms.sum(-1))[0]
+    t_step = lambda b: pex.Engine(pex.PexSpec()).step(
+        st["loss"], st["params"], b, [pex.Norms()])
+    eng = jpex.Engine(jpex.PexSpec())
+    j_step = jax.jit(lambda b: eng.step(st["jloss"], st["jparams"], b,
+                                        [jpex.Norms()]))
+    p_move = abs(norms(t_step, st["batch"]) / norms(t_step, b1) - 1)
+    r_move = abs(norms(j_step, st["jbatch"]) / norms(j_step, jb1) - 1)
+    assert 0 < p_move <= 2 * r_move, (p_move, r_move)
