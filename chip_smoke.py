@@ -395,7 +395,33 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               (two microbatches) at full depth on 16×16 and llama3.2-1b on
               2×16×16: each device's parameter and state bytes equal to the
               analytic figures, the peak, ``fits`` and the collective bytes
-              by kind; the phase's seconds (within ``SHARD_PHASE_S``).
+              by kind; the phase's seconds (within ``SHARD_PHASE_S``);
+              (b) starts before phase 27 and runs on the host, one core a
+              cell, beside phases 27-41; phases 40 and 41's subprocesses
+              (the ``--full`` and ``--cost`` CLIs and (c)'s dry-run) start
+              before phase 38 and run beside 38 and 39 (``Background``);
+              ``[time]`` lines give the whole run's seconds after each
+              group of phases;
+43. remat   — activation rematerialization, llama3.2-1b at full width
+              and depth: (a) the main path (bf16, B=8, S=512, phase 5's
+              consumers under AdamW) 3 steps under ``remat_policy``
+              ``full``, ``dots`` and ``remat=False`` in turns, each with
+              its own parameters and state: step, stream and queue ms,
+              the setting's own peak, loss, norms and noised gradients
+              bit for bit across the three (or, said and held at 5e-4 and
+              1e-2 of max |g|), each backward's launches; one flash step
+              a setting (the flash forward relaunched by each backward's
+              recompute); (b) S=4096 with flash at the largest B the
+              dry-run's liveness puts within 80 GB (or 0.9 of the card's
+              free memory, the less) under ``full``: step ms
+              and peak a setting, an out-of-memory caught where the
+              dry-run puts the setting past the card; (c) the dry-run's
+              liveness against each measured peak (``PEAK_TOL``); then
+              phase 42's sharded train_4k peaks under the new defaults,
+              llama3.2-1b on 16×16 required to fit. Earlier phases run
+              with remat on: where they count flash forward launches the
+              recompute's are added in code (``remat_blocks``), and
+              ``RecordingTap`` runs a ``remat=False`` config.
 
 Every kernel is called through its ``repro_torch.kernels.ops`` wrapper,
 the one the main path goes through. A kernel's bound is the least time the
@@ -544,6 +570,58 @@ FLASH_CASES = [(B, 32, 8, S, 64, None, None, None),
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def at(tag: str) -> None:
+    """Log the whole run's seconds so far, after phase ``tag``."""
+    log(f"[time] {tag} done at {time.perf_counter() - T0:.1f} s")
+
+
+class Background:
+    """A CPU-only ``python -m`` command of the repo started now and read
+    later, so that it runs beside the phases in between (one thread).
+    ``argv(tmp)`` gives its arguments from a scratch directory of its own;
+    ``result()`` waits for it within ``timeout`` s of its start and gives
+    its CompletedProcess and the seconds it ran; ``close()`` stops it and
+    removes the directory."""
+
+    def __init__(self, argv, timeout):
+        import tempfile
+        import threading
+        self.tmp = tempfile.mkdtemp(prefix="bg_")
+        self.cmd = [sys.executable, "-m", *argv(self.tmp)]
+        self.timeout, self.t0 = timeout, time.perf_counter()
+        self.proc = subprocess.Popen(
+            self.cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, cwd=ROOT, env=dict(
+                os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                OMP_NUM_THREADS="1"))
+        self.out = self.err = ""
+        self.wall = None
+
+        def wait():
+            self.out, self.err = self.proc.communicate()
+            self.wall = time.perf_counter() - self.t0
+        self.thread = threading.Thread(target=wait, daemon=True)
+        self.thread.start()
+        atexit.register(self.close)   # should the script fail before
+
+    def result(self):
+        self.thread.join(max(0.0, self.timeout
+                             - (time.perf_counter() - self.t0)))
+        if self.thread.is_alive():
+            self.close()
+            raise AssertionError(f"{' '.join(self.cmd[1:])}: not done in "
+                                 f"{self.timeout} s")
+        return (subprocess.CompletedProcess(self.cmd, self.proc.returncode,
+                                            self.out, self.err), self.wall)
+
+    def close(self):
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def rel_err(got, want):
@@ -700,13 +778,21 @@ def main_path_launches(cfg, s):
     return out
 
 
+def remat_blocks(cfg):
+    """Blocks a training step checkpoints (each re-run once in each
+    backward), as the family module that defines ``cfg``'s class states
+    them (its ``remat_blocks``)."""
+    return sys.modules[type(cfg).__module__].remat_blocks(cfg)
+
+
 def pass_launches(expected, cfg):
     """Launches of every counted kernel in the tapped forward, the norms
     backward and the reweighted backward of one step: the norm kernels in
     the norms backward only (with MoE, three segmented launches per MoE
     layer: gate, up, down); with ``AttnCfg.flash``, one forward launch per
     layer in the forward and one dQ and one dK/dV launch per layer in each
-    backward."""
+    backward, and under remat one more forward launch per checkpointed
+    block in each backward (its recompute)."""
     from repro_torch.kernels import ops
     flash = getattr(cfg, "attn", None) is not None and cfg.attn.flash
     zero = dict.fromkeys(ops.launch_counts(), 0)
@@ -714,7 +800,8 @@ def pass_launches(expected, cfg):
     if moe_layers(cfg):
         norms["segmented_norm"] = 3 * moe_layers(cfg)
     bwd = ({"flash_attention_bwd_dq": cfg.n_layers,
-            "flash_attention_bwd_dkv": cfg.n_layers} if flash else {})
+            "flash_attention_bwd_dkv": cfg.n_layers,
+            "flash_attention": remat_blocks(cfg)} if flash else {})
     return ({**zero, "flash_attention": cfg.n_layers if flash else 0},
             {**zero, **norms, **bwd}, {**zero, **bwd})
 
@@ -796,7 +883,8 @@ class AttentionEvents:
     call, and in each backward pass the span from the cotangent's arrival
     at the core's output to the last cotangent leaving q, k and v (tensor
     hooks, which run on the autograd stream in the order the grads are
-    formed)."""
+    formed). A backward's recompute of a checkpointed block is not timed:
+    it falls outside both spans."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -809,6 +897,10 @@ class AttentionEvents:
         return e
 
     def __call__(self, q, k, v, *a, **kw):
+        from repro_torch.core import taps
+        if taps.recomputing():
+            # a backward re-running a checkpointed block: not the forward
+            return self.fn(q, k, v, *a, **kw)
         e0 = self._event()
         y = self.fn(q, k, v, *a, **kw)
         self.fwd.append((e0, self._event()))
@@ -1247,7 +1339,8 @@ def phase_exact(spec, registry, pex, cfg=None, tag="exact",
     and its SSM's conv and decay tensors, rwkv6's μ's, w0 and u are
     trained but give no stat); the summed gradient over every leaf. ``flash_launches`` is the
     launches of each flash kernel the flash run must make (default: one
-    per layer). Where it is 0 (gemma2: its softcap and local layers close
+    per layer; the forward kernel once more for each block the backward
+    re-runs under remat). Where it is 0 (gemma2: its softcap and local layers close
     the reference's gate) the flash run repeats the unfused one, so only
     its launch counts are kept. ``prepare`` edits the parameters after
     ``init``. A leaf the plain loss does not reach (a LoRA site's frozen
@@ -1290,9 +1383,14 @@ def phase_exact(spec, registry, pex, cfg=None, tag="exact",
         if not flash:
             unfused_launches = n
         want = flash_launches if flash else 0
-        if any(n[k] != want for k in FLASH_KERNELS):
+        # one backward ([Norms, Grads] fold): its recompute relaunches the
+        # flash forward of each checkpointed block
+        wants = {k: want for k in FLASH_KERNELS}
+        if want:
+            wants["flash_attention"] += remat_blocks(c)
+        if any(n[k] != wants[k] for k in FLASH_KERNELS):
             raise AssertionError(f"{tag} flash={flash}: flash launches {n}, "
-                                 f"expected {want} of each")
+                                 f"expected {wants}")
         if flash and not want:
             log(f"[{tag}] flash=True took the unfused route, as the gate "
                 f"says; its result is not kept")
@@ -2591,16 +2689,18 @@ def tree_digest(tree) -> list:
     """(path, sha256 of the bytes) of every leaf of a parameter tree, in
     its order: two trees are bitwise equal iff their digests are."""
     import hashlib
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
     from repro_torch.nn.param import tree_leaves, tree_paths
 
-    out = []
-    for path, x in zip(tree_paths(tree), tree_leaves(tree)):
-        raw = x.detach().contiguous().view(torch.uint8).cpu().numpy()
-        out.append(("/".join(map(str, path)),
-                    hashlib.sha256(raw.tobytes()).hexdigest()))
-    return out
+    def sha(raw):                 # hashlib releases the GIL while hashing
+        return hashlib.sha256(memoryview(raw)).hexdigest()
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        futs = [("/".join(map(str, path)), pool.submit(
+            sha, x.detach().reshape(-1).view(torch.uint8).cpu().numpy()))
+            for path, x in zip(tree_paths(tree), tree_leaves(tree))]
+        return [(path, f.result()) for path, f in futs]
 
 
 DP_WORLD = 2                  # phase 36's ranks, both on cuda:0 over gloo
@@ -2871,7 +2971,7 @@ SHARD_STEPS = 2
 #: the dry-run's sharded cells: train_4k on 16×16 and on 2×16×16
 SHARD_DRYRUN = {False: ("llama3.2-1b", "phi3.5-moe", "deepseek-v2-236b"),
                 True: ("llama3.2-1b",)}
-SHARD_DRYRUN_TIMEOUT_S = 600
+SHARD_DRYRUN_TIMEOUT_S = 900   # from their start, before phase 27
 SHARD_PHASE_S = 120           # the phase's own budget, asserted
 
 
@@ -3799,9 +3899,10 @@ def verify_report(tag, rep, seconds, alloc):
         raise AssertionError(f"verify {tag}: {rep.errors}")
 
 
-def phase_verify(spec, registry, pex, cfg, runs):
+def phase_verify(spec, registry, pex, cfg, runs, clis=None):
     """Phase 40. ``runs``: {tag: (spec, cfg, (B, S), token, phase_main
-    run)} of the main, flash, moe and token paths."""
+    run)} of the main, flash, moe and token paths; ``clis``:
+    ``start_analysis``'s subprocesses (else started here)."""
     import torch
     out = {"verify_s": {}, "alloc": {}}
     loss_fn, params, batch = meta_setup(spec, registry, cfg, (B, S))
@@ -3839,14 +3940,10 @@ def phase_verify(spec, registry, pex, cfg, runs):
     log(f"[verify] collectives on the one-rank NCCL mesh in {seconds:.2f} "
         f"s: {rep.collectives[0].summary()}")
     verify_report("Engine(mesh=).verify dp", rep, seconds, 0)
-    cmd = [sys.executable, "-m", "repro_torch.analysis", "--json", "--full",
-           *(f"--depth={a}={n}" for a, n in sorted(LINT_DEPTHS.items()))]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True,
-                       timeout=LINT_TIMEOUT_S, cwd=ROOT,
-                       env=dict(os.environ,
-                                PYTHONPATH=os.path.join(ROOT, "src")))
-    wall = time.perf_counter() - t0
+    bg = (clis or {}).get("lint") or lint_cli()
+    r, wall = bg.result()
+    bg.close()
+    cmd = bg.cmd
     if r.returncode:
         raise AssertionError(f"verify CLI: exit {r.returncode}\n"
                              f"{r.stderr[-4000:]}")
@@ -3973,11 +4070,11 @@ def cost_kernels(runs, rows, traces):
     return out
 
 
-def cost_dryrun(spec, registry, pex, cfg, run):
+def cost_dryrun(spec, registry, pex, cfg, run, started=None):
     """Phase 41 (c): the dry-run's liveness peak of one phase-5 step on
     one rank against phase 5's measured peak, then the ``train_4k`` cells
-    of ``DRYRUN_ARCHS`` at ``DRYRUN_RANKS`` ranks in a subprocess."""
-    import tempfile
+    of ``DRYRUN_ARCHS`` at ``DRYRUN_RANKS`` ranks in a subprocess
+    (``started``: ``dryrun_cli()`` begun earlier)."""
     import torch
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
@@ -4001,22 +4098,18 @@ def cost_dryrun(spec, registry, pex, cfg, run):
                              f"{rel:+.1%} off phase 5's {meas:.2f} GiB")
     del tt
     cells = {}
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--pex-spmd",
-           "--shape", "train_4k", *(f"--arch={a}" for a in DRYRUN_ARCHS),
-           *(f"--ranks={n}" for n in DRYRUN_RANKS)]
-    with tempfile.TemporaryDirectory() as tmp:
-        t1 = time.perf_counter()
-        r = subprocess.run(cmd + ["--out", tmp], capture_output=True,
-                           text=True, timeout=DRYRUN_TIMEOUT_S, cwd=ROOT,
-                           env=dict(os.environ,
-                                    PYTHONPATH=os.path.join(ROOT, "src")))
-        wall = time.perf_counter() - t1
+    bg = started or dryrun_cli()
+    try:
+        r, wall = bg.result()
         if r.returncode:
             raise AssertionError(f"cost: dryrun exit {r.returncode}\n"
                                  f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
-        for name in sorted(os.listdir(tmp)):
-            with open(os.path.join(tmp, name)) as f:
+        for name in sorted(os.listdir(bg.tmp)):
+            with open(os.path.join(bg.tmp, name)) as f:
                 cells[name[:-5]] = json.load(f)
+    finally:
+        bg.close()
+    cmd = bg.cmd[:-2]               # without its --out
     for d in cells.values():
         if not d["ok"]:
             log(f"[cost] dryrun {d['arch']} × {d['shape']} × {d['ranks']} "
@@ -4037,22 +4130,52 @@ def cost_dryrun(spec, registry, pex, cfg, run):
             "seconds": seconds, "cells": cells, "subprocess_s": wall}
 
 
-def cost_cli():
-    """Phase 41 (d): the cost CLI at phase 40's lint depths, full width,
-    its reports written to a scratch baseline (the committed one is the
-    smoke widths')."""
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        cmd = [sys.executable, "-m", "repro_torch.analysis", "--json",
-               "--fast", "--full", "--cost", "--write-cost-baseline",
-               "--cost-baseline", os.path.join(tmp, "full.json"),
-               *(f"--depth={a}={n}" for a, n in sorted(LINT_DEPTHS.items()))]
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True,
-                           timeout=LINT_TIMEOUT_S, cwd=ROOT,
-                           env=dict(os.environ,
-                                    PYTHONPATH=os.path.join(ROOT, "src")))
-        wall = time.perf_counter() - t0
+def lint_cli():
+    """Phase 40's CLI, started: the static checks at full width and
+    ``LINT_DEPTHS``."""
+    return Background(lambda tmp: [
+        "repro_torch.analysis", "--json", "--full",
+        *(f"--depth={a}={n}" for a, n in sorted(LINT_DEPTHS.items()))],
+        LINT_TIMEOUT_S)
+
+
+def dryrun_cli():
+    """Phase 41 (c)'s subprocess, started: the ``train_4k`` cells of
+    ``DRYRUN_ARCHS`` at ``DRYRUN_RANKS`` ranks."""
+    return Background(lambda tmp: [
+        "repro_torch.launch.dryrun", "--pex-spmd", "--shape", "train_4k",
+        *(f"--arch={a}" for a in DRYRUN_ARCHS),
+        *(f"--ranks={n}" for n in DRYRUN_RANKS), "--out", tmp],
+        DRYRUN_TIMEOUT_S)
+
+
+def cost_cli_start():
+    """Phase 41 (d)'s CLI, started: the cost CLI at phase 40's lint
+    depths, full width, its reports written to a scratch baseline (the
+    committed one is the smoke widths')."""
+    return Background(lambda tmp: [
+        "repro_torch.analysis", "--json", "--fast", "--full", "--cost",
+        "--write-cost-baseline", "--cost-baseline",
+        os.path.join(tmp, "full.json"),
+        *(f"--depth={a}={n}" for a, n in sorted(LINT_DEPTHS.items()))],
+        LINT_TIMEOUT_S)
+
+
+def start_analysis():
+    """The CPU-only subprocesses of phases 40 and 41, started so that
+    they run on the host beside phases 38 and 39."""
+    return {"lint": lint_cli(), "dryrun": dryrun_cli(),
+            "cost": cost_cli_start()}
+
+
+def cost_cli(started=None):
+    """Phase 41 (d): ``cost_cli_start``'s run (``started``, else begun
+    here), read."""
+    bg = started or cost_cli_start()
+    try:
+        r, wall = bg.result()
+    finally:
+        bg.close()
     if r.returncode:
         raise AssertionError(f"cost CLI: exit {r.returncode}\n"
                              f"{r.stderr[-4000:]}")
@@ -4073,16 +4196,17 @@ def cost_cli():
     return {"wall_s": wall, "seconds": lint["seconds"]}
 
 
-def phase_cost(spec, registry, pex, cfg, runs, rows, traces):
+def phase_cost(spec, registry, pex, cfg, runs, rows, traces, clis=None):
     """Phase 41. ``runs``: phase 40's {tag: (spec, cfg, (B, S), token,
     phase_main run)}; ``rows``: the kernel table; ``traces``: phase 40's
-    recorded steps."""
+    recorded steps; ``clis``: ``start_analysis``'s subprocesses."""
+    clis = clis or {}
     t0 = time.perf_counter()
     out = {"step": cost_step(spec, registry, pex, cfg, runs["main"][4]),
            "kernels": cost_kernels(runs, rows, traces),
            "dryrun": cost_dryrun(spec, registry, pex, cfg,
-                                 runs["main"][4]),
-           "cli": cost_cli()}
+                                 runs["main"][4], clis.get("dryrun")),
+           "cli": cost_cli(clis.get("cost"))}
     out["seconds"] = time.perf_counter() - t0
     log(f"[cost] phase 41 in {out['seconds']:.1f} s")
     return out
@@ -5222,7 +5346,11 @@ def phase_token_exact(spec, registry, pex):
     leaves, treedef = tree_flatten(params)
     leaves = [x.detach().requires_grad_() for x in leaves]
     rec = RecordingTap(pex.PexSpec())
-    lv, _ = loss_fn(tree_unflatten(treedef, leaves), batch, rec)
+    # the recorded forward runs once: a checkpointed block would record its
+    # ops again in each backward's recompute
+    plain_fn = registry.make_loss_fn_v2(spec, dataclasses.replace(
+        cfg, remat=False))
+    lv, _ = plain_fn(tree_unflatten(treedef, leaves), batch, rec)
     torch.autograd.grad(lv.sum(), leaves, retain_graph=True)
     want = rec.token_stats()
     r = rel_err(res.sq_norms, want)
@@ -6119,6 +6247,340 @@ def phase_serve_families(registry):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 43: activation rematerialization
+# ---------------------------------------------------------------------------
+
+#: (label, config fields) of the three remat settings, run in turns
+REMAT_SETTINGS = (("full", {"remat": True, "remat_policy": "full"}),
+                  ("dots", {"remat": True, "remat_policy": "dots"}),
+                  ("off", {"remat": False}))
+REMAT_STEPS = 3
+REMAT_LONG_S = 4096             # (b): one long-sequence shape, with flash
+REMAT_LONG_STEPS = 2
+REMAT_BUDGET = 80e9             # bytes: "fits at 80 GB" in the dry-run
+REMAT_FREE_SHARE = 0.9          # of the card's free bytes at (b)'s start:
+                                # the allocator's fragmentation (a whole
+                                # run's B=9 at 69.6 GiB ran out of memory
+                                # with 7.6 GiB cached but not allocated)
+REMAT_GRAD_TOL = 1e-2           # of max |g|, should the bits differ
+
+
+class RematRun:
+    """One remat setting of the main path: its own parameters, AdamW state
+    and noise generator (seed 1), stepped on the shared batches."""
+
+    def __init__(self, spec, registry, pex, cfg, label):
+        import torch
+        from repro_torch.optim import adamw
+        self.label, self.cfg = label, cfg
+        self.params = registry.family_module(spec).init(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        self.opt = adamw.init(self.params)
+        self.gen = torch.Generator(device="cuda").manual_seed(1)
+        self.consumers = path_consumers(pex, False, self.gen)
+        self.eng = pex.Engine(pex.PexSpec())
+        self.loss_fn = registry.make_loss_fn_v2(spec, cfg)
+        self.own = (tree_bytes(self.params) + tree_bytes(self.opt.mu)
+                    + tree_bytes(self.opt.nu))
+        self.rows = []
+
+    def step(self, batch, update=True, loss_fn=None, consumers=None):
+        """One step (and its AdamW update): the result and a row of
+        readings — host ms, stream ms in Engine.step, host ms to queue it,
+        the peak of this setting alone (the other settings' bytes, alive
+        beside it, taken off), the launches of each backward pass."""
+        import torch
+        from repro_torch.core import plan as plan_mod
+        from repro_torch.kernels import ops
+        from repro_torch.optim import adamw
+        passes = []
+        orig = plan_mod._grad
+
+        def counted(out, inputs, seed, **kw):
+            before = ops.launch_counts()
+            gs = orig(out, inputs, seed, **kw)
+            after = ops.launch_counts()
+            passes.append({k: after[k] - before[k] for k in after})
+            return gs
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = ops.launch_counts()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        plan_mod._grad = counted
+        try:
+            t0 = time.perf_counter()
+            marks[0].record()
+            res = self.eng.step(loss_fn or self.loss_fn, self.params, batch,
+                                consumers or self.consumers)
+            enq = (time.perf_counter() - t0) * 1e3
+            marks[1].record()
+            if update:
+                _, self.opt = adamw.update(adamw.AdamWConfig(), self.opt,
+                                           self.params, res.grads)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            plan_mod._grad = orig
+        peak = torch.cuda.max_memory_allocated() - base + self.own
+        end = ops.launch_counts()
+        fwd = {k: (end[k] - start[k]) - sum(p[k] for p in passes)
+               for k in end}
+        row = {"step_ms": ms, "engine_ms": marks[0].elapsed_time(marks[1]),
+               "enqueue_ms": enq, "peak_gib": peak / 2**30,
+               "passes": [fwd] + passes}
+        self.rows.append(row)
+        return res, row
+
+
+def same_bits(a, b):
+    """Whether two StepResults' loss_vec, sq_norms and every noised
+    gradient leaf are bitwise equal, and each group's largest |a - b| over
+    its largest |a|."""
+    import torch
+    from repro_torch.nn.param import tree_leaves
+
+    def rel(x, y):
+        x, y = x.float(), y.float()
+        return ((x - y).abs().max()
+                / x.abs().max().clamp_min(1e-30)).item()
+    grads = list(zip(tree_leaves(a.grads), tree_leaves(b.grads)))
+    equal = (torch.equal(a.loss_vec, b.loss_vec)
+             and torch.equal(a.sq_norms, b.sq_norms)
+             and all(torch.equal(x, y) for x, y in grads))
+    return equal, {"loss": rel(a.loss_vec, b.loss_vec),
+                   "norms": rel(a.sq_norms, b.sq_norms),
+                   "grads": max(rel(x, y) for x, y in grads)}
+
+
+def remat_liveness(spec, registry, pex, cfg, b, s):
+    """The dry-run's liveness of one step of ``cfg`` at (b, s) on one rank
+    (``launch.dryrun.record_train`` + ``train_liveness``, the main path's
+    consumers under AdamW): (total GiB, seconds)."""
+    import torch
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    tt, _ = dryrun.record_train(spec, cfg, b, s, consumers=path_consumers(
+        pex, False, torch.Generator().manual_seed(1)))
+    total = dryrun.train_liveness(tt).total
+    del tt
+    return total / 2**30, time.perf_counter() - t0
+
+
+def phase_remat(spec, registry, pex, cfg, sharded_run):
+    """Phase 43 ``remat``: llama3.2-1b at full width and depth under each
+    remat setting. (a) the main path (bf16, B=8, S=512, [Norms, Clip(1.0),
+    Noise(0.1), GNS] under AdamW), ``REMAT_STEPS`` steps a setting in
+    turns: step, stream, queue ms and peak, loss, norms and noised
+    gradients bit for bit across the settings, each backward's launches
+    (one more flash forward per block in each backward under remat, read
+    on one flash step a setting); (b) S=4096 with flash at the largest B
+    the dry-run predicts fits under ``full`` (in 80 GB, or
+    ``REMAT_FREE_SHARE`` of the card's free memory, the less): peak and
+    step ms a setting,
+    a setting's out-of-memory caught and logged where the dry-run puts it
+    past the card (``off``, at long sequences ``dots``, which keeps every
+    product); (c) the dry-run's liveness
+    against each measured peak (``PEAK_TOL``). Then the re-read of phase
+    42's sharded train_4k cells: llama3.2-1b on 16×16 must fit."""
+    import gc
+    import torch
+    from repro_torch.configs.common import ShapeSpec
+    t0 = time.perf_counter()
+    want_main = main_path_launches(cfg, S)
+    runs = {label: RematRun(spec, registry, pex,
+                            dataclasses.replace(cfg, **kw), label)
+            for label, kw in REMAT_SETTINGS}
+    batches = [registry.make_train_batch(
+        spec, cfg, ShapeSpec("remat", "train", S, B), rng_seed=i)
+        for i in range(REMAT_STEPS)]
+    bits = []
+    for i, batch in enumerate(batches):
+        results = {}
+        for label, run in runs.items():
+            res, row = run.step(batch)
+            want = pass_launches(want_main, run.cfg)
+            if row["passes"] != list(want):
+                raise AssertionError(f"remat {label} step {i}: launches by "
+                                     f"pass {row['passes']}, expected "
+                                     f"{list(want)}")
+            for name, t in (("loss", res.loss), ("norms", res.sq_norms),
+                            ("gns", res.gns)):
+                if not bool(torch.isfinite(t).all()):
+                    raise AssertionError(f"remat {label} step {i}: {name} "
+                                         f"not finite")
+            results[label] = res
+            log(f"[remat] main {label} step {i}: {row['step_ms']:.1f} ms "
+                f"(stream ms in Engine.step {row['engine_ms']:.1f}, queued "
+                f"by the host in {row['enqueue_ms']:.1f}); peak "
+                f"{row['peak_gib']:.2f} GiB; loss {res.loss.item():.6f}")
+        for label in ("dots", "off"):
+            equal, worst = same_bits(results["full"], results[label])
+            bits.append((i, label, equal, worst))
+            if not equal:
+                log(f"[remat] step {i}: {label} is not bitwise equal to full "
+                    f"(max rel diffs {worst}): holding loss and norms at "
+                    f"5e-4 and the noised gradients at {REMAT_GRAD_TOL} of "
+                    f"max |g|")
+                if not (worst["loss"] <= 5e-4 and worst["norms"] <= 5e-4
+                        and worst["grads"] <= REMAT_GRAD_TOL):
+                    raise AssertionError(f"remat: {label} disagrees with "
+                                         f"full at step {i}: {worst}")
+        del results
+    log(f"[remat] loss, norms and noised gradients bitwise equal across "
+        f"full, dots and off: "
+        f"{all(e for _, _, e, _ in bits)} ({[(i, l, e) for i, l, e, _ in bits]})")
+    # one flash step a setting (no update): the recompute relaunches the
+    # flash forward of every checkpointed block in each backward
+    flash_cfgs = {label: with_flash(run.cfg) for label, run in runs.items()}
+    flash_fwd = {}
+    results = {}
+    for label, run in runs.items():
+        fcfg = flash_cfgs[label]
+        res, row = run.step(batches[0], update=False,
+                            loss_fn=registry.make_loss_fn_v2(spec, fcfg))
+        want = list(pass_launches(want_main, fcfg))
+        if row["passes"] != want:
+            raise AssertionError(f"remat flash {label}: launches by pass "
+                                 f"{row['passes']}, expected {want}")
+        flash_fwd[label] = [p["flash_attention"] for p in row["passes"]]
+        results[label] = res
+        log(f"[remat] flash {label}: {row['step_ms']:.1f} ms (stream "
+            f"{row['engine_ms']:.1f}); flash forward launches by pass "
+            f"(forward, norms, reweighted) {flash_fwd[label]}")
+    flash_bits = {label: same_bits(results["full"], results[label])[0]
+                  for label in ("dots", "off")}
+    log(f"[remat] flash: bitwise equal to full {flash_bits}")
+    del results
+    main_rows = {label: r.rows[:REMAT_STEPS] for label, r in runs.items()}
+    del runs, batches, run, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the long shape: B from the dry-run under full (its liveness is
+    # affine in B: two records fix the line, a third confirms the pick;
+    # GNS takes B >= 2)
+    lcfg = {label: with_flash(dataclasses.replace(cfg, **kw))
+            for label, kw in REMAT_SETTINGS}
+    free, card = torch.cuda.mem_get_info()
+    budget = min(REMAT_BUDGET, REMAT_FREE_SHARE * free)
+    log(f"[remat] before the long shape: {free / 2**30:.2f} of "
+        f"{card / 2**30:.2f} GiB free, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+        f"by the earlier phases")
+    p2, s2 = remat_liveness(spec, registry, pex, lcfg["full"], 2,
+                            REMAT_LONG_S)
+    p4, s4 = remat_liveness(spec, registry, pex, lcfg["full"], 4,
+                            REMAT_LONG_S)
+    per = (p4 - p2) / 2
+    b_long = max(2, int(2 + (budget / 2**30 - p2) // per))
+    pred = {}
+    while True:
+        pred["full"], sb = remat_liveness(spec, registry, pex, lcfg["full"],
+                                          b_long, REMAT_LONG_S)
+        if pred["full"] * 2**30 <= budget or b_long == 2:
+            break
+        b_long -= 1
+    log(f"[remat] long shape S={REMAT_LONG_S}, flash: the dry-run under "
+        f"full predicts {p2:.2f} GiB at B=2 and {p4:.2f} at B=4 "
+        f"({s2 + s4:.1f} s), {pred['full']:.2f} GiB at B={b_long} "
+        f"({sb:.1f} s): B={b_long}, the largest within "
+        f"{budget / 2**30:.2f} GiB (80 GB, or {REMAT_FREE_SHARE} of the "
+        f"card's {free / 2**30:.2f} GiB free, the less)")
+    for label in ("dots", "off"):
+        pred[label], _ = remat_liveness(spec, registry, pex, lcfg[label],
+                                        b_long, REMAT_LONG_S)
+    long_rows = {}
+    lbatches = [registry.make_train_batch(
+        spec, cfg, ShapeSpec("remat-long", "train", REMAT_LONG_S, b_long),
+        rng_seed=i) for i in range(REMAT_LONG_STEPS)]
+    for label, _ in REMAT_SETTINGS:
+        run = None
+        try:
+            run = RematRun(spec, registry, pex, lcfg[label], label)
+            for i, batch in enumerate(lbatches):
+                res, row = run.step(batch)
+                if not bool(torch.isfinite(res.loss).all()):
+                    raise AssertionError(f"remat long {label}: loss not "
+                                         f"finite")
+                log(f"[remat] long {label} B={b_long} step {i}: "
+                    f"{row['step_ms']:.1f} ms (stream "
+                    f"{row['engine_ms']:.1f}, queued in "
+                    f"{row['enqueue_ms']:.1f}); peak {row['peak_gib']:.2f} "
+                    f"GiB; loss {res.loss.item():.4f}; launches by pass "
+                    f"{[{k: v for k, v in p.items() if v} for p in row['passes']]}")
+                del res
+            long_rows[label] = run.rows
+        except torch.cuda.OutOfMemoryError as e:
+            # a setting the dry-run puts past the card may run out of
+            # memory (off, and dots, which keeps every product); one it
+            # puts within the card may not
+            if pred[label] * 2**30 <= card:
+                raise
+            long_rows[label] = None
+            log(f"[remat] long {label} B={b_long}: out of memory, as the "
+                f"dry-run's {pred[label]:.2f} GiB against the card's "
+                f"{card / 2**30:.2f} predicts "
+                f"({str(e).splitlines()[0][:160]})")
+        finally:
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # (c) the dry-run's liveness against each measured peak
+    checks = []
+    for label, kw in REMAT_SETTINGS:
+        p, sec = remat_liveness(spec, registry, pex,
+                                dataclasses.replace(cfg, **kw), B, S)
+        meas = max(r["peak_gib"] for r in main_rows[label])
+        checks.append((f"main {label}", p, meas, sec))
+    for label, _ in REMAT_SETTINGS:
+        if long_rows[label] is not None:
+            meas = max(r["peak_gib"] for r in long_rows[label])
+            checks.append((f"long {label} B={b_long}", pred[label], meas,
+                           0.0))
+    for tag, p, meas, sec in checks:
+        rel = (p - meas) / meas
+        log(f"[remat] dry-run {tag}: predicted {p:.2f} GiB, measured "
+            f"{meas:.2f} GiB: {rel:+.1%}"
+            + (f" (recorded in {sec:.1f} s)" if sec else ""))
+        if not abs(rel) <= PEAK_TOL:
+            raise AssertionError(f"remat: the dry-run's {tag} peak {p:.2f} "
+                                 f"GiB is {rel:+.1%} off the measured "
+                                 f"{meas:.2f}")
+    peaks = {label: max(r["peak_gib"] for r in rows)
+             for label, rows in main_rows.items()}
+    if not (peaks["full"] < peaks["off"] and peaks["dots"] < peaks["off"]):
+        raise AssertionError(f"remat: main path peaks {peaks}: remat does "
+                             f"not lower them")
+
+    # the re-read: phase 42's sharded train_4k cells under the new defaults
+    cells = {(d["arch"], d["mesh"]): d
+             for d in sharded_run["cells"].values()}
+    for (arch, mesh), d in sorted(cells.items()):
+        log(f"[remat] sharded train_4k {arch} on {mesh}: peak "
+            f"{d['peak_bytes_per_dev'] / 1e9:.2f} GB a device (made at the "
+            f"peak {d['transient_peak_bytes'] / 1e9:.2f} GB), fits "
+            f"{d['fits']}")
+    llama = cells.get(("llama3.2-1b", "16x16"))
+    if llama is None or not llama["fits"]:
+        raise AssertionError(f"remat: llama3.2-1b's train_4k on 16×16 does "
+                             f"not fit: {llama}")
+    seconds = time.perf_counter() - t0
+    steady = {label: {k: [round(r[k], 2) for r in rows[1:]]
+                      for k in ("step_ms", "engine_ms", "enqueue_ms")}
+              for label, rows in main_rows.items()}
+    log(f"[remat] main path steady steps {json.dumps(steady)}; peaks GiB "
+        f"{ {k: round(v, 2) for k, v in peaks.items()} }; long B={b_long} "
+        f"step ms "
+        f"{ {k: (None if v is None else [round(r['step_ms'], 1) for r in v]) for k, v in long_rows.items()} }"
+        f"; phase 43 in {seconds:.1f} s")
+    return {"main": main_rows, "peaks": peaks, "b_long": b_long,
+            "long": long_rows, "pred_long": pred, "checks": checks,
+            "flash_fwd": flash_fwd, "bits": bits, "seconds": seconds}
+
+
 def main() -> int:
     global T0
     T0 = time.perf_counter()
@@ -6158,6 +6620,7 @@ def main() -> int:
         tuple((family_cfg(sp, n, "float32"), EXACT_B, EXACT_S)
               for sp, n, _ in fam_specs))
     phase_flash_kernels(errs)
+    at("phase 3")
     phase_exact(spec, registry, pex)
     torch.cuda.empty_cache()
     expected = main_path_launches(cfg, S)
@@ -6236,6 +6699,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_run = phase_train(spec, registry, cfg)
     torch.cuda.empty_cache()
+    at("phase 17")
     log(f"[compare] train: step ms {train_run['step_ms']} (clip steps "
         f"{TRAIN_CLIP_STEPS}, then importance); main path steady step ms "
         f"{main_run['step_ms'][1:]}; peak memory {train_run['peak_gib']:.2f} "
@@ -6289,6 +6753,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     tenants = phase_tenants(pex)
     torch.cuda.empty_cache()
+    at("phase 26")
+    # phase 42 (b) runs on the host (one core a cell) beside phases 27-41
+    sharded_dry = start_sharded_dryrun()
     fam_runs, fam_exact_shapes, fam_tables = {}, {}, {}
     for sp, n, tag in fam_specs:
         fam_exact_shapes[tag] = set()
@@ -6302,24 +6769,32 @@ def main() -> int:
     serve_run = phase_serve(registry)
     serve_fams = phase_serve_families(registry)
     torch.cuda.empty_cache()
-    # phase 42 (b) runs on the host beside phases 36-41
-    sharded_dry = start_sharded_dryrun()
+    at("phase 35")
     dp_exact = phase_dp_exact()
     dp_run = phase_dp(spec, registry, cfg, train_run)
     torch.cuda.empty_cache()
+    at("phase 37")
+    # phases 40 and 41's subprocesses run on the host beside 38 and 39
+    clis = start_analysis()
     ckpt_run = phase_ckpt(spec, registry, cfg, train_run)
     torch.cuda.empty_cache()
+    at("phase 38")
     soak_run = phase_soak()
     torch.cuda.empty_cache()
+    at("phase 39")
     paths = {"main": (spec, cfg, (B, S), False, main_run),
              "flash": (spec, with_flash(cfg), (B, S), False, flash_run),
              "moe": (moe_spec, moe_cfg, (MOE_B, MOE_S), False, moe_run),
              "token": (spec, cfg, (B, S), True, token_run)}
-    verify_run = phase_verify(spec, registry, pex, cfg, paths)
+    verify_run = phase_verify(spec, registry, pex, cfg, paths, clis)
+    at("phase 40")
     cost_run = phase_cost(spec, registry, pex, cfg, paths, rows,
-                          verify_run.pop("traces"))
+                          verify_run.pop("traces"), clis)
     torch.cuda.empty_cache()
+    at("phase 41")
     sharded_run = phase_sharded(sharded_dry)
+    at("phase 42")
+    remat_run = phase_remat(spec, registry, pex, cfg, sharded_run)
     for tag, r in (("serve llama3.2-1b", serve_run),
                    *((f"serve-families {a}", r)
                      for a, r in serve_fams.items())):
@@ -6411,7 +6886,10 @@ def main() -> int:
         f"peak {cost_run['dryrun']['pred_gib']:.2f} GiB against "
         f"{cost_run['dryrun']['meas_gib']:.2f}, CLI "
         f"{cost_run['cli']['wall_s']:.1f} s); sharded "
-        f"{sharded_run['seconds']:.1f} s; whole run "
+        f"{sharded_run['seconds']:.1f} s; remat main step ms "
+        f"{ {k: [round(r['step_ms'], 1) for r in v] for k, v in remat_run['main'].items()} }"
+        f", peaks GiB { {k: round(v, 2) for k, v in remat_run['peaks'].items()} }"
+        f", {remat_run['seconds']:.1f} s; whole run "
         f"{time.perf_counter() - T0:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

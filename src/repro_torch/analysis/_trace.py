@@ -103,7 +103,8 @@ class Op:
     kind: "aten" (a dispatched op), "tap" (a Tap site: its forward's own
     ops precede it with ``site`` set), "mark", "kernel", "collective",
     "draw" or "read" (a scalar read). ``ins``/``outs`` are tensor ids,
-    ``writes`` the storages an in-place op mutates."""
+    ``writes`` the storages an in-place op mutates. ``remat``: recorded
+    while a backward re-ran a checkpointed block (``core.taps.checkpoint``)."""
     index: int
     kind: str
     name: str
@@ -112,6 +113,7 @@ class Op:
     writes: Tuple[int, ...] = ()
     meta: Any = None
     site: int = -1
+    remat: bool = False
 
 
 @dataclasses.dataclass
@@ -211,6 +213,9 @@ class Recorder(TorchDispatchMode):
         self._quiet = 0
         self._consumer_gens = dict(consumer_gens or {})
         self._pending: Optional[Tuple[int, GenState]] = None
+        #: > 0 while a backward re-runs a checkpointed block (set by
+        #: ``core.taps``): its ops are flagged, its Tap sites not recorded
+        self.remat = 0
 
     # -- the active trace --------------------------------------------------
     def __enter__(self):
@@ -257,7 +262,8 @@ class Recorder(TorchDispatchMode):
     def _append(self, kind, name, ins, outs, writes=(), meta=None) -> Op:
         op = Op(len(self.ops), kind, name, tuple(ins), tuple(outs),
                 tuple(writes), meta,
-                self._site_stack[-1] if self._site_stack else -1)
+                self._site_stack[-1] if self._site_stack else -1,
+                self.remat > 0)
         self.ops.append(op)
         return op
 
@@ -383,8 +389,9 @@ class Recorder(TorchDispatchMode):
     def tap_site(self, info, operands, run):
         """Run one tapped op (``core.taps._site``) and record it as a site
         after its forward's ops; a tapped op inside another's forward is
-        part of the outer site."""
-        if self._site_stack:
+        part of the outer site, and a recompute's are the forward's sites
+        again (not recorded)."""
+        if self._site_stack or self.remat:
             return run()
         k = self._n_sites
         self._n_sites += 1

@@ -362,8 +362,13 @@ def _phase(op: _T.Op, union: frozenset, groups: frozenset,
         return PH_APPLY
     seeds = {t for t in union if t.startswith("seed:")}
     if not seeds:
-        if groups and "loss_vec" not in groups:
-            if groups <= frozenset({"sq_norms", "gns"}):
+        # parameter/batch-only work that does not feed the loss is either
+        # norms-only statistics or a backward's recompute of a checkpointed
+        # block — charged to the phase that demanded it, as the reference
+        # charges its remat; a recompute's op that feeds nothing (the
+        # accumulator's copies) is still the backward's
+        if (groups and "loss_vec" not in groups) or op.remat:
+            if groups and groups <= frozenset({"sq_norms", "gns"}):
                 return PH_STATS
             return PH_ACT
         return PH_FWD

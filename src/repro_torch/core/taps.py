@@ -42,8 +42,25 @@ Tap-site provenance (``PEX_OPS``): each tapped ``autograd.Function`` maps
 to its op name and the slots of its weight and data operands; inside an
 analysis trace (``analysis._trace``) every tapped call is recorded as one
 site with its operands, which the coverage pass reads. Outside a trace the
-table is not consulted. Not in this slice: ``scan`` / ``checkpoint`` (the
-port runs layers in a Python loop without recompute).
+table is not consulted.
+
+Rematerialization (:func:`checkpoint`, the reference's ``taps.checkpoint``;
+its ``taps.scan`` has no counterpart, as the port's layers run in a Python
+loop): the block runs once in the forward with every tensor autograd would
+save replaced by a handle (saved-tensor hooks), so the forward's graph — and
+its Tap nodes, which read the :class:`BackwardMode` when each backward runs
+— is the real one; the first handle a backward unpacks re-runs the block
+from its inputs, once per backward, and stops as soon as the last tensor the
+forward saved has been made again (the block's dead tail, e.g. its last
+product, is not recomputed). The recompute runs on a copy of the tap as
+it was at the block's entry (every slot, the accumulator a new leaf), so
+``tap.carry()`` never moves mid-backward; a block takes its live tap as an
+argument and does not close over it. Policy ``"full"`` keeps
+only the block's inputs; ``"dots"`` (the reference's
+``dots_with_no_batch_dims_saveable``) also keeps every product with a 2-D
+weight (``Tap.dense`` and :func:`matmul`), which the recompute then reads
+instead of multiplying again; attention scores, ``dense_batched`` and the
+expert products are recomputed.
 The accumulators' ``init`` carries the reference's ``shard(...,
 "batch", None)`` constraint; the accumulator is a plain tensor, on which
 it is the identity.
@@ -66,7 +83,7 @@ does not take sharded operands.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -74,6 +91,7 @@ from repro_torch.core import norms as N
 from repro_torch.core import provenance as _prov
 from repro_torch.dist import sharding as _sh
 from repro_torch.kernels import ops as kops
+from repro_torch.nn.param import tree_flatten, tree_unflatten
 
 _ACC_DTYPE = torch.float32
 
@@ -447,10 +465,11 @@ class _Dense(torch.autograd.Function):
     """z = h @ w, h (B,[S,]p_in), w (p_in, p_out)."""
 
     @staticmethod
-    def forward(ctx, h, w, acc, mode, layout, group, method, use_kernels):
+    def forward(ctx, h, w, acc, mode, layout, group, method, use_kernels,
+                given=None):
         ctx.save_for_backward(h, w)
         ctx.cfg = (mode, layout, group, method, use_kernels)
-        return torch.matmul(h, w), acc.clone()
+        return _product(h, w, given), acc.clone()
 
     @staticmethod
     def backward(ctx, zbar, acc_bar):
@@ -464,7 +483,33 @@ class _Dense(torch.autograd.Function):
         if mode.norms:
             dacc = layout.add_dense(acc_bar, h, zbar, group, method,
                                     use_kernels)
-        return dh, dw, dacc, None, None, None, None, None
+        return dh, dw, dacc, None, None, None, None, None, None
+
+
+class _Product(torch.autograd.Function):
+    """z = h @ w with no stat: an inert tap's dense product, or an untapped
+    one (:func:`matmul`), inside a checkpointed block, where the recompute
+    may hand over the product the forward kept (``given``)."""
+
+    @staticmethod
+    def forward(ctx, h, w, given):
+        ctx.save_for_backward(h, w)
+        return _product(h, w, given)
+
+    @staticmethod
+    def backward(ctx, zbar):
+        h, w = ctx.saved_tensors
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = torch.matmul(zbar, w.t()).to(h.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _weight_grad(h, zbar, w)
+        return dh, dw, None
+
+
+def _product(h, w, given):
+    """``h @ w``, or ``given`` where a recompute already has it."""
+    return torch.matmul(h, w) if given is None else given
 
 
 class _DenseBatched(torch.autograd.Function):
@@ -765,6 +810,10 @@ class Tap:
         DTensor product is laid out as its operands say
         (``dist.sharding.dense_layout``)."""
         w = _sh.gathered(w, h)
+        frame = _FRAME
+        if frame is not None:
+            return _sh.dense_layout(frame.dense(self, h, w, group, method),
+                                    h, w)
         if not self.live:
             return _sh.dense_layout(torch.matmul(h, w), h, w)
         z, self._acc = _apply(
@@ -864,3 +913,250 @@ class Tap:
 
 #: Shared inert tap: every op is its plain counterpart.
 NULL = Tap(DISABLED)
+
+
+def matmul(h, w) -> torch.Tensor:
+    """``h @ w`` for an untapped product with a 2-D weight (a LoRA site's
+    frozen base): plain outside a checkpointed block; inside one, the
+    ``"dots"`` policy keeps its output as it keeps ``Tap.dense``'s."""
+    frame = _FRAME
+    if frame is None:
+        return torch.matmul(h, w)
+    return frame.dense(None, h, w, None, None)
+
+
+# ---------------------------------------------------------------------------
+# rematerialization (module docstring)
+# ---------------------------------------------------------------------------
+
+POLICIES = ("full", "dots")
+
+#: the checkpointed block running now (its forward or its recompute), or
+#: None
+_FRAME = None
+
+
+class _Stop(Exception):
+    """Raised by a recompute once the last tensor its forward saved has
+    been made again: the rest of the block is dead in the backward."""
+
+
+class _Remat:
+    """One call of a checkpointed block.
+
+    The forward counts the tensors autograd saves (each becomes its index)
+    and, for the dense products, notes which one's own saves are the last
+    (``tail``: its product is dead in the backward) and, under ``"dots"``,
+    keeps each product. The first unpack of a backward re-runs the block
+    on detached copies of its inputs with the same ``requires_grad``, keeps
+    what it saves by index, and stops at the last; each unpack hands its
+    tensor over and drops it. A second backward (a new graph task) re-runs
+    the block again."""
+
+    def __init__(self, fn, tap: "Tap", policy: str, args):
+        leaves, self.treedef = tree_flatten(args)
+        if tap.live and not any(x is tap for x in leaves):
+            # the frame may not hold the tap: it holds the accumulator,
+            # whose graph holds the frame (a cycle the collector cannot see
+            # through autograd's nodes), and the recompute runs on a copy
+            raise ValueError("a checkpointed block takes its live tap as an "
+                             "argument; it may not close over it")
+        self.leaves = [(_TAP, None) if x is tap else _hold(x)
+                       for x in leaves]
+        self.entry = {k: _hold(v) for k, v in _tap_state(tap).items()}
+        self.fn, self.tap_cls, self.policy = fn, type(tap), policy
+        self.n_saved = 0
+        self.meta = []           # (shape, dtype) of each saved tensor
+        self.products = []
+        self.tail = None
+        self.recomputing = False
+        self._dense = 0          # dense products met in this run
+        self._open = None        # the dense product being applied
+        self._gid = None
+        self._saved = None
+        self._made = 0
+
+    # -- the forward ---------------------------------------------------------
+    def forward(self, args):
+        global _FRAME
+        prev, _FRAME = _FRAME, self
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                          self._unpack):
+                return self.fn(*args)
+        finally:
+            _FRAME = prev
+
+    def _pack(self, t):
+        i = self.n_saved
+        self.n_saved += 1
+        self.meta.append((t.shape, t.dtype))
+        self.tail = self._open
+        return i
+
+    def _unpack(self, i):
+        gid = torch._C._current_graph_task_id()
+        if gid != self._gid:
+            self._recompute()
+            self._gid = gid
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self._release)
+        t = self._saved[i]
+        if t is None:
+            raise RuntimeError(
+                "a checkpointed block's saved tensor was unpacked twice in "
+                "one backward; the recompute hands each over once")
+        self._saved[i] = None
+        return t
+
+    def _release(self):
+        self._saved = None
+
+    # -- the recompute -------------------------------------------------------
+    def _recompute(self):
+        global _FRAME
+        # the block re-runs on a copy of the tap as it was at its entry
+        copy = self.tap_cls.__new__(self.tap_cls)
+        _set_tap_state(copy, self.entry)
+        args = tree_unflatten(self.treedef, [
+            copy if x is _TAP else _fresh((x, flag))
+            for x, flag in self.leaves])
+        self._saved = [None] * self.n_saved
+        self._made = self._dense = 0
+        self.recomputing = True
+        prev, _FRAME = _FRAME, self
+        rec = _prov.RECORDER
+        if rec is not None:
+            rec.remat += 1
+        try:
+            with torch.enable_grad(), \
+                    torch.autograd.graph.saved_tensors_hooks(self._keep,
+                                                              _refuse):
+                self.fn(*args)
+        except _Stop:
+            pass
+        finally:
+            if rec is not None:
+                rec.remat -= 1
+            _FRAME = prev
+            self.recomputing = False
+        if self._made != self.n_saved:
+            raise RuntimeError(
+                f"a checkpointed block's recompute saved {self._made} "
+                f"tensors where its forward saved {self.n_saved}: the "
+                f"block must run the same ops on the same inputs")
+
+    def _keep(self, t):
+        if self._made >= self.n_saved \
+                or (t.shape, t.dtype) != self.meta[self._made]:
+            raise RuntimeError(
+                f"a checkpointed block's recompute saved, as tensor "
+                f"{self._made}, a {t.dtype} {tuple(t.shape)} where its "
+                f"forward saved "
+                f"{self.meta[self._made] if self._made < self.n_saved else 'nothing'}"
+                f": the block must run the same ops on the same inputs")
+        self._saved[self._made] = t
+        self._made += 1
+        if self._made == self.n_saved:
+            raise _Stop
+        return None
+
+    # -- the dense products --------------------------------------------------
+    def dense(self, tap: Optional["Tap"], h, w, group, method):
+        """One dense product of the block: ``tap``'s tapped op when it is
+        live, else :class:`_Product`; the product handed over by
+        ``"dots"`` or skipped at the dead tail in a recompute, kept by
+        ``"dots"`` in the forward."""
+        k = self._dense
+        self._dense += 1
+        given = None
+        if self.recomputing:
+            if self.policy == "dots":
+                given = self.products[k].detach()
+            elif k == self.tail and not (_sh.is_dtensor(h)
+                                         or _sh.is_dtensor(w)):
+                # its own saves are the forward's last: the recompute stops
+                # right after them, so the product is never read
+                given = h.new_empty(h.shape[:-1] + w.shape[-1:],
+                                    dtype=torch.result_type(h, w))
+        self._open = k
+        try:
+            if tap is not None and tap.live:
+                z, tap._acc = _apply(
+                    _Dense, h, w, tap._acc, tap.mode, tap.layout,
+                    tap.spec.group_index(group), method or tap.spec.method,
+                    tap.spec.use_kernels, given)
+            else:
+                z = _Product.apply(h, w, given)
+        finally:
+            self._open = None
+        if self.policy == "dots" and not self.recomputing:
+            self.products.append(z.detach())
+        return z
+
+
+def recomputing() -> bool:
+    """Is a backward re-running a checkpointed block now?"""
+    return _FRAME is not None and _FRAME.recomputing
+
+
+def _hold(x):
+    """A block input as the recompute reads it: a tensor detached, with
+    its ``requires_grad``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach(), x.requires_grad
+    return x, None
+
+
+def _fresh(held):
+    """A held input as a new leaf of the recompute's own graph."""
+    x, flag = held
+    return x if flag is None else x.detach().requires_grad_(flag)
+
+
+def _tap_state(tap) -> dict:
+    """Every slot a tap holds (its class's and its subclasses'; a
+    subclass may count its calls)."""
+    names = {n for c in type(tap).__mro__
+             for n in getattr(c, "__slots__", ()) if n != "__weakref__"}
+    names.update(getattr(tap, "__dict__", {}))
+    return {n: getattr(tap, n) for n in names if hasattr(tap, n)}
+
+
+def _set_tap_state(tap, held: dict) -> None:
+    """``tap`` as it was at a block's entry (``_hold`` of each slot), its
+    tensors (the accumulator) new leaves of the recompute's graph."""
+    for k, v in held.items():
+        setattr(tap, k, _fresh(v))
+
+
+#: where a checkpointed block's arguments held its tap
+_TAP = object()
+
+
+def _refuse(_):
+    raise RuntimeError("a checkpointed block's recompute is not "
+                       "differentiated")
+
+
+def checkpoint(fn: Callable, *, tap: Optional[Tap] = None,
+               policy: str = "full") -> Callable:
+    """``fn`` rematerialized (module docstring), the reference's
+    ``taps.checkpoint``: returns a function with ``fn``'s signature whose
+    backward re-runs ``fn`` on its arguments. Tensors ``fn`` closes over
+    are read again as they are then. Where no backward can follow
+    (gradients off) the call is plain, and so it is under a ``torch.func``
+    transform (the ``vmap(grad)`` oracle), which refuses saved-tensor
+    hooks: rematerializing changes no value, so the plain call computes
+    the same function."""
+    if policy not in POLICIES:
+        raise ValueError(f"remat policy {policy!r}: expected one of "
+                         f"{POLICIES}")
+    tap = NULL if tap is None else tap
+
+    def run(*args):
+        if not torch.is_grad_enabled() \
+                or torch._C._are_functorch_transforms_active():
+            return fn(*args)
+        return _Remat(fn, tap, policy, args).forward(args)
+    return run

@@ -16,11 +16,9 @@ Variants (composable with +):
   moe_local_dispatch  — grouped dispatch: each of 16 groups of examples
                         scatters its own tokens (``MoeCfg.dispatch_groups``)
   moe_cf1             — MoE capacity factor 1.0
-
-Refused: ``remat_dots`` and ``no_remat``. The port has no activation
-checkpointing to vary — its layers run in a Python loop and every
-activation a backward needs is kept (ROADMAP.md, "Decisions in force": No
-remat) — so both name a program the port cannot build.
+  remat_dots          — ``remat_policy="dots"``: each block keeps its
+                        2-D-weight products (the transformer family)
+  no_remat            — ``remat=False``: every activation kept
 """
 from __future__ import annotations
 
@@ -32,21 +30,12 @@ import os
 from repro_torch.launch.probes import run_probes
 
 VARIANTS = ("baseline", "pex_off", "pex_gram", "pex_factorized",
-            "moe_local_dispatch", "moe_cf1")
-REFUSED = {
-    "remat_dots": "the port has no remat policy: its layers run in a "
-                  "Python loop and keep what their backward reads "
-                  "(ROADMAP.md, Decisions in force: No remat)",
-    "no_remat": "the port never rematerializes, so there is no remat to "
-                "turn off (ROADMAP.md, Decisions in force: No remat)",
-}
+            "moe_local_dispatch", "moe_cf1", "remat_dots", "no_remat")
 
 
 def apply_variant(cfg, name: str):
     """``cfg`` under one config variant (the pex_* variants change the
     spec, not the config)."""
-    if name in REFUSED:
-        raise ValueError(f"variant {name!r} is refused: {REFUSED[name]}")
     if name in ("baseline", "pex_off", "pex_gram", "pex_factorized"):
         return cfg
     if name in ("moe_local_dispatch", "moe_cf1"):
@@ -56,8 +45,14 @@ def apply_variant(cfg, name: str):
             else {"capacity_factor": 1.0}
         return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                                 **kw))
-    raise ValueError(f"unknown variant {name!r}; known: "
-                     f"{VARIANTS + tuple(REFUSED)}")
+    if name == "remat_dots":
+        if not hasattr(cfg, "remat_policy"):
+            raise ValueError(f"variant {name!r} needs a config with a "
+                             f"remat_policy (the transformer family)")
+        return dataclasses.replace(cfg, remat_policy="dots")
+    if name == "no_remat":
+        return dataclasses.replace(cfg, remat=False)
+    raise ValueError(f"unknown variant {name!r}; known: {VARIANTS}")
 
 
 def spec_for(names):

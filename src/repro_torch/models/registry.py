@@ -95,9 +95,8 @@ def make_forward_tokens(spec: ArchSpec, cfg):
 
 def serving_config(spec: ArchSpec, cfg, shape: ShapeSpec):
     """``cfg`` with the cache lengths of a serve shape: ``max_cache_len``
-    (and seamless's ``max_src_len``) = ``shape.seq``. The port has no
-    remat to turn off."""
-    kw = {"max_cache_len": shape.seq}
+    (and seamless's ``max_src_len``) = ``shape.seq``, and remat off."""
+    kw = {"max_cache_len": shape.seq, "remat": False}
     if spec.family == "seamless":
         kw["max_src_len"] = shape.seq
     return dataclasses.replace(cfg, **kw)

@@ -1,8 +1,10 @@
 """RWKV6-3B ("Finch"): attention-free LM; blocks of time mix + channel mix.
 
-Port of ``src/repro/models/rwkv6.py``. The reference stacks the blocks for ``lax.scan`` with ``jax.checkpoint``; the port keeps
-one parameter dict per block in ``params["blocks"]`` (a list) and runs them
-in a Python loop without layer recompute. Each block's WKV recurrence
+Port of ``src/repro/models/rwkv6.py``. The reference stacks the blocks for
+``lax.scan``; the port keeps one parameter dict per block in
+``params["blocks"]`` (a list) and runs them in a Python loop, each block
+checkpointed in training as the reference's are (``remat``, on by default:
+``core.taps.checkpoint``, policy ``"full"``). Each block's WKV recurrence
 keeps one state per ``nn.rwkv.CHUNK`` steps for its backward (see
 ``nn.rwkv``).
 
@@ -36,6 +38,7 @@ class Rwkv6Config:
     vocab: int = 65536
     d_ff: int = 8960
     dtype: str = "float32"
+    remat: bool = True
     max_cache_len: int = 0   # unused: O(1) state
 
     @property
@@ -86,13 +89,23 @@ def _block(p, x, tap: Tap, cfg: Rwkv6Config, state=None):
 
 def _run(params, ids, tap: Tap, cfg: Rwkv6Config, states=None):
     """Embedding, the blocks (each from its state when ``states`` is
-    given), the final norm and the head → logits."""
+    given; checkpointed under ``cfg.remat`` when not), the final norm and
+    the head → logits."""
     x = embed(params["embed"], ids, tap=tap, cfg=cfg.vocab_cfg)
     x = layernorm(params["ln_in"], x, tap=tap)
+    block = _block
+    if cfg.remat and states is None:
+        block = taps.checkpoint(_block, tap=tap)
     for i, p in enumerate(params["blocks"]):
-        x = _block(p, x, tap, cfg, None if states is None else states[i])
+        x = block(p, x, tap, cfg, None if states is None else states[i])
     x = layernorm(params["ln_f"], x, tap=tap)
     return lm_head(params["head"], x, tap=tap, cfg=cfg.vocab_cfg)
+
+
+def remat_blocks(cfg: Rwkv6Config) -> int:
+    """Blocks ``_run`` checkpoints in a training step (no states), each
+    re-run once in every backward: all of them."""
+    return cfg.n_layers if cfg.remat else 0
 
 
 def loss_fn(params, batch, tap: Tap, *, cfg: Rwkv6Config):

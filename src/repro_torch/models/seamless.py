@@ -7,7 +7,11 @@ non-causal with a plain gelu MLP; each decoder block runs causal
 self-attention, then cross-attention on the encoder's memory, then the
 MLP, with teacher forcing. The reference stacks ``enc`` and ``dec`` for
 ``lax.scan``; the port keeps a list of per-block dicts for each and runs
-them in Python loops without layer recompute.
+them in Python loops. As in the reference, each encoder and decoder block
+is checkpointed while the tap is live (``remat``, on by default:
+``core.taps.checkpoint``, policy ``"full"``); the decoder block takes the
+encoder's memory as an argument, and its gradient reaches the encoder
+through the forward's graph.
 
 At token granularity the encoder's taps see source-frame rows, and frame
 t's stat lands at target token t, as in the reference (its batches have
@@ -50,6 +54,7 @@ class SeamlessConfig:
     d_ff: int = 4096
     vocab: int = 256206
     dtype: str = "float32"
+    remat: bool = True
     max_cache_len: int = 0                # set by serving_config
     max_src_len: int = 0
 
@@ -109,14 +114,29 @@ def init(cfg: SeamlessConfig, generator: torch.Generator, device=None):
     }
 
 
+def _remat(fn, tap: Tap, cfg: SeamlessConfig):
+    """``fn`` checkpointed under ``cfg.remat`` while the tap is live."""
+    return taps.checkpoint(fn, tap=tap) if cfg.remat and tap.live else fn
+
+
+def remat_blocks(cfg: SeamlessConfig) -> int:
+    """Blocks a training step checkpoints (its tap live), each re-run once
+    in every backward: every encoder and decoder block."""
+    return cfg.n_enc + cfg.n_dec if cfg.remat else 0
+
+
+def _enc_block(p, x, tap: Tap, cfg: SeamlessConfig):
+    h = layernorm(p["ln1"], x, tap=tap)
+    x = x + attention(p["attn"], h, tap=tap, cfg=cfg.attn_cfg(causal=False))
+    h = layernorm(p["ln2"], x, tap=tap)
+    return x + mlp(p["mlp"], h, tap=tap, cfg=cfg.mlp_cfg)
+
+
 def _encode(params, frames, tap: Tap, cfg: SeamlessConfig):
     x = frames
+    block = _remat(_enc_block, tap, cfg)
     for p in params["enc"]:
-        h = layernorm(p["ln1"], x, tap=tap)
-        x = x + attention(p["attn"], h, tap=tap,
-                          cfg=cfg.attn_cfg(causal=False))
-        h = layernorm(p["ln2"], x, tap=tap)
-        x = x + mlp(p["mlp"], h, tap=tap, cfg=cfg.mlp_cfg)
+        x = block(p, x, tap, cfg)
     return layernorm(params["ln_enc"], x, tap=tap)
 
 
@@ -137,8 +157,9 @@ def loss_fn(params, batch, tap: Tap, *, cfg: SeamlessConfig):
     aux)."""
     memory = _encode(params, batch["src_frames"], tap, cfg)
     x = embed(params["embed"], batch["ids"], tap=tap, cfg=cfg.vocab_cfg)
+    block = _remat(_dec_block, tap, cfg)
     for p in params["dec"]:
-        x = _dec_block(p, x, memory, tap, cfg)
+        x = block(p, x, memory, tap, cfg)
     x = layernorm(params["ln_dec"], x, tap=tap)
     logits = lm_head(params["head"], x, tap=tap, cfg=cfg.vocab_cfg)
     loss_vec = per_example_xent(logits, batch["labels"],

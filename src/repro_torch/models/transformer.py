@@ -3,11 +3,13 @@ llama3.2-1b, qwen2-7b, qwen2-vl-7b, minitron-4b, gemma2-9b, phi3.5-moe and
 deepseek-v2-236b.
 
 Port of ``src/repro/models/transformer.py``. The reference stacks the
-homogeneous layers and runs them under ``lax.scan`` with
-``jax.checkpoint``; the port keeps one parameter dict per layer in
-``params["blocks"]`` (a list) and runs them in a Python loop without
-recompute — at llama3.2-1b width, B=8 and S=512 the saved activations fit
-an 80 GB card with room to spare. Heterogeneous prefix layers
+homogeneous layers and runs them under ``lax.scan``; the port keeps one
+parameter dict per layer in ``params["blocks"]`` (a list) and runs them in
+a Python loop (the reference's ``stack_mode="unroll"``). Training
+rematerializes each block as the reference does (``remat``, on by
+default; ``remat_policy`` ``"full"`` or ``"dots"``, ``core.taps.checkpoint``):
+the prefix layers are not checkpointed, and a run through caches never is.
+Heterogeneous prefix layers
 (deepseek's first dense layer) sit in ``params["prefix"]``, a list as in
 the reference, and run before the blocks. ``interop`` converts between the
 reference's stacked layout and this one.
@@ -74,6 +76,10 @@ class LMConfig:
     lora: Optional[lora_mod.LoraCfg] = None  # LoRA-fy the linear sites:
                                           # frozen bases + tapped factors
     dtype: str = "float32"
+    remat: bool = True
+    remat_policy: str = "full"            # full | dots  (dots: keep the
+                                          # 2-D-weight products, recompute
+                                          # the rest)
     max_cache_len: int = 0                # set by serving_config
 
     @property
@@ -193,19 +199,31 @@ def _positions(batch, cfg: LMConfig):
 def _run(params, x, tap: Tap, cfg: LMConfig, *, positions, caches=None,
          cache_index=None):
     """The prefix layers, then the blocks (gemma2's even blocks local),
-    each with its cache when ``caches`` is given."""
+    each with its cache when ``caches`` is given; without caches each
+    block is checkpointed under ``cfg.remat``."""
     for i, p in enumerate(params.get("prefix", [])):
         c = None if caches is None else caches["prefix"][i]
         x = _block(p, x, tap, cfg, positions=positions, dense_mlp=True,
                    cache=c, cache_index=cache_index)
+
+    def block(p, x, tap, local, c):
+        return _block(p, x, tap, cfg, positions=positions, local_flag=local,
+                      cache=c, cache_index=cache_index)
+    if cfg.remat and caches is None:
+        block = taps.checkpoint(block, tap=tap, policy=cfg.remat_policy)
     for i, p in enumerate(params["blocks"]):
         local = (i % 2 == 0) if cfg.alt_local_global else None
         c = None if caches is None else caches["blocks"][i]
-        x = _block(p, x, tap, cfg, positions=positions, local_flag=local,
-                   cache=c, cache_index=cache_index)
+        x = block(p, x, tap, local, c)
     x = rmsnorm(params["ln_f"], x, tap=tap, eps=cfg.rms_eps,
                 plus_one=cfg.rms_plus_one)
     return lm_head(params["head"], x, tap=tap, cfg=cfg.vocab_cfg)
+
+
+def remat_blocks(cfg: LMConfig) -> int:
+    """Blocks ``_run`` checkpoints in a training step (no caches), each
+    re-run once in every backward: every block after the dense prefix."""
+    return cfg.n_layers - cfg.n_dense_prefix if cfg.remat else 0
 
 
 def loss_fn(params, batch, tap: Tap, *, cfg: LMConfig):

@@ -7,7 +7,10 @@ block, then the ``n_tail`` tail blocks. The reference stacks the grouped
 blocks on (G, K) axes and the tail on one; the port keeps
 ``params["blocks"]`` as a list of G lists of K per-block dicts and
 ``params["tail"]`` as a list (absent when there is no tail), and runs them
-in Python loops without layer recompute. Each SSM's recurrence keeps one
+in Python loops, each mamba block of the groups and of the tail
+checkpointed in training as the reference's are (``remat``, on by default:
+``core.taps.checkpoint``, policy ``"full"``; the shared block is not).
+Each SSM's recurrence keeps one
 state per ``nn.ssm.CHUNK`` steps for its backward (see ``nn.ssm``).
 
 Pex scope: the mamba blocks are tapped. The shared block's parameters are
@@ -55,6 +58,7 @@ class Zamba2Config:
     share_every: int = 6
     rms_eps: float = 1e-5
     dtype: str = "float32"
+    remat: bool = True
     max_cache_len: int = 0                # set by serving_config
 
     @property
@@ -138,21 +142,32 @@ def _run(params, ids, tap: Tap, cfg: Zamba2Config, caches=None,
          cache_index=None):
     """Embedding, the groups (each followed by the shared block), the
     tail, the final norm and the head → logits; every block and use of
-    the shared block with its state or cache when ``caches`` is given."""
+    the shared block with its state or cache when ``caches`` is given;
+    without caches each mamba block is checkpointed under ``cfg.remat``."""
     x = embed(params["embed"], ids, tap=tap, cfg=cfg.vocab_cfg)
     x0 = x
+    block = _mamba_block
+    if cfg.remat and caches is None:
+        block = taps.checkpoint(_mamba_block, tap=tap)
     for g, group in enumerate(params["blocks"]):
         for i, p in enumerate(group):
             st = None if caches is None else caches["states"]["blocks"][g][i]
-            x = _mamba_block(p, x, tap, cfg, st)
+            x = block(p, x, tap, cfg, st)
         x = _shared_block(params["shared"], x, x0, cfg,
                           cache=None if caches is None
                           else caches["shared"][g], cache_index=cache_index)
     for i, p in enumerate(params.get("tail", [])):
         st = None if caches is None else caches["states"]["tail"][i]
-        x = _mamba_block(p, x, tap, cfg, st)
+        x = block(p, x, tap, cfg, st)
     x = rmsnorm(params["ln_f"], x, tap=tap, eps=cfg.rms_eps)
     return lm_head(params["head"], x, tap=tap, cfg=cfg.vocab_cfg)
+
+
+def remat_blocks(cfg: Zamba2Config) -> int:
+    """Blocks ``_run`` checkpoints in a training step (no caches), each
+    re-run once in every backward: every mamba block of the groups and
+    the tail, not the shared block."""
+    return cfg.n_groups * cfg.share_every + cfg.n_tail if cfg.remat else 0
 
 
 def loss_fn(params, batch, tap: Tap, *, cfg: Zamba2Config):

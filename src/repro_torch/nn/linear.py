@@ -8,6 +8,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import taps
 from repro_torch.core.taps import Tap
 from repro_torch.nn import lora as _lora
 from repro_torch.nn import param as pm
@@ -29,9 +30,11 @@ def linear(p, x, *, tap: Tap, group: str = "all",
     A site carrying a ``"lora"`` entry (see ``nn.lora``) freezes the base
     weight and bias: they are used detached, through a plain matmul with no
     tap (no gradient, no per-example stat), and the tapped low-rank delta
-    is added on top."""
+    is added on top. The base product is ``taps.matmul``: a checkpointed
+    block under the ``"dots"`` policy keeps it as it keeps the tapped
+    ones."""
     if "lora" in p:
-        z = torch.matmul(x, p["w"].detach())
+        z = taps.matmul(x, p["w"].detach())
         if "b" in p:
             z = z + p["b"].detach()
         return z + _lora.delta(p["lora"], x, tap=tap, group=group,

@@ -7,8 +7,10 @@ traffic, cost, plan invariants) on the CPU at smoke configs.
     ``interop``), the plan's description, the phases present, and the
     contractions' flops by phase — equal in the forward phase and within 1%
     in each backward phase. What is the same by construction is compared:
-    the reference runs without remat (the port has none, ROADMAP.md "No
-    remat"), and its per-example stat contractions (batched over B with
+    both packages without remat, and llama3.2-1b with each package's
+    default remat (``full``: the recompute charged to the backward that
+    demands it, the port's dead tail skipped as the reference's DCE drops
+    it); the reference's per-example stat contractions (batched over B with
     rank-3 operands, the XLA forms of the norms) are left out, where the
     port records a kernel site instead. Bytes are not compared (eager
     against fused, by design); they are pinned on a toy program counted by
@@ -52,6 +54,10 @@ from repro_torch.optim import adamw
 from repro_torch.roofline import constants as hw
 
 PARITY_ARCHS = ("llama3.2-1b", "phi3.5-moe")
+#: (arch, remat in both packages) of the traffic parity cases
+PARITY = {"llama3.2-1b": ("llama3.2-1b", False),
+          "phi3.5-moe": ("phi3.5-moe", False),
+          "llama3.2-1b-remat": ("llama3.2-1b", True)}
 
 
 def _dp(granularity="example"):
@@ -62,8 +68,11 @@ def _dp(granularity="example"):
     return [pex.Clip(1.0), pex.Noise(0.1, g), pex.GNS()]
 
 
-def _setup(arch="llama3.2-1b"):
-    _, _, loss_fn, params, batch = lint_config(arch)
+def _setup(arch="llama3.2-1b", remat=True):
+    spec, cfg, loss_fn, params, batch = lint_config(arch)
+    if not remat:
+        loss_fn = registry.make_loss_fn_v2(
+            spec, dataclasses.replace(cfg, remat=False))
     return loss_fn, params, batch
 
 
@@ -86,13 +95,12 @@ def _is_stat_form(rec) -> bool:
         and len(a.shape) == 3 and len(b.shape) == 3
 
 
-def _reference(arch):
+def _reference(arch, remat=False):
     """The reference's traffic report, its contraction flops by phase
-    (stat forms left out) and its parameter tree, without remat."""
+    (stat forms left out) and its parameter tree, with or without its
+    default remat."""
     aspec = jreg.get(arch)
-    cfg = aspec.smoke()
-    if hasattr(cfg, "remat"):
-        cfg = dataclasses.replace(cfg, remat=False)
+    cfg = dataclasses.replace(aspec.smoke(), remat=remat)
     mod = jreg.family_module(aspec)
     params = jax.eval_shape(lambda: unbox(mod.init(jax.random.PRNGKey(0),
                                                    cfg)))
@@ -123,11 +131,11 @@ def _reference(arch):
     return rep, flops, params
 
 
-@pytest.fixture(scope="module", params=PARITY_ARCHS)
+@pytest.fixture(scope="module", params=list(PARITY))
 def parity(request):
-    arch = request.param
-    rep, flops, jparams = _reference(arch)
-    loss_fn, params, batch = _setup(arch)
+    arch, remat = PARITY[request.param]
+    rep, flops, jparams = _reference(arch, remat)
+    loss_fn, params, batch = _setup(arch, remat)
     return arch, rep, flops, jparams, traffic.check_train_step(
         loss_fn, params, batch, _dp())
 
@@ -429,6 +437,28 @@ def test_committed_baseline_matches_head():
     out = cost_mod.check_baseline(costs, baseline, full_matrix=False)
     assert not out, [f.render() for f in out]
     assert len(baseline) == 40       # ten archs × 2 granularities × 2 plans
+
+
+@pytest.mark.parametrize("granularity", ["example", "token"])
+def test_remat_grows_only_the_activation_backward(granularity):
+    """llama3.2-1b's lint step with its default remat against remat off:
+    every phase but activation-bwd the same bytes, flops and contraction
+    flops, activation-bwd more of each (the recompute of both backwards),
+    so what remat adds to the cost baseline is the recompute alone."""
+    spec, cfg, loss_fn, params, batch = lint_config("llama3.2-1b")
+    off = registry.make_loss_fn_v2(spec, dataclasses.replace(cfg,
+                                                             remat=False))
+    on, no = (traffic.check_train_step(fn, params, batch, _dp(granularity),
+                                       granularity=granularity)
+              for fn in (loss_fn, off))
+    for field in ("phase_bytes", "phase_flops", "phase_contraction_flops"):
+        a, b = dict(getattr(on, field)), dict(getattr(no, field))
+        assert a.keys() == b.keys() == set(traffic.PHASES)
+        for ph in traffic.PHASES:
+            if ph == traffic.PH_ACT:
+                assert a[ph] > b[ph], field
+            else:
+                assert a[ph] == b[ph], (field, ph)
 
 
 def test_plan_static_cost_and_describe():

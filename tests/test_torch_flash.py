@@ -397,17 +397,21 @@ def _count_calls(monkeypatch):
 def test_flash_route_matches_unfused_route(setup, monkeypatch):
     """Same parameters and batch, flash and unfused: the same loss, norms
     and gradients; the flash step goes through ``ops.flash_attention``
-    once per layer, and its one fused backward through
-    ``ops.flash_attention_bwd`` once per layer."""
+    once per layer in the forward and once more in its one fused
+    backward's recompute of each checkpointed block (remat, on by
+    default), and through ``ops.flash_attention_bwd`` once per layer."""
     calls = _count_calls(monkeypatch)
     t = _port_step(setup, [pex.Norms(), pex.Grads()])
     n = setup["cfg"].n_layers
-    assert calls == {"flash_attention": n, "flash_attention_bwd": n}
+    assert setup["cfg"].remat
+    assert calls == {"flash_attention": n * (1 + 1),
+                     "flash_attention_bwd": n}
     unfused_cfg = setup["spec"].smoke()
     assert not unfused_cfg.attn.flash
     u = _port_step(setup, [pex.Norms(), pex.Grads()],
                    loss=registry.make_loss_fn_v2(setup["spec"], unfused_cfg))
-    assert calls == {"flash_attention": n, "flash_attention_bwd": n}
+    assert calls == {"flash_attention": n * (1 + 1),
+                     "flash_attention_bwd": n}
     _rel(t.loss_vec, u.loss_vec.numpy())
     _rel(t.sq_norms, u.sq_norms.numpy())
     for g, w in zip(tree_flatten(t.grads)[0], tree_flatten(u.grads)[0]):

@@ -292,9 +292,13 @@ def test_perf_variants_and_refusals():
     assert perf.apply_variant(cfg, "moe_local_dispatch").moe \
         .dispatch_groups == 16
     assert perf.apply_variant(cfg, "moe_cf1").moe.capacity_factor == 1.0
-    for name in ("remat_dots", "no_remat"):
-        with pytest.raises(ValueError, match="No remat"):
-            perf.apply_variant(cfg, name)
+    assert cfg.remat and cfg.remat_policy == "full"
+    assert perf.apply_variant(cfg, "remat_dots").remat_policy == "dots"
+    assert perf.apply_variant(cfg, "no_remat").remat is False
+    assert perf.apply_variant(registry.get("rwkv6-3b").smoke(),
+                              "no_remat").remat is False
+    with pytest.raises(ValueError, match="remat_policy"):
+        perf.apply_variant(registry.get("rwkv6-3b").smoke(), "remat_dots")
     with pytest.raises(ValueError, match="needs an MoE config"):
         perf.apply_variant(registry.get("llama3.2-1b").smoke(),
                            "moe_local_dispatch")
@@ -309,3 +313,10 @@ def test_perf_variants_and_refusals():
                           cfg=registry.get("llama3.2-1b").smoke(),
                           out_dir=None, verbose=False)
     assert off["flops"] < on["flops"]
+    # the remat variants run: full recomputes every block's products,
+    # dots keeps them and recomputes the attention's
+    kw = dict(cfg=registry.get("llama3.2-1b").smoke(), out_dir=None,
+              verbose=False)
+    dots = perf.run_variant("llama3.2-1b", "smoke_train", "remat_dots", **kw)
+    plain = perf.run_variant("llama3.2-1b", "smoke_train", "no_remat", **kw)
+    assert plain["flops"] < dots["flops"] < on["flops"]

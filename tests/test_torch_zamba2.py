@@ -293,7 +293,8 @@ def test_scope_matches_reference(st, monkeypatch):
     grouped and the tail stack: the 17 leaves the reference's scope filter
     drops; the port's norms equal its own oracle over the rest, and the
     shared block takes no stat: every live dense tap is a mamba block's
-    in_proj or out_proj, or the head."""
+    in_proj or out_proj (in the forward and again in the norms backward's
+    recompute of each checkpointed mamba block), or the head."""
     assert fp.scope_matches_reference(st) == 17
     fp.norms_match_own_oracle(st)
     live = []
@@ -310,9 +311,10 @@ def test_scope_matches_reference(st, monkeypatch):
     cfg = st["cfg"]
     p = st["params"]["blocks"][0][0]["ssm"]
     n_blocks = cfg.n_groups * cfg.share_every + cfg.n_tail
+    assert cfg.remat
     assert sorted(live) == sorted(
         [tuple(p["in_proj"]["w"].shape), tuple(p["out_proj"]["w"].shape)]
-        * n_blocks + [(cfg.d_model, cfg.vocab_cfg.vocab_p)])
+        * n_blocks * (1 + 1) + [(cfg.d_model, cfg.vocab_cfg.vocab_p)])
 
 
 def test_launcher_trains_zamba2(capsys):
