@@ -395,7 +395,23 @@ Phases, each of which fails the script (nonzero exit) if it fails:
               (two microbatches) at full depth on 16×16 and llama3.2-1b on
               2×16×16: each device's parameter and state bytes equal to the
               analytic figures, the peak, ``fits`` and the collective bytes
-              by kind; the phase's seconds (within ``SHARD_PHASE_S``);
+              by kind; and ``launch.probes`` on the sharded record of
+              ``train_4k`` on 16×16 for ``SHARD_PROBES`` with the full
+              record beside the probes: the probes' error against it,
+              ``probe_s`` and ``full_s``, the collective bytes by kind and
+              by mesh axis; (c) on (a)'s ranks and mesh, token granularity
+              and Importance on the sharded parameters (f32, B=4, S=256):
+              llama3.2-1b at full depth with a token ``[Norms]`` step (C:
+              the median token's norm), ``[Clip(C, granularity="token"),
+              Grads]`` and ``[Norms, Importance(2), Grads]``, phi3.5-moe
+              at phase 8's 2 layers with the first two, each against the
+              one-process ``Engine`` at (a)'s tolerances (the importance
+              step with the sharded draw injected; both ranks' draws
+              equal), each rank's launches per pass (``rowsumsq`` as
+              ``token_pass_launches`` in the norms backward, nothing
+              elsewhere; the norm kernels in the importance step's norms
+              backward only), its peak and each step's ms; the phase's
+              seconds (within ``SHARD_PHASE_S``);
               (b) starts before phase 27 and runs on the host, one core a
               cell, beside phases 27-41; phases 40 and 41's subprocesses
               (the ``--full`` and ``--cost`` CLIs and (c)'s dry-run) start
@@ -2744,11 +2760,12 @@ def dp_rank(rank, world, tmp, fn):
 
 
 class PassLaunches:
-    """Counts the gram and direct launches of every backward pass
-    (``plan._grad``), in order, while entered."""
+    """Counts the ``kernels`` launches (default: gram and direct) of every
+    backward pass (``plan._grad``), in order, while entered."""
 
-    def __init__(self):
+    def __init__(self, kernels=NORM_KERNELS):
         self.passes = []
+        self.kernels = kernels
 
     def __enter__(self):
         from repro_torch.core import plan as plan_mod
@@ -2761,7 +2778,7 @@ class PassLaunches:
             gs = self.orig(out, inputs, seed, **kw)
             after = ops.launch_counts()
             self.passes.append({k: after[k] - before[k]
-                                for k in NORM_KERNELS
+                                for k in self.kernels
                                 if after[k] != before[k]})
             return gs
 
@@ -2972,7 +2989,14 @@ SHARD_STEPS = 2
 SHARD_DRYRUN = {False: ("llama3.2-1b", "phi3.5-moe", "deepseek-v2-236b"),
                 True: ("llama3.2-1b",)}
 SHARD_DRYRUN_TIMEOUT_S = 900   # from their start, before phase 27
-SHARD_PHASE_S = 120           # the phase's own budget, asserted
+SHARD_PHASE_S = 180           # the phase's own budget, asserted ((c)
+                              # adds ~45 s of the ranks' host time)
+#: (b)'s probes on the sharded record, with the full record beside them
+SHARD_PROBES = ("llama3.2-1b", "deepseek-v2-236b")
+#: (c): token granularity and Importance on the sharded parameters
+SHARD_IMP_K, SHARD_IMP_SEED = 2, 5
+SHARD_TOKEN = (("llama3.2-1b", SHARD_LAYERS, ("token", "importance")),
+               ("phi3.5-moe", MOE_LAYERS, ("token",)))
 
 
 def sharded_work(rank):
@@ -3086,10 +3110,168 @@ def sharded_work(rank):
                 a, b, rtol=rtol, atol=atol * scale)),
                 float((a - b).abs().max()), scale))
         del w
+    del params, got, local
+    torch.cuda.empty_cache()
     return {"checks": checks, "ms": ms, "launches": launches,
             "param_bytes": local_bytes, "one_process_bytes": one_bytes,
             "sharded_leaves": sharded_leaves, "peak": peak,
             "placements_ok": placements_ok, "clip": clip,
+            "layers": cfg.n_layers,
+            "token": {arch: sharded_token_work(arch, layers, cases, mesh)
+                      for arch, layers, cases in SHARD_TOKEN}}
+
+
+def sharded_token_work(arch, layers, cases, mesh):
+    """Phase 42 (c) on one rank, for one arch of ``SHARD_TOKEN`` (f32,
+    ``SHARD_B``, ``SHARD_S`` on (a)'s mesh): on the sharded parameters
+    first (their peak read alone), a token-granularity ``[Norms]`` step
+    (the threshold C: the median token's norm), ``[Clip(C,
+    granularity="token"), Grads]`` and, for ``"importance"``, ``[Norms,
+    Importance(SHARD_IMP_K), Grads]`` (the generator seeded alike on both
+    ranks), each under the rules, timed and its kernel launches counted
+    per pass; then, one rank at a time, the one-process ``Engine`` on the
+    same parameters (the importance step with the sharded step's indices
+    injected) and this rank's shards against the same slices of its
+    results."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch import pex
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.core import importance as imp
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.nn.param import axes_of, tree_leaves, tree_paths
+
+    spec = registry.get(arch)
+    cfg = spec.full(dtype="float32") if layers is None \
+        else cut(spec, layers, dtype="float32")
+    mod = registry.family_module(spec)
+    shape = ShapeSpec("sharded", "train", SHARD_S, SHARD_B)
+    batch = registry.make_train_batch(spec, cfg, shape, rng_seed=0)
+    loss_fn = registry.make_loss_fn_v2(spec, cfg)
+    extent = dict(zip(SHARD_MESH[1], SHARD_MESH[0]))
+    rules = registry.rules_for(spec, cfg, shape, False,
+                               model_size=extent["model"],
+                               data_size=extent["data"])
+    counted = ("rowsumsq",) + NORM_KERNELS + ("segmented_norm",)
+
+    def init():
+        return mod.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+
+    def consumers(case, c):
+        if case == "norms":
+            return [pex.Norms()]
+        if case == "token":
+            return [pex.Clip(c, granularity="token"), pex.Grads()]
+        return [pex.Norms(), pex.Importance(
+            SHARD_IMP_K, rng=torch.Generator(device="cuda").manual_seed(
+                SHARD_IMP_SEED)), pex.Grads()]
+
+    def engine(case):
+        return pex.Engine(pex.PexSpec(), granularity="token"
+                          if case == "norms" else "example")
+
+    params = init()
+    with shd.use_rules(mesh, rules):
+        dp = shd.distribute_tree(params, axes_of(params))
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got, ms, passes, c = {}, {}, {}, None
+    for case in ("norms",) + tuple(cases):
+        ops.reset_launch_counts()
+        # under the rules, as a user steps (README): the backward's
+        # recompute on autograd's device thread reads the same rules
+        with PassLaunches(counted) as pl, shd.use_rules(mesh, rules):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = engine(case).step(loss_fn, dp, batch, consumers(case, c))
+            torch.cuda.synchronize()
+            ms[case] = (time.perf_counter() - t0) * 1e3
+        total = ops.launch_counts()
+        fwd = {k: total[k] - sum(p.get(k, 0) for p in pl.passes)
+               for k in counted}
+        passes[case] = [{k: v for k, v in fwd.items() if v}] + pl.passes
+        got[case] = r
+        if case == "norms":
+            c = float(torch.sqrt(torch.median(r.sq_norms)))
+    peak = torch.cuda.max_memory_allocated()
+    placements_ok = all(
+        tuple(g.placements) == tuple(p.placements)
+        for case in cases for g, p in zip(tree_leaves(got[case].grads),
+                                          tree_leaves(dp)))
+    tok = got["token"]
+    clipped = float((tok.clip_coef < 1).float().mean())
+    indices = got["importance"].sample.indices.tolist() \
+        if "importance" in got else None
+    del dp, got["norms"]
+    torch.cuda.empty_cache()
+
+    def check(case, kind, leaf, a, b):
+        rtol, atol = DP_TOL[kind]
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max()) if kind == "grads" else 1.0
+        return (case, kind, leaf, bool(torch.allclose(
+            a, b, rtol=rtol, atol=atol * scale)),
+            float((a - b).abs().max()), scale)
+
+    def compare():
+        """The one-process steps and this rank's checks against them."""
+        params = init()
+        out, same = [], None
+        for case in cases:
+            g = got[case]
+            choice = imp._choice
+            if case == "importance":
+                # the sharded step's draw, injected: the comparison starts
+                # from the same sample (whether one process draws it too
+                # is logged)
+                imp._choice = lambda gen, p, k, replace: g.sample.indices
+            try:
+                w = engine(case).step(loss_fn, params, batch,
+                                      consumers(case, c))
+            finally:
+                imp._choice = choice
+            out += [check(case, "loss", "loss_vec", g.loss_vec, w.loss_vec),
+                    check(case, "sq_norms", "sq_norms", g.sq_norms,
+                          w.sq_norms)]
+            if case == "token":
+                out.append(check(case, "sq_norms", "clip_coef", g.clip_coef,
+                                 w.clip_coef))
+            else:
+                out.append(check(case, "sq_norms", "weights", g.weights,
+                                 w.weights))
+                same = imp.sample(torch.Generator(device="cuda").manual_seed(
+                    SHARD_IMP_SEED), w.sq_norms, SHARD_IMP_K
+                ).indices.tolist() == indices
+            for path, a, b in zip(tree_paths(w.grads), tree_leaves(g.grads),
+                                  tree_leaves(w.grads)):
+                # this rank's shard against the same slice of the whole
+                piece = distribute_tensor(b, a.device_mesh, a.placements,
+                                          src_data_rank=None).to_local()
+                out.append(check(case, "grads", "/".join(map(str, path)),
+                                 a.to_local(), piece))
+                del piece
+            del w
+        return out, same
+
+    # one rank at a time: two one-process copies (phi3.5-moe's 2 layers
+    # at full width hold 10.5 GB of f32 parameters and as much gradient)
+    # do not fit the card beside each other
+    import torch.distributed as dist
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            checks, draw_same = compare()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    del got, tok
+    torch.cuda.empty_cache()
+    return {"checks": checks, "ms": ms, "passes": passes, "peak": peak,
+            "want": token_pass_launches(cfg)[1]["rowsumsq"],
+            "placements_ok": placements_ok, "clip": c,
+            "clipped": clipped, "indices": indices, "draw_same": draw_same,
             "layers": cfg.n_layers}
 
 
@@ -3112,8 +3294,15 @@ def start_sharded_dryrun():
             dry.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True, cwd=ROOT, env=env)))
-    log(f"[sharded] the dry-run's {len(dry)} sharded cells started in "
-        f"subprocesses")
+    for arch in SHARD_PROBES:
+        cmd = [sys.executable, "-m", "repro_torch.launch.probes",
+               "--shape", "train_4k", f"--arch={arch}", "--full-record",
+               "--out", os.path.join(tmp.name, "roofline")]
+        dry.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, cwd=ROOT, env=env)))
+    log(f"[sharded] the dry-run's sharded cells and the probes of "
+        f"{SHARD_PROBES} started in {len(dry)} subprocesses")
 
     def stop():
         for _, proc in dry:
@@ -3168,12 +3357,13 @@ def phase_sharded(started=None):
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        cells = {}
-        out_dir = os.path.join(tmp, "dryrun")
-        for name in sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) \
-                else []:
-            with open(os.path.join(out_dir, name)) as f:
-                cells[name[:-5]] = json.load(f)
+        cells, roofs = {}, {}
+        for sub, into in (("dryrun", cells), ("roofline", roofs)):
+            out_dir = os.path.join(tmp, sub)
+            for name in sorted(os.listdir(out_dir)) \
+                    if os.path.isdir(out_dir) else []:
+                with open(os.path.join(out_dir, name)) as f:
+                    into[name[:-5]] = json.load(f)
     worst = {}
     for r, rank in enumerate(ranks):
         for tag, kind, _, _, err, _ in rank["checks"]:
@@ -3207,6 +3397,13 @@ def phase_sharded(started=None):
             raise AssertionError(f"sharded: rank {r} holds "
                                  f"{rank['param_bytes']} parameter bytes, "
                                  f"not fewer than one process's")
+        for arch, t in rank["token"].items():
+            check_sharded_token(r, arch, t)
+    for arch in ranks[0]["token"]:
+        drawn = [rank["token"][arch]["indices"] for rank in ranks]
+        if any(d != drawn[0] for d in drawn):
+            raise AssertionError(f"sharded: {arch}: the ranks drew "
+                                 f"different importance samples {drawn}")
     for cmd, rc, text in outs:
         shown = [c for c in cmd[3:] if not c.startswith(tmp)]
         log(f"[sharded] dryrun ({' '.join(shown)}): exit {rc}")
@@ -3234,6 +3431,25 @@ def phase_sharded(started=None):
     if have != want:
         raise AssertionError(f"sharded: dryrun cells {sorted(have)}, "
                              f"expected {sorted(want)}")
+    for key, d in roofs.items():
+        if d["mode"] != "sharded" or d["mesh"] != "16x16":
+            raise AssertionError(f"sharded: probes {key}: {d['mode']} on "
+                                 f"{d['mesh']}")
+        log(f"[sharded] probes {d['arch']} × {d['shape']} × {d['mesh']} "
+            f"(sharded record): probes {d['probe_s']:.1f} s, full record "
+            f"{d['full_s']:.1f} s; probes' relative error against the full "
+            f"record "
+            f"{ {k: float(f'{v:.3g}') for k, v in d['probe_error'].items()} }"
+            f"; whole-step collective bytes by kind "
+            f"{ {k: float(f'{v:.4g}') for k, v in d['coll_breakdown'].items()} }"
+            f", by mesh axis "
+            f"{ {k: float(f'{v:.4g}') for k, v in d['coll_by_axis'].items()} }"
+            f"; t_compute {d['t_compute'] * 1e3:.2f} ms, t_memory "
+            f"{d['t_memory'] * 1e3:.2f} ms, t_collective "
+            f"{d['t_collective'] * 1e3:.2f} ms ({d['bottleneck']}-bound)")
+    if sorted(d["arch"] for d in roofs.values()) != sorted(SHARD_PROBES):
+        raise AssertionError(f"sharded: probes {sorted(roofs)}, expected "
+                             f"{SHARD_PROBES}")
     seconds = time.perf_counter() - t0
     log(f"[sharded] phase 42 in {seconds:.1f} s (ranks {t_ranks:.1f} s; "
         f"the dry-run's subprocesses {t_wall:.1f} s from their start)")
@@ -3242,6 +3458,49 @@ def phase_sharded(started=None):
                              f"its {SHARD_PHASE_S} s")
     return {"ranks": ranks, "cells": cells, "worst": worst,
             "seconds": seconds}
+
+
+def check_sharded_token(r, arch, t):
+    """Phase 42 (c)'s result ``t`` of rank ``r`` for ``arch``: logged, and
+    failed on an output outside the tolerance, a gradient not laid out as
+    its parameter, or a pass that launched other than the one-process
+    count of ``rowsumsq`` (``token_pass_launches``: one per operand of
+    every per-token stat, in the norms backward only; none in the
+    importance step, whose norms backward runs the norm kernels)."""
+    worst = {}
+    for case, kind, _, _, err, _ in t["checks"]:
+        worst[f"{case}/{kind}"] = max(worst.get(f"{case}/{kind}", 0.0), err)
+    log(f"[sharded] rank {r}: {arch} ({t['layers']} layers, f32, "
+        f"B={SHARD_B}, S={SHARD_S}), steps {list(t['ms'])}: max |Δ| "
+        f"against one process "
+        f"{ {k: float(f'{e:.3g}') for k, e in worst.items()} }; step ms "
+        f"{ {k: round(v, 1) for k, v in t['ms'].items()} }; peak "
+        f"{t['peak'] / 2**30:.2f} GiB; launches per pass (forward, then "
+        f"each backward) {t['passes']} against token_pass_launches' "
+        f"rowsumsq {t['want']} a norms pass; token clip C {t['clip']:.4g} "
+        f"({t['clipped']:.0%} of tokens clipped)"
+        + (f"; importance indices {t['indices']}, one process draws the "
+           f"same from the same seed: {t['draw_same']}"
+           if t["indices"] is not None else ""))
+    bad = [c for c in t["checks"] if not c[3]]
+    if bad:
+        raise AssertionError(f"sharded: rank {r}: {arch}: {len(bad)} "
+                             f"outputs outside the tolerance: {bad[:8]}")
+    if not t["placements_ok"]:
+        raise AssertionError(f"sharded: rank {r}: {arch}'s gradients are "
+                             f"not laid out as their parameters")
+    want = {"norms": [{}, {"rowsumsq": t["want"]}],
+            "token": [{}, {"rowsumsq": t["want"]}, {}]}
+    for case, got in t["passes"].items():
+        if case in want and got != want[case]:
+            raise AssertionError(f"sharded: rank {r}: {arch} {case} "
+                                 f"launches per pass {got}, expected "
+                                 f"{want[case]}")
+        if case == "importance" and not (
+                len(got) == 3 and not got[0] and not got[2]
+                and got[1] and "rowsumsq" not in got[1]):
+            raise AssertionError(f"sharded: rank {r}: {arch} importance "
+                                 f"launches per pass {got}")
 
 
 def clip_trainer(spec, registry, cfg, mesh=None):

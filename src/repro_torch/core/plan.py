@@ -34,10 +34,15 @@ rules)``), ``run_fused`` runs the same passes inside a
 ``dist.sharding.sharded_step``: the batch is laid out by the rules'
 ``batch`` axis, the accumulator is this rank's rows (a plain tensor, a
 partial sum over the mesh dims that do not shard the batch), the per-example
-stats are summed over those dims once per backward (``reduce_acc``), and
-``loss_vec``, the norms and the weights come back whole on every rank;
-every backward is seeded with the rank's piece of the whole weights, and
-each gradient is laid out as its parameter is.
+(or per-token) stats are summed over those dims once per backward
+(``reduce_acc``), and ``loss_vec``, the norms and the weights come back
+whole on every rank; every backward is seeded with the rank's piece of the
+whole weights (the token-weighted one with the (B, S) weights laid out as
+the registered token map), and each gradient is laid out as its parameter
+is. ``Importance`` samples from those whole norms on every rank, so every
+rank draws the same indices only from a generator seeded alike on each;
+the k-row sub-batch is then laid out by the ``batch`` rule, or replicated
+where the batch mesh dims do not divide k.
 
 The mesh path (``dist.pex.plan_step``) hands ``execute`` a ``fused_fn``
 that runs the same fused core on each rank's rows and returns global
@@ -121,7 +126,9 @@ class Importance:
     candidate pool, sample ``k`` examples ∝ ‖∇L_j‖ with ``rng`` (a
     ``torch.Generator`` on the norms' device), continue the plan on the
     gathered sub-batch with unbiased 1/(k·p_j) weights folded into the
-    reweighted backward."""
+    reweighted backward. On DTensor parameters every rank draws its own
+    sample from the whole norms: ``rng`` must be seeded alike on every
+    rank, or the ranks gather different sub-batches."""
     k: int
     smoothing: float = 0.1
     rng: Any = None
@@ -326,21 +333,23 @@ def run_fused(plan: Plan, acc_loss: Callable, params, batch,
 
     ``acc_loss(params, acc, batch) -> (loss_vec, token_map | None, tap,
     aux)``; acc=None runs the model with an inert tap. DTensor parameters
-    run the sharded route (module docstring)."""
+    run the sharded route (module docstring), at either granularity."""
     leaves = tree_flatten(params)[0]
     mesh = next((x.device_mesh for x in leaves if _sh.is_dtensor(x)), None)
     if mesh is None:
         return _fused(plan, acc_loss, params, batch, batch_size, layout,
                       loss_weights)
-    if plan.token_norms or plan.token_weighted:
-        raise NotImplementedError(
-            "token granularity does not take sharded parameters: the "
-            "sharded route keeps the (B, G) per-example accumulator")
-    batch = _sh.distribute_batch(batch, mesh)
-    with _sh.sharded_step(mesh, _sh.batch_mesh_dims(mesh)):
+    active, rules = _sh.current_rules()
+    if batch_size % _sh.axis_size(_sh.spec("batch")[0], mesh):
+        # a batch the batch mesh dims do not divide (an Importance
+        # sub-batch of k rows): GSPMD pads an uneven shard, which DTensor
+        # does not flatten, so the step runs on the batch replicated
+        rules = {**rules, "batch": None}
+    with _sh.use_rules(active, rules), \
+            _sh.sharded_step(mesh, _sh.batch_mesh_dims(mesh)):
         lv, aux, sq, grads, w, tw, cc = _fused(
-            plan, acc_loss, params, batch, batch_size, layout, loss_weights,
-            mesh=mesh)
+            plan, acc_loss, params, _sh.distribute_batch(batch, mesh),
+            batch_size, layout, loss_weights, mesh=mesh)
     return lv.full_tensor(), aux, sq, grads, w, tw, cc
 
 
@@ -351,7 +360,8 @@ def _fused(plan: Plan, acc_loss: Callable, params, batch, batch_size: int,
     leaves, treedef = tree_flatten(params)
 
     def seed_as(lv, w):
-        # the whole weights as the loss vector is laid out
+        # the whole weights as the loss vector (or the token map) is laid
+        # out
         return w if mesh is None else _sh.like(lv, w)
 
     def unflatten(gs):
@@ -424,7 +434,7 @@ def _fused(plan: Plan, acc_loss: Callable, params, batch, batch_size: int,
             # seed is zero)
             tok_seed = tw if w is None else tw * w[:, None]
             grads = unflatten(_grad(tok, leaves, mark_seed(
-                tok_seed.to(tok.dtype), kind="weighted")))
+                seed_as(tok, tok_seed.to(tok.dtype)), kind="weighted")))
         else:
             seed = mark_seed(ones, kind="plain") if w is None \
                 else mark_seed(seed_as(lv, w.to(lv.dtype)), kind="weighted")

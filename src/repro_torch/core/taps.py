@@ -78,7 +78,11 @@ the plan layer sums it over those once per backward. The embedding's
 table gradient and stat are computed on the rank's rows of the batch and
 of the vocabulary (``norms.embedding_shards``); the expert taps' stat on
 the rank's own experts (:func:`_expert_stat_sharded`). The token layout
-does not take sharded operands.
+takes the same route: each per-token stat from the rank's local shards as
+a (B, S) DTensor (``dist.sharding.token_stat``, whose factor rule sums
+each factor of a dense product over the mesh dims that shard its own
+features before the multiply), the expert slots' through the rank's own
+groups and experts (:func:`_expert_token_sharded`).
 """
 from __future__ import annotations
 
@@ -333,6 +337,25 @@ def _rowsumsq(x: torch.Tensor, keep: int, use_kernels: bool) -> torch.Tensor:
     return kops.rowsumsq(x, keep) if use_kernels else _sumsq_tail(x, keep)
 
 
+def _token_stat(ops, use_kernels: bool, elementwise: bool = False):
+    """A per-token stat (B, S) of the operands: Σx² of one, the product
+    ‖h_t‖²·‖z̄_t‖² of two, or ``elementwise`` Σ(h_t ⊙ z̄_t)². DTensor
+    operands go through ``dist.sharding.token_stat`` (each rank's local
+    shards; a (B, S) DTensor)."""
+    if any(_sh.is_dtensor(x) for x in ops):
+        return _sh.token_stat(N._dtensors(*ops),
+                              lambda x: _rowsumsq(x, 2, use_kernels),
+                              elementwise=elementwise)
+    if elementwise:
+        h, zbar = ops
+        return _rowsumsq(h.to(_ACC_DTYPE) * zbar.to(_ACC_DTYPE), 2,
+                         use_kernels)
+    out = _rowsumsq(ops[0], 2, use_kernels)
+    for x in ops[1:]:
+        out = out * _rowsumsq(x, 2, use_kernels)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class TokenLayout:
     """(B, S) accumulator: the paper's §4 factorization at token
@@ -342,12 +365,20 @@ class TokenLayout:
     columns do not apply; every tap folds into the one (B, S) map. Each
     stat is a row-wise Σx² over (B, S) rows: one ``rowsumsq`` launch per
     operand under ``use_kernels`` (two per dense or expert tap, one per
-    bias, scale or embedding tap)."""
+    bias, scale or embedding tap). DTensor operands: each stat from the
+    rank's local shards (:func:`_token_stat`), added as the rank's piece
+    of the accumulator (``dist.sharding.stat_to_acc``)."""
     seq: int
 
     def init(self, batch: int, device) -> torch.Tensor:
         return _sh.shard(torch.zeros((batch, self.seq), dtype=_ACC_DTYPE,
                                      device=device), "batch", None)
+
+    @staticmethod
+    def _add(acc_bar, stat):
+        if _sh.is_dtensor(stat):
+            stat = _sh.stat_to_acc(stat)
+        return acc_bar + stat
 
     def add_dense(self, acc_bar, h, zbar, group, method, use_kernels):
         if h.ndim != 3:
@@ -355,8 +386,7 @@ class TokenLayout:
                 f"TokenLayout dense tap needs (B, S, p) activations, got "
                 f"shape {tuple(h.shape)}; per-token factorization is only "
                 f"exact when each token is one row of the matmul")
-        return acc_bar + (_rowsumsq(h, 2, use_kernels)
-                          * _rowsumsq(zbar, 2, use_kernels))
+        return self._add(acc_bar, _token_stat((h, zbar), use_kernels))
 
     def add_dense_batched(self, acc_bar, h, zbar, group, use_kernels):
         """Batched-weight dense stat at token granularity: token t's
@@ -367,24 +397,23 @@ class TokenLayout:
             raise ValueError(
                 f"TokenLayout dense_batched tap needs (B, S, p) "
                 f"activations, got shape {tuple(h.shape)}")
-        return acc_bar + (_rowsumsq(h, 2, use_kernels)
-                          * _rowsumsq(zbar, 2, use_kernels))
+        return self._add(acc_bar, _token_stat((h, zbar), use_kernels))
 
     def add_bias(self, acc_bar, zbar, group, use_kernels):
         # token t's bias contribution is z̄_t itself
         self._check_rank(zbar, "bias_add")
-        return acc_bar + _rowsumsq(zbar, 2, use_kernels)
+        return self._add(acc_bar, _token_stat((zbar,), use_kernels))
 
     def add_scale(self, acc_bar, h, zbar, group, use_kernels):
         # token t's gain contribution is h_t ⊙ z̄_t
         self._check_rank(zbar, "scale")
-        prod = h.to(_ACC_DTYPE) * zbar.to(_ACC_DTYPE)
-        return acc_bar + _rowsumsq(prod, 2, use_kernels)
+        return self._add(acc_bar, _token_stat((h, zbar), use_kernels,
+                                              elementwise=True))
 
     def add_embedding(self, acc_bar, ids, zbar, group, use_kernels):
         # one-hot row ⇒ ‖h_t‖² = 1 ⇒ the stat is ‖z̄_t‖²
         self._check_rank(zbar, "embedding")
-        return acc_bar + _rowsumsq(zbar, 2, use_kernels)
+        return self._add(acc_bar, _token_stat((zbar,), use_kernels))
 
     def _check_rank(self, zbar, op: str) -> None:
         if zbar.ndim < 3:
@@ -416,22 +445,84 @@ class TokenLayout:
         land in distinct expert matrices, so summing its slot stats into
         the (B, S) map is exact too. ``seg`` is not read."""
         b, s = acc_bar.shape
-        stat = _rowsumsq(x, 2, use_kernels) * _rowsumsq(zbar, 2, use_kernels)
-        valid = (tok >= 0) & (tok < b * s)
-        return self._scatter_slot_stats(acc_bar, stat, tok, valid)
+        return self.add_expert_grouped(acc_bar, x[None], zbar[None],
+                                       seg[None], group, b, use_kernels,
+                                       tok=tok[None])
 
     def add_expert_grouped(self, acc_bar, x, zbar, seg, group, bg,
                            use_kernels, *, tok):
         """Grouped-dispatch variant: x (G,E,C,d), zbar (G,E,C,f), tok
         (G,E,C) GROUP-LOCAL flat token ids (∉ [0, bg·S) ⇒ padding slot);
-        group g covers the flat tokens [g·bg·S, (g+1)·bg·S)."""
-        b, s = acc_bar.shape
-        ng = x.shape[0]
-        tg = bg * s
+        group g covers the flat tokens [g·bg·S, (g+1)·bg·S). DTensor
+        buffers: :func:`_expert_token_sharded`."""
+        if _sh.is_dtensor(x) or _sh.is_dtensor(zbar):
+            return self._add(acc_bar, _expert_token_sharded(
+                self, x, zbar, tok, bg, use_kernels))
         stat = _rowsumsq(x, 3, use_kernels) * _rowsumsq(zbar, 3, use_kernels)
+        return self._scatter_groups(acc_bar, stat, tok, bg)
+
+    def _scatter_groups(self, acc_bar, stat, tok, bg):
+        """(G, E, C) slot stats scattered into ``acc_bar``, the (G·bg, S)
+        map of the groups' rows, through the group-local table ``tok``."""
+        tg = bg * self.seq
         valid = (tok >= 0) & (tok < tg)
-        glob = torch.arange(ng, device=tok.device)[:, None, None] * tg + tok
+        glob = torch.arange(tok.shape[0], device=tok.device)[:, None,
+                                                              None] * tg + tok
         return self._scatter_slot_stats(acc_bar, stat, glob, valid)
+
+
+def _expert_token_sharded(layout: TokenLayout, x, zbar, tok, bg: int,
+                          use_kernels: bool):
+    """The token-granularity expert stat of DTensor buffers x (G,E,C,d),
+    zbar (G,E,C,f) (``tok`` cut alike), as the (G·bg, S) DTensor map:
+    per mesh dim, ``Shard(0)`` where the groups are sharded (the rank's
+    groups are its own rows, so its group-local table is offset to
+    them), ``Partial`` where the experts are (the rank's slots scattered
+    into the whole map's rows), and where a feature dim is sharded each
+    factor summed over it before the product
+    (``dist.sharding.reduce_factor``), the map then whole; a shard of the
+    capacity axis is gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x, zbar, tok = N._dtensors(x, zbar, tok)
+    mesh = x.device_mesh
+    want = [list(t.placements) for t in (x, zbar, tok)]
+    out = []
+    for i in range(mesh.ndim):
+        pl = []
+        for t in (x, zbar):
+            p = t.placements[i]
+            if isinstance(p, Partial) or (isinstance(p, Shard)
+                                          and p.dim % 4 == 2):
+                p = Replicate()
+            pl.append(p if not isinstance(p, Shard) else Shard(p.dim % 4))
+        dims = [p.dim if isinstance(p, Shard) else -1 for p in pl]
+        if 0 in dims or 1 in dims:
+            dim = 0 if 0 in dims else 1
+            pl = [Shard(dim)] * 3
+            out.append(Shard(0) if dim == 0 else Partial())
+        else:
+            pl = [p if d == 3 else Replicate() for p, d in zip(pl, dims)] \
+                + [Replicate()]
+            out.append(Replicate())
+        for w, p in zip(want, pl):
+            w[i] = p
+    xl, zl, tl = [t.redistribute(mesh, w).to_local()
+                  if tuple(w) != tuple(t.placements) else t.to_local()
+                  for t, w in zip((x, zbar, tok), want)]
+    slots = tuple(x.shape[:3])
+    factors = []
+    for t, w in zip((xl, zl), want[:2]):
+        pl = tuple(Shard(p.dim) if isinstance(p, Shard) and p.dim < 3 else
+                   Partial() if isinstance(p, Shard) else Replicate()
+                   for p in w)
+        factors.append(_sh.reduce_factor(_rowsumsq(t, 3, use_kernels),
+                                         mesh, pl, slots)[0])
+    rows = tl.shape[0] * bg
+    local = layout._scatter_groups(
+        torch.zeros((rows, layout.seq), dtype=_ACC_DTYPE, device=tl.device),
+        factors[0] * factors[1], tl, bg)
+    return _sh.wrap_stat(local, mesh, tuple(out), (x.shape[0] * bg,
+                                                   layout.seq))
 
 
 @dataclasses.dataclass
@@ -601,12 +692,17 @@ class _Embed(torch.autograd.Function):
         if placements is not None:
             # a DTensor table: the rank's rows of the batch and of the
             # vocabulary (norms.embedding_shards)
+            # (the token stat, ‖z̄_t‖², reads no vocabulary row)
+            token = isinstance(layout, TokenLayout)
             dtable, stat = N.embedding_shards(
                 ids, zbar.to(dtype), shape, placements,
                 grads=mode.grads and ctx.needs_input_grad[0],
-                norms=mode.norms)
+                norms=mode.norms and not token)
             if stat is not None:
                 dacc = layout.add_example_stat(acc_bar, stat, group)
+            elif mode.norms:
+                dacc = layout.add_embedding(acc_bar, ids, zbar, group,
+                                            use_kernels)
             return dtable, None, dacc, None, None, None, None
         if mode.grads and ctx.needs_input_grad[0]:
             dtable = N.add_rows(
@@ -856,7 +952,13 @@ class Tap:
         return z
 
     def embedding(self, table, ids, *, group: str = "embed") -> torch.Tensor:
+        """``table[ids]``, tapped when the tap is live; a DTensor table is
+        looked up on the rank's rows and vocabulary either way
+        (``norms.embedding_lookup``: DTensor's own index rule, and its
+        backward's ``index_put``, fail on some PyTorch releases)."""
         if not (self.live and self.spec.tap_embeddings):
+            if _sh.is_dtensor(table):
+                return N.embedding_lookup(table, ids)
             return table[ids]
         z, self._acc = _apply(_Embed, table, ids, self._acc, self.mode,
                               self.layout, self.spec.group_index(group),

@@ -71,9 +71,15 @@ def use_rules(mesh, rules: Dict[str, AxisRule]) -> Iterator[None]:
 
 
 def current_rules() -> Tuple[Any, Dict[str, AxisRule]]:
-    """(mesh, rules) of the innermost active context, or (None, {})."""
+    """(mesh, rules) of this thread's innermost active context; in a
+    thread with none, those that were active where the innermost
+    :func:`sharded_step` began (a CUDA backward, and so a checkpointed
+    block's recompute, runs on autograd's device thread and must lay its
+    activations out as the forward did); else (None, {})."""
     if _ACTIVE.stack:
         return _ACTIVE.stack[-1]
+    if _STEP:
+        return _STEP[-1][2]
     return None, {}
 
 
@@ -351,10 +357,11 @@ def sharded_step(mesh, batch_dims: Sequence[int]) -> Iterator[None]:
     batch) and a partial sum over every other mesh dim
     (:func:`stat_to_acc`, :func:`reduce_acc`). Plain tensors meeting
     DTensors inside it are taken as replicated
-    (``implicit_replication``)."""
+    (``implicit_replication``). The rules active here stay the rules of
+    every thread without its own (:func:`current_rules`)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
-    _STEP.append((mesh, tuple(batch_dims)))
+    _STEP.append((mesh, tuple(batch_dims), current_rules()))
     try:
         with implicit_replication():
             yield
@@ -365,7 +372,7 @@ def sharded_step(mesh, batch_dims: Sequence[int]) -> Iterator[None]:
 def current_step():
     """(mesh, batch mesh dims) of the innermost :func:`sharded_step`, or
     None outside one."""
-    return _STEP[-1] if _STEP else None
+    return _STEP[-1][:2] if _STEP else None
 
 
 def batch_mesh_dims(mesh, rules: Optional[Dict[str, AxisRule]] = None):
@@ -444,13 +451,86 @@ def local_operands(ops: Sequence[torch.Tensor], *,
     return local, tuple(out)
 
 
-def wrap_stat(local: torch.Tensor, mesh, placements, rows: int):
-    """A (rows,) DTensor of per-row stats from this rank's ``local``
-    piece (its rows where ``Shard(0)``, its partial sum where
-    ``Partial``)."""
+def wrap_stat(local: torch.Tensor, mesh, placements, rows):
+    """A DTensor of per-row stats from this rank's ``local`` piece (its
+    rows where ``Shard(0)``, its partial sum where ``Partial``): (rows,)
+    for an int ``rows``, else of the whole shape ``rows``."""
     from torch.distributed.tensor import DTensor
+    shape = (rows,) if isinstance(rows, int) else tuple(rows)
     return DTensor.from_local(local, mesh, placements, run_check=False,
-                              shape=(rows,), stride=(1,))
+                              shape=shape, stride=torch.empty(
+                                  shape, device="meta").stride())
+
+
+def reduce_factor(local: torch.Tensor, mesh, placements, shape):
+    """This rank's piece of one factor of a per-token product, summed over
+    the mesh dims where ``placements`` is ``Partial`` (an all-reduce of the
+    small stat map), and its placements after: the product of two partial
+    sums is not the partial sum of the product, so each factor is whole
+    over the dims that shard its own features before the multiply."""
+    from torch.distributed.tensor import Partial, Replicate
+    pl = tuple(Replicate() if isinstance(p, Partial) else p
+               for p in placements)
+    if pl == tuple(placements):
+        return local, pl
+    return wrap_stat(local, mesh, placements, shape).redistribute(
+        mesh, pl).to_local(), pl
+
+
+def token_stat(ops: Sequence[torch.Tensor], rowsumsq, *,
+               elementwise: bool = False):
+    """A per-token stat of DTensor operands (each (B, S, [rows...,]
+    features)) as a (B, S) DTensor, from this rank's local shards:
+    ``rowsumsq(x)`` is the local Σx² over every axis past the first two
+    (the ``rowsumsq`` kernel on a CUDA shard). The factor rule, per mesh
+    dim:
+
+      * the examples sharded by any operand: every operand at its rows
+        (``Shard(0)``);
+      * a feature dim sharded: one operand's Σx² (the bias and embedding
+        taps, z̄) and the elementwise Σ(h ⊙ z̄)² (the scale tap, both
+        brought to the same feature shards) are partial sums over the dim
+        and stay ``Partial``, as the example route's stats do; the dense
+        product ‖h_t‖²·‖z̄_t‖² of two operands has each factor summed over
+        the dims that shard its own features first (:func:`reduce_factor`),
+        so the product is whole there (``Replicate``);
+      * otherwise replicated.
+
+    A ``Partial`` operand and a shard of a row dim past the tokens are
+    reduced (gathered) first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = ops[0].device_mesh
+    shape = tuple(ops[0].shape[:2])
+    want = [list(x.placements) for x in ops]
+    for i in range(mesh.ndim):
+        pl = [_canonical(x.placements[i], x.ndim) for x in ops]
+        feat = [isinstance(p, Shard) and p.dim == x.ndim - 1
+                for p, x in zip(pl, ops)]
+        if any(isinstance(p, Shard) and p.dim == 0 for p in pl):
+            pl = [Shard(0)] * len(ops)
+        elif elementwise and any(feat):
+            pl = [Shard(x.ndim - 1) for x in ops]
+        else:
+            pl = [p if f else Replicate() for p, f in zip(pl, feat)]
+        for w, p in zip(want, pl):
+            w[i] = p
+    local = []
+    for x, w in zip(ops, want):
+        if tuple(w) != tuple(x.placements):
+            x = x.redistribute(mesh, w)
+        local.append(x.to_local())
+    # the stat map's placements of one operand's local Σx²
+    maps = [tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else
+                  Partial() if isinstance(p, Shard) else Replicate()
+                  for p in w) for w in want]
+    if elementwise:
+        prod = local[0].to(torch.float32) * local[1].to(torch.float32)
+        return wrap_stat(rowsumsq(prod), mesh, maps[0], shape)
+    if len(ops) == 1:
+        return wrap_stat(rowsumsq(local[0]), mesh, maps[0], shape)
+    (a, pl), (b, _) = (reduce_factor(rowsumsq(x), mesh, m, shape)
+                       for x, m in zip(local, maps))
+    return wrap_stat(a * b, mesh, pl, shape)
 
 
 def stat_to_acc(stat) -> torch.Tensor:

@@ -1,7 +1,10 @@
 """Perf hill-climb: record tagged probe variants of a cell and
 report the roofline-term deltas against the recorded baseline.
 
-Port of ``src/repro/launch/perf.py`` over ``launch.probes``:
+Port of ``src/repro/launch/perf.py`` over ``launch.probes``, whose mode
+every variant takes: the sharded program on the dry-run's 16×16 mesh by
+default (``--multi-pod``, ``--smoke`` as there), the data-only one with
+``--pex-spmd [--ranks N]``:
 
     PYTHONPATH=src python -m repro_torch.launch.perf \\
         --arch deepseek-v2-236b --shape train_4k --variant moe_local_dispatch
@@ -14,7 +17,8 @@ Variants (composable with +):
   pex_factorized      — paper §4's formula applied mechanically (an upper
                         bound on (B, S, p) inputs)
   moe_local_dispatch  — grouped dispatch: each of 16 groups of examples
-                        scatters its own tokens (``MoeCfg.dispatch_groups``)
+                        scatters its own tokens (``MoeCfg.dispatch_groups``;
+                        on the sharded record, one group a data rank)
   moe_cf1             — MoE capacity factor 1.0
   remat_dots          — ``remat_policy="dots"``: each block keeps its
                         2-D-weight products (the transformer family)
@@ -27,7 +31,9 @@ import dataclasses
 import json
 import os
 
-from repro_torch.launch.probes import run_probes
+from typing import Optional
+
+from repro_torch.launch.probes import add_mode_args, mode_kw, run_probes
 
 VARIANTS = ("baseline", "pex_off", "pex_gram", "pex_factorized",
             "moe_local_dispatch", "moe_cf1", "remat_dots", "no_remat")
@@ -68,18 +74,24 @@ def spec_for(names):
 
 
 def run_variant(arch_id: str, shape_name: str, variant: str, *,
-                ranks: int = 1, cfg=None, out_dir="build/perf",
+                ranks: Optional[int] = None, multi_pod: bool = False,
+                smoke: bool = False, cfg=None, out_dir="build/perf",
                 verbose: bool = True):
     """The roofline of one variant of a cell (``run_probes`` on the
-    varied config and spec)."""
+    varied config and spec): the sharded program on the dry-run's mesh by
+    default, the ``--pex-spmd`` one over ``ranks`` data ranks where
+    given."""
     from repro_torch.models import registry
     names = variant.split("+")
-    cfg = cfg if cfg is not None else registry.get(arch_id).full()
+    aspec = registry.get(arch_id)
+    cfg = cfg if cfg is not None else (aspec.smoke() if smoke
+                                       else aspec.full())
     for n in names:
         cfg = apply_variant(cfg, n)
-    return run_probes(arch_id, shape_name, ranks, cfg=cfg,
-                      spec=spec_for(names), out_dir=out_dir,
-                      tag=variant.replace("+", "_"), verbose=verbose)
+    return run_probes(arch_id, shape_name, ranks, multi_pod=multi_pod,
+                      smoke=smoke, cfg=cfg, spec=spec_for(names),
+                      out_dir=out_dir, tag=variant.replace("+", "_"),
+                      verbose=verbose)
 
 
 def main(argv=None):
@@ -88,12 +100,12 @@ def main(argv=None):
     ap.add_argument("--shape", required=True)
     ap.add_argument("--variant", required=True,
                     help="'+'-joined list, e.g. moe_local_dispatch+pex_gram")
-    ap.add_argument("--ranks", type=int, default=1)
+    add_mode_args(ap)
     ap.add_argument("--out", default="build/perf")
     args = ap.parse_args(argv)
     try:
         d = run_variant(args.arch, args.shape, args.variant,
-                        ranks=args.ranks, out_dir=args.out)
+                        out_dir=args.out, **mode_kw(args))
     except ValueError as e:
         raise SystemExit(f"perf: {e}")
     base_path = os.path.join("build", "roofline",

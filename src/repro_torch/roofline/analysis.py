@@ -26,13 +26,28 @@ from repro_torch.roofline import constants as C
 from repro_torch.roofline import hlo
 
 
+#: ``probe_metrics``' collective keys and the kinds they sum (the
+#: reference's; the port records no collective-permute, so ``coll_cp`` is 0)
+COLL_KEYS = {"coll_ar": hlo.ALL_REDUCE, "coll_ag": "all-gather",
+             "coll_rs": "reduce-scatter", "coll_a2a": "all-to-all",
+             "coll_cp": "collective-permute"}
+
+
 def probe_metrics(trace) -> Dict[str, float]:
-    """The linearly-extrapolatable metrics of one recorded probe."""
+    """The linearly-extrapolatable metrics of one recorded probe: its
+    flops, bytes and collective bytes, in all and by kind."""
     flops, nbytes = hlo.compiled_cost(trace)
     coll = hlo.collective_bytes(trace)
     return {"flops": flops, "bytes": nbytes,
             "coll_bytes": coll.get("total", 0.0),
-            "coll_ar": coll.get(hlo.ALL_REDUCE, 0.0)}
+            **{k: coll.get(kind, 0.0) for k, kind in COLL_KEYS.items()}}
+
+
+def axis_metrics(trace) -> Dict[str, float]:
+    """The collective bytes of one recorded probe by ``kind@axes``, the
+    mesh axes of each collective's group (``roofline.hlo``)."""
+    return {k: v for k, v in hlo.collective_bytes(trace).items()
+            if "@" in k}
 
 
 def n_active_for(arch_id: str, n_total: float, cfg) -> float:

@@ -13,7 +13,8 @@ the CPU, at smoke configs, with no JAX:
     process-group world, no process spawned);
   * ``roofline.hlo`` over a hand-built record and over the four-rank
     record's all-reduces; the roofline arithmetic; the report's tables;
-    the perf variants and the refused remat variants.
+    the perf variants (on the sharded record of the smoke mesh) and the
+    refused remat variants.
 """
 import dataclasses
 import json
@@ -306,17 +307,15 @@ def test_perf_variants_and_refusals():
     assert perf.spec_for(["pex_gram"]).method == "gram"
     assert perf.spec_for(["pex_factorized"]).method == "factorized"
     assert perf.spec_for(["baseline"]).method == "auto"
-    off = perf.run_variant("llama3.2-1b", "smoke_train", "pex_off",
-                           cfg=registry.get("llama3.2-1b").smoke(),
-                           out_dir=None, verbose=False)
-    on = perf.run_variant("llama3.2-1b", "smoke_train", "baseline",
-                          cfg=registry.get("llama3.2-1b").smoke(),
-                          out_dir=None, verbose=False)
+    # the variants on the sharded record (the default) of the smoke mesh
+    kw = dict(cfg=registry.get("llama3.2-1b").smoke(), out_dir=None,
+              verbose=False, smoke=True)
+    off = perf.run_variant("llama3.2-1b", "smoke_train", "pex_off", **kw)
+    on = perf.run_variant("llama3.2-1b", "smoke_train", "baseline", **kw)
+    assert off["mode"] == on["mode"] == "sharded"
     assert off["flops"] < on["flops"]
     # the remat variants run: full recomputes every block's products,
     # dots keeps them and recomputes the attention's
-    kw = dict(cfg=registry.get("llama3.2-1b").smoke(), out_dir=None,
-              verbose=False)
     dots = perf.run_variant("llama3.2-1b", "smoke_train", "remat_dots", **kw)
     plain = perf.run_variant("llama3.2-1b", "smoke_train", "no_remat", **kw)
     assert plain["flops"] < dots["flops"] < on["flops"]

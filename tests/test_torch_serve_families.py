@@ -9,7 +9,9 @@ against its own full forward (checks and tolerances in
 ``tests/torch_serve_parity.py``); then rwkv6's state is O(1) in the
 context, and a two-segment prefill (5 + rest) of rwkv6 and zamba2 gives
 the one-shot logits (``tests/test_train_serve_integration.py``'s
-property, at its 2e-3).
+property, at its 2e-3), and zamba2's gap there is no larger than the
+reference's on the same parameters and tokens (at ``chip_smoke.py``
+phase 33's B=2, S=32 and seed 0, at smoke width).
 """
 import pytest
 import torch
@@ -50,6 +52,22 @@ def test_two_segment_prefill_matches_one_shot(arch):
     rest, _ = st["fwd"](params, {"ids": ids[:, 5:]}, c, 5)
     sp.close(rest[..., :cfg.vocab], whole[:, 5:, :cfg.vocab].numpy(),
              sp.OWN_TOL)
+
+
+def test_zamba2_two_segment_gap_no_larger_than_reference():
+    """Phase 33's two-segment gap on the card (2.537e-4, f32, 9 layers at
+    full width) is not the port's own: at smoke width on the same inputs
+    its gap is within the reference's."""
+    from repro.configs.common import ShapeSpec as JShape
+    b, s = 2, 32
+    spec, jspec = registry.get("zamba2-7b"), sp.jreg.get("zamba2-7b")
+    cfg = registry.serving_config(spec, spec.smoke(),
+                                  ShapeSpec("t", "decode", s, b))
+    jcfg = sp.jreg.serving_config(jspec, jspec.smoke(),
+                                  JShape("t", "decode", s, b))
+    port, ref = sp.two_segment_gaps("zamba2-7b", cfg, jcfg, b, s)
+    assert 0 < ref < sp.OWN_TOL
+    assert port <= ref, (port, ref)
 
 
 def test_rwkv_state_is_o1():

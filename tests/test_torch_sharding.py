@@ -21,6 +21,12 @@ reference's.
   loss, norms and gradients against the reference's unsharded jitted step
   on the same numpy inputs at 1e-4 relative (f32), each gradient in its
   parameter's placements.
+- Token granularity and Importance: ``[Clip(1.0, granularity="token"),
+  Grads]`` of both archs (the (B, S) map and the token-weighted
+  gradients), a token ``Engine``'s ``[Norms]``, and llama3.2-1b's
+  ``[Norms, Importance(3), Grads]`` with the reference's indices injected
+  (3 rows over the 2-way data axis: the sub-batch replicated), each against
+  the reference's unsharded jitted step.
 - Noise and AdamW: a sharded ``[Clip, Noise]`` step adds the unsharded
   step's noise (the whole draw's shard), and AdamW on DTensor parameters
   updates them as it updates the plain ones.
@@ -31,13 +37,18 @@ reference's.
   records llama3.2-1b's train, prefill and decode cells and zamba2's
   train cell, each train cell's per-device parameter and state bytes
   equal to the analytic figures.
+- Probes and perf: ``launch.probes``' sharded default on llama3.2-1b's
+  smoke_train cell extrapolates to the 4-layer full sharded record in
+  flops, bytes and each collective's bytes (1e-6 relative), reads the
+  peak from the dry-run's 4x4 cell and carries the reference's keys;
+  ``launch.perf``'s ``no_remat`` runs on the sharded record.
 - Refusals: ``Engine(mesh=)`` (``dist.pex``) and the selfcheck's checks
   refuse a model axis of extent 2, as the reference's do.
 
-The ranks and the dry-run (``python -m repro_torch.launch.dryrun
---smoke``, in a process of its own) start when the module does
-(``_group``) and run while the other tests run in this process; neither
-imports JAX.
+The ranks and the dry-run (``launch.dryrun``'s smoke cells, then the
+probes and the perf variant, in a process of their own) start when the
+module does (``_group``) and run while the other tests run in this
+process; neither imports JAX.
 """
 import dataclasses
 import json
@@ -45,6 +56,7 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -66,7 +78,12 @@ MESH = ((2, 2), ("data", "model"))
 STEP_RTOL = 1e-4
 STEPS = {"llama3.2-1b": None, "phi3.5-moe": 2}   # dispatch groups
 CONSUMERS = {"norms_grads": lambda: [pex.Norms(), pex.Grads()],
-             "clip": lambda: [pex.Norms(), pex.Clip(1.0), pex.Grads()]}
+             "clip": lambda: [pex.Norms(), pex.Clip(1.0), pex.Grads()],
+             "token_clip": lambda: [pex.Clip(1.0, granularity="token"),
+                                    pex.Grads()]}
+#: the Importance case (llama3.2-1b): k rows the 2-way data axis does not
+#: divide, drawn with the reference's key
+IMP_K, IMP_KEY = 3, 7
 
 
 def _edit(groups):
@@ -81,6 +98,30 @@ def _edit(groups):
 def _rules(spec, cfg):
     return registry.rules_for(spec, cfg, ShapeSpec("t", "train", S, B),
                               False, model_size=2, data_size=2)
+
+
+#: the dry-run's subprocess: its smoke cells of llama3.2-1b and zamba2-7b
+#: on (4, 4); then, on the sharded record of llama3.2-1b's smoke_train
+#: cell, ``launch.probes`` at the smoke depth (the peak read from the
+#: dry-run's 4x4 cell) and at 4 layers with the full record beside it,
+#: and ``launch.perf``'s ``no_remat`` at 4 layers
+PROBE_LAYERS = 4
+DRY_SCRIPT = f"""
+import dataclasses, sys
+from repro_torch.launch import dryrun, perf, probes
+from repro_torch.models import registry
+dryrun.main(["--smoke", "--arch", "llama3.2-1b", "--arch", "zamba2-7b",
+             "--out", sys.argv[1]])
+probes.main(["--smoke", "--arch", "llama3.2-1b", "--shape", "smoke_train",
+             "--tag", "cell", "--out", sys.argv[2], "--dryrun-dir",
+             sys.argv[1]])
+cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke(),
+                          n_layers={PROBE_LAYERS})
+probes.run_probes("llama3.2-1b", "smoke_train", smoke=True, cfg=cfg,
+                  full_record=True, out_dir=sys.argv[2])
+perf.run_variant("llama3.2-1b", "smoke_train", "no_remat", smoke=True,
+                 cfg=cfg, out_dir=sys.argv[2])
+"""
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +164,8 @@ def sharded_ranks(rank, world, path):
         if arch == "llama3.2-1b":
             out["noise_adamw"] = _noise_and_adamw(mesh, spec, cfg, params,
                                                   axes, batch, loss)
+            out["token_norms"], out["importance"] = _token_and_importance(
+                mesh, spec, cfg, params, axes, batch, loss, case["imp"])
     # restore onto Shard placements, and save a sharded tree
     spec = registry.get("llama3.2-1b")
     cfg = spec.smoke()
@@ -197,6 +240,67 @@ def _noise_and_adamw(mesh, spec, cfg, params, axes, batch, loss):
     return {"noise": noise, "adamw": update}
 
 
+def _token_and_importance(mesh, spec, cfg, params, axes, batch, loss,
+                          indices_path):
+    """A token-granularity ``Engine`` ``[Norms]`` step on the DTensor
+    parameters (its (B, S) map), and ``[Norms, Importance(IMP_K),
+    Grads]`` with the reference's indices injected at the draw site (the
+    parent writes them to ``indices_path`` once its reference step has
+    drawn them)."""
+    from repro_torch.core import importance as timp
+    with shd.use_rules(mesh, _rules(spec, cfg)):
+        dp = shd.distribute_tree(params, axes)
+        tok = pex.Engine(granularity="token").step(loss, dp, batch,
+                                                   [pex.Norms()])
+        for _ in range(600):
+            if os.path.exists(indices_path):
+                break
+            time.sleep(0.5)
+        idx = torch.from_numpy(np.load(indices_path))
+        choice = timp._choice
+        timp._choice = lambda gen, p, k, replace: idx
+        try:
+            r = pex.Engine().step(loss, dp, batch, [
+                pex.Norms(), pex.Importance(IMP_K, rng=torch.Generator()),
+                pex.Grads()])
+        finally:
+            timp._choice = choice
+    full = pm.tree_unflatten(pm.tree_flatten(r.grads)[1],
+                             [g.full_tensor() for g in
+                              pm.tree_leaves(r.grads)])
+    return tok.sq_norms.numpy(), {
+        "indices": r.sample.indices.numpy(), "loss_vec": r.loss_vec.numpy(),
+        "sq_norms": r.sq_norms.numpy(),
+        "sample_weights": r.sample.weights.numpy(),
+        "weights": r.weights.numpy(), "grads": tdp.np_tree(full),
+        "placements_ok": all(tuple(g.placements) == tuple(p.placements)
+                             for g, p in zip(pm.tree_leaves(r.grads),
+                                             pm.tree_leaves(dp)))}
+
+
+def _ref_importance(steps, path):
+    """The reference's unsharded jitted ``[Norms, Importance(IMP_K),
+    Grads]`` step of llama3.2-1b on the ranks' inputs; its indices written
+    to ``path`` for the ranks."""
+    import jax
+    import jax.numpy as jnp
+    from repro import pex as jpex
+    from repro.models import registry as jreg
+    jspec = jreg.get("llama3.2-1b")
+    jcfg = jspec.smoke()
+    case = steps["llama3.2-1b"]
+    jparams = jax.tree_util.tree_map(jnp.asarray, case["params"])
+    jbatch = {k: jnp.asarray(v) for k, v in case["batch"].items()}
+    jloss = jreg.make_loss_fn_v2(jspec, jcfg)
+    eng = jpex.Engine(jpex.PexSpec())
+    cons = [jpex.Norms(), jpex.Importance(IMP_K, rng=jax.random.PRNGKey(
+        IMP_KEY)), jpex.Grads()]
+    j = jax.jit(lambda p, b: eng.step(jloss, p, b, cons))(jparams, jbatch)
+    np.save(path + ".tmp.npy", np.asarray(j.sample.indices))
+    os.replace(path + ".tmp.npy", path)
+    return j
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _group(tmp_path_factory):
     """The port's smoke parameters (seed 0) and batches (numpy seed 3) of
@@ -220,26 +324,29 @@ def _group(tmp_path_factory):
     CheckpointManager(str(tmp / "ckpt")).save(0, like, block=True)
     torch.save([x.clone() for x in pm.tree_leaves(like)], tmp / "saved.pt")
     case = {"steps": steps, "ckpt": str(tmp / "ckpt"),
-            "ckpt2": str(tmp / "ckpt2"), "saved": str(tmp / "saved.pt")}
+            "ckpt2": str(tmp / "ckpt2"), "saved": str(tmp / "saved.pt"),
+            "imp": str(tmp / "indices.npy")}
     with open(tmp / "case.pkl", "wb") as f:
         pickle.dump(case, f)
     wait = tdp.start(tmp, 4, sharded_ranks, str(tmp / "case.pkl"))
-    # the dry-run's smoke cells, in a process of their own meanwhile
+    # the dry-run's smoke cells, then the sharded probes and a perf
+    # variant on the smoke mesh, in a process of their own meanwhile
     dry = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--smoke",
-         "--arch", "llama3.2-1b", "--arch", "zamba2-7b", "--out",
-         str(tmp / "dryrun")], stdout=subprocess.PIPE,
+        [sys.executable, "-c", DRY_SCRIPT, str(tmp / "dryrun"),
+         str(tmp / "roofline")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True,
         env=dict(os.environ, PYTHONPATH=SRC))
-    got = {}
+    got = {"imp_ref": _ref_importance(steps, case["imp"])}
 
     def results():
-        if not got:
+        if "ranks" not in got:
             got["ranks"] = wait()
             got["dryrun"] = (dry.wait(timeout=300), dry.stdout.read(),
                              str(tmp / "dryrun"))
         return got["ranks"], steps, like, case, got["dryrun"]
     results.steps = steps       # what the ranks run on, without waiting
+    results.imp_ref = got["imp_ref"]
+    results.roofline = str(tmp / "roofline")
     yield results
     results()
 
@@ -390,7 +497,9 @@ def _refs(_group):
         jloss = jreg.make_loss_fn_v2(jspec, jcfg)
         for name, jcons in {
                 "norms_grads": [jpex.Norms(), jpex.Grads()],
-                "clip": [jpex.Norms(), jpex.Clip(1.0), jpex.Grads()]}.items():
+                "clip": [jpex.Norms(), jpex.Clip(1.0), jpex.Grads()],
+                "token_clip": [jpex.Clip(1.0, granularity="token"),
+                               jpex.Grads()]}.items():
             eng = jpex.Engine(jpex.PexSpec())
             out[arch, name] = jax.jit(
                 lambda p, b: eng.step(jloss, p, b, jcons))(jparams, jbatch)
@@ -413,6 +522,65 @@ def test_sharded_step_matches_reference_unsharded(_group, _refs, arch,
         np.testing.assert_array_equal(r["steps"][arch, cons]["sq_norms"],
                                       got["sq_norms"])
     assert all(r["placements_ok"] for r in ranks)
+
+
+def test_sharded_token_granularity_no_longer_raises(_group, _refs):
+    """``Engine(granularity="token")`` on DTensor parameters steps (the
+    port refused it until the token accumulator took sharded operands):
+    its (B, S) map is the reference's."""
+    from torch_family_parity import close
+    for r in _group()[0]:
+        assert r["token_norms"].shape == (B, S)
+        close(torch.from_numpy(r["token_norms"]),
+              _refs["llama3.2-1b", "token_clip"].sq_norms, STEP_RTOL)
+
+
+def test_sharded_importance_matches_reference_unsharded(_group):
+    """``[Norms, Importance(3), Grads]`` on DTensor parameters with the
+    reference's indices injected: 3 sampled rows do not split over the
+    2-way data axis, so the sub-batch runs replicated; the loss vector,
+    the pool's norms, the weights and the gradients are the reference's
+    unsharded jitted step's."""
+    from torch_family_parity import close, close_trees
+    j = _group.imp_ref
+    ranks = _group()[0]
+    for r in ranks:
+        got = r["importance"]
+        np.testing.assert_array_equal(got["indices"],
+                                      np.asarray(j.sample.indices))
+        for key, want in (("loss_vec", j.loss_vec), ("sq_norms", j.sq_norms),
+                          ("sample_weights", j.sample.weights),
+                          ("weights", j.weights)):
+            close(torch.from_numpy(got[key]), want, STEP_RTOL)
+        close_trees(interop.params_from_numpy(got["grads"], device="cpu"),
+                    j.grads, STEP_RTOL)
+        assert got["placements_ok"]
+
+
+def test_sharded_step_rules_reach_other_threads():
+    """A CUDA backward (and a checkpointed block's recompute in it) runs
+    on autograd's device thread: inside a ``sharded_step`` a thread with
+    no rules of its own reads the ones active where the step began, and
+    the step's own (mesh, batch dims) are unchanged."""
+    import threading
+    seen = {}
+
+    def read():
+        seen["rules"] = shd.current_rules()
+    rules = {"batch": "data", "heads": "model"}
+    with shd.use_rules("mesh", rules), shd.sharded_step("mesh", (0,)):
+        t = threading.Thread(target=read)
+        t.start()
+        t.join(timeout=10)
+        assert shd.current_step() == ("mesh", (0,))
+    assert not t.is_alive()
+    assert seen["rules"] == ("mesh", rules)
+    with shd.sharded_step("mesh", (0,)):       # outside any rules
+        t = threading.Thread(target=read)
+        t.start()
+        t.join(timeout=10)
+    assert seen["rules"] == (None, {})
+    assert shd.current_rules() == (None, {})
 
 
 def test_sharded_noise_and_adamw_match_unsharded(_group):
@@ -476,3 +644,63 @@ def test_dryrun_sharded_smoke_cells(_group, arch, shape):
         # the collectives pass: the norms and losses summed over the model
         # axis, every gradient leaf reached by the other data ranks' rows
         assert res.collective_findings == []
+
+
+def _roofline(_group, name):
+    *_, (rc, log, _) = _group()
+    assert rc == 0, log[-3000:]
+    with open(os.path.join(_group.roofline, name + ".json")) as f:
+        return json.load(f)
+
+
+def test_sharded_probes_match_the_full_sharded_record(_group):
+    """``launch.probes``' default: every probe the sharded program on the
+    smoke mesh; its 1- and 2-layer extrapolation equals the 4-layer full
+    sharded record in flops, bytes and every collective's bytes, by kind
+    and by mesh axis, and the roofline is the record's over 16 devices."""
+    from repro_torch.roofline.analysis import COLL_KEYS
+    d = _roofline(_group, "llama3.2-1b__smoke_train")
+    assert d["mode"] == "sharded" and d["mesh"] == "4x4" and d["chips"] == 16
+    full = d["full_record"]
+    assert set(full) == set(d["per_rank"])
+    for k, v in full.items():
+        assert d["per_rank"][k] == pytest.approx(v, rel=1e-6), k
+    for k in ("coll_ar", "coll_ag", "coll_rs"):
+        assert full[k] > 0, k
+    assert full["all-reduce@model"] > 0
+    assert d["flops"] == 16 * d["per_rank"]["flops"]
+    assert d["coll_breakdown"] == {k: 16 * d["per_rank"][k]
+                                   for k in COLL_KEYS}
+    assert d["coll_by_axis"] == {k: 16 * v for k, v in d["per_rank"].items()
+                                 if "@" in k}
+    assert d["probe_s"] > 0 and d["full_s"] > 0
+
+
+def test_sharded_probes_read_the_dry_run_cell_and_the_reference_keys(
+        _group):
+    """Without a full record the peak and the parameter count are the
+    dry-run's sharded cell's; ``probe_metrics``' keys are the
+    reference's."""
+    import types
+
+    from repro.roofline.analysis import probe_metrics as ref_metrics
+    d = _roofline(_group, "llama3.2-1b__smoke_train__cell")
+    *_, (_, _, out) = _group()
+    with open(os.path.join(out, "llama3.2-1b__smoke_train__4x4.json")) as f:
+        cell = json.load(f)
+    assert d["peak_gb_per_dev"] == cell["peak_bytes_per_dev"] / 1e9 > 0
+    want = ref_metrics(types.SimpleNamespace(flops=0.0, bytes_accessed=0.0,
+                                             coll_bytes={}))
+    assert {k for k in d["probes"][0] if "@" not in k} == set(want)
+    assert set(d["coll_breakdown"]) == {k for k in want
+                                        if k.startswith("coll_")
+                                        and k != "coll_bytes"}
+
+
+def test_perf_variant_on_the_sharded_record(_group):
+    """``launch.perf``'s ``no_remat`` on the sharded record: fewer flops
+    than the remat baseline at the same depth (no recompute)."""
+    base = _roofline(_group, "llama3.2-1b__smoke_train")
+    d = _roofline(_group, "llama3.2-1b__smoke_train__no_remat")
+    assert d["mode"] == "sharded" and d["mesh"] == "4x4"
+    assert 0 < d["flops"] < base["flops"]

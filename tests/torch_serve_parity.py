@@ -12,6 +12,11 @@ both packages (the reference's ``init`` carried into the port by
 - ``decode_from_reference_cache``: the reference's prefill caches carried
   into the port by ``interop``, one port decode step from them against the
   reference's step: the logits, and the caches the step leaves.
+- ``two_segment_gaps``: a prefill in two segments (5 + the rest) against
+  one shot, in the port and in the reference on the same parameters and
+  tokens: each package's largest |Δ| of the logits. Run as a script it
+  reads the gap at ``chip_smoke.py`` phase 33's zamba2 config (full width,
+  9 layers, f32, B=2, S=32, numpy seed 0) on the CPU.
 - ``decode_matches_own_full_forward``: the property of
   ``tests/test_serve.py``, on the port alone: prefill S-1 tokens, decode 1,
   and the last logits against the port's own full forward at 2e-3. MoE
@@ -146,3 +151,60 @@ def decode_matches_own_full_forward(st):
     _, c = fwd(params, prefix(batch, S - 1), c, 0)
     got, _ = fwd(params, {"ids": batch["ids"][:, S - 1:]}, c, S - 1)
     close(_real(got[:, 0], cfg), _real(want[:, -1], cfg).numpy(), OWN_TOL)
+
+
+def two_segment_gaps(arch, cfg, jcfg, b, s, split=5, seed=0):
+    """(the port's, the reference's) largest |Δ| over the real vocab
+    between the logits of a two-segment prefill (``split`` tokens, then
+    the other ``s - split`` through the caches) and of one shot, on the
+    port's ``init`` from a CPU generator of ``seed`` (carried into the
+    reference by ``interop``) and the batch of numpy seed ``seed``."""
+    import jax.numpy as jnp
+    jspec, spec = jreg.get(arch), registry.get(arch)
+    jmod, mod = jreg.family_module(jspec), registry.family_module(spec)
+    params = mod.init(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    ids = registry.make_train_batch(spec, cfg, ShapeSpec("t", "train", s, b),
+                                    seed, device="cpu")["ids"]
+    fwd = registry.make_forward_tokens(spec, cfg)
+    with torch.inference_mode():
+        whole, _ = fwd(params, {"ids": ids},
+                       mod.init_caches(b, cfg, device="cpu"), 0)
+        c = mod.init_caches(b, cfg, device="cpu")
+        _, c = fwd(params, {"ids": ids[:, :split]}, c, 0)
+        rest, _ = fwd(params, {"ids": ids[:, split:]}, c, split)
+    v = cfg.vocab
+    port = float((rest[..., :v] - whole[:, split:, :v]).abs().max())
+    jparams = jax.tree_util.tree_map(jnp.asarray,
+                                     interop.params_to_numpy(params))
+    del params, whole, rest, c
+    jids = jnp.asarray(ids.numpy())
+    jfwd = jax.jit(jreg.make_forward_tokens(jspec, jcfg), static_argnums=3)
+    jwhole, _ = jfwd(jparams, {"ids": jids}, jmod.init_caches(b, jcfg), 0)
+    jc = jmod.init_caches(b, jcfg)
+    _, jc = jfwd(jparams, {"ids": jids[:, :split]}, jc, 0)
+    jrest, _ = jfwd(jparams, {"ids": jids[:, split:]}, jc, split)
+    ref = float(np.abs(np.asarray(jrest[..., :v])
+                       - np.asarray(jwhole[:, split:, :v])).max())
+    return port, ref
+
+
+def main():
+    """Phase 33's zamba2 two-segment gap, in both packages, on the CPU."""
+    import time
+    jspec, spec = jreg.get("zamba2-7b"), registry.get("zamba2-7b")
+    b, s = 2, 32
+    shape = ("t", "decode", s, b)
+    cfg = registry.serving_config(spec, dataclasses.replace(
+        spec.full("float32"), n_layers=9), ShapeSpec(*shape))
+    jcfg = jreg.serving_config(jspec, dataclasses.replace(
+        jspec.full(), n_layers=9, dtype="float32"), JShape(*shape))
+    t0 = time.perf_counter()
+    port, ref = two_segment_gaps("zamba2-7b", cfg, jcfg, b, s)
+    print(f"zamba2-7b two-segment prefill (5 + {s - 5}) against one shot, "
+          f"9 layers at full width, f32, B={b}, S={s}, seed 0, CPU: port "
+          f"{port:.4e}, reference {ref:.4e} "
+          f"({time.perf_counter() - t0:.0f} s)")
+
+
+if __name__ == "__main__":
+    main()
