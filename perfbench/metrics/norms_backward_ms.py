@@ -1,0 +1,17 @@
+"""Device milliseconds a step spends in the backward that yields the
+per-example squared norms, norms only or fused with the gradients (the
+program's ``plan.backward.norms`` spans, remat's recompute inside them
+included): Σ of their device ms over the steps the traced run records
+after its profile (``lib/recorded.py``) ÷ the number of ``trainer.step``
+spans there."""
+from perfbench.lib import recorded
+
+UNIT = "ms"
+BETTER = "lower"
+SOURCE = "program_span"
+LAYER = "Engine / plan"
+MOVES = "tokens_per_s"
+
+
+def read(run):
+    return recorded.per_step(run, "plan.backward.norms")

@@ -36,6 +36,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.passes import PexResult
 from repro_torch.core.plan import StepResult
@@ -127,19 +128,21 @@ class Engine:
         ``consumers=()`` the program is the plain forward. ``seq`` is the
         token map's length at token granularity (default: the batch's
         sequence axis)."""
-        plan = plan_mod.analyze(consumers,
-                                engine_granularity=self.granularity)
-        b = batch_size if batch_size is not None else infer_batch_size(batch)
-        if plan.token_norms:
-            layout = TokenLayout(seq if seq is not None
-                                 else infer_seq_len(batch))
-        else:
-            layout = ExampleLayout(self.spec.n_groups)
-        acc_loss = self._adapt(loss_fn, layout,
-                               want_token_map=plan.token_weighted)
-        return _dpex.plan_step(plan, acc_loss, params, batch, b,
-                               mesh=self.mesh, data_axes=self.data_axes,
-                               layout=layout, loss_weights=loss_weights)
+        with spans.span("engine.step"):
+            plan = plan_mod.analyze(consumers,
+                                    engine_granularity=self.granularity)
+            b = batch_size if batch_size is not None \
+                else infer_batch_size(batch)
+            if plan.token_norms:
+                layout = TokenLayout(seq if seq is not None
+                                     else infer_seq_len(batch))
+            else:
+                layout = ExampleLayout(self.spec.n_groups)
+            acc_loss = self._adapt(loss_fn, layout,
+                                   want_token_map=plan.token_weighted)
+            return _dpex.plan_step(plan, acc_loss, params, batch, b,
+                                   mesh=self.mesh, data_axes=self.data_axes,
+                                   layout=layout, loss_weights=loss_weights)
 
     # -- fixed-function sugar (one line each over `step`) ---------------
     def value_and_norms(self, loss_fn: Callable, params, batch, *,

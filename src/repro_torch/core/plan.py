@@ -59,6 +59,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import importance as imp
 from repro_torch.core.clipping import (clip_coefficients,
                                        token_clip_coefficients)
@@ -371,7 +372,7 @@ def _fused(plan: Plan, acc_loss: Callable, params, batch, batch_size: int,
         return tree_unflatten(treedef, gs)
 
     if not plan.needs_norms and not plan.needs_grads:
-        with torch.no_grad():
+        with spans.span("plan.forward"), torch.no_grad():
             lv, _, _, aux = acc_loss(params, None, batch)
         return lv, aux, None, None, None, None, None
 
@@ -381,12 +382,14 @@ def _fused(plan: Plan, acc_loss: Callable, params, batch, batch_size: int,
 
     if not plan.needs_norms:
         # gradient pass only (possibly user-weighted): no instrumentation
-        lv, _, _, aux = acc_loss(params, None, batch)
+        with spans.span("plan.forward"):
+            lv, _, _, aux = acc_loss(params, None, batch)
         seed = mark_seed(torch.ones_like(lv), kind="plain") \
             if loss_weights is None \
             else mark_seed(seed_as(lv, loss_weights.to(lv.dtype)),
                            kind="weighted")
-        grads = unflatten(_grad(lv, leaves, seed))
+        with spans.span("plan.backward.grads"):
+            grads = unflatten(_grad(lv, leaves, seed))
         return lv.detach(), aux, None, grads, loss_weights, None, None
 
     if mesh is None:
@@ -396,7 +399,8 @@ def _fused(plan: Plan, acc_loss: Callable, params, batch, batch_size: int,
         acc0 = layout.init(batch_size // _sh.axis_size(
             _sh.spec("batch")[0], mesh), leaves[0].to_local().device)
     acc0.requires_grad_()
-    lv, tok, tap, aux = acc_loss(params, acc0, batch)
+    with spans.span("plan.forward"):
+        lv, tok, tap, aux = acc_loss(params, acc0, batch)
     if plan.token_weighted:
         if tok is None:
             raise ValueError(
@@ -412,18 +416,20 @@ def _fused(plan: Plan, acc_loss: Callable, params, batch, batch_size: int,
     ones = torch.ones_like(lv)
 
     grads = None
-    if plan.needs_grads and not plan.weighted and loss_weights is None:
-        # norms and gradients fold into ONE backward (paper §4/§5)
-        tap.set_mode(norms=True, grads=True)
-        *gs, sq = _grad(lv, leaves + [acc0], mark_seed(ones, kind="plain"))
-        grads = unflatten(gs)
-    else:
-        # norms-only backward: no dW
-        tap.set_mode(norms=True, grads=False)
-        (sq,) = _grad(lv, [acc0], mark_seed(ones, kind="norms"),
-                      retain_graph=plan.needs_grads)
-    if mesh is not None:
-        sq = _sh.reduce_acc(sq)       # summed over the model axes, whole
+    with spans.span("plan.backward.norms"):
+        if plan.needs_grads and not plan.weighted and loss_weights is None:
+            # norms and gradients fold into ONE backward (paper §4/§5)
+            tap.set_mode(norms=True, grads=True)
+            *gs, sq = _grad(lv, leaves + [acc0],
+                            mark_seed(ones, kind="plain"))
+            grads = unflatten(gs)
+        else:
+            # norms-only backward: no dW
+            tap.set_mode(norms=True, grads=False)
+            (sq,) = _grad(lv, [acc0], mark_seed(ones, kind="norms"),
+                          retain_graph=plan.needs_grads)
+        if mesh is not None:
+            sq = _sh.reduce_acc(sq)   # summed over the model axes, whole
 
     w, tw, cc = _compose_weights(plan, sq, loss_weights)
     if plan.needs_grads and grads is None:
@@ -433,12 +439,14 @@ def _fused(plan: Plan, acc_loss: Callable, params, batch, batch_size: int,
             # token-weighted: the (B, S) map alone is seeded (loss_vec's
             # seed is zero)
             tok_seed = tw if w is None else tw * w[:, None]
-            grads = unflatten(_grad(tok, leaves, mark_seed(
-                seed_as(tok, tok_seed.to(tok.dtype)), kind="weighted")))
+            out, seed = tok, mark_seed(seed_as(tok, tok_seed.to(tok.dtype)),
+                                       kind="weighted")
         else:
+            out = lv
             seed = mark_seed(ones, kind="plain") if w is None \
                 else mark_seed(seed_as(lv, w.to(lv.dtype)), kind="weighted")
-            grads = unflatten(_grad(lv, leaves, seed))
+        with spans.span("plan.backward.grads"):
+            grads = unflatten(_grad(out, leaves, seed))
     return lv.detach(), aux, sq, grads, w, tw, cc
 
 
@@ -520,13 +528,14 @@ def execute(plan: Plan, acc_loss: Callable, params, batch,
     if plan.noise is not None and grads is not None:
         scale = plan.noise.scale if plan.noise.scale is not None \
             else plan.clip.clip_norm
-        if plan.noise.segments is not None:
-            grads = add_grad_noise_segmented(grads, plan.noise.noise_std,
-                                             scale, plan.noise.rng,
-                                             plan.noise.segments)
-        else:
-            grads = add_grad_noise(grads, plan.noise.noise_std, scale,
-                                   plan.noise.rng)
+        with spans.span("plan.noise"):
+            if plan.noise.segments is not None:
+                grads = add_grad_noise_segmented(
+                    grads, plan.noise.noise_std, scale, plan.noise.rng,
+                    plan.noise.segments)
+            else:
+                grads = add_grad_noise(grads, plan.noise.noise_std, scale,
+                                       plan.noise.rng)
     return StepResult(torch.sum(lv), lv, aux, sq, grads, w, tw, cc, gns,
                       samp, sub_sq)
 

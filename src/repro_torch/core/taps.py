@@ -91,6 +91,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import norms as N
 from repro_torch.core import provenance as _prov
 from repro_torch.dist import sharding as _sh
@@ -1131,7 +1132,7 @@ class _Remat:
         if rec is not None:
             rec.remat += 1
         try:
-            with torch.enable_grad(), \
+            with spans.span("remat.recompute"), torch.enable_grad(), \
                     torch.autograd.graph.saved_tensors_hooks(self._keep,
                                                               _refuse):
                 self.fn(*args)

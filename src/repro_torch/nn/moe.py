@@ -35,7 +35,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.taps import Tap
+from repro_torch import spans
+from repro_torch.core.taps import Tap, recomputing
 from repro_torch.dist import sharding as _sh
 from repro_torch.nn import param as pm
 from repro_torch.nn.linear import init_linear, linear
@@ -146,6 +147,12 @@ def moe(p, x, *, tap: Tap, cfg: MoeCfg, group: str = "moe",
     sorted_pos = starts[:, :-1, None] + c_iota               # (G, E, cap)
     count = (starts[:, 1:] - starts[:, :-1])[..., None]      # (G, E, 1)
     slot_valid = c_iota < torch.clamp(count, max=cap)
+    if spans.active() and not recomputing():
+        # how full the slots the expert products run over are, and how
+        # many assignments capacity drops (once per forward)
+        spans.count("moe.slots", ng_l * e_dim * cap)
+        spans.count("moe.filled", torch.clamp(count, max=cap).sum())
+        spans.count("moe.assignments", t_l * k)
     sorted_pos = torch.clamp(sorted_pos, max=tg * k - 1) \
         .reshape(ng_l, e_dim * cap)
     tok_for_slot = torch.gather(src_tok, 1, sorted_pos)

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.dist.sharding import is_dtensor
 from repro_torch.nn.param import tree_leaves, tree_map
 
@@ -74,12 +75,17 @@ def global_norm(tree) -> torch.Tensor:
         total, mesh, [Partial()] * mesh.ndim, run_check=False).full_tensor())
 
 
-@torch.no_grad()
 def update(cfg: AdamWConfig, state: AdamWState, params, grads):
     """One AdamW step; ``params`` and the state's moments change in
     place, so each of their leaves must be contiguous (``init`` and
     ``interop`` make them so); a gradient leaf may be any layout. Returns
     ``(params, new_state)``."""
+    with spans.span("adamw.update"):
+        return _update(cfg, state, params, grads)
+
+
+@torch.no_grad()
+def _update(cfg: AdamWConfig, state: AdamWState, params, grads):
     for p, m, v in zip(tree_leaves(params), tree_leaves(state.mu),
                        tree_leaves(state.nu)):
         p, m, v = (x.to_local() if is_dtensor(x) else x for x in (p, m, v))

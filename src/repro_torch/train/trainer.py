@@ -59,6 +59,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import spans
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.engine import Engine, infer_batch_size
@@ -179,8 +180,10 @@ class Trainer:
                 for c in self.consumers)
         if not n:
             return []
-        return torch.randint(0, 2 ** 62, (n,), generator=self.gen,
-                             device=self.device).tolist()
+        seeds = torch.randint(0, 2 ** 62, (n,), generator=self.gen,
+                              device=self.device)
+        with spans.span("trainer.read"):
+            return seeds.tolist()
 
     def _with_rngs(self, seeds: list) -> Tuple:
         """The consumer list with each ``rng=None`` slot given a child
@@ -201,7 +204,8 @@ class Trainer:
         if res.sq_norms is not None:
             per_ex = torch.isfinite(res.sq_norms.to(torch.float32))
             mask &= per_ex.reshape(per_ex.shape[0], -1).all(dim=1)
-        mask = mask.cpu().numpy()
+        with spans.span("trainer.read"):
+            mask = mask.cpu().numpy()
         return mask if mask.any() else None
 
     @staticmethod
@@ -232,14 +236,20 @@ class Trainer:
 
     # ----------------------------------------------------------------------
     def run_step(self, batch) -> Dict:
+        with spans.span("trainer.step", step=self.step):
+            return self._run_step(batch)
+
+    def _run_step(self, batch) -> Dict:
         t0 = time.perf_counter()
         seeds = self._draw_seeds()
         res = self.engine.step(self.loss_fn, self.params, batch,
                                self._with_rngs(seeds))
-        loss = float(res.loss)
+        with spans.span("trainer.read"):
+            loss = float(res.loss)
         bad = not math.isfinite(loss)
         if not bad and res.sq_norms is not None:
-            bad = not bool(torch.isfinite(res.sq_norms).all())
+            with spans.span("trainer.read"):
+                bad = not bool(torch.isfinite(res.sq_norms).all())
         quarantined = 0
         if bad:
             # the per-example losses and norms the pass already computed
@@ -262,20 +272,25 @@ class Trainer:
                 self._substitute_rows(batch, mask), self._with_rngs(seeds),
                 loss_weights=torch.as_tensor(mask, dtype=torch.float32,
                                              device=self.device))
-            loss = float(res.loss)
+            with spans.span("trainer.read"):
+                loss = float(res.loss)
         self._apply(res.grads)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with spans.span("trainer.read"):
+                torch.cuda.synchronize(self.device)
         m = {"step": self.step, "loss": loss,
              "time_s": time.perf_counter() - t0}
         if quarantined:
             m["quarantined"] = quarantined
         if res.sq_norms is not None:
             norms = torch.sqrt(torch.sum(res.sq_norms, -1))
-            m["norm_mean"] = float(torch.mean(norms))
-            m["norm_max"] = float(torch.max(norms))
+            with spans.span("trainer.read"):
+                m["norm_mean"] = float(torch.mean(norms))
+            with spans.span("trainer.read"):
+                m["norm_max"] = float(torch.max(norms))
         if res.gns is not None:
-            m["gns"] = float(res.gns)
+            with spans.span("trainer.read"):
+                m["gns"] = float(res.gns)
         self.metrics.append(m)
         return m
 
